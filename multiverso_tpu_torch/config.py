@@ -1,0 +1,561 @@
+"""Typed flag/config registry.
+
+PyTorch-port copy of ``multiverso_tpu.config`` (the same flags, parsed the
+same way, plus ``-device``), itself the equivalent of the reference flag system
+(``include/multiverso/util/configure.h:67-110``,
+``src/util/configure.cpp:9-44`` in the Multiverso reference): a process-global
+typed registry populated by ``define_*`` declarations, a command-line parser
+consuming ``-key=value`` tokens (compacting argv in place), and programmatic
+``set_flag`` (the reference's ``SetCMDFlag``).
+
+Unlike the reference there is one registry keyed by name (not one singleton per
+type); a flag's declared type is enforced on assignment with the same
+string -> int -> bool -> float coercion ladder the reference applies when
+parsing CLI text.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional
+
+
+class FlagError(KeyError):
+    """Unknown flag or type mismatch."""
+
+
+def _parse_bool(text: str) -> bool:
+    t = text.strip().lower()
+    if t in ("true", "1", "yes", "on"):
+        return True
+    if t in ("false", "0", "no", "off"):
+        return False
+    raise ValueError(f"not a bool: {text!r}")
+
+
+_COERCERS: Dict[type, Callable[[str], Any]] = {
+    int: int,
+    float: float,
+    bool: _parse_bool,
+    str: str,
+}
+
+
+@dataclass
+class _Flag:
+    name: str
+    type: type
+    value: Any
+    description: str
+
+
+class FlagRegister:
+    """Process-global flag registry (one instance per process)."""
+
+    def __init__(self) -> None:
+        self._flags: Dict[str, _Flag] = {}
+        self._lock = threading.RLock()
+
+    # -- declaration ------------------------------------------------------
+    def define(self, name: str, type_: type, default: Any, description: str = "") -> None:
+        if type_ not in _COERCERS:
+            raise TypeError(f"unsupported flag type {type_!r}")
+        with self._lock:
+            if name in self._flags:
+                # re-definition: keep the current value WITHOUT re-running
+                # the coercer — the default may no longer coerce, and the
+                # original contract never touched it on this path
+                if self._flags[name].type is not type_:
+                    raise FlagError(f"flag {name!r} redefined with different type")
+                return
+        # coerce OUTSIDE the registry lock: type_ is caller-supplied code
+        # (locklint LK202 callback-under-lock), and a default whose
+        # coercion raises must not do so while holding the lock
+        value = type_(default)
+        with self._lock:
+            if name in self._flags:
+                # Re-definition with identical type keeps the current value
+                # (module reloads in tests); type conflict is an error.
+                if self._flags[name].type is not type_:
+                    raise FlagError(f"flag {name!r} redefined with different type")
+                return
+            self._flags[name] = _Flag(name, type_, value, description)
+
+    # -- access -----------------------------------------------------------
+    def get(self, name: str) -> Any:
+        with self._lock:
+            try:
+                return self._flags[name].value
+            except KeyError:
+                raise FlagError(f"unknown flag {name!r}") from None
+
+    def set(self, name: str, value: Any) -> None:
+        """Programmatic set; accepts the declared type or coercible text."""
+        with self._lock:
+            try:
+                flag = self._flags[name]
+            except KeyError:
+                raise FlagError(f"unknown flag {name!r}") from None
+            if isinstance(value, str) and flag.type is not str:
+                try:
+                    value = _COERCERS[flag.type](value)
+                except ValueError as exc:
+                    raise FlagError(
+                        f"flag {name!r}: cannot coerce {value!r} to {flag.type.__name__}"
+                    ) from exc
+            if flag.type is float and isinstance(value, int):
+                value = float(value)
+            if not isinstance(value, flag.type) or (
+                flag.type is not bool and isinstance(value, bool)
+            ):
+                raise FlagError(
+                    f"flag {name!r} expects {flag.type.__name__}, got {type(value).__name__}"
+                )
+            flag.value = value
+
+    def known(self, name: str) -> bool:
+        with self._lock:
+            return name in self._flags
+
+    def items(self) -> Dict[str, Any]:
+        with self._lock:
+            return {k: f.value for k, f in self._flags.items()}
+
+    def describe(self) -> str:
+        with self._lock:
+            lines = [
+                f"-{f.name}={f.value!r}  ({f.type.__name__}) {f.description}"
+                for f in sorted(self._flags.values(), key=lambda f: f.name)
+            ]
+        return "\n".join(lines)
+
+    # -- CLI --------------------------------------------------------------
+    def parse_cmd_flags(self, argv: Optional[List[str]] = None) -> List[str]:
+        """Consume ``-key=value`` / ``--key=value`` tokens from argv.
+
+        Returns the remaining (unconsumed) argv, mirroring the reference's
+        in-place argv compaction (``src/util/configure.cpp:9-44``). Unknown
+        keys are left in argv untouched (apps layer their own config on top).
+        """
+        if argv is None:
+            return []
+        rest: List[str] = []
+        for token in argv:
+            body = None
+            if token.startswith("--"):
+                body = token[2:]
+            elif token.startswith("-"):
+                body = token[1:]
+            if body and "=" in body:
+                key, _, text = body.partition("=")
+                if self.known(key):
+                    flag_type = self._flags[key].type
+                    try:
+                        self.set(key, _COERCERS[flag_type](text) if flag_type is not str else text)
+                        continue
+                    except (ValueError, FlagError):
+                        pass  # fall through: keep token for the app
+            rest.append(token)
+        return rest
+
+    def reset(self) -> None:
+        """Drop all flags (test helper)."""
+        with self._lock:
+            self._flags.clear()
+
+
+_REGISTRY = FlagRegister()
+
+
+# -- module-level API (mirrors MV_DEFINE_* / MV_GetCMDFlag / MV_SetCMDFlag) --
+
+def define_int(name: str, default: int, description: str = "") -> None:
+    _REGISTRY.define(name, int, default, description)
+
+
+def define_float(name: str, default: float, description: str = "") -> None:
+    _REGISTRY.define(name, float, default, description)
+
+
+def define_bool(name: str, default: bool, description: str = "") -> None:
+    _REGISTRY.define(name, bool, default, description)
+
+
+def define_string(name: str, default: str, description: str = "") -> None:
+    _REGISTRY.define(name, str, default, description)
+
+
+def get_flag(name: str) -> Any:
+    return _REGISTRY.get(name)
+
+
+def set_flag(name: str, value: Any) -> None:
+    _REGISTRY.set(name, value)
+
+
+def parse_cmd_flags(argv: Optional[List[str]] = None) -> List[str]:
+    return _REGISTRY.parse_cmd_flags(argv)
+
+
+def registry() -> FlagRegister:
+    return _REGISTRY
+
+
+# -- core framework flags (reference: src/zoo.cpp:23-24, src/server.cpp:20-21,
+# src/updater/updater.cpp:11-12, src/util/allocator.cpp:10,152) --------------
+
+define_string("device", "cuda",
+              "torch device the session runs on: 'cuda' (default; init "
+              "fails when no CUDA device is visible) or 'cpu' (asked for "
+              "explicitly, as the CPU tests do)")
+define_string("ps_role", "default", "process role: none|worker|server|default")
+define_bool("ma", False, "model-averaging mode (no parameter tables; aggregate only)")
+define_bool("sync", False, "synchronous (BSP) parameter-server semantics")
+define_float("backup_worker_ratio", 0.0, "reserved: fraction of backup workers")
+define_string("updater_type", "default", "server-side updater: default|sgd|adagrad|momentum_sgd")
+define_int("omp_threads", 4, "host-side worker threads for async apply loops")
+define_string("mesh_shape", "", "override logical mesh, e.g. '4,2' for (worker,server)")
+define_int("sync_frequency", 1, "rounds between parameter synchronisations")
+define_int("async_poll_ms", 20,
+           "async PS: drain-thread poll interval (bounds peer-delta staleness)")
+define_int("ssp_staleness", -1,
+           "async PS: SSP round gap bound (-1 = unbounded/plain async)")
+define_int("async_max_record_kb", 1024,
+           "async PS: wire records larger than this split into parts "
+           "(coordination-service gRPC message-size safety)")
+define_int("async_max_inflight_mb", 64,
+           "async PS: publisher backpressure watermark — publish blocks "
+           "while un-acked published bytes exceed this")
+define_bool("async_p2p", True,
+            "async PS: payload bytes ride direct per-pair TCP sockets "
+            "(the reference's p2p Isend/DEALER data plane); false = "
+            "funnel payloads through the coordination-service KV")
+define_float("failure_timeout_s", 0.0,
+             "declare a peer dead after this many seconds of missed "
+             "heartbeats and keep training without it (async bus "
+             "survivor mode); 0 disables the watchdog")
+define_int("prefill_token_budget", 32,
+           "decode engine: per-iteration chunked-prefill token budget "
+           "(Sarathi-style stall-free admission — inter-token latency is "
+           "bounded by one budget-sized chunk regardless of arriving "
+           "prompt length); 0 = monolithic whole-prompt admission")
+define_int("kv_block_size", 16,
+           "decode engine: paged KV cache block size in token positions "
+           "(vLLM-style block pool — per-slot block tables ride the jitted "
+           "step as traced data, so capacity, not slot geometry, bounds "
+           "concurrency); 0 = contiguous per-slot strips")
+define_int("kv_pool_blocks", 0,
+           "decode engine: usable KV pool blocks (+1 scratch block is "
+           "added); 0 = auto-size to the contiguous-equivalent capacity "
+           "slots * ceil((max_prompt + max_new) / kv_block_size). "
+           "serving.block_pool.blocks_for_bytes converts a device-bytes "
+           "budget into this count")
+define_int("decode_tp", 1,
+           "decode engine: tensor-parallel width of the decode mesh — "
+           "attention heads and the MLP hidden dim shard over a 'tp' axis "
+           "spanning the first decode_tp devices, the paged K/V pools "
+           "shard over the head slice of D, params reshard onto the mesh "
+           "once per snapshot pin (serving.snapshot.shard_for_decode), and "
+           "every per-token program compiles once against matched "
+           "in/out_shardings (no spmd repartition in the hot loop). "
+           "1 = single-device replicated decode (replicate_for_decode). "
+           "Needs kv_block_size > 0, "
+           "decode_tp | n_heads and decode_tp | d_ff")
+define_string("kv_quant", "none",
+              "decode engine: paged KV cache storage precision — 'int8' "
+              "stores both pools as int8 with a per-(layer, block) fp32 "
+              "scale array riding the jitted programs as traced data "
+              "(quantize-on-write, dequantize-on-gather; one compiled "
+              "trace per engine config exactly as fp32), so the same "
+              "pool-byte budget holds ~4x the blocks "
+              "(block_pool.kv_bytes_per_block reports the real quantized "
+              "+ scales footprint). 'none' = fp32 pools, bit-identical "
+              "to the pre-quantization engine. Needs kv_block_size > 0; "
+              "quality face: argmax-match rate vs the fp32 oracle "
+              "(docs/SERVING.md 'Quantized KV & params')")
+define_string("decode_param_quant", "none",
+              "decode engine: pinned param snapshot precision — 'int8' "
+              "quantizes each snapshot leaf symmetric per-tensor (per-"
+              "column for matrices) ON THE HOST once per pinned version, "
+              "shrinking the per-version pin copy (the one cross-mesh "
+              "device_put) and per-device param bytes ~4x; dequant is "
+              "folded into the pre-partitioned decode programs at "
+              "compile time, so pin_copies memoization and "
+              "decode_step_retraces == 0 survive. 'none' = fp32 pins")
+define_bool("param_wire_compress", True,
+            "param plane: route publish_delta/publish_keyed payloads "
+            "through the reference SparseFilter (quantization.py) before "
+            "the mvparam wire — sparse-ish deltas ship as (index, value) "
+            "pairs, dense ones pass through untouched (lossless either "
+            "way; subscribers decode transparently by payload shape). "
+            "publish_bytes / wire_compressed_ratio land in publisher "
+            "stats (docs/OBSERVABILITY.md)")
+define_string("param_wire_quant", "none",
+              "param plane: optional LOSSY int8 delta codec — 'int8' "
+              "ships publish_delta/publish_keyed values as int8 with one "
+              "fp32 per-record scale (~4x fewer wire bytes on top of "
+              "-param_wire_compress; subscribers dequantize "
+              "transparently). 'none' = exact values (default: the "
+              "publish stream stays bit-exact)")
+define_bool("prefix_cache", True,
+            "decode engine: content-addressed KV block reuse over the "
+            "paged pool — full blocks get a hash-chained identity, "
+            "admission splices the longest cached prefix into the new "
+            "sequence's block table (refcounted, copy-on-write) and "
+            "prefills only the remainder; needs kv_block_size > 0 and "
+            "prefill_token_budget > 0. false = every prompt prefills "
+            "from token zero (the A/B baseline)")
+define_bool("prefill_sp", False,
+            "decode engine: sequence-parallel long-prompt prefill over "
+            "the decode mesh — prompts at/above -prefill_sp_threshold "
+            "prefill in prefill_token_budget * decode_tp token chunks "
+            "with the chunk's rows sharded over the tp axis (one "
+            "budget's worth of rows per device per iteration, so a long "
+            "document admits in decode_tp x fewer iterations while the "
+            "per-iteration ITL bound holds); shorter prompts keep the "
+            "single-lane chunk program bit-for-bit. Needs kv_block_size "
+            "> 0 and prefill_token_budget > 0; incompatible with "
+            "kv_quant=int8 (docs/SERVING.md 'Long-context prefill')")
+define_string("prefill_sp_backend", "ring",
+              "decode engine: seqpar prefill collective schedule — "
+              "'ring' rotates K/V shards with decode_tp - 1 ppermute "
+              "steps (no head-count constraint; needs max_prompt + "
+              "max_new divisible by decode_tp), 'ulysses' all_to_all-"
+              "reshards the chunk rows onto the paged pool's native "
+              "head shard (2 collectives total; needs n_heads "
+              "divisible by decode_tp — already required by decode_tp "
+              "itself)")
+define_int("prefill_sp_threshold", 256,
+           "decode engine: minimum prompt length (tokens) routed "
+           "through the sequence-parallel prefill chunk program; "
+           "shorter prompts take the single-lane prefill_chunk_paged "
+           "path, whose outputs (and compiled trace) are exactly "
+           "today's")
+define_int("spec_k", 0,
+           "decode engine: speculative decoding draft length — up to "
+           "spec_k n-gram prompt-lookup drafts per live slot are scored "
+           "by ONE fused verify step per iteration (fixed-K window "
+           "[slots, spec_k + 1]; accepted length handled as traced data), "
+           "emitting up to spec_k + 1 tokens per iteration with outputs "
+           "token-identical to plain greedy decode. 0 = off (today's "
+           "one-token path, bit-for-bit). Needs kv_block_size > 0")
+define_bool("preempt", True,
+            "decode engine: overload-graceful serving — OPTIMISTIC "
+            "paged-KV admission (reserve prompt blocks only; the "
+            "generation grows its reservation block-by-block at decode "
+            "time) with preemption on pool exhaustion: the lowest-"
+            "priority/youngest live sequence releases its blocks, "
+            "re-enqueues at the front of its class, and on re-admission "
+            "recomputes from prompt + emitted tokens — bit-identical "
+            "output, host-side scheduling only (block tables stay "
+            "traced data). Anti-livelock: -preempt_budget per request "
+            "and a guaranteed-progress floor (the OLDEST live sequence "
+            "is never preempted). Needs kv_block_size > 0 and "
+            "prefill_token_budget > 0 (silently inert otherwise). "
+            "false = the worst-case prompt+max_new up-front "
+            "reservation (the A/B baseline)")
+define_int("preempt_budget", 3,
+           "decode engine: max times one request may be preempted; a "
+           "request whose budget is spent re-admits PESSIMISTICALLY "
+           "(full worst-case reservation, so it can never need growth "
+           "or be preempted again) — with the oldest-live floor this "
+           "bounds recompute churn and makes preemption livelock-free")
+define_int("sched_lookahead", 8,
+           "decode engine: bounded admission lookahead past a "
+           "block-starved queue head — up to this many younger "
+           "requests of the head's class are scanned for one whose "
+           "reservation fits right now (a huge request at the head "
+           "must not starve small admissible ones). The bypass bound "
+           "is GLOBAL: a starved head accumulates one skip per "
+           "admission that jumps it (same-lane or other-lane), and at "
+           "the bound ALL admission freezes until it fits — freed "
+           "blocks then accumulate for it instead of being re-consumed "
+           "by other lanes' optimistic admissions. 0 = no same-lane "
+           "lookahead (strict FIFO within a class; the global freeze "
+           "then engages after one bypass)")
+define_bool("wal", False,
+            "durable online learning: append every acknowledged LOCAL "
+            "table apply to a per-rank write-ahead delta journal "
+            "(io/wal.py) under -wal_dir; a restarted trainer replays "
+            "records past the newest checkpoint's version watermark to "
+            "recover the exact pre-crash table state "
+            "(docs/DISTRIBUTED.md 'Durability')")
+define_string("wal_dir", "",
+              "write-ahead delta journal directory (required when "
+              "-wal=true); segments rotate at -wal_segment_mb and are "
+              "reaped once a completed checkpoint's watermark covers "
+              "them")
+define_bool("wal_fsync", False,
+            "fsync the journal after every appended record: survives "
+            "machine/power failure, not just process death (a killed "
+            "process's written-but-unfsynced records already survive "
+            "in the page cache); costs one fsync per acknowledged add")
+define_int("wal_segment_mb", 64,
+           "journal segment rotation size in MB — bounded replay reaps "
+           "whole segments older than the newest complete checkpoint")
+define_float("params_stale_after_s", 0.0,
+             "staleness-aware serving: when the params publish stream "
+             "has been silent (no source version move observed) for "
+             "this long, replicas keep serving but flag STALE in "
+             "health() and the SERVE_PARAMS_AGE gauge; recovery is "
+             "automatic when a fenced trainer restart republishes. "
+             "0 disables the verdict (the age is still reported)")
+define_string("log_file", "", "optional log sink file")
+define_string("log_level", "info", "debug|info|error|fatal")
+define_bool("trace", False,
+            "record host-side request spans (trace.py ring collector); "
+            "export Chrome/Perfetto JSON via trace.export_chrome()")
+define_int("trace_buffer", 65536,
+           "span ring-buffer capacity while -trace is on (oldest spans "
+           "are overwritten past it)")
+define_string("metrics_jsonl", "",
+              "append periodic Dashboard.snapshot() JSON lines (with "
+              "interval deltas) to this file while the session runs")
+define_float("metrics_interval_s", 10.0,
+             "reporting period for -metrics_jsonl")
+define_bool("trace_tail", False,
+            "tail-based trace sampling: buffer spans per trace id and, at "
+            "request completion, retain the full tree only for SLO-breaching "
+            "(-trace_slo_ms), errored/shed, or 1-in-N (-trace_head_n) "
+            "requests — cheap enough to leave -trace on under load")
+define_float("trace_slo_ms", 250.0,
+             "tail sampling: retain any trace whose root span exceeded this "
+             "latency (the per-request SLO); 0 disables the latency trigger")
+define_int("trace_head_n", 64,
+           "tail sampling: additionally keep 1 in N completed traces as a "
+           "healthy-baseline head sample (0 = keep anomalies only)")
+define_bool("flight_recorder", True,
+            "decode engine: always-on bounded ring of per-iteration records "
+            "(iteration wall, slots, queue depth/age, token split, pool "
+            "occupancy, snapshot version) — the black box the watchdog "
+            "dumps and tools/engine_timeline.py renders")
+define_int("flight_recorder_capacity", 4096,
+           "flight-recorder ring capacity in iterations (oldest records "
+           "are overwritten past it)")
+define_bool("watchdog", True,
+            "decode engine: self-diagnosis thread detecting engine stall, "
+            "admission-queue age breach, and block-pool accounting drift; "
+            "a trip increments WATCHDOG_TRIPS[engine] and dumps a "
+            "diagnostic bundle to -debug_dump_dir")
+define_float("watchdog_interval_s", 0.25,
+             "watchdog poll period (trip latency is at most ~2 polls past "
+             "the configured deadline)")
+define_float("watchdog_stall_s", 10.0,
+             "watchdog: trip when the engine makes no iteration progress "
+             "for this long while sequences are live (sized well above "
+             "any first-admission jit compile)")
+define_float("watchdog_queue_age_s", 30.0,
+             "watchdog: trip when the oldest queued request has waited "
+             "this long without admission; 0 disables")
+define_string("debug_dump_dir", "",
+              "watchdog trip bundles (flight-recorder ring + engine stats "
+              "+ dashboard snapshot + all-thread stacks) land in per-trip "
+              "subdirectories here; empty = trip still counts and logs, "
+              "no bundle")
+define_float("slo_ttft_ms", 0.0,
+             "serving SLO: p99 time-to-first-token target per decoder "
+             "(rolling-window burn status in Dashboard.snapshot()); "
+             "0 = no SLO registered")
+define_float("slo_itl_ms", 0.0,
+             "serving SLO: p99 inter-token-latency target per decoder; "
+             "0 = no SLO registered")
+define_float("slo_lat_ms", 0.0,
+             "serving SLO: p99 enqueue-to-reply latency target per "
+             "micro-batched model; 0 = no SLO registered")
+define_bool("obs_plane", False,
+            "fleet observability plane: run a per-node ObsAgent shipping "
+            "bounded delta reports (changed Dashboard rows + interval "
+            "deltas, log-bucketed histogram exports, per-engine "
+            "stats/health/watchdog/flight summaries, tail-kept spans) "
+            "over the p2p wire to the rank-0 ObsCollector, which sums "
+            "counters exactly, merges histograms into fleet percentiles, "
+            "computes fleet SLO burn, flags silent nodes DEGRADED, and "
+            "assembles cross-process traces into one Perfetto doc "
+            "(docs/OBSERVABILITY.md 'Fleet plane'). Single-process "
+            "sessions run agent+collector in loopback")
+define_int("obs_report_ms", 1000,
+           "fleet plane: per-node report interval; a node silent for 2 "
+           "report intervals is flagged DEGRADED by the collector")
+define_string("obs_jsonl", "",
+              "fleet plane: additionally append every shipped report as "
+              "one JSON line here (multi-process sessions suffix .<rank>) "
+              "— the offline archive tools/opscenter.py renders the "
+              "fleet table / merged Prometheus / merged Perfetto from")
+define_int("fleet_heartbeat_ms", 100,
+           "serving fleet: replica heartbeat interval — each replica "
+           "publishes its engine.health() over the mvserve wire at this "
+           "period, and the router flags a replica DEAD after "
+           "-fleet_dead_after_s (default 2 heartbeat intervals) of "
+           "silence")
+define_float("fleet_dead_after_s", 0.0,
+             "serving fleet: heartbeat silence before the router marks a "
+             "replica DEAD, drains its in-flight requests into the retry "
+             "queue, and stops dispatching to it; 0 = 2 heartbeat "
+             "intervals")
+define_int("fleet_retry_max", 3,
+           "serving fleet: per-request re-dispatch budget — a request "
+           "whose replica died (or shed it) is replayed from the prompt "
+           "on a survivor at most this many times before its future "
+           "fails")
+define_float("fleet_backoff_ms", 20.0,
+             "serving fleet: base retry backoff — re-dispatch attempt n "
+             "waits min(cap, base * 2^(n-1)) with jitter before "
+             "re-queueing (docs/SERVING.md 'Serving fleet')")
+define_float("fleet_backoff_cap_ms", 1000.0,
+             "serving fleet: retry backoff cap")
+define_int("fleet_shed_depth", 256,
+           "serving fleet: aggregate router queue cap (pending + retry + "
+           "in-flight) — past it submit sheds OverloadedError("
+           "what='fleet') instead of queueing unboundedly")
+define_float("fleet_deadline_s", 30.0,
+             "serving fleet: default per-request deadline — a request "
+             "not completed by then fails with DeadlineExceededError "
+             "(per-submit override via deadline_s)")
+define_string("chaos", "",
+              "fault-injection plan for the serving fleet (serving/"
+              "faultinject.py): comma-separated directives, e.g. "
+              "'kill_at_request=5' / 'wedge_at_request=3:0.5' / "
+              "'wire_delay=0.05:0.5' / 'wire_drop=0.1' / "
+              "'slow_heartbeat=4'; empty = healthy")
+define_int("chaos_seed", 0,
+           "seed for the -chaos plan's probabilistic directives — a "
+           "given (spec, seed) pair replays the identical fault "
+           "schedule")
+define_bool("lockwatch", False,
+            "runtime lock-order witness: record per-thread acquisition "
+            "order of every framework lock into a global DAG; a cycle "
+            "(latent deadlock) increments LOCK_ORDER_VIOLATIONS and "
+            "trips engine watchdogs with kind 'lock_order' "
+            "(docs/ANALYSIS.md; always on in the test suite)")
+define_bool("cost_ledger", False,
+            "per-tenant cost attribution (serving/accounting.py): each "
+            "decode request carries a host-only resource vector (queue "
+            "wait, prefill/decode tokens, KV block-seconds, device step "
+            "ms, transfer bytes, preemption recompute) finalized into "
+            "per-tenant aggregates + lazy TENANT_*[engine.tenant] "
+            "instruments the obs plane merges fleet-wide "
+            "(docs/OBSERVABILITY.md 'Tenant accounting'); off = today's "
+            "metrics surface byte-for-byte")
+define_string("default_tenant", "default",
+              "tenant id charged when a request carries none (back-"
+              "compat: pre-tenant clients, archived wire payloads)")
+define_int("tenant_max", 64,
+           "per-engine tenant cardinality cap: past this many distinct "
+           "tenant ids, new ones fold into the '~other' bucket — lazy "
+           "keyed instruments stay bounded however hostile the ids")
+define_float("cost_token", 1.0,
+             "cost-weight: units per token computed (prefill + decode); "
+             "the 1.0 default makes cost == tokens, deterministic and "
+             "reconcilable to the engine counters")
+define_float("cost_token_ms", 0.0,
+             "cost-weight: units per device-step millisecond attributed "
+             "by active-lane share; 0 = device time rides the vector "
+             "but is not priced")
+define_float("cost_block_byte_s", 0.0,
+             "cost-weight: units per KV byte-second of residency "
+             "(kv_block_s x the engine's per-block K/V bytes); 0 = "
+             "residency rides the vector but is not priced")
+define_float("cost_xfer_byte", 0.0,
+             "cost-weight: units per raw KV transfer byte that crossed "
+             "the engine boundary (fetched out or spliced in)")

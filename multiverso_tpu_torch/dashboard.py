@@ -1,0 +1,311 @@
+"""Named timing monitors + process-global dashboard.
+
+PyTorch-port counterpart of ``multiverso_tpu.dashboard``, itself the
+equivalent of the reference observability layer
+(``include/multiverso/dashboard.h:16-73``, ``src/dashboard.cpp:14-45`` in
+the Multiverso reference): named ``Monitor`` timers, latency
+``Histogram``s, ``Gauge``s and ``Counter``s registered into a
+process-global ``Dashboard`` (displayed at shutdown), and a
+``monitor(name)`` context manager.
+
+The instruments are plain host state behind ``threading`` locks. The
+device hooks are torch's: ``monitor(..., sync=True)`` calls
+``torch.cuda.synchronize`` before the span closes so it covers device
+execution, not just the asynchronous launch, and :func:`profile_trace`
+wraps ``torch.profiler``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from contextlib import contextmanager
+from typing import Any, Dict, Iterator, List
+
+
+class Monitor:
+    """Accumulating named timer (reference ``dashboard.h:26-57``).
+
+    Start timestamps are thread-local so concurrent spans on the same
+    monitor name don't clobber each other's begin().
+    """
+
+    def __init__(self, name: str, register: bool = True) -> None:
+        self.name = name
+        self.count = 0
+        self.total_ms = 0.0
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        if register:
+            Dashboard.add_monitor(self)
+
+    def begin(self) -> None:
+        self._local.t0 = time.perf_counter()
+
+    def end(self) -> None:
+        t0 = getattr(self._local, "t0", None)
+        if t0 is None:
+            return
+        elapsed = (time.perf_counter() - t0) * 1e3
+        self._local.t0 = None
+        self.record(elapsed)
+
+    def record(self, elapsed_ms: float) -> None:
+        with self._lock:
+            self.count += 1
+            self.total_ms += elapsed_ms
+
+    def average_ms(self) -> float:
+        with self._lock:
+            return self.total_ms / self.count if self.count else 0.0
+
+    def info_string(self) -> str:
+        with self._lock:
+            avg = self.total_ms / self.count if self.count else 0.0
+            return (
+                f"[{self.name}] count = {self.count} total = {self.total_ms:.3f} ms "
+                f"avg = {avg:.3f} ms"
+            )
+
+
+class Histogram:
+    """Bounded latency histogram: count/percentiles over a sliding window
+    of the most recent ``window`` samples (nearest-rank percentiles)."""
+
+    WINDOW = 65536
+
+    def __init__(self, name: str, window: int = WINDOW,
+                 register: bool = True) -> None:
+        self.name = name
+        self.count = 0                      # lifetime samples
+        self._buf = [0.0] * int(window)
+        self._n = 0                         # filled slots (<= window)
+        self._pos = 0                       # next write slot
+        self._lock = threading.Lock()
+        if register:
+            Dashboard.add_histogram(self)
+
+    def record(self, value_ms: float) -> None:
+        with self._lock:
+            self.count += 1
+            self._buf[self._pos] = float(value_ms)
+            self._pos = (self._pos + 1) % len(self._buf)
+            self._n = min(self._n + 1, len(self._buf))
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+            self._n = 0
+            self._pos = 0
+
+    def _window(self):
+        """(lifetime count, sorted live window); only the copy is locked."""
+        with self._lock:
+            n = self._n
+            count = self.count
+            data = (list(self._buf) if n == len(self._buf)
+                    else self._buf[:n])
+        data.sort()
+        return count, data
+
+    @staticmethod
+    def _rank(data, p: float) -> float:
+        n = len(data)
+        return data[min(n - 1, max(0, int(round(p / 100.0 * (n - 1)))))]
+
+    def percentiles(self, ps) -> Dict[float, float]:
+        _, data = self._window()
+        if not data:
+            return {p: 0.0 for p in ps}
+        return {p: self._rank(data, p) for p in ps}
+
+    def percentile(self, p: float) -> float:
+        return self.percentiles((p,))[p]
+
+    def summary(self) -> Dict[str, float]:
+        count, data = self._window()
+        if not data:
+            return {"count": count, "p50_ms": 0.0, "p95_ms": 0.0,
+                    "p99_ms": 0.0, "mean_ms": 0.0, "max_ms": 0.0}
+        return {"count": count,
+                "p50_ms": self._rank(data, 50),
+                "p95_ms": self._rank(data, 95),
+                "p99_ms": self._rank(data, 99),
+                "mean_ms": sum(data) / len(data),
+                "max_ms": data[-1]}
+
+    def info_string(self) -> str:
+        s = self.summary()
+        return (f"[{self.name}] count = {int(s['count'])} "
+                f"p50 = {s['p50_ms']:.3f} ms p95 = {s['p95_ms']:.3f} ms "
+                f"p99 = {s['p99_ms']:.3f} ms mean = {s['mean_ms']:.3f} ms "
+                f"max = {s['max_ms']:.3f} ms")
+
+
+class Gauge:
+    """Last-value instrument: a point-in-time level, not a distribution."""
+
+    def __init__(self, name: str, register: bool = True) -> None:
+        self.name = name
+        self._value = 0.0
+        self._lock = threading.Lock()
+        if register:
+            Dashboard.add_gauge(self)
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def get(self) -> float:
+        with self._lock:
+            return self._value
+
+    def info_string(self) -> str:
+        return f"[{self.name}] value = {self.get():.3f}"
+
+
+class Counter:
+    """Monotonic event counter: things that happened, never un-happen."""
+
+    def __init__(self, name: str, register: bool = True) -> None:
+        self.name = name
+        self._value = 0
+        self._lock = threading.Lock()
+        if register:
+            Dashboard.add_counter(self)
+
+    def inc(self, n: int = 1) -> None:
+        if n < 0:
+            raise ValueError(f"Counter {self.name!r}: negative increment {n}")
+        with self._lock:
+            self._value += n
+
+    def get(self) -> int:
+        with self._lock:
+            return self._value
+
+    def info_string(self) -> str:
+        return f"[{self.name}] total = {self.get()}"
+
+
+class Dashboard:
+    """Process-global instrument registry (reference ``dashboard.h:16-24``)."""
+
+    _monitors: Dict[str, Monitor] = {}
+    _histograms: Dict[str, Histogram] = {}
+    _gauges: Dict[str, Gauge] = {}
+    _counters: Dict[str, Counter] = {}
+    _lock = threading.Lock()
+
+    @classmethod
+    def add_monitor(cls, mon: Monitor) -> None:
+        with cls._lock:
+            cls._monitors[mon.name] = mon
+
+    @classmethod
+    def add_histogram(cls, hist: Histogram) -> None:
+        with cls._lock:
+            cls._histograms[hist.name] = hist
+
+    @classmethod
+    def add_gauge(cls, gauge: Gauge) -> None:
+        with cls._lock:
+            cls._gauges[gauge.name] = gauge
+
+    @classmethod
+    def add_counter(cls, counter: Counter) -> None:
+        with cls._lock:
+            cls._counters[counter.name] = counter
+
+    @classmethod
+    def _get_or_create(cls, table: Dict[str, Any], kind, name: str):
+        with cls._lock:
+            inst = table.get(name)
+            if inst is None:
+                inst = table[name] = kind(name, register=False)
+            return inst
+
+    @classmethod
+    def get_or_create(cls, name: str) -> Monitor:
+        return cls._get_or_create(cls._monitors, Monitor, name)
+
+    @classmethod
+    def get_or_create_histogram(cls, name: str) -> Histogram:
+        return cls._get_or_create(cls._histograms, Histogram, name)
+
+    @classmethod
+    def get_or_create_gauge(cls, name: str) -> Gauge:
+        return cls._get_or_create(cls._gauges, Gauge, name)
+
+    @classmethod
+    def get_or_create_counter(cls, name: str) -> Counter:
+        return cls._get_or_create(cls._counters, Counter, name)
+
+    @classmethod
+    def _all(cls) -> List[Any]:
+        with cls._lock:
+            return (list(cls._monitors.values())
+                    + list(cls._histograms.values())
+                    + list(cls._gauges.values())
+                    + list(cls._counters.values()))
+
+    @classmethod
+    def display(cls, emit=None) -> str:
+        lines = ["--------------Dashboard--------------"]
+        lines += [inst.info_string() for inst in cls._all()]
+        text = "\n".join(lines)
+        if emit is None:
+            from .log import Log
+            emit = Log.info
+        emit("%s", text)
+        return text
+
+    @classmethod
+    def reset(cls) -> None:
+        with cls._lock:
+            cls._monitors.clear()
+            cls._histograms.clear()
+            cls._gauges.clear()
+            cls._counters.clear()
+
+
+@contextmanager
+def monitor(name: str, sync: bool = False) -> Iterator[Monitor]:
+    """Span context manager replacing MONITOR_BEGIN/END. With ``sync`` the
+    span waits for the CUDA device before it closes, so device time is
+    counted (the counterpart of ``jax.block_until_ready``)."""
+    mon = Dashboard.get_or_create(name)
+    mon.begin()
+    try:
+        yield mon
+    finally:
+        if sync:
+            import torch
+
+            torch.cuda.synchronize()
+        mon.end()
+
+
+@contextmanager
+def profile_trace(log_dir: str, name: str = "PROFILE") -> Iterator[Monitor]:
+    """Capture a ``torch.profiler`` trace (CPU and CUDA activity) for the
+    enclosed span into ``log_dir`` as Chrome trace JSON, while a monitor
+    records the span's wall time."""
+    import os
+
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    mon = Dashboard.get_or_create(name)
+    mon.begin()
+    prof = torch.profiler.profile(activities=activities)
+    prof.__enter__()
+    try:
+        yield mon
+    finally:
+        prof.__exit__(None, None, None)
+        mon.end()
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir, f"{name}.json"))

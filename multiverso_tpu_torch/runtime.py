@@ -1,0 +1,128 @@
+"""Process-wide session: one process on one explicit torch device.
+
+Counterpart of ``multiverso_tpu.runtime.Session`` and
+``multiverso_tpu.topology`` for the PyTorch port. The JAX session
+discovers a device mesh and owns the table registry; this slice of the
+port serves one model from one process, so the session reduces to flag
+parsing, the device choice, the serving registry and lifecycle. Rank and
+size are 0 and 1 and the barrier is a no-op until the distributed paths
+are ported.
+
+The device comes from ``-device`` (default ``cuda``). A CUDA request on a
+host without a CUDA device is a :class:`~.log.FatalError`: the session
+never carries on on the CPU unless the caller asked for the CPU.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, List, Optional, Sequence
+
+import torch
+
+from . import config
+from .dashboard import Dashboard
+from .log import Log
+
+# session-level flags whose features this port does not have yet: turning
+# one on is an error, never a silent no-op
+_UNPORTED_FLAGS = {"wal": False, "obs_plane": False, "metrics_jsonl": "",
+                   "lockwatch": False, "failure_timeout_s": 0.0,
+                   "mesh_shape": ""}
+
+
+def resolve_device(name: str) -> torch.device:
+    """``-device`` text -> ``torch.device``; raises when CUDA is asked for
+    and absent."""
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            Log.fatal("-device=cuda but torch.cuda.is_available() is False; "
+                      "pass -device=cpu to run on the CPU")
+    elif dev.type != "cpu":
+        Log.fatal(f"-device must be 'cuda' or 'cpu', got {name!r}")
+    return dev
+
+
+class Session:
+    """Singleton runtime state (the reference ``Zoo::Get()`` analogue)."""
+
+    _instance: Optional["Session"] = None
+    _lock = threading.RLock()
+
+    def __init__(self) -> None:
+        self.device: Optional[torch.device] = None
+        self.servers: List[Any] = []  # serving.InferenceServer registry
+        self.started = False
+
+    @classmethod
+    def get(cls) -> "Session":
+        with cls._lock:
+            if cls._instance is None:
+                cls._instance = Session()
+            return cls._instance
+
+    def start(self, argv: Optional[Sequence[str]] = None) -> List[str]:
+        with self._lock:
+            rest = config.parse_cmd_flags(list(argv) if argv else None)
+            Log.reset_log_level_by_name(config.get_flag("log_level"))
+            log_file = config.get_flag("log_file")
+            if log_file:
+                Log.reset_log_file(log_file)
+            if self.started:
+                return rest
+            for flag, off in _UNPORTED_FLAGS.items():
+                if config.get_flag(flag) != off:
+                    Log.fatal(f"-{flag} is not ported to multiverso_tpu_torch "
+                              f"yet (got {config.get_flag(flag)!r})")
+            self.device = resolve_device(config.get_flag("device"))
+            if config.get_flag("trace"):
+                from . import trace
+
+                if not trace.enabled():
+                    tail = None
+                    if config.get_flag("trace_tail"):
+                        tail = trace.TailConfig(
+                            slo_ms=float(config.get_flag("trace_slo_ms")),
+                            head_n=int(config.get_flag("trace_head_n")))
+                    trace.enable(int(config.get_flag("trace_buffer")),
+                                 tail=tail)
+            self.started = True
+            Log.info("multiverso_tpu_torch initialised on %s", self.device)
+            return rest
+
+    def stop(self) -> None:
+        with self._lock:
+            if not self.started:
+                return
+            self.started = False
+            servers, self.servers = self.servers, []
+        for srv in servers:
+            try:
+                srv.stop()
+            except Exception as exc:
+                Log.error("serving shutdown failed: %s", exc)
+        Dashboard.display()
+
+    def register_server(self, server: Any) -> None:
+        with self._lock:
+            self._require_started()
+            self.servers.append(server)
+
+    def _require_started(self) -> None:
+        if not self.started:
+            Log.fatal("multiverso_tpu_torch session not initialised; "
+                      "call init() first")
+
+    @property
+    def rank(self) -> int:
+        self._require_started()
+        return 0
+
+    @property
+    def size(self) -> int:
+        self._require_started()
+        return 1
+
+    def barrier(self) -> None:
+        self._require_started()

@@ -1,0 +1,163 @@
+"""Request router: named models -> continuous-batching decode engines.
+
+Counterpart of ``multiverso_tpu/serving/server.py`` for the decode path:
+``register_decoder`` attaches a :class:`DecodeEngine` under a name,
+``submit`` routes a payload to it and returns a Future, ``stop`` drains
+and retires every engine. A started session registers the server, so
+``shutdown()`` stops serving. The micro-batched ``register`` path is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+from concurrent.futures import Future
+from typing import Any, Dict, List, Optional
+
+from .. import trace
+from ..log import Log
+from .decode_engine import DecodeEngine, DecodeEngineConfig
+
+# payload keys of the JAX server whose features this port does not have
+_UNPORTED_PAYLOAD_KEYS = ("priority", "deadline_s", "tenant")
+
+
+class _DecoderEntry:
+    def __init__(self, name: str, engine: DecodeEngine) -> None:
+        self.name = name
+        self.engine = engine
+
+    def submit(self, payload: Any,
+               ctx: Optional[trace.SpanContext] = None) -> Future:
+        """Payload: a 1-D prompt id array, or a dict with ``prompt`` and an
+        optional per-request ``max_new``."""
+        if isinstance(payload, dict):
+            if "prompt" not in payload:
+                raise ValueError("decoder payload dict needs a 'prompt' key")
+            for key in _UNPORTED_PAYLOAD_KEYS:
+                if payload.get(key) is not None:
+                    Log.fatal(f"serving: payload key {key!r} is not ported "
+                              f"to multiverso_tpu_torch yet")
+            return self.engine.submit(payload["prompt"],
+                                      payload.get("max_new"), ctx=ctx)
+        return self.engine.submit(payload, ctx=ctx)
+
+
+class InferenceServer:
+    """Low-latency inference over live parameter state."""
+
+    def __init__(self, name: str = "serving") -> None:
+        self.name = name
+        self._models: Dict[str, _DecoderEntry] = {}
+        self._lock = threading.Lock()
+        self._stopped = False
+        from ..runtime import Session
+
+        sess = Session.get()
+        if sess.started:
+            sess.register_server(self)
+
+    def register_decoder(self, name: str, lm, *, slots: int = 8,
+                         max_prompt: int = 64, max_new: int = 32,
+                         eos_id: Optional[int] = None, max_queue: int = 256,
+                         max_staleness_s: float = 0.05,
+                         prompt_buckets: Optional[tuple] = None,
+                         prefill_token_budget: Optional[int] = None,
+                         kv_block_size: Optional[int] = None,
+                         decode_tp: Optional[int] = None,
+                         prefix_cache: Optional[bool] = None,
+                         prefill_sp: Optional[bool] = None,
+                         spec_k: Optional[int] = None,
+                         kv_quant: Optional[str] = None,
+                         decode_param_quant: Optional[str] = None,
+                         preempt: Optional[bool] = None,
+                         flight_recorder: Optional[bool] = None,
+                         watchdog: Optional[bool] = None,
+                         slo_ttft_ms: Optional[float] = None,
+                         slo_itl_ms: Optional[float] = None,
+                         cost_ledger: Optional[bool] = None
+                         ) -> DecodeEngine:
+        """Attach a continuous-batching decode engine under ``name``. The
+        arguments are the JAX server's feature switches (None = the
+        matching flag), plus ``flight_recorder``; each feature this port
+        does not serve yet raises :class:`~..log.FatalError` when its
+        resolved value turns it on (see :mod:`.decode_engine`). The
+        features' sub-knobs (pool size, seqpar backend, preemption budget,
+        watchdog timings, ...) come with the features."""
+        cfg = DecodeEngineConfig(
+            slots=slots, max_prompt=max_prompt, max_new=max_new,
+            eos_id=eos_id, max_queue=max_queue,
+            max_staleness_s=max_staleness_s, prompt_buckets=prompt_buckets,
+            prefill_token_budget=prefill_token_budget,
+            kv_block_size=kv_block_size, decode_tp=decode_tp,
+            prefix_cache=prefix_cache, prefill_sp=prefill_sp, spec_k=spec_k,
+            kv_quant=kv_quant, decode_param_quant=decode_param_quant,
+            preempt=preempt, flight_recorder=flight_recorder,
+            watchdog=watchdog, slo_ttft_ms=slo_ttft_ms,
+            slo_itl_ms=slo_itl_ms, cost_ledger=cost_ledger)
+        with self._lock:
+            if self._stopped:
+                Log.fatal(f"serving: register_decoder({name!r}) on a "
+                          f"stopped server")
+            if name in self._models:
+                Log.fatal(f"serving: model {name!r} already registered")
+        entry = _DecoderEntry(name, DecodeEngine(name, lm, cfg))
+        with self._lock:
+            raced = name in self._models
+            stopped = self._stopped
+            if not raced and not stopped:
+                self._models[name] = entry
+        if raced or stopped:
+            entry.engine.stop()
+            Log.fatal(f"serving: model {name!r} already registered" if raced
+                      else f"serving: server stopped during decoder "
+                           f"{name!r} registration")
+        Log.info("serving: decoder %r up (%d slots, max_prompt %d, "
+                 "max_new %d)", name, slots, max_prompt, max_new)
+        return entry.engine
+
+    def _entry(self, name: str) -> _DecoderEntry:
+        with self._lock:
+            entry = self._models.get(name)
+        if entry is None:
+            Log.fatal(f"serving: unknown model {name!r} "
+                      f"(registered: {sorted(self._models)})")
+        return entry
+
+    def submit(self, model: str, payload: Any) -> Future:
+        """Enqueue one request; raises :class:`OverloadedError` at the
+        queue-depth cap and ``ValueError`` for a malformed payload. The
+        future resolves to ``{"result", "snapshot_version",
+        "staleness_s"}``. With tracing on, each request gets a root span
+        ``serve.request``."""
+        entry = self._entry(model)
+        root = trace.start_span("serve.request", root=True, model=model)
+        try:
+            fut = entry.submit(payload, ctx=root.context)
+        except Exception as exc:
+            root.end(error=type(exc).__name__)
+            raise
+        if root is not trace.NULL_SPAN:
+            fut.add_done_callback(lambda f, sp=root: sp.end(
+                ok=(not f.cancelled()) and f.exception() is None))
+        return fut
+
+    def predict(self, model: str, payload: Any,
+                timeout_s: float = 30.0) -> dict:
+        return self.submit(model, payload).result(timeout=timeout_s)
+
+    def stats(self, model: str) -> dict:
+        return self._entry(model).engine.stats()
+
+    def models(self) -> List[str]:
+        with self._lock:
+            return sorted(self._models)
+
+    def stop(self) -> None:
+        with self._lock:
+            if self._stopped:
+                return
+            self._stopped = True
+            entries = list(self._models.values())
+        for entry in entries:
+            entry.engine.stop()

@@ -1,0 +1,706 @@
+"""Request-level causal tracing: Dapper-style spans over the host path.
+
+The Dashboard (``dashboard.py``) answers *how slow* (p50/p95/p99 over a
+window); this module answers *why this one* — each request carries a
+trace id through every host-side stage it touches (router enqueue,
+batcher queue wait, engine admission/prefill, each decode iteration,
+even a cross-process publish->apply hop on the async bus), and each
+stage records a :class:`Span` with that trace id, its own span id and
+its parent's. The resulting tree explains a single p99 outlier: queue
+wait vs bucket miss vs snapshot pin vs a co-batched long prefill.
+
+Design constraints, in order:
+
+* **off = free** — tracing is DISABLED by default and the hot paths gate
+  on :func:`enabled` (one attribute read) before touching anything here,
+  so the decode loop allocates nothing per iteration when off (guarded
+  by a test).
+* **on = cheap** — finished spans land in a bounded preallocated ring
+  (:class:`TraceCollector.record`): one short lock, no I/O, no
+  serialization on the request path. Export walks the ring afterwards.
+* **on can stay on** — with tail-based sampling (:class:`TailConfig`,
+  ``-trace_tail``) spans buffer per trace id and only the trees worth
+  keeping survive the request's completion: SLO breaches, errors/sheds,
+  and a 1-in-N head sample. The ring then holds explanations, not
+  traffic, and full tracing is cheap enough for benches and fleets.
+* **causality crosses threads and processes** — the thread-local ambient
+  span covers same-thread nesting; a :class:`SpanContext` handoff token
+  (``current_context()`` / ``Span.context``) carries (trace id, span id)
+  across the submit->batcher->engine thread boundaries, and two u64
+  header fields carry it inside async-bus wire records so a peer's
+  apply span links to the publisher's trace.
+* **one timebase** — span timestamps are ``time.monotonic()`` seconds
+  (the clock the serving layer already stamps ``t_enq`` with), rebased
+  to epoch microseconds at export via an anchor captured at
+  ``enable()``; host spans and device (xprof) captures can then be
+  merged by time range (``tools/trace_summary.py --host-trace``).
+
+Export is Chrome trace-event JSON (``{"traceEvents": [...]}``) with
+B/E event pairs, one synthetic track per (trace id, recording thread)
+— loadable in Perfetto / ``chrome://tracing`` next to an xprof device
+capture (docs/OBSERVABILITY.md).
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, List, NamedTuple, Optional
+
+__all__ = [
+    "Span", "SpanContext", "TailConfig", "TraceCollector", "collector",
+    "enabled", "enable", "disable", "resume", "start_span", "span",
+    "record_span", "current_span", "current_context", "export_chrome",
+    "span_from_dict", "validate_chrome_events",
+]
+
+# Span/trace ids: process-unique, allocation-cheap. itertools.count is
+# GIL-atomic per next(); the random 32-bit salt keeps ids from different
+# processes (bus publisher vs consumer) from colliding in a merged view.
+_SALT = int.from_bytes(os.urandom(4), "little")
+_ids = itertools.count(1)
+
+
+def _new_id() -> int:
+    return (_SALT << 32) | (next(_ids) & 0xFFFFFFFF)
+
+
+class TailConfig(NamedTuple):
+    """Tail-based sampling policy (Canopy/Dapper-style): spans buffer per
+    trace id until the trace's ROOT span finishes, and the whole tree is
+    retained only when the request turned out to be worth keeping —
+
+    * ``slo_ms`` — the root span breached this latency objective;
+    * any span in the tree recorded an ``error`` attr (shed, validation
+      reject, exec failure) or the root closed ``ok=False``;
+    * ``head_n`` — a 1-in-N head sample of completed traces rides along
+      regardless, so the retained set always contains *normal* requests
+      to compare the anomalies against (0 keeps anomalies only).
+
+    Everything else is discarded at the decision point, so tracing
+    becomes cheap enough to leave on under sustained traffic: the ring
+    holds only the explanatory traces, and ``max_pending`` bounds the
+    undecided buffer (the oldest undecided trace is evicted wholesale
+    past it — fragments whose root lives in another process can never
+    pin memory)."""
+
+    slo_ms: float = 250.0
+    head_n: int = 64
+    max_pending: int = 8192
+
+
+class SpanContext(NamedTuple):
+    """Handoff token: everything a child span needs from its parent.
+
+    Immutable and thread-agnostic — capture it with
+    :func:`current_context` (or ``Span.context``) on the submitting
+    thread, hand it to the worker thread (a queue entry field, a wire
+    header), and open children with ``span(name, parent=token)``.
+    """
+
+    trace_id: int
+    span_id: int
+
+
+class Span:
+    """One named, timed, attributed interval of a trace.
+
+    Created via :func:`start_span`/:func:`span`; finished with
+    :meth:`end` (the context manager does it). ``attrs`` carry the
+    explanatory payload (bucket choice, slot, snapshot version, ...).
+    """
+
+    __slots__ = ("name", "trace_id", "span_id", "parent_id", "t0", "t1",
+                 "attrs", "thread")
+
+    def __init__(self, name: str, trace_id: int, span_id: int,
+                 parent_id: Optional[int], t0: float,
+                 attrs: Optional[Dict[str, Any]]) -> None:
+        self.name = name
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.t0 = t0
+        self.t1: Optional[float] = None
+        self.attrs = attrs or {}
+        self.thread = threading.current_thread().name
+
+    @property
+    def context(self) -> SpanContext:
+        return SpanContext(self.trace_id, self.span_id)
+
+    def set(self, **attrs: Any) -> "Span":
+        """Attach attributes after creation (e.g. a version only known
+        once the span's work ran)."""
+        self.attrs.update(attrs)
+        return self
+
+    def end(self, **attrs: Any) -> "Span":
+        """Close the span and hand it to the collector (idempotent)."""
+        if self.t1 is None:
+            self.t1 = time.monotonic()
+            if attrs:
+                self.attrs.update(attrs)
+            _COLLECTOR.record(self)
+        return self
+
+    def duration_ms(self) -> float:
+        return ((self.t1 if self.t1 is not None else time.monotonic())
+                - self.t0) * 1e3
+
+    def to_dict(self) -> Dict[str, Any]:
+        """Wire form for cross-process shipping (the fleet observability
+        plane's report records): plain JSON-serializable fields,
+        timestamps still in the RECORDING process's monotonic clock —
+        the shipper sends its clock anchor alongside
+        (:meth:`TraceCollector.anchor`) so the collector rebases each
+        node to the shared epoch-µs export timebase."""
+        return {"name": self.name, "trace_id": self.trace_id,
+                "span_id": self.span_id, "parent_id": self.parent_id,
+                "t0": self.t0, "t1": self.t1, "thread": self.thread,
+                "attrs": dict(self.attrs)}
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"Span({self.name!r}, trace={self.trace_id:x}, "
+                f"span={self.span_id:x}, parent="
+                f"{self.parent_id and f'{self.parent_id:x}'}, "
+                f"dur={self.duration_ms():.3f} ms)")
+
+
+class _NullSpan:
+    """Shared do-nothing stand-in returned while tracing is disabled —
+    callers hold/end it without a per-call allocation."""
+
+    __slots__ = ()
+    name = ""
+    trace_id = 0
+    span_id = 0
+    parent_id = None
+    context = None
+    attrs: Dict[str, Any] = {}
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        return False
+
+    def set(self, **attrs: Any) -> "_NullSpan":
+        return self
+
+    def end(self, **attrs: Any) -> "_NullSpan":
+        return self
+
+    def duration_ms(self) -> float:
+        return 0.0
+
+
+NULL_SPAN = _NullSpan()
+
+_tls = threading.local()
+
+
+def _stack() -> List[Span]:
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    return stack
+
+
+class TraceCollector:
+    """Bounded ring of finished spans (lock-cheap single-writer append).
+
+    ``enabled`` is a plain attribute so hot paths can gate on one
+    read; ``record`` takes one short lock to bump the ring cursor. When
+    the ring wraps, the oldest spans are overwritten and ``dropped``
+    counts them — tracing stays bounded under sustained traffic.
+    """
+
+    def __init__(self, capacity: int = 65536) -> None:
+        self.enabled = False
+        self.capacity = int(capacity)
+        self._buf: List[Optional[Span]] = [None] * self.capacity
+        self._pos = 0
+        self._n = 0
+        self.dropped = 0
+        self.recorded = 0
+        self._lock = threading.Lock()
+        # monotonic->epoch anchor for export (set at enable())
+        self._anchor_wall = time.time()
+        self._anchor_mono = time.monotonic()
+        # tail-based sampling (None = record every finished span)
+        self._tail: Optional[TailConfig] = None
+        self._pending: Dict[int, List[Span]] = {}
+        self._pending_n = 0
+        self._decisions: Dict[int, bool] = {}
+        self.tail_completed = 0          # traces whose root finished
+        self.tail_kept = 0               # ... retained into the ring
+        self.tail_discarded = 0          # ... dropped at decision time
+        self.tail_evicted = 0            # undecided traces evicted (bound)
+        self.tail_span_drops = 0         # spans dropped by either path
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self, capacity: Optional[int] = None,
+              tail: Optional[TailConfig] = None) -> None:
+        """(Re)start collecting: the ring, counters and clock anchor all
+        reset, so a second traced session in the same process never
+        exports the previous run's spans. ``tail`` switches on tail-based
+        sampling (None = record everything, the pre-existing behavior)."""
+        with self._lock:
+            if capacity is not None:
+                self.capacity = int(capacity)
+            self._buf = [None] * self.capacity
+            self._pos = self._n = 0
+            self.dropped = 0
+            self.recorded = 0
+            self._anchor_wall = time.time()
+            self._anchor_mono = time.monotonic()
+            self._tail = tail
+            self._clear_tail_locked()
+            self.enabled = True
+
+    def stop(self) -> None:
+        self.enabled = False
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buf = [None] * self.capacity
+            self._pos = self._n = 0
+            self.dropped = 0
+            self.recorded = 0
+            self._clear_tail_locked()
+
+    def _clear_tail_locked(self) -> None:
+        self._pending.clear()
+        self._pending_n = 0
+        self._decisions.clear()
+        self.tail_completed = 0
+        self.tail_kept = 0
+        self.tail_discarded = 0
+        self.tail_evicted = 0
+        self.tail_span_drops = 0
+
+    # -- record/read --------------------------------------------------------
+    def _append_locked(self, sp: Span) -> None:
+        if self._n == self.capacity:
+            self.dropped += 1
+        self._buf[self._pos] = sp
+        self._pos = (self._pos + 1) % self.capacity
+        self._n = min(self._n + 1, self.capacity)
+        self.recorded += 1
+
+    def record(self, sp: Span) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            if self._tail is None:
+                self._append_locked(sp)
+            else:
+                self._tail_record_locked(sp)
+
+    def _tail_record_locked(self, sp: Span) -> None:
+        """Buffer under the span's trace id; decide at root completion.
+
+        A span landing AFTER its trace was decided (an engine-thread
+        iteration racing the submit-thread's root end) follows the
+        decision — retained traces stay whole, discarded ones don't
+        resurrect. The decision memo is bounded (oldest forgotten)."""
+        tid = sp.trace_id
+        decided = self._decisions.get(tid)
+        if decided is not None:
+            if decided:
+                self._append_locked(sp)
+            else:
+                self.tail_span_drops += 1
+            return
+        self._pending.setdefault(tid, []).append(sp)
+        self._pending_n += 1
+        if sp.parent_id is None:         # a root finished: decide its tree
+            self._tail_decide_locked(tid, sp)
+        elif self._pending_n > self._tail.max_pending:
+            # bounded memory: evict the oldest undecided trace wholesale
+            # (insertion order = arrival order of each trace's first span)
+            old_tid = next(iter(self._pending))
+            old = self._pending.pop(old_tid)
+            self._pending_n -= len(old)
+            self.tail_evicted += 1
+            self.tail_span_drops += len(old)
+
+    def _tail_decide_locked(self, tid: int, root: Span) -> None:
+        cfg = self._tail
+        buf = self._pending.pop(tid, [])
+        self._pending_n -= len(buf)
+        self.tail_completed += 1
+        keep = None
+        if (root.t1 is not None
+                and (root.t1 - root.t0) * 1e3 >= cfg.slo_ms > 0):
+            keep = "slo"
+        elif any("error" in s.attrs or s.attrs.get("ok") is False
+                 for s in buf):
+            keep = "error"
+        elif cfg.head_n > 0 and (self.tail_completed - 1) % cfg.head_n == 0:
+            keep = "head"
+        if keep is None:
+            self.tail_discarded += 1
+            self.tail_span_drops += len(buf)
+            self._decisions[tid] = False
+        else:
+            root.attrs["tail_keep"] = keep
+            self.tail_kept += 1
+            for s in buf:
+                self._append_locked(s)
+            self._decisions[tid] = True
+        # the memo only has to outlive the decision races (late children
+        # of a just-ended root); cap it so ids never accumulate
+        while len(self._decisions) > 4096:
+            self._decisions.pop(next(iter(self._decisions)))
+
+    def spans(self) -> List[Span]:
+        """Retained spans, oldest first."""
+        with self._lock:
+            if self._n < self.capacity:
+                out = self._buf[: self._n]
+            else:
+                out = self._buf[self._pos:] + self._buf[: self._pos]
+        return [s for s in out if s is not None]
+
+    def drain_since(self, cursor: int):
+        """``(new_cursor, spans recorded after cursor, missed)`` — the
+        fleet plane's incremental read. ``cursor`` is a previous call's
+        return (start at 0); spans come back oldest first. When more
+        spans were recorded since the cursor than the ring retains, the
+        overwritten ones are gone — ``missed`` counts them so the
+        shipper can report the loss instead of silently thinning the
+        fleet trace. ``start()``/``clear()`` reset ``recorded``, so a
+        stale cursor larger than it simply rebases to the new stream."""
+        with self._lock:
+            recorded = self.recorded
+            if cursor > recorded:
+                cursor = 0                     # ring was reset; rebase
+            n_new = recorded - cursor
+            if n_new <= 0:
+                return recorded, [], 0
+            take = min(n_new, self._n)
+            start = (self._pos - take) % self.capacity
+            if start < self._pos or take == 0:
+                out = self._buf[start: self._pos]
+            else:
+                out = self._buf[start:] + self._buf[: self._pos]
+        return recorded, [s for s in out if s is not None], n_new - take
+
+    def anchor(self):
+        """``(epoch s, monotonic s)`` captured at :meth:`start` — ships
+        with serialized spans so a collector in another process can
+        rebase them onto the shared epoch-µs export timebase."""
+        with self._lock:
+            return self._anchor_wall, self._anchor_mono
+
+    def to_epoch_us(self, t_mono: float) -> float:
+        """Rebase a monotonic timestamp to epoch microseconds (the
+        export timebase, mergeable with device captures by range)."""
+        return (self._anchor_wall + (t_mono - self._anchor_mono)) * 1e6
+
+    # -- export -------------------------------------------------------------
+    def chrome_events(self) -> List[dict]:
+        """Chrome trace-event B/E pairs, sorted by timestamp.
+
+        Each (trace id, recording thread) pair gets its own synthetic
+        ``tid`` track. Per trace alone is not enough: spans of ONE trace
+        recorded by different threads can overlap in wall time (a root
+        ended early by a cancelled future while the flush thread still
+        records its queue wait; a loopback ``bus.apply`` racing its
+        ``bus.publish``), which would interleave B/E pairs on a shared
+        track. One thread's spans for one trace are sequential by
+        construction, so per-(trace, thread) tracks always nest; the
+        request's spans stay joined by the ``trace_id`` arg.
+        """
+        pid = os.getpid()
+        events: List[dict] = []
+        # sequential tid per (trace, thread): collision-free by
+        # construction (a hashed tid had a birthday chance of merging
+        # two overlapping tracks and breaking their B/E nesting)
+        tids: Dict[tuple, int] = {}
+        for sp in self.spans():
+            if sp.t1 is None:
+                continue
+            tid = tids.setdefault((sp.trace_id, sp.thread), len(tids) + 1)
+            args = {"trace_id": f"{sp.trace_id:x}",
+                    "span_id": f"{sp.span_id:x}",
+                    "thread": sp.thread}
+            if sp.parent_id is not None:
+                args["parent_id"] = f"{sp.parent_id:x}"
+            args.update(sp.attrs)
+            ts0 = self.to_epoch_us(sp.t0)
+            ts1 = self.to_epoch_us(sp.t1)
+            events.append({"name": sp.name, "ph": "B", "ts": ts0,
+                           "pid": pid, "tid": tid, "args": args})
+            events.append({"name": sp.name, "ph": "E", "ts": ts1,
+                           "pid": pid, "tid": tid})
+        # stable sort: E before B at identical ts only when the E's B came
+        # first; (ts, index) keeps emission order for ties within a track
+        events.sort(key=lambda e: e["ts"])
+        return events
+
+    def export_chrome(self, path: Optional[str] = None) -> dict:
+        """Build (and optionally write) ``{"traceEvents": [...]}``."""
+        doc = {
+            "traceEvents": self.chrome_events(),
+            "displayTimeUnit": "ms",
+            "otherData": {"dropped_spans": self.dropped,
+                          "recorded_spans": self.recorded,
+                          "clock": "epoch_us"},
+        }
+        if path:
+            with open(path, "w") as f:
+                json.dump(doc, f)
+        return doc
+
+    def stats(self) -> dict:
+        with self._lock:
+            out = {"enabled": self.enabled, "retained": self._n,
+                   "capacity": self.capacity, "dropped": self.dropped,
+                   "recorded": self.recorded}
+            if self._tail is not None:
+                out["tail"] = {
+                    "slo_ms": self._tail.slo_ms,
+                    "head_n": self._tail.head_n,
+                    "pending_traces": len(self._pending),
+                    "pending_spans": self._pending_n,
+                    "completed": self.tail_completed,
+                    "kept": self.tail_kept,
+                    "discarded": self.tail_discarded,
+                    "evicted": self.tail_evicted,
+                    "span_drops": self.tail_span_drops,
+                }
+            return out
+
+
+_COLLECTOR = TraceCollector()
+
+
+def collector() -> TraceCollector:
+    return _COLLECTOR
+
+
+def enabled() -> bool:
+    """THE hot-path gate: one attribute read, no allocation."""
+    return _COLLECTOR.enabled
+
+
+def enable(capacity: Optional[int] = None,
+           tail: Optional[TailConfig] = None) -> None:
+    _COLLECTOR.start(capacity, tail)
+
+
+def disable() -> None:
+    _COLLECTOR.stop()
+
+
+def resume() -> None:
+    """Re-enable collection WITHOUT resetting the ring, tail state or
+    clock anchor — the counterpart of :func:`disable` for a momentary
+    off window (e.g. the bench's tracing-off A/B leg) inside one traced
+    session. :func:`enable` would wipe everything recorded so far."""
+    _COLLECTOR.enabled = True
+
+
+# -- span creation ----------------------------------------------------------
+
+def current_span() -> Optional[Span]:
+    stack = getattr(_tls, "stack", None)
+    return stack[-1] if stack else None
+
+
+def current_context() -> Optional[SpanContext]:
+    """The handoff token for the ambient span (None outside any span)."""
+    sp = current_span()
+    return sp.context if sp is not None else None
+
+
+def start_span(name: str, parent: Optional[SpanContext] = None,
+               root: bool = False, **attrs: Any):
+    """Open a span NOW; the caller owns ``end()``.
+
+    Parentage: ``root=True`` starts a fresh trace; an explicit
+    ``parent`` token adopts that trace (the cross-thread handoff);
+    otherwise the ambient thread-local span is the parent (fresh trace
+    if there is none). Returns :data:`NULL_SPAN` while disabled.
+    """
+    if not _COLLECTOR.enabled:
+        return NULL_SPAN
+    if root:
+        trace_id, parent_id = _new_id(), None
+    elif parent is not None:
+        trace_id, parent_id = parent.trace_id, parent.span_id
+    else:
+        amb = current_span()
+        if amb is not None:
+            trace_id, parent_id = amb.trace_id, amb.span_id
+        else:
+            trace_id, parent_id = _new_id(), None
+    return Span(name, trace_id, _new_id(), parent_id, time.monotonic(),
+                attrs or None)
+
+
+class _SpanScope:
+    """Context manager pushing a span onto the thread-local stack, so
+    spans opened inside it become its children without explicit tokens."""
+
+    __slots__ = ("_span",)
+
+    def __init__(self, sp: Span) -> None:
+        self._span = sp
+
+    def __enter__(self) -> Span:
+        _stack().append(self._span)
+        return self._span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        stack = _stack()
+        if stack and stack[-1] is self._span:
+            stack.pop()
+        if exc_type is not None:
+            self._span.set(error=exc_type.__name__)
+        self._span.end()
+        return False
+
+
+def span(name: str, parent: Optional[SpanContext] = None,
+         root: bool = False, **attrs: Any):
+    """``with span("stage", parent=token, k=v) as sp:`` — the ambient
+    form of :func:`start_span` (children opened inside nest under it).
+    A no-op shared object while disabled."""
+    if not _COLLECTOR.enabled:
+        return NULL_SPAN
+    return _SpanScope(start_span(name, parent=parent, root=root, **attrs))
+
+
+def record_span(name: str, parent: Optional[SpanContext], t0: float,
+                t1: float, **attrs: Any) -> None:
+    """Record an interval measured elsewhere (``time.monotonic()``
+    endpoints) as a finished span — the batcher/engine use this to emit
+    per-request child spans after a batch-level operation completed,
+    without holding open Span objects per queued request."""
+    if not _COLLECTOR.enabled:
+        return
+    if parent is not None:
+        trace_id, parent_id = parent.trace_id, parent.span_id
+    else:
+        trace_id, parent_id = _new_id(), None
+    sp = Span(name, trace_id, _new_id(), parent_id, t0, attrs or None)
+    sp.t1 = t1
+    _COLLECTOR.record(sp)
+
+
+def export_chrome(path: Optional[str] = None) -> dict:
+    return _COLLECTOR.export_chrome(path)
+
+
+def span_from_dict(d: Dict[str, Any]) -> Span:
+    """Inverse of :meth:`Span.to_dict` (collector-side tests and any
+    consumer that wants Span objects back from wire records)."""
+    sp = Span(d["name"], int(d["trace_id"]), int(d["span_id"]),
+              d.get("parent_id"), float(d["t0"]), dict(d.get("attrs") or {}))
+    sp.t1 = d.get("t1")
+    sp.thread = d.get("thread", sp.thread)
+    return sp
+
+
+# -- validation (shared by the CI smoke test and tools) ----------------------
+
+def validate_chrome_events(events: List[dict],
+                           root_name: Optional[str] = None) -> dict:
+    """Structural validation of a Chrome trace-event list.
+
+    Checks (raises ``ValueError`` on the first violation):
+
+    * global ``ts`` monotonicity (the export contract: sorted events);
+    * per-(pid, tid) B/E matching — every E closes the innermost open B
+      of the same name, nothing left open at the end;
+    * every B carries trace_id/span_id args; within a trace whose root
+      IS in this export, children must cite a parent_id that exists (a
+      dangling parent there means a handoff token outlived its span's
+      export). Traces with no local root are FRAGMENTS — e.g. a
+      consumer process's ``bus.apply`` spans parented under a publisher
+      process's span, or children of a request still in flight — and
+      their parent links point outside this export by design;
+    * with ``root_name``: no trace id has more than one parentless span
+      of THAT name (the "one root per request" contract; fragments have
+      zero and pass, and roots of other names — ``snapshot.pin``,
+      ``table.add`` — are not counted against it).
+
+    Returns summary counts: ``{"events", "spans", "traces", "roots"}``
+    (``roots`` counts only ``root_name`` roots when one is given).
+    """
+    # pass 1: the full span-id population per trace (parent links may
+    # cite a span whose B sorts later — e.g. identical timestamps), and
+    # which traces have a local root (only those can be held to the
+    # no-dangling-parent rule; the rest are cross-process/in-flight
+    # fragments)
+    trace_spans: Dict[str, set] = {}
+    rooted: set = set()
+    for i, e in enumerate(events):
+        if e.get("ph") != "B":
+            continue
+        args = e.get("args", {})
+        trace_id, span_id = args.get("trace_id"), args.get("span_id")
+        if not trace_id or not span_id:
+            raise ValueError(f"event {i}: B without trace_id/span_id")
+        trace_spans.setdefault(trace_id, set()).add(span_id)
+        if args.get("parent_id") is None:
+            rooted.add(trace_id)
+    # pass 2: ordering, nesting, parent links
+    last_ts = None
+    open_stacks: Dict[tuple, List[dict]] = {}
+    roots: Dict[str, int] = {}
+    n_spans = 0
+    for i, e in enumerate(events):
+        ph = e.get("ph")
+        if ph not in ("B", "E"):
+            continue
+        ts = e.get("ts")
+        if not isinstance(ts, (int, float)):
+            raise ValueError(f"event {i}: non-numeric ts {ts!r}")
+        if last_ts is not None and ts < last_ts:
+            raise ValueError(f"event {i}: ts {ts} < previous {last_ts} "
+                             "(export must be time-sorted)")
+        last_ts = ts
+        key = (e.get("pid"), e.get("tid"))
+        stack = open_stacks.setdefault(key, [])
+        if ph == "B":
+            args = e.get("args", {})
+            trace_id, span_id = args["trace_id"], args["span_id"]
+            parent = args.get("parent_id")
+            if parent is None:
+                if root_name is None or e.get("name") == root_name:
+                    roots[trace_id] = roots.get(trace_id, 0) + 1
+            elif (trace_id in rooted
+                    and parent not in trace_spans[trace_id]):
+                raise ValueError(
+                    f"event {i}: span {span_id} cites unknown parent "
+                    f"{parent} in trace {trace_id}")
+            stack.append(e)
+            n_spans += 1
+        else:
+            if not stack:
+                raise ValueError(f"event {i}: E with no open B on {key}")
+            top = stack.pop()
+            if top.get("name") != e.get("name"):
+                raise ValueError(
+                    f"event {i}: E({e.get('name')!r}) closes "
+                    f"B({top.get('name')!r}) — interleaved, not nested")
+    for key, stack in open_stacks.items():
+        if stack:
+            raise ValueError(
+                f"track {key}: {len(stack)} B event(s) never closed "
+                f"(first: {stack[0].get('name')!r})")
+    if root_name is not None:
+        for trace_id, n in roots.items():
+            if n > 1:
+                raise ValueError(
+                    f"trace {trace_id}: {n} root spans (expected 1)")
+    return {"events": len(events), "spans": n_spans,
+            "traces": len(trace_spans), "roots": sum(roots.values())}
