@@ -5,7 +5,10 @@ never imports). Module names mirror the JAX package's. Entry points run on
 the CUDA device unless the caller asks for the CPU with ``-device=cpu``.
 
 Top-level functions mirror ``multiverso_tpu/__init__.py``: ``init`` /
-``shutdown`` / ``barrier`` / ``rank`` / ``size`` / ``session``.
+``shutdown`` / ``barrier`` / ``rank`` / ``size`` / ``num_workers`` /
+``num_servers`` / ``worker_id`` / ``server_id`` / ``is_worker`` /
+``is_server`` / ``aggregate`` / ``session``, plus ``create_table`` for the
+``array`` and ``matrix`` tables.
 """
 
 from __future__ import annotations
@@ -49,3 +52,55 @@ def size() -> int:
 def session() -> Session:
     return Session.get()
 
+
+def num_workers() -> int:
+    return Session.get().num_workers
+
+
+def num_servers() -> int:
+    return Session.get().num_servers
+
+
+def worker_id() -> int:
+    return Session.get().worker_id
+
+
+def server_id() -> int:
+    return Session.get().server_id
+
+
+def is_worker() -> bool:
+    return Session.get().is_worker()
+
+
+def is_server() -> bool:
+    return Session.get().is_server()
+
+
+def aggregate(data):
+    """``MV_Aggregate`` of a host buffer (the identity in one process)."""
+    return Session.get().aggregate(data)
+
+
+# table kinds of the JAX package that this port does not have yet
+_UNPORTED_TABLES = ("kv", "sparse", "ftrl")
+
+
+def create_table(kind: str, *args: Any, **kwargs: Any):
+    """``MV_CreateTable`` factory: ``array`` or ``matrix``. The JAX
+    package's ``kv``, ``sparse`` and ``ftrl`` tables are not ported yet and
+    raise :class:`FatalError`."""
+    from . import tables
+
+    factory = {"array": tables.ArrayTable, "matrix": tables.MatrixTable}
+    if kind in _UNPORTED_TABLES:
+        Log.fatal(f"create_table({kind!r}): the {kind} table is not ported "
+                  f"to multiverso_tpu_torch yet")
+    try:
+        cls = factory[kind]
+    except KeyError:
+        Log.fatal(f"unknown table kind {kind!r}; expected one of "
+                  f"{sorted(factory)}")
+    table = cls(*args, **kwargs)
+    barrier()  # MV_CreateTable barriers after creation
+    return table

@@ -27,6 +27,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # kernel library name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "flash_fwd": "flash_fwd.cu",
+    "row_gather": "row_gather.cu",
+    "row_scatter_add": "row_scatter_add.cu",
 }
 
 _lock = threading.Lock()

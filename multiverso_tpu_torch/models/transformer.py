@@ -52,11 +52,28 @@ class TransformerConfig:
     attention: str = "reference"
 
 
+def _session_device(device: Any) -> Any:
+    """``device``, or the started session's device when it is None (the
+    card unless the session was started with ``-device=cpu``)."""
+    if device is not None:
+        return device
+    from ..runtime import Session
+
+    sess = Session.get()
+    if not sess.started:
+        Log.fatal("no device given and no multiverso_tpu_torch session "
+                  "started: call init() first, or pass device= (\"cpu\" "
+                  "to run on the CPU)")
+    return sess.device
+
+
 def init_params(cfg: TransformerConfig,
                 rng: Optional[np.random.Generator] = None,
-                device: Any = "cpu") -> Dict[str, Any]:
-    """Random parameters; per-layer weights stacked on dim 0. Draws from
+                device: Any = None) -> Dict[str, Any]:
+    """Random parameters on ``device`` (default: the session's device);
+    per-layer weights stacked on dim 0. Draws from
     ``np.random.default_rng(cfg.seed)`` in the JAX package's order."""
+    device = _session_device(device)
     rng = rng or np.random.default_rng(cfg.seed)
     D, F_, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     s = 1.0 / np.sqrt(D)
@@ -83,12 +100,15 @@ def init_params(cfg: TransformerConfig,
     return params_from_jax(host, device=device, dtype=cfg.dtype)
 
 
-def params_from_jax(params: Dict[str, Any], device: Any = "cpu",
+def params_from_jax(params: Dict[str, Any], device: Any = None,
                     dtype: Any = torch.float32) -> Dict[str, Any]:
     """The JAX parameter pytree (as numpy arrays: ``embed``, ``pos``,
     ``ln_f_g`` and ``layers`` with stacked ``ln1_g``, ``ln2_g``, ``w_q``,
     ``w_k``, ``w_v``, ``w_o``, ``w_ff1``, ``w_ff2``) as the port's
-    parameters on ``device`` in ``dtype``."""
+    parameters on ``device`` (default: the session's device) in
+    ``dtype``."""
+    device = _session_device(device)
+
     def conv(a):
         return torch.from_numpy(np.array(a, np.float32)).to(
             device=device, dtype=dtype)

@@ -1,0 +1,619 @@
+"""Word2vec skip-gram with negative sampling, trained on the card.
+
+Counterpart of ``multiverso_tpu/models/word2vec.py`` (the reference
+WordEmbedding model core, ``Applications/WordEmbedding/src/
+wordembedding.cpp``). One step trains a whole batch of (center, context)
+pairs against the two embedding tables: gather the rows, closed-form
+sigmoid-loss gradients with f32 scores, scatter-add the row updates. Every
+embedding-row gather is ``ops.embedding.embedding_lookup`` and every row
+update ``ops.embedding.scatter_add_rows``, so on the card the step runs
+the hand-written row-gather and row-scatter-add kernels.
+
+What differs from the JAX module, and why:
+
+* the tables are updated IN PLACE (the JAX step threads donated buffers
+  through a jitted function); every gather of a step still reads the
+  tables before any update of that step, as in JAX;
+* ``lax.scan`` over the ``steps_per_call`` batches is a Python loop;
+* randomness is a ``torch.Generator`` (threefry and torch never agree), and
+  the corpus step takes its random draws as an argument
+  (``train_device_steps(..., draws=)``), so a test can feed both packages
+  the same draws;
+* nothing in a dispatch waits for the device: the counts, the compaction
+  size and the loss stay device tensors; ``train_device_steps`` returns
+  ``(loss, count)`` as device scalars, like JAX's async scalars.
+
+Ported: skip-gram, negative sampling with the exact alias draw or the
+pre-drawn pool, every group size G (``shared_negatives``), raw summed
+updates and both row-mean stabilisers (realized counts and
+``row_mean_static``), the ``scatter`` update and compaction, the
+device-resident corpus path and the host-batch entry points
+(``train_batch``, ``train_batches``). Not ported yet, each refused with
+:class:`~..log.FatalError`: CBOW, hierarchical softmax, AdaGrad model
+state, ``update_impl`` ``segsum``/``split8``, ``compact_impl="gather"``.
+Worker-axis data parallelism (``dp_sync``, ``dp_exchange``) needs a mesh,
+which the session refuses (``-mesh_shape``); here the worker axis is 1,
+where the JAX package ignores both options too.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..log import Log
+from ..ops.embedding import _wrapped, embedding_lookup, scatter_add_rows
+
+
+@dataclass
+class Word2VecConfig:
+    """The JAX config's fields, with the same defaults (reference CLI
+    options, ``WE/src/util.cpp``). See ``multiverso_tpu/models/word2vec.py``
+    for the meaning of each; values this port does not run raise in
+    :class:`Word2Vec`."""
+
+    vocab_size: int = 0
+    embedding_size: int = 100
+    window: int = 5
+    negative: int = 5
+    hs: bool = False
+    cbow: bool = False
+    init_lr: float = 0.025
+    min_lr_frac: float = 1e-4
+    use_adagrad: bool = False
+    batch_size: int = 1024
+    steps_per_call: int = 1
+    max_code_length: int = 40
+    seed: int = 7
+    oversample: float = 0.0
+    neg_pool_size: int = 0
+    shared_negatives: int = 0
+    row_mean_updates: Optional[bool] = None
+    update_impl: str = "scatter"
+    compact_impl: str = "scatter"
+    row_mean_static: bool = False
+    row_update_cap: float = 8.0
+    dp_sync: str = "dispatch"
+    dp_exchange: str = "dense"
+    dp_keyed_cap: int = 0
+
+
+def build_unigram_alias(counts: np.ndarray, power: float = 0.75
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Alias tables for O(1) unigram^0.75 negative sampling (a copy of the
+    JAX package's numpy helper: the same tables, bit for bit)."""
+    probs = counts.astype(np.float64) ** power
+    probs /= probs.sum()
+    n = probs.shape[0]
+    scaled = probs * n
+    alias = np.zeros(n, np.int32)
+    thresh = np.ones(n, np.float32)
+    small = [i for i in range(n) if scaled[i] < 1.0]
+    large = [i for i in range(n) if scaled[i] >= 1.0]
+    while small and large:
+        s, l = small.pop(), large.pop()
+        thresh[s] = scaled[s]
+        alias[s] = l
+        scaled[l] = scaled[l] - (1.0 - scaled[s])
+        (small if scaled[l] < 1.0 else large).append(l)
+    for i in large + small:
+        thresh[i] = 1.0
+        alias[i] = i
+    return thresh, alias
+
+
+def pack_alias_table(thresh: Any, alias: Any) -> torch.Tensor:
+    """``[V, 2]`` int32: the threshold's float32 bits beside the alias."""
+    t = torch.as_tensor(np.asarray(thresh, np.float32)).view(torch.int32)
+    a = torch.as_tensor(np.asarray(alias, np.int32))
+    return torch.stack([t, a], dim=1)
+
+
+def sample_negatives(gen: torch.Generator, packed: torch.Tensor,
+                     shape: Tuple[int, ...]) -> torch.Tensor:
+    """Draw int32 indices from a packed alias table, on its device."""
+    n = packed.shape[0]
+    idx = torch.randint(0, n, shape, generator=gen, device=packed.device)
+    u = torch.rand(shape, generator=gen, device=packed.device)
+    row = packed[idx]                                        # [..., 2]
+    t = row[..., 0].contiguous().view(torch.float32)
+    return torch.where(u < t, idx.to(torch.int32), row[..., 1])
+
+
+def build_negative_pool(thresh: np.ndarray, alias: np.ndarray, size: int,
+                        seed: int = 0) -> np.ndarray:
+    """Pre-draw ``size`` unigram^0.75 samples on the host (a copy of the
+    JAX package's numpy helper: the same pool, bit for bit)."""
+    rng = np.random.default_rng(seed)
+    n = thresh.shape[0]
+    idx = rng.integers(0, n, size).astype(np.int32)
+    u = rng.random(size).astype(np.float32)
+    return np.where(u < thresh[idx], idx, alias[idx]).astype(np.int32)
+
+
+def pool_negatives(gen: torch.Generator, pool: torch.Tensor,
+                   shape: Tuple[int, ...]) -> torch.Tensor:
+    """``prod(shape)`` consecutive pool entries at a random offset. The
+    offset stays on the device (no host sync): the slice is an index
+    gather of the pool."""
+    n = int(np.prod(shape))
+    start = torch.randint(0, pool.shape[0] - n + 1, (1,), generator=gen,
+                          device=pool.device)
+    idx = start + torch.arange(n, device=pool.device)
+    return pool[idx].reshape(shape)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.softplus is logaddexp(x, 0)
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _f32(x: float) -> float:
+    """A Python float holding a float32 value (JAX's lr is a float32)."""
+    return float(np.float32(x))
+
+
+def tables_from_jax(w_in: Any, w_out: Any, device: Any = None,
+                    dtype: Any = torch.float32):
+    """The JAX word2vec tables (their ``get()`` arrays) as the port's two
+    ``MatrixTable``s on ``device`` (default: the session's) in ``dtype``,
+    so both packages train from the same state. The word2vec counterpart
+    of ``transformer.params_from_jax``; needs a started session."""
+    from ..tables import MatrixTable
+
+    def table(a):
+        a = np.asarray(a, np.float32)
+        return MatrixTable(a.shape[0], a.shape[1], dtype=dtype,
+                           init_value=a, device=device)
+
+    return table(w_in), table(w_out)
+
+
+class Word2Vec:
+    """Trainer bound to input/output embedding tables (``MatrixTable``)."""
+
+    def __init__(self, config: Word2VecConfig, input_table, output_table,
+                 counts: Optional[np.ndarray] = None,
+                 huffman: Any = None) -> None:
+        if config.vocab_size <= 0:
+            config.vocab_size = input_table.num_row
+        self.config = config
+        self.input_table = input_table
+        self.output_table = output_table
+        self.device = input_table.device
+        _refuse_unported(config, huffman)
+        if config.negative <= 0:
+            Log.fatal("word2vec needs an output objective: negative > 0 "
+                      "(hierarchical softmax is not ported yet)")
+        if (config.shared_negatives > 1
+                and config.batch_size % config.shared_negatives != 0):
+            Log.fatal("batch_size must divide by shared_negatives group")
+        self._host_counts = (None if counts is None
+                             else np.asarray(counts, np.float64))
+        if config.row_mean_updates and config.row_mean_static:
+            # static scales model full, compacted skip-gram batches only
+            if counts is None:
+                Log.fatal("row_mean_static requires vocab counts")
+            if config.oversample <= 1:
+                Log.fatal("row_mean_static requires oversample > 1 "
+                          "(compacted full batches make the expected "
+                          "counts match realizations)")
+        if counts is None:
+            Log.fatal("negative sampling requires vocab counts")
+        thresh, alias = build_unigram_alias(self._host_counts)
+        self._packed_alias = pack_alias_table(thresh, alias).to(self.device)
+        self._host_thresh, self._host_alias = thresh, alias
+        self._neg_pool: Optional[torch.Tensor] = None
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(config.seed))
+        # window offset of each shifted-copy index 0..2W-1, built once: a
+        # copy from the host inside a step would wait for the stream
+        W = config.window
+        self._ctx_offsets = torch.tensor(
+            list(range(-W, 0)) + list(range(1, W + 1)), device=self.device)
+        self._static_scale_in: Optional[torch.Tensor] = None
+        self._static_scale_out: Optional[torch.Tensor] = None
+        self._words_trained = 0.0  # corpus WORDS (not pairs), see current_lr
+        self.total_words = 0       # set by the trainer for lr decay
+        # device-corpus stream cursor; persists across chunk loads
+        self._stream_pos = 0
+
+    # -- lr schedule (reference UpdateLearningRate, wordembedding.cpp:38) --
+    def current_lr(self) -> float:
+        """Linear decay over corpus words, floored at ``min_lr_frac``."""
+        cfg = self.config
+        if self.total_words <= 0:
+            return cfg.init_lr
+        frac = 1.0 - self._words_trained / (self.total_words + 1)
+        return cfg.init_lr * max(frac, cfg.min_lr_frac)
+
+    def set_words_trained(self, words: float) -> None:
+        """Exact progress hook for trainers that track corpus words."""
+        self._words_trained = float(words)
+
+    def set_stream_pos(self, pos: int) -> None:
+        """Place the device-corpus stream cursor."""
+        self._stream_pos = int(pos)
+
+    def _pairs_to_words(self, pairs: float) -> float:
+        return pairs / (self.config.window + 1)
+
+    # -- one step ------------------------------------------------------------
+    def _objective_grads(self, h, w_out, target_word, ex_mask, negs=None):
+        """Negative-sampling objective on hidden vectors ``h`` ``[B, D]``:
+        returns the mean loss, the f32 grad wrt ``h`` and the ``(rows,
+        grads, occurrence)`` scatter sets for ``w_out``. One implementation
+        for exact (G = 1) and group-shared (G > 1) draws."""
+        cfg = self.config
+        G = max(int(cfg.shared_negatives), 1)
+        K = cfg.negative
+        B, D = h.shape
+        if negs is None:
+            negs = sample_negatives(self._gen, self._packed_alias,
+                                    (B // G, K))
+        hf = h.float()
+        # positive pairs (always exact, per pair); f32 scores
+        u_pos = embedding_lookup(w_out, target_word).float()    # [B, D]
+        s_pos = torch.clamp((hf * u_pos).sum(-1), -30.0, 30.0)
+        g_pos = (torch.sigmoid(s_pos) - 1.0) * ex_mask
+        loss = ((_softplus(s_pos) - s_pos) * ex_mask).sum()
+        grad_h = g_pos[:, None] * u_pos
+        # scatter grads in the TABLE dtype when that rounds the same as
+        # the scatter's own cast (JAX's exact_cast): plain raw sums, G = 1
+        exact_cast = G == 1 and not cfg.row_mean_updates
+        scat_dt = w_out.dtype if exact_cast else torch.float32
+        scatters = [(target_word, (g_pos[:, None] * hf).to(scat_dt),
+                     ex_mask)]
+        # negatives: [B/G, K, D] rows shared by each group of G pairs
+        u_neg = embedding_lookup(w_out, negs).float()
+        hg = hf.reshape(B // G, G, D)
+        mg = ex_mask.reshape(B // G, G)
+        s_neg = torch.clamp(torch.einsum("gbd,gkd->gbk", hg, u_neg),
+                            -30.0, 30.0)
+        g_neg = torch.sigmoid(s_neg) * mg[:, :, None]
+        loss = loss + (_softplus(s_neg) * mg[:, :, None]).sum()
+        grad_h = grad_h + torch.einsum("gbk,gkd->gbd", g_neg,
+                                       u_neg).reshape(B, D)
+        # a negative slot's grad sums its group's valid pairs, so its
+        # occurrence weight is the valid-pair count
+        occ_neg = mg.sum(dim=1)[:, None].expand(B // G, K).reshape(-1)
+        scatters.append((negs.reshape(-1),
+                         torch.einsum("gbk,gbd->gkd", g_neg,
+                                      hg).to(scat_dt).reshape(-1, D),
+                         occ_neg))
+        loss = loss / torch.clamp(ex_mask.sum(), min=1.0)
+        return loss, grad_h, scatters
+
+    def _safe_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """Rows wrapped like the scatter's ids, out-of-range ones sent to
+        row 0 (their updates are dropped by the scatter anyway), so a
+        ``[V]`` lookup never faults."""
+        w, ok = _wrapped(rows, self.config.vocab_size)
+        return torch.where(ok, w, torch.zeros_like(w))
+
+    def _row_counts(self, sets) -> torch.Tensor:
+        """Per-row contribution counts summed over ALL scatter sets of one
+        table (one joint count keeps the cap a per-table bound)."""
+        V = self.config.vocab_size
+        counts = torch.zeros((V,), dtype=torch.float32, device=self.device)
+        for rows, occ in sets:
+            _, ok = _wrapped(rows, V)
+            counts.index_add_(0, self._safe_rows(rows),
+                              occ.reshape(-1) * ok)
+        return counts
+
+    def _row_scale_vec(self, counts: torch.Tensor,
+                       rows: torch.Tensor) -> torch.Tensor:
+        """``[N]`` multiplier ``min(count, cap) / count`` of each row."""
+        cap = max(float(self.config.row_update_cap), 1.0)
+        c = torch.clamp(counts[self._safe_rows(rows)], min=1.0)
+        return torch.clamp(c, max=cap) / c
+
+    def _static_scales(self, in_rows, scatters):
+        """Expected-count scale lookup (``row_mean_static``)."""
+        if self._static_scale_in is None:
+            Log.fatal("row_mean_static needs the expected-count tables "
+                      "from load_corpus_chunk (device-corpus path)")
+        in_scale = self._static_scale_in[self._safe_rows(in_rows)]
+        out_scales = [self._static_scale_out[self._safe_rows(rows)]
+                      for rows, _, _ in scatters]
+        return in_scale, out_scales
+
+    @staticmethod
+    def _apply_sgd(w, rows, grads, lr: float, scale=None) -> None:
+        """``w[rows] += -lr * scale * grads`` in place: the update in f32,
+        rounded to the table dtype by the scatter kernel."""
+        if scale is None:
+            upd = grads.float() * -lr
+        else:
+            upd = (scale * -lr)[:, None] * grads.float()
+        scatter_add_rows(w, rows, upd)
+
+    def _apply_updates(self, w_in, w_out, in_rows, in_grads, in_occ,
+                       scatters, lr: float) -> None:
+        cfg = self.config
+        in_scale = out_counts = out_scales = None
+        if cfg.row_mean_updates and cfg.row_mean_static:
+            in_scale, out_scales = self._static_scales(in_rows, scatters)
+        elif cfg.row_mean_updates:
+            in_counts = self._row_counts([(in_rows, in_occ)])
+            out_counts = self._row_counts(
+                [(rows, occ) for rows, _, occ in scatters])
+            in_scale = self._row_scale_vec(in_counts, in_rows)
+        self._apply_sgd(w_in, in_rows, in_grads, lr, in_scale)
+        for i, (rows, grads, _) in enumerate(scatters):
+            if out_scales is not None:
+                scale = out_scales[i]
+            else:
+                scale = (None if out_counts is None
+                         else self._row_scale_vec(out_counts, rows))
+            self._apply_sgd(w_out, rows, grads, lr, scale)
+
+    def _raw_step(self, w_in, w_out, centers, contexts, mask, lr: float,
+                  negs=None) -> torch.Tensor:
+        """One skip-gram batch on table tensors, updated in place; returns
+        the mean loss (a device scalar). ``negs`` ``[B/G, K]`` int32, drawn
+        from the model's generator when None."""
+        h = embedding_lookup(w_in, centers)
+        loss, grad_h, scatters = self._objective_grads(h, w_out, contexts,
+                                                       mask, negs)
+        self._apply_updates(w_in, w_out, centers, grad_h, mask, scatters, lr)
+        return loss
+
+    # -- host-batch entry points ---------------------------------------------
+    def _dispatch(self, centers, contexts, mask, n_words: float,
+                  stacked: bool) -> torch.Tensor:
+        lr = _f32(self.current_lr())
+        dev = self.device
+        c = torch.as_tensor(np.asarray(centers, np.int32)).to(dev)
+        t = torch.as_tensor(np.asarray(contexts, np.int32)).to(dev)
+        m = torch.as_tensor(np.asarray(mask, np.float32)).to(dev)
+        if c.dim() != (2 if stacked else 1) or t.shape != c.shape \
+                or m.shape != c.shape:
+            Log.fatal(f"skip-gram batch shapes centers {tuple(c.shape)} "
+                      f"contexts {tuple(t.shape)} mask {tuple(m.shape)} "
+                      f"(want [{'S, ' if stacked else ''}B] each)")
+        with self.input_table._lock, self.output_table._lock:
+            w_in, w_out = self.input_table._data, self.output_table._data
+            if stacked:
+                loss = torch.stack([self._raw_step(w_in, w_out, c[s], t[s],
+                                                   m[s], lr)
+                                    for s in range(c.shape[0])]).mean()
+            else:
+                loss = self._raw_step(w_in, w_out, c, t, m, lr)
+            self.input_table.version += 1
+            self.output_table.version += 1
+        self._words_trained += n_words
+        return loss
+
+    def train_batch(self, centers: np.ndarray, contexts: np.ndarray,
+                    mask: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Train one batch: ``centers``, ``contexts``, ``mask`` ``[B]``.
+        Returns the mean loss as a device scalar (``float()`` waits)."""
+        if mask is None:
+            mask = np.ones(np.shape(contexts), np.float32)
+        return self._dispatch(centers, contexts, mask,
+                              self._pairs_to_words(float(np.sum(mask))),
+                              stacked=False)
+
+    def train_batches(self, centers: np.ndarray, contexts: np.ndarray,
+                      mask: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Train a stack of batches ``[S, B]`` in one call."""
+        if mask is None:
+            mask = np.ones(np.shape(contexts), np.float32)
+        return self._dispatch(centers, contexts, mask,
+                              self._pairs_to_words(float(np.sum(mask))),
+                              stacked=True)
+
+    # -- device-resident corpus path (the fast path) -----------------------
+    def _ensure_neg_pool(self, n_draws: int) -> torch.Tensor:
+        """Device pool with at least ``2 * n_draws`` pre-drawn negatives
+        (the same numpy draw as the JAX package: seed ``cfg.seed + 1``)."""
+        need = max(int(self.config.neg_pool_size), 2 * n_draws)
+        if self._neg_pool is None or self._neg_pool.shape[0] < 2 * n_draws:
+            pool = build_negative_pool(self._host_thresh, self._host_alias,
+                                       need, seed=self.config.seed + 1)
+            self._neg_pool = torch.from_numpy(pool).to(self.device)
+        return self._neg_pool
+
+    def _candidate_batch(self, n: int) -> int:
+        """Candidate slab length M for a corpus chunk of ``n`` positions
+        (clamped so the extended buffers stay in bounds)."""
+        cfg = self.config
+        B, W = cfg.batch_size, cfg.window
+        if n < B + 2 * W:
+            Log.fatal(f"corpus chunk ({n} positions) smaller than "
+                      f"batch + 2*window ({B + 2 * W}); lower batch_size or "
+                      "load a larger chunk")
+        M = (max(B, int(round(B * cfg.oversample)))
+             if cfg.oversample > 1 else B)
+        return min(M, n - 2 * W)
+
+    def load_corpus_chunk(self, ids: np.ndarray, sent_ids: np.ndarray,
+                          discard: Optional[np.ndarray] = None) -> None:
+        """Upload a corpus chunk to the device (word ids, sentence ids and
+        the words' discard probabilities for subsampling), as the
+        wrap-around-extended buffers the corpus step slices."""
+        cfg = self.config
+        dev = self.device
+        corpus = torch.as_tensor(np.asarray(ids, np.int32)).to(dev)
+        sents = torch.as_tensor(np.asarray(sent_ids, np.int32)).to(dev)
+        if discard is None:
+            discard = np.zeros(cfg.vocab_size, np.float32)
+        disc = torch.as_tensor(np.asarray(discard, np.float32)).to(dev)
+        n = int(corpus.shape[0])
+        M = self._candidate_batch(n)
+        W = cfg.window
+        dpos = disc[corpus.long()]
+
+        def ext(a):
+            return torch.cat([a[-W:], a, a[:M + W]])
+
+        self._ext_bufs = (ext(corpus), ext(sents), ext(dpos))
+        if cfg.row_mean_updates and cfg.row_mean_static:
+            self._build_static_scales(np.asarray(discard, np.float64))
+        self._corpus_len = n
+
+    def _build_static_scales(self, discard: np.ndarray) -> None:
+        """Expected-count scale tables (``row_mean_static``): per step, row
+        v's expected colliding grads are ``B * p_eff(v)`` for the input
+        table and ``B * p_eff(v) + B * K * p_neg(v)`` for the output table
+        (``p_eff`` the subsampled unigram law, ``p_neg`` unigram^0.75);
+        scale = min(E, cap) / max(E, 1)."""
+        cfg = self.config
+        counts = np.asarray(self._host_counts, np.float64)
+        keep = np.clip(1.0 - discard, 0.0, 1.0)
+        eff = counts * keep
+        p_eff = eff / max(eff.sum(), 1e-12)
+        w75 = counts ** 0.75
+        p_neg = w75 / max(w75.sum(), 1e-12)
+        B, K = cfg.batch_size, cfg.negative
+        e_in = B * p_eff
+        e_out = B * p_eff + B * K * p_neg
+
+        def scale(e):
+            c = np.maximum(e, 1.0)
+            s = np.minimum(c, max(float(cfg.row_update_cap), 1.0)) / c
+            return torch.from_numpy(s.astype(np.float32)).to(self.device)
+
+        self._static_scale_in, self._static_scale_out = scale(e_in), \
+            scale(e_out)
+
+    def draw(self, n_steps: int) -> Dict[str, torch.Tensor]:
+        """The random draws of one ``train_device_steps(n_steps)`` call,
+        from the model's generator, on its device: the window choice
+        ``dsel`` ``[S, M]`` (shifted-copy index 0..2W-1, the reference's
+        random window shrink), the subsampling uniforms ``u_center`` and
+        ``u_ctx`` ``[S, M]``, and the negatives ``negs`` ``[S, B/G, K]``
+        (pool slices, or exact alias draws when ``neg_pool_size`` is 0)."""
+        cfg = self.config
+        W, B, K = cfg.window, cfg.batch_size, cfg.negative
+        G = max(int(cfg.shared_negatives), 1)
+        S, M = n_steps, self._candidate_batch(self._corpus_len)
+        g, dev = self._gen, self.device
+        shape = (S, M)
+        shrink = torch.randint(1, W + 1, shape, generator=g, device=dev,
+                               dtype=torch.int32)
+        dmag = torch.minimum(
+            torch.randint(1, W + 1, shape, generator=g, device=dev,
+                          dtype=torch.int32), shrink)
+        forward = torch.rand(shape, generator=g, device=dev) < 0.5
+        # window offset -W..W (excl 0) -> shifted-copy index 0..2W-1
+        dsel = torch.where(forward, W + dmag - 1, W - dmag)
+        u_ctx = torch.rand(shape, generator=g, device=dev)
+        u_center = torch.rand(shape, generator=g, device=dev)
+        n_rows = B // G
+        if cfg.neg_pool_size > 0:
+            pool = self._ensure_neg_pool(S * n_rows * K)
+            negs = pool_negatives(g, pool, (S, n_rows, K))
+        else:
+            negs = sample_negatives(g, self._packed_alias, (S, n_rows, K))
+        return {"dsel": dsel, "u_center": u_center, "u_ctx": u_ctx,
+                "negs": negs}
+
+    def _compact(self, ok: torch.Tensor, n_valid: torch.Tensor, B: int,
+                 *arrays: torch.Tensor):
+        """Pack the ``ok`` rows of each ``[M]`` array into ``[B]``: slot b
+        takes the row whose inclusive survivor count first reaches b+1,
+        slots past ``n_valid`` are zero (JAX's ``compact_impl="scatter"``).
+        Rejected and overflow rows go to a dropped slot ``B``."""
+        rank = torch.cumsum(ok.to(torch.int32), 0) - 1
+        dest = torch.where(ok & (rank < B), rank,
+                           torch.full_like(rank, B))
+        packed = []
+        for a in arrays:
+            buf = torch.zeros((B + 1,) + tuple(a.shape[1:]), dtype=a.dtype,
+                              device=a.device)
+            packed.append(buf.index_copy_(0, dest, a)[:B])
+        valid = torch.arange(B, device=ok.device) < n_valid
+        return tuple(packed) + (valid,)
+
+    def _sample_sg(self, start: int, M: int, dsel, u_center, u_ctx):
+        """One step's skip-gram batch from the candidate slab at ``start``:
+        centers are the next M corpus positions, each context the position
+        ``dsel`` picks in its window; window, sentence and subsampling
+        tests reject candidates, and the survivors are compacted into a
+        dense ``[B]`` batch with a validity mask."""
+        cfg = self.config
+        W, B = cfg.window, cfg.batch_size
+        ext_ids, ext_sents, ext_disc = self._ext_bufs
+        L = M + 2 * W
+        buf = ext_ids[start:start + L]
+        sbuf = ext_sents[start:start + L]
+        dbuf = ext_disc[start:start + L]
+        centers, csent, cdisc = buf[W:W + M], sbuf[W:W + M], dbuf[W:W + M]
+        pos = W + self._ctx_offsets[dsel.long()] + torch.arange(
+            M, device=buf.device)
+        contexts, xsent, xdisc = buf[pos], sbuf[pos], dbuf[pos]
+        ok = (xsent == csent) & (u_center >= cdisc) & (u_ctx >= xdisc)
+        if M > B:
+            n_valid = torch.clamp(ok.sum(), max=B)
+            centers, contexts, ok = self._compact(ok, n_valid, B, centers,
+                                                  contexts)
+        return centers, contexts, ok.to(torch.float32)
+
+    def train_device_steps(self, n_steps: int,
+                           draws: Optional[Dict[str, Any]] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Run ``n_steps`` sample+train iterations over the loaded corpus
+        chunk. ``draws`` (see :meth:`draw`) replaces the model generator's
+        draws. Returns ``(mean_loss, pairs_trained)`` as device scalars."""
+        if not hasattr(self, "_ext_bufs"):
+            Log.fatal("call load_corpus_chunk() before train_device_steps()")
+        cfg = self.config
+        n = self._corpus_len
+        M = self._candidate_batch(n)
+        if draws is None:
+            draws = self.draw(n_steps)
+        draws = {k: (v if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(np.array(v))).to(self.device)
+                 for k, v in draws.items()}
+        lr = _f32(self.current_lr())
+        start0 = self._stream_pos % n
+        self._stream_pos = (start0 + n_steps * M) % n
+        losses, counts = [], []
+        with self.input_table._lock, self.output_table._lock:
+            w_in, w_out = self.input_table._data, self.output_table._data
+            for s in range(n_steps):
+                c, t, m = self._sample_sg((start0 + s * M) % n, M,
+                                          draws["dsel"][s],
+                                          draws["u_center"][s],
+                                          draws["u_ctx"][s])
+                losses.append(self._raw_step(w_in, w_out, c, t, m, lr,
+                                             draws["negs"][s]))
+                counts.append(m.sum())
+            self.input_table.version += 1
+            self.output_table.version += 1
+        # lr decay bookkeeping without a sync: the expected valid fraction
+        self._words_trained += self._pairs_to_words(
+            n_steps * cfg.batch_size * 0.5)
+        return torch.stack(losses).mean(), torch.stack(counts).sum()
+
+
+def _refuse_unported(cfg: Word2VecConfig, huffman: Any) -> None:
+    """Every option of the JAX config that this port does not run is an
+    error naming the slice that will bring it (ROADMAP.md Queue 1)."""
+    refused = []
+    if cfg.cbow:
+        refused.append("cbow=True (CBOW)")
+    if cfg.hs or huffman is not None:
+        refused.append("hs=True (hierarchical softmax)")
+    if cfg.use_adagrad:
+        refused.append("use_adagrad=True (AdaGrad model state)")
+    if cfg.update_impl in ("segsum", "split8"):
+        refused.append(f"update_impl={cfg.update_impl!r}")
+    if cfg.compact_impl == "gather":
+        refused.append("compact_impl='gather'")
+    if refused:
+        Log.fatal("word2vec: " + ", ".join(refused) + " not ported to "
+                  "multiverso_tpu_torch yet (the word2vec completion slice, "
+                  "ROADMAP.md Queue 1)")
+    if cfg.update_impl != "scatter":
+        Log.fatal(f"unknown update_impl {cfg.update_impl!r} "
+                  f"(scatter|segsum|split8)")
+    if cfg.compact_impl != "scatter":
+        Log.fatal(f"unknown compact_impl {cfg.compact_impl!r} "
+                  f"(gather|scatter)")

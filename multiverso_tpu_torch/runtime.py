@@ -2,11 +2,11 @@
 
 Counterpart of ``multiverso_tpu.runtime.Session`` and
 ``multiverso_tpu.topology`` for the PyTorch port. The JAX session
-discovers a device mesh and owns the table registry; this slice of the
-port serves one model from one process, so the session reduces to flag
-parsing, the device choice, the serving registry and lifecycle. Rank and
-size are 0 and 1 and the barrier is a no-op until the distributed paths
-are ported.
+discovers a device mesh; this port runs one process on one device, so
+the session reduces to flag parsing, the device choice, the table and
+serving registries, the process role and lifecycle. Rank and size are 0
+and 1, there is one worker and one server, the barrier is a no-op and
+``aggregate`` is the identity until the distributed paths are ported.
 
 The device comes from ``-device`` (default ``cuda``). A CUDA request on a
 host without a CUDA device is a :class:`~.log.FatalError`: the session
@@ -18,6 +18,7 @@ from __future__ import annotations
 import threading
 from typing import Any, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import config
@@ -29,6 +30,10 @@ from .log import Log
 _UNPORTED_FLAGS = {"wal": False, "obs_plane": False, "metrics_jsonl": "",
                    "lockwatch": False, "failure_timeout_s": 0.0,
                    "mesh_shape": ""}
+
+_ROLE_NONE, _ROLE_WORKER, _ROLE_SERVER, _ROLE_ALL = 0, 1, 2, 3
+_ROLES = {"none": _ROLE_NONE, "worker": _ROLE_WORKER,
+          "server": _ROLE_SERVER, "default": _ROLE_ALL, "all": _ROLE_ALL}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -52,7 +57,9 @@ class Session:
 
     def __init__(self) -> None:
         self.device: Optional[torch.device] = None
+        self.tables: List[Any] = []   # parameter tables, by table id
         self.servers: List[Any] = []  # serving.InferenceServer registry
+        self.role: int = _ROLE_ALL
         self.started = False
 
     @classmethod
@@ -76,6 +83,7 @@ class Session:
                     Log.fatal(f"-{flag} is not ported to multiverso_tpu_torch "
                               f"yet (got {config.get_flag(flag)!r})")
             self.device = resolve_device(config.get_flag("device"))
+            self.role = _ROLES.get(config.get_flag("ps_role"), _ROLE_ALL)
             if config.get_flag("trace"):
                 from . import trace
 
@@ -97,12 +105,26 @@ class Session:
                 return
             self.started = False
             servers, self.servers = self.servers, []
+            tables, self.tables = self.tables, []
+        # serving drains first: in-flight replies read tables
         for srv in servers:
             try:
                 srv.stop()
             except Exception as exc:
                 Log.error("serving shutdown failed: %s", exc)
+        for table in tables:
+            table.flush()
         Dashboard.display()
+
+    def register_table(self, table: Any) -> int:
+        """Assign the next table id (``Zoo::RegisterTable``)."""
+        with self._lock:
+            self._require_started()
+            self.tables.append(table)
+            return len(self.tables) - 1
+
+    def table(self, table_id: int) -> Any:
+        return self.tables[table_id]
 
     def register_server(self, server: Any) -> None:
         with self._lock:
@@ -126,3 +148,35 @@ class Session:
 
     def barrier(self) -> None:
         self._require_started()
+
+    @property
+    def num_workers(self) -> int:
+        self._require_started()
+        return 1
+
+    @property
+    def num_servers(self) -> int:
+        self._require_started()
+        return 1
+
+    @property
+    def worker_id(self) -> int:
+        self._require_started()
+        return 0 if self.role & _ROLE_WORKER else -1
+
+    @property
+    def server_id(self) -> int:
+        self._require_started()
+        return 0 if self.role & _ROLE_SERVER else -1
+
+    def is_worker(self) -> bool:
+        return bool(self.role & _ROLE_WORKER)
+
+    def is_server(self) -> bool:
+        return bool(self.role & _ROLE_SERVER)
+
+    def aggregate(self, data: np.ndarray) -> np.ndarray:
+        """``MV_Aggregate``: the in-place sum of a host buffer over all
+        processes, which is the buffer itself in one process."""
+        self._require_started()
+        return data

@@ -32,7 +32,7 @@ def _params(seed=0):
     jcfg, tcfg = _cfgs(seed=seed)
     jparams = jtf.init_params(jcfg)
     host = jax.tree.map(np.asarray, jparams)
-    return jparams, ttf.params_from_jax(host)
+    return jparams, ttf.params_from_jax(host, device="cpu")
 
 
 def _prompts(lengths, P, seed):
@@ -52,7 +52,7 @@ def _assert_gaps(logits: np.ndarray):
 def test_init_params_match_jax():
     jparams, from_jax = _params(seed=3)
     _, tcfg = _cfgs(seed=3)
-    mine = ttf.init_params(tcfg)
+    mine = ttf.init_params(tcfg, device="cpu")
     flat_j = jax.tree_util.tree_leaves_with_path(jparams)
     assert len(flat_j) == 11
     for key in ("embed", "pos", "ln_f_g"):
@@ -174,3 +174,28 @@ def test_cache_insert_row_zero_wins():
     ttf.cache_insert(kc, vc, [2, 0, 2], ks, ks.clone())
     assert torch.all(kc[0, 2, :4] == 1) and torch.all(kc[0, 0, :4] == 2)
     assert torch.all(kc[0, 1] == 0) and torch.all(kc[0, :, 4:] == 0)
+
+
+def test_params_default_to_the_session_device():
+    """``init_params`` / ``params_from_jax`` run on the session's device (the
+    card unless ``-device=cpu``); with no session and no device they
+    refuse instead of quietly choosing the CPU."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.log import FatalError
+    from multiverso_tpu_torch.runtime import Session
+
+    _, tcfg = _cfgs()
+    host = jax.tree.map(np.asarray, jtf.init_params(_cfgs()[0]))
+    Session._instance = None
+    try:
+        with pytest.raises(FatalError, match="device="):
+            ttf.init_params(tcfg)
+        with pytest.raises(FatalError, match="device="):
+            ttf.params_from_jax(host)
+        mv.init(["test", "-device=cpu"])
+        assert ttf.init_params(tcfg)["embed"].device.type == "cpu"
+        assert ttf.params_from_jax(host)["pos"].device.type == "cpu"
+        mv.shutdown()
+    finally:
+        Session._instance = None
+        mv.set_flag("device", "cuda")
