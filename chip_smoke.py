@@ -59,6 +59,41 @@ Phases, each printed on its own line:
    inside a call); then a torch.profiler top-10 of one call by device
    time.
 
+Phases 7-9 run after phase 3:
+
+7. the flash backward kernels against their plain version on the card:
+   bf16 causal at the training path's shapes (B 8 x S 1024, the one-pass
+   kernel; B 4 x S 2048, the dq and dk/dv passes), f32, non-causal,
+   ragged, cross lengths and offset partials (flash_attention_partial_bwd
+   with rows the causal mask leaves with no key, whose dq must be 0);
+   dq, dk and dv each within 2e-3 (bf16) / 2e-5 (f32) of max |plain|, and
+   each one zeroed must fail that check. Each case prints the kernel's
+   time, the plain version's, the backward of torch's
+   scaled_dot_product_attention at the same shapes (a yardstick the port
+   never calls) and the least time the card could take (max of 5 products
+   x 2 D flops per live (row, key) pair over 989 TFLOP/s, or 67 in f32,
+   and q, k, v, g, lse, delta read and dq, dk, dv written once over 3.35
+   TB/s); the path cases also time each pass alone;
+8. one full-width f32 loss_fn gradient of the flagship through the
+   kernels (attention="flash_force", seq 1024 x 2 and 2048 x 1) against
+   the same gradient through reference attention: each parameter's
+   relative error norm within 1e-3; the gradient with the attention
+   gradient zeroed must fail it;
+9. the training slice at lr 0.003 (the app's default 0.1 diverges at
+   this width, see LM_LR): apps.lm.main (f32, its default dtype) for 3
+   steps at each configuration, then the flagship in bf16
+   (attention="flash", momentum 0.9, max_seq = seq as the app sets it)
+   for 2 warm and 10
+   timed train_batch steps on the app's batches of the checkout's own
+   multiverso_tpu/**/*.py and *.md bytes, at seq 1024 x batch 8 and seq
+   2048 x batch 4; the loss must be finite and its mean over the last 3
+   steps 0.1 below the first step's; every backward kernel and both
+   forward regimes must have been launched by the run; one step runs
+   with torch.cuda.set_sync_debug_mode("error") (no host sync); prints ms
+   per step, tokens/s, the share of 989 TFLOP/s by tools/lm_mfu.py's FLOP
+   count and a torch.profiler top-10 of one step with the device busy
+   share.
+
 The line before the last is a JSON object with one entry per kernel
 regime; the last line is {"ok": true, "device": {...}}. Any failure exits
 nonzero before either line is printed. Without a CUDA device, or without
@@ -99,6 +134,53 @@ W2V_SRC = {"row_gather": "multiverso_tpu_torch/csrc/row_gather.cu",
            "row_scatter_add": "multiverso_tpu_torch/csrc/row_scatter_add.cu"}
 PROBE = "tools/w2v_kernel_probe.py"
 DEV = torch.device("cuda")
+FB_SRC = "multiverso_tpu_torch/csrc/flash_bwd.cu"
+# the Pallas backward kernels (multiverso_tpu/ops/flash_attention.py)
+FB_JAX_LINES = {"fused": 469, "dq": 350, "dkv": 409}
+# products of 2 * D flops per live (row, key) pair that each function needs
+FB_PRODUCTS = {"fused": 5, "dq": 3, "dkv": 4}
+# kernel vs plain, per output: max |diff| <= tol x max |plain|. The two sum
+# in other orders, which flips the bf16 rounding of a few p / ds values:
+# ~1e-4 of the largest gradient in bf16 and ~1e-6 in f32 (two summation
+# orders on the CPU, B 1 x H 2 x S 1024); the tolerances leave 20x.
+FB_TOL = {torch.bfloat16: 2e-3, torch.float32: 2e-5}
+_BF, _F32 = torch.bfloat16, torch.float32
+FB_CASES = (  # B, sq, sk, dtype, causal, q_base, k_base
+    (8, 1024, 1024, _BF, True, 0, 0),     # the path: one pass
+    (4, 2048, 2048, _BF, True, 0, 0),     # the path: dq + dk/dv passes
+    (8, 1024, 1024, _F32, True, 0, 0),
+    (4, 2048, 2048, _F32, True, 0, 0),
+    (8, 1024, 1024, _BF, False, 0, 0),
+    (2, 2048, 2048, _F32, False, 0, 0),
+    (2, 1000, 1000, _BF, True, 0, 0),     # ragged
+    (2, 1500, 1500, _BF, True, 0, 0),
+    (2, 512, 1536, _BF, True, 0, 0),      # cross lengths
+    (2, 300, 700, _F32, False, 0, 0),
+    # offset partials: rows 0..511 (and 0..1023) see no key
+    (8, 768, 768, _BF, True, 0, 512),
+    (8, 768, 768, _BF, True, 768, 0),
+    (2, 1536, 1536, _F32, True, 0, 1024),
+)
+# the training slice: (seq, batch) of tools/lm_mfu.py:97-103, ~8k tokens
+LM_TRAIN = ((1024, 8), (2048, 4))
+# the full-width f32 gradient check: (seq, batch), one per regime
+GRAD_CASES = ((1024, 2), (2048, 1))
+LM_APP_STEPS, LM_WARM, LM_TIMED = 3, 2, 10
+# the app's default lr 0.1 (momentum 0.9) diverges at this width: on an
+# H100 80GB HBM3 (700 W) this phase went 6.12 -> 48.39 in 12 bf16 steps
+# and the f32 app 6.12 -> 13.60 in 3, and the JAX reference rises step
+# for step with the port at d_model 768 (tests/test_torch_lm_training.py);
+# the slice trains at a lower lr, momentum 0.9 as the app's
+LM_LR = 0.003
+# the loss must fall: the mean of the last 3 timed steps below the first
+# step's loss by at least this much (nats), set before the first run
+LM_LOSS_DROP = 0.1
+# full-width f32 gradient, flash kernels vs reference attention: each
+# parameter's ||g_flash - g_ref|| / ||g_ref||. The two attentions sum in
+# other orders in f32 (~1e-6 relative); twelve layers of backward carry
+# that into every gradient; 1e-3 leaves a wide margin and is far below
+# the ~1 that a lost attention gradient gives
+GRAD_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -346,6 +428,330 @@ def phase_slice(card: str):
         fail(f"{mismatches} outputs differ from greedy_decode")
     mv.shutdown()
     return {"short": short, "long": long_}
+
+
+def _fa():
+    return importlib.import_module("multiverso_tpu_torch.ops.flash_attention")
+
+
+def bwd_bound_ms(kind: str, B, H, D, sq, sk, causal, q_base, k_base,
+                 item: int, dtype):
+    """The least time of backward function ``kind`` (module docstring)."""
+    pairs = live_pairs(sq, sk, causal, q_base, k_base)
+    flops = FB_PRODUCTS[kind] * 2.0 * D * B * H * pairs
+    reads = 2 * (B * sq * H * D + B * sk * H * D) * item + 2 * B * H * sq * 4
+    writes = 4 * (B * sq * H * D * (kind != "dkv")
+                  + 2 * B * sk * H * D * (kind != "dq"))
+    peak = TFLOPS_BF16 if dtype == torch.bfloat16 else TFLOPS_F32
+    t_ops, t_bytes = flops / peak, (reads + writes) / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def bwd_errors(got, ref):
+    """Per output (dq, dk, dv): max |got - ref| / max |ref|."""
+    return [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+            for a, b in zip(got, ref)]
+
+
+def phase_bwd_kernels():
+    """The flash backward kernels against their plain version on the card
+    (module docstring, phase 7)."""
+    import torch.nn.functional as F
+
+    fa = _fa()
+    H, D = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    results = {}
+    for B, sq, sk, dt, causal, qb, kb in FB_CASES:
+        q, g = (torch.randn((B, sq, H, D), generator=gen).to(DEV, dt)
+                for _ in range(2))
+        k, v = (torch.randn((B, sk, H, D), generator=gen).to(DEV, dt)
+                for _ in range(2))
+        scale = 1.0 / D ** 0.5
+        # the rows' statistics from the forward kernel, as a caller has them
+        acc, m, l = fa._fa_cuda(q, k, v, qb, kb, causal=causal, scale=scale,
+                                normalize=False)
+        lse = m + torch.log(torch.clamp(l, min=1e-20))
+        out = acc / torch.clamp(l, min=1e-20).transpose(1, 2)[..., None]
+        delta = torch.einsum("bshd,bshd->bhs", g.float(), out).contiguous()
+        args = (q, k, v, g, lse, delta, qb, kb)
+        kw = dict(causal=causal, scale=scale)
+        kinds = fa.bwd_kernels(sk)
+        got = fa._bwd_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        ref = fa._bwd_plain(*args, **kw)
+        errs = bwd_errors(got, ref)
+        tol = FB_TOL[dt]
+        tag = (f"B={B} sq={sq} sk={sk} {str(dt).split('.')[-1]} "
+               f"causal={int(causal)} offs=({qb},{kb}) {'+'.join(kinds)}")
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
+        if not (finite and max(errs) <= tol):
+            fail(f"flash_bwd vs plain {tag}: max_abs_err / max|ref| of dq, "
+                 f"dk, dv {errs} (tolerance {tol}), finite {finite}")
+        dead = max(0, min(sq, kb - qb)) if causal else 0
+        if dead and bool((got[0][:, :dead] != 0).any()):
+            fail(f"flash_bwd {tag}: rows with no live key have dq != 0")
+        # negative controls: each output zeroed must fail the same check
+        for i, name in enumerate(("dq", "dk", "dv")):
+            zeroed = list(got)
+            zeroed[i] = torch.zeros_like(got[i])
+            if not bwd_errors(zeroed, ref)[i] > tol:
+                fail(f"flash_bwd {tag}: negative control: a zero {name} "
+                     f"passes the check")
+        ms = time_ms(lambda: fa._bwd_cuda(*args, **kw))
+        plain_ms = time_ms(lambda: fa._bwd_plain(*args, **kw))
+        lib_ms = None
+        if qb == kb == 0:
+            # the library's backward at the same shapes (the port never
+            # calls it): autograd of scaled_dot_product_attention
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            ot = F.scaled_dot_product_attention(qt, kt, vt,
+                                                is_causal=causal,
+                                                scale=scale)
+            gt = g.transpose(1, 2).contiguous()
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), gt, retain_graph=True))
+            del qt, kt, vt, ot, gt
+        item = q.element_size()
+        bound, by = bwd_bound_ms("fused", B, H, D, sq, sk, causal, qb, kb,
+                                 item, dt)
+        r = dict(max_abs_err=max(e * b.abs().max().item()
+                                 for e, b in zip(errs, ref)),
+                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 library_ms=lib_ms)
+        line = (f"kernel flash_bwd {tag}: err/max dq {errs[0]:.2e} dk "
+                f"{errs[1]:.2e} dv {errs[2]:.2e} (tol {tol}; each zeroed "
+                f"fails), ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                f"{fmt(lib_ms)} bound_ms {bound:.4f} ({by})")
+        path = (dt == bf and causal and qb == kb == 0 and sq == sk
+                and (sq, B) in LM_TRAIN)
+        if path and kinds == ("fused",):
+            results["fused"] = r
+        if path and len(kinds) == 2:
+            # each pass alone, for the kernels line
+            dq, dk, dv = (torch.empty_like(x) for x in got)
+            for kind, plain_kinds in (("dq", ("dq",)), ("dkv", ("dkv",))):
+                k_ms = time_ms(lambda: fa._launch_bwd(
+                    kind, *args[:6], dq, dk, dv, qb, kb, **kw))
+                p_ms = time_ms(lambda: fa._bwd_plain(
+                    *args, **kw, kinds=plain_kinds))
+                b_ms, b_by = bwd_bound_ms(kind, B, H, D, sq, sk, causal, qb,
+                                          kb, item, dt)
+                results[kind] = dict(
+                    max_abs_err=r["max_abs_err"], ms=k_ms, plain_ms=p_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    library_ms_of_backward=lib_ms)
+                line += (f"; {kind} alone ms {k_ms:.4f} plain_ms "
+                         f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+            del dq, dk, dv
+        say(line)
+        del q, k, v, g, acc, m, l, out, lse, delta, got, ref, args
+        torch.cuda.empty_cache()
+    return results
+
+
+def _leaf_grads(cfg, params, toks):
+    from multiverso_tpu_torch.models import transformer as tf
+
+    leaves = [w.requires_grad_() for w in tf._leaves(params)]
+    loss = tf.loss_fn(cfg, params, toks)
+    return loss, torch.autograd.grad(loss, leaves)
+
+
+def phase_grad_check():
+    """One full-width f32 loss_fn gradient through the backward kernels
+    against the same gradient through reference attention (module
+    docstring, phase 8)."""
+    from multiverso_tpu_torch.models import transformer as tf
+
+    fa = _fa()
+    names = None
+    out = {}
+    for seq, batch in GRAD_CASES:
+        dims = dict(FLAGSHIP, max_seq=seq)
+        cfg = tf.TransformerConfig(**dims, attention="flash_force")
+        ref_cfg = tf.TransformerConfig(**dims, attention="reference")
+        params = tf.init_params(cfg, device=DEV)
+        names = [f"{k}.{n}" if isinstance(v, dict) else k
+                 for k, v in params.items()
+                 for n in (v if isinstance(v, dict) else [None])]
+        toks = torch.from_numpy(np.random.default_rng(seq).integers(
+            0, cfg.vocab_size, (batch, seq + 1))).to(DEV)
+        fa.reset_launches()
+        loss, g_flash = _leaf_grads(cfg, params, toks)
+        launched = dict(fa.BWD_LAUNCHES)
+        ref_loss, g_ref = _leaf_grads(ref_cfg, params, toks)
+        rel = [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+               for a, b in zip(g_flash, g_ref)]
+        # the no-op control: the same gradient with the attention
+        # gradient zeroed must fail the check
+        bwd_call = fa._bwd_call
+        fa._bwd_call = lambda q, k, v, *a, **kw: tuple(
+            torch.zeros(t.shape, device=t.device) for t in (q, k, v))
+        try:
+            _, g_zero = _leaf_grads(cfg, params, toks)
+        finally:
+            fa._bwd_call = bwd_call
+        ctl = [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+               for a, b in zip(g_zero, g_ref)]
+        worst = int(np.argmax(rel))
+        kinds = fa.bwd_kernels(seq)
+        say(f"grad check f32 seq {seq} batch {batch}: loss flash "
+            f"{loss.item():.6f} reference {ref_loss.item():.6f}; worst "
+            f"relative error norm {rel[worst]:.3e} ({names[worst]}; "
+            f"tolerance {GRAD_TOL}); attention gradient zeroed: max "
+            f"{max(ctl):.3e}; backward launches {json.dumps(launched)}")
+        if not (max(rel) <= GRAD_TOL and abs(loss.item() - ref_loss.item())
+                <= 1e-4):
+            fail(f"grad check seq {seq}: relative error norms "
+                 f"{dict(zip(names, rel))}")
+        if not max(ctl) > GRAD_TOL:
+            fail(f"grad check seq {seq}: negative control: a zero "
+                 f"attention gradient passes ({max(ctl)})")
+        if any(launched[k] <= 0 for k in kinds):
+            fail(f"grad check seq {seq}: kernels {kinds} not launched: "
+                 f"{launched}")
+        out[seq] = max(rel)
+        del params, g_flash, g_ref, g_zero
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_corpus() -> str:
+    """The bytes of the checkout's own multiverso_tpu/**/*.py and *.md
+    files, concatenated into build/ (real text already on the machine)."""
+    src = os.path.join(HERE, "multiverso_tpu")
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(src)
+                   for f in fs if f.endswith((".py", ".md")))
+    path = os.path.join(HERE, "build", "lm_corpus.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as out:
+        for f in files:
+            with open(f, "rb") as fh:
+                out.write(fh.read())
+    return path
+
+
+def train_flops_per_step(d_model, n_layers, d_ff, vocab, batch, seq):
+    """tools/lm_mfu.py:37-42's count: 6 x the matmul parameters a token
+    plus causal attention, 3 x the forward's."""
+    n_matmul = n_layers * (4 * d_model * d_model + 2 * d_model * d_ff) \
+        + d_model * vocab
+    per_token = 6 * n_matmul + 3 * 4 * (seq / 2) * d_model * n_layers
+    return per_token * batch * seq
+
+
+def profile_window(fn):
+    """One call of ``fn`` under torch.profiler: (wall ms with the profiler
+    on, device busy ms, top-10 table by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(avg[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    # device busy time: the device-side events (kernels, copies) only; the
+    # ops that launch them carry the same time again
+    busy_us = sum(getattr(e, key) for e in avg
+                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return wall * 1e3, busy_us / 1e3, avg.table(sort_by=key, row_limit=10)
+
+
+def phase_lm_train(card: str):
+    """The training slice (module docstring, phase 9)."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.apps import lm as app
+    from multiverso_tpu_torch.models import transformer as tf
+
+    fa = _fa()
+    corpus = lm_corpus()
+    data = app.load_bytes(corpus)
+    say(f"lm corpus: {data.shape[0]} bytes of multiverso_tpu/**/*.py, *.md")
+    torch.cuda.synchronize()
+    fa.reset_launches()       # the main path: counts to 0 just before
+    runs = {}
+    for seq, batch in LM_TRAIN:
+        t0 = time.perf_counter()
+        widths = [f"-{k}" if i == 0 else str(FLAGSHIP[k])
+                  for k in ("d_model", "n_layers", "n_heads", "d_ff")
+                  for i in range(2)]
+        rc = app.main(["-train_file", corpus, *widths, "-seq", str(seq),
+                       "-batch", str(batch), "-steps", str(LM_APP_STEPS),
+                       "-lr", str(LM_LR), "-log_every", "1", "-sample", "8",
+                       "-device=cuda"])
+        torch.cuda.synchronize()
+        if rc != 0:
+            fail(f"apps.lm.main at seq {seq} returned {rc}")
+        say(f"lm app: main -seq {seq} -batch {batch} -steps {LM_APP_STEPS} "
+            f"-lr {LM_LR} -sample 8 (f32, the app's default dtype) ran in "
+            f"{time.perf_counter() - t0:.1f} s")
+        mv.init(["chip_smoke", "-device=cuda"])
+        cfg = tf.TransformerConfig(**dict(FLAGSHIP, max_seq=seq),
+                                   dtype=torch.bfloat16, attention="flash",
+                                   learning_rate=LM_LR, momentum=0.9)
+        lm = tf.TransformerLM(cfg)
+        gen = app.batches(data, batch, seq, seed=0)
+        losses = [lm.train_batch(next(gen)) for _ in range(LM_WARM)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [lm.train_batch(next(gen)) for _ in range(LM_TIMED)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / LM_TIMED * 1e3
+        losses = [float(x) for x in losses]
+        # no host sync inside a step: any synchronizing CUDA call raises
+        batch_np = next(gen)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lm.train_batch(batch_np)
+        except RuntimeError as exc:
+            fail(f"train_batch synchronized with the host: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        wall_ms, busy_ms, table = profile_window(
+            lambda: lm.train_batch(next(gen)))
+        flops = train_flops_per_step(
+            FLAGSHIP["d_model"], FLAGSHIP["n_layers"], FLAGSHIP["d_ff"],
+            FLAGSHIP["vocab_size"], batch, seq)
+        tok_s = batch * seq / (step_ms / 1e3)
+        say(f"lm train seq {seq} batch {batch} bf16 attention=flash lr "
+            f"{LM_LR} momentum 0.9: {step_ms:.3f} ms/step, {tok_s:.1f} tok/s, "
+            f"{flops / (step_ms / 1e3) / TFLOPS_BF16:.4f} of 989 TFLOP/s "
+            f"(tools/lm_mfu.py FLOPs {flops:.4e}/step); losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)}; one step ran with "
+            f"set_sync_debug_mode('error'), no host sync; card {card}")
+        say(f"lm profile of one step: wall {wall_ms:.3f} ms (profiler on), "
+            f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of "
+            f"wall); top 10 by device time:\n{table}")
+        if not (np.all(np.isfinite(losses)) and np.mean(losses[-3:])
+                < losses[0] - LM_LOSS_DROP):
+            fail(f"lm loss at seq {seq} not finite and falling by "
+                 f"{LM_LOSS_DROP}: {losses}")
+        runs[seq] = dict(step_ms=step_ms, tok_s=tok_s, losses=losses)
+        mv.shutdown()
+        del lm
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = dict(fa.BWD_LAUNCHES)
+    by_len = dict(fa.LAUNCHES_BY_KEY_LEN)
+    fwd_short = sum(n for sk, n in by_len.items() if sk <= 1024)
+    fwd_long = sum(n for sk, n in by_len.items() if sk > 1024)
+    say(f"lm train launches: backward {json.dumps(launches)}, forward key "
+        f"len <= 1024: {fwd_short}, > 1024: {fwd_long} (by key len "
+        f"{json.dumps(by_len, sort_keys=True)})")
+    if min(launches.values()) <= 0 or fwd_short <= 0 or fwd_long <= 0:
+        fail(f"the training run did not launch every backward kernel and "
+             f"both forward regimes: {launches}, {by_len}")
+    return launches
 
 
 def zipf_ids(rng, vocab: int, n: int) -> np.ndarray:
@@ -744,26 +1150,11 @@ def phase_w2v_slice(card: str):
     say(f"w2v sync check: one {W2V_STEPS}-step call ran with "
         f"set_sync_debug_mode('error'), no host sync")
     # where one call's device time goes
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        loss, _ = model.train_device_steps(W2V_STEPS)
-        float(loss)
-        wall = time.perf_counter() - t0
-    avg = prof.key_averages()
-    key = ("self_device_time_total"
-           if hasattr(avg[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    # device busy time: the device-side events (kernels, copies) only; the
-    # ops that launch them carry the same time again
-    busy_us = sum(getattr(e, key) for e in avg
-                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    table = avg.table(sort_by=key, row_limit=10)
-    say(f"w2v profile of one {W2V_STEPS}-step call: wall {wall * 1e3:.3f} "
-        f"ms (profiler on), device busy {busy_us / 1e3:.3f} ms "
-        f"({busy_us / 1e3 / (wall * 1e3):.3f} of wall); top 10 by device "
+    wall_ms, busy_ms, table = profile_window(
+        lambda: float(model.train_device_steps(W2V_STEPS)[0]))
+    say(f"w2v profile of one {W2V_STEPS}-step call: wall {wall_ms:.3f} "
+        f"ms (profiler on), device busy {busy_ms:.3f} ms "
+        f"({busy_ms / wall_ms:.3f} of wall); top 10 by device "
         f"time:\n{table}")
     return {"launches": launches, "pairs_per_sec": res["pairs_per_sec"]}
 
@@ -772,7 +1163,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_device()
-    kernels_line = lm_phases(card)
+    kernels_line = lm_phases(card) + lm_train_phases(card)
     wk = phase_w2v_kernels()
     import multiverso_tpu_torch as mv
 
@@ -818,6 +1209,20 @@ def lm_phases(card: str):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     return kernels_line
+
+
+def lm_train_phases(card: str):
+    """Phases 7-9; the kernels line's entries of the backward kernels."""
+    results = phase_bwd_kernels()
+    phase_grad_check()
+    launches = phase_lm_train(card)
+    entries = []
+    for kind in ("fused", "dq", "dkv"):
+        entries.append({
+            "name": f"flash_bwd[{kind}]", "route": "cuda", "source": FB_SRC,
+            "replaces": f"{FA_JAX}:{FB_JAX_LINES[kind]}",
+            "launches": launches[kind], **results[kind]})
+    return entries
 
 
 if __name__ == "__main__":

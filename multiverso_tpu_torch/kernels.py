@@ -27,6 +27,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # kernel library name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "flash_fwd": "flash_fwd.cu",
+    "flash_bwd": "flash_bwd.cu",
     "row_gather": "row_gather.cu",
     "row_scatter_add": "row_scatter_add.cu",
 }

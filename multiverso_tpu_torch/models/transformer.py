@@ -1,16 +1,20 @@
-"""Transformer language model: the serving math of the flagship LM.
+"""Transformer language model: the flagship LM's training and serving math.
 
 Counterpart of ``multiverso_tpu/models/transformer.py`` for the serving
-slice: the config, the random parameters (drawn from the same numpy
-stream, so one seed gives the same weights in both packages), the causal
-prefill, the one-token decode step over a slotted KV cache, the cache
-insert, the greedy decode oracle, and the serving surface of
-:class:`TransformerLM`. Training comes with a later slice.
+and training slices: the config, the random parameters (drawn from the
+same numpy stream, so one seed gives the same weights in both packages),
+the training ``forward`` and ``loss_fn``, the causal prefill, the
+one-token decode step over a slotted KV cache, the cache insert, the
+greedy decode oracle, and :class:`TransformerLM` (one-device momentum-SGD
+trainer and serving surface). The JAX trainer's mesh (dp batches, tp
+weights) belongs to the distributed paths.
 
 Pre-LN, learned positions, tied input/output embeddings. Parameters are a
 plain dict of tensors with per-layer weights stacked on dim 0, the JAX
 pytree's layout. Where the JAX functions return updated caches, these
-update the cache tensors in place and return them.
+update the cache tensors in place and return them. The serving functions
+run under ``torch.no_grad()``: parameters that require grad (a trainer's)
+build no autograd graph there.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from __future__ import annotations
 import math
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +37,7 @@ _LAYER_KEYS = ("ln1_g", "ln2_g", "w_q", "w_k", "w_v", "w_o", "w_ff1",
 
 @dataclass
 class TransformerConfig:
-    """The JAX config's serving fields; the training fields
-    (``learning_rate``, ``momentum``, ``scan_layers``) come with the
-    training slice."""
+    """The JAX config's fields, in its order."""
 
     vocab_size: int
     d_model: int = 128
@@ -44,7 +46,12 @@ class TransformerConfig:
     d_ff: int = 512
     max_seq: int = 256
     dtype: Any = torch.float32
+    learning_rate: float = 0.1
+    momentum: float = 0.9
     seed: int = 0
+    # a JAX compile knob (scan over the layer stack); PyTorch runs the
+    # layers eagerly, so either value computes the same thing here
+    scan_layers: bool = False
     # attention implementation: "reference" (plain PyTorch), "flash"
     # (crossover dispatch, ops.flash_attention.best_attention) or
     # "flash_force" (always the flash kernel on the card; its plain
@@ -118,8 +125,23 @@ def params_from_jax(params: Dict[str, Any], device: Any = None,
             "ln_f_g": conv(params["ln_f_g"])}
 
 
-def _layer(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
-    return {k: w[i] for k, w in params["layers"].items()}
+def _map(fn: Callable, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``fn`` over every tensor of a parameter dict, keeping its layout."""
+    return {k: ({n: fn(w) for n, w in v.items()} if isinstance(v, dict)
+                else fn(v)) for k, v in tree.items()}
+
+
+def _leaves(tree: Dict[str, Any]) -> List[torch.Tensor]:
+    return [w for v in tree.values()
+            for w in (v.values() if isinstance(v, dict) else (v,))]
+
+
+def _layers(params: Dict[str, Any]) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer views of the stacked weights. ``unbind`` is one autograd
+    node per weight, whose backward stacks the layers' gradients."""
+    per = {k: w.unbind(0) for k, w in params["layers"].items()}
+    n = len(next(iter(per.values())))
+    return [{k: ws[i] for k, ws in per.items()} for i in range(n)]
 
 
 def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -166,6 +188,41 @@ def _attention(q, k, v, n_heads: int, impl: str = "reference"):
     return out.reshape(B, T, D)
 
 
+def _block(cfg: TransformerConfig, layer: Dict[str, torch.Tensor],
+           h: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One pre-LN layer over ``h`` [B, T, D]; returns ``(h, k, v)``."""
+    x = _rmsnorm(h, layer["ln1_g"])
+    q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
+    h = h + _attention(q, k, v, cfg.n_heads, cfg.attention) @ layer["w_o"]
+    x = _rmsnorm(h, layer["ln2_g"])
+    h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
+    return h, k, v
+
+
+def forward(cfg: TransformerConfig, params: Dict[str, Any],
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Logits [B, T, V] f32 for token ids [B, T] (causal LM)."""
+    h = params["embed"][tokens] + params["pos"][:tokens.shape[1]]
+    for layer in _layers(params):
+        h, _, _ = _block(cfg, layer, h)
+    return _logits(_rmsnorm(h, params["ln_f_g"]), params["embed"])
+
+
+def loss_fn(cfg: TransformerConfig, params: Dict[str, Any],
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy over [B, T] token ids, with the JAX
+    function's two branches: up to ``max_seq`` tokens the forward runs at
+    full length and the logits are sliced; longer windows (the LM app's
+    ``seq + 1``) run the forward on ``tokens[:, :-1]``."""
+    if tokens.shape[1] <= cfg.max_seq:
+        logits = forward(cfg, params, tokens)[:, :-1]
+    else:
+        logits = forward(cfg, params, tokens[:, :-1])
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, tokens[:, 1:, None]).mean()
+
+
 def _cached_attention(q, k_cache, v_cache, n_heads: int,
                       pos: torch.Tensor) -> torch.Tensor:
     """One-token attention: ``q`` [B, D] against cache [B, T, D]; cache
@@ -186,6 +243,7 @@ def _cached_attention(q, k_cache, v_cache, n_heads: int,
     return out.reshape(B, D).to(q.dtype)
 
 
+@torch.no_grad()
 def prefill(cfg: TransformerConfig, params: Dict[str, Any],
             tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -193,23 +251,17 @@ def prefill(cfg: TransformerConfig, params: Dict[str, Any],
     recording per-layer K/V. Returns ``(logits [B, P, V] f32,
     k [L, B, P, D], v [L, B, P, D])``; positions past a prompt's length
     hold garbage that decode overwrites before any mask reaches it."""
-    B, P = tokens.shape
-    h = params["embed"][tokens] + params["pos"][:P]
+    h = params["embed"][tokens] + params["pos"][:tokens.shape[1]]
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
-        x = _rmsnorm(h, layer["ln1_g"])
-        q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
+    for layer in _layers(params):
+        h, k, v = _block(cfg, layer, h)
         ks.append(k)
         vs.append(v)
-        h = h + _attention(q, k, v, cfg.n_heads,
-                           cfg.attention) @ layer["w_o"]
-        x = _rmsnorm(h, layer["ln2_g"])
-        h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
     h = _rmsnorm(h, params["ln_f_g"])
     return _logits(h, params["embed"]), torch.stack(ks), torch.stack(vs)
 
 
+@torch.no_grad()
 def decode_step(cfg: TransformerConfig, params: Dict[str, Any],
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
                 tok: torch.Tensor, pos: torch.Tensor, active: torch.Tensor
@@ -224,8 +276,7 @@ def decode_step(cfg: TransformerConfig, params: Dict[str, Any],
     slot_ix = torch.arange(S, device=tok.device)
     write_pos = torch.where(active, pos, torch.full_like(pos, T - 1))
     h = params["embed"][tok] + params["pos"][pos]
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
+    for i, layer in enumerate(_layers(params)):
         x = _rmsnorm(h, layer["ln1_g"])
         q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
         k_cache[i, slot_ix, write_pos] = k
@@ -264,6 +315,7 @@ def first_tokens(logits: torch.Tensor, lengths: torch.Tensor,
     return torch.argmax(logits[rows, lengths - 1], dim=-1).to(dtype)
 
 
+@torch.no_grad()
 def greedy_decode(cfg: TransformerConfig, params: Dict[str, Any],
                   tokens: torch.Tensor, lengths: torch.Tensor, max_new: int,
                   eos_id: Optional[int] = None, *,
@@ -314,8 +366,10 @@ def greedy_decode(cfg: TransformerConfig, params: Dict[str, Any],
 
 
 class TransformerLM:
-    """The serving surface of the JAX ``TransformerLM``: parameters on one
-    device, a ``version`` counter and :meth:`snapshot_params`."""
+    """The JAX ``TransformerLM`` on one device: a momentum-SGD trainer
+    (:meth:`train_batch`) and the serving surface (``version`` and
+    :meth:`snapshot_params`). The parameters require grad; the momentum
+    buffers, in the parameter dtype, do not."""
 
     def __init__(self, config: TransformerConfig, device: Any = None) -> None:
         if config.d_model % config.n_heads != 0:
@@ -328,14 +382,54 @@ class TransformerLM:
             device = sess.device
         self.config = config
         self.device = torch.device(device)
+        # serving contract: ``version`` counts train steps, and
+        # snapshot_params copies under the lock that a train step holds
         self._lock = threading.Lock()
         self.version = 0
-        self.params = init_params(config, device=self.device)
+        self.params = _map(lambda w: w.requires_grad_(),
+                           init_params(config, device=self.device))
+        self._momentum = _map(torch.zeros_like, self.params)
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        """Token ids as int64 on the model's device; a host array goes to
+        the card through pinned memory, without a host sync."""
+        if isinstance(tokens, torch.Tensor):
+            return tokens.to(self.device, torch.int64)
+        host = torch.from_numpy(np.asarray(tokens, np.int64))
+        if self.device.type == "cuda":
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host
+
+    def _step(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        params = _leaves(self.params)
+        loss = loss_fn(cfg, self.params, tokens)
+        grads = torch.autograd.grad(loss, params)
+        # m = mu * m + g, p = p - lr * m, in place: JAX donates the old
+        # buffers and returns new ones, here the buffers are updated
+        with torch.no_grad():
+            for p, m, g in zip(params, _leaves(self._momentum), grads):
+                m.mul_(cfg.momentum).add_(g.to(m.dtype))
+                p.sub_(cfg.learning_rate * m.to(p.dtype))
+        return loss.detach()
+
+    def train_batch(self, tokens) -> torch.Tensor:
+        """One step on [B, T] token ids; returns the loss before the step
+        as a device scalar, without a host sync."""
+        tokens = self._tokens(tokens)
+        with self._lock:
+            loss = self._step(tokens)
+            self.version += 1
+        return loss
 
     def snapshot_params(self) -> Tuple[Dict[str, Any], int]:
-        """``(params copy, version)`` taken under the lock."""
+        """``(params copy, version)`` taken under the lock; the copies are
+        detached, so serving them builds no autograd graph."""
         with self._lock:
-            copy = {k: ({n: w.clone() for n, w in v.items()}
-                        if isinstance(v, dict) else v.clone())
-                    for k, v in self.params.items()}
-            return copy, self.version
+            return _map(lambda w: w.detach().clone(), self.params), \
+                self.version
+
+    def logits(self, tokens) -> torch.Tensor:
+        """Logits [B, T, V] f32 of the current parameters (no grad)."""
+        with torch.no_grad():
+            return forward(self.config, self.params, self._tokens(tokens))

@@ -310,6 +310,7 @@ class DecodeEngine:
             self.pin_copies += 1
             self._snap = snap
 
+    @torch.no_grad()
     def _admit(self, arrivals: List[_Request]) -> None:
         t_admit = time.monotonic()
         self._maybe_refresh()
@@ -359,6 +360,7 @@ class DecodeEngine:
             self._pos[req.slot] = len(req.prompt)
             self._active[req.slot] = True
 
+    @torch.no_grad()
     def _step(self) -> None:
         tracing = trace.enabled()
         t_it0 = time.monotonic()
