@@ -61,19 +61,26 @@ Phases, each printed on its own line:
 
 Phases 7-9 run after phase 3:
 
-7. the flash backward kernels against their plain version on the card:
-   bf16 causal at the training path's shapes (B 8 x S 1024, the one-pass
+7. the flash backward kernels against their plain version on the card
+   (bf16 on the tensor-core kernels, f32 on the CUDA-core ones): bf16
+   causal at the training path's shapes (B 8 x S 1024, the one-pass
    kernel; B 4 x S 2048, the dq and dk/dv passes), f32, non-causal,
    ragged, cross lengths and offset partials (flash_attention_partial_bwd
-   with rows the causal mask leaves with no key, whose dq must be 0);
-   dq, dk and dv each within 2e-3 (bf16) / 2e-5 (f32) of max |plain|, and
-   each one zeroed must fail that check. Each case prints the kernel's
-   time, the plain version's, the backward of torch's
+   with rows the causal mask leaves with no key, whose dq must be 0), and
+   bf16 cases for what the tensor-core tiling can get wrong: head_dim 128
+   and 40 (zero-filled columns), sq = sk = 7 (below one mma tile),
+   B x H = 1, q, k, v as strided views into one [B, S, 3, H, D] tensor,
+   and q_base > k_base with the diagonal across tile edges; dq, dk and dv
+   each within 2e-3 (bf16) / 2e-5 (f32) of max |plain|, and each one
+   zeroed must fail that check. Each case prints the kernel's time with
+   its achieved TFLOP/s (5 products x 2 D flops per live (row, key) pair
+   over the time), the plain version's, the backward of torch's
    scaled_dot_product_attention at the same shapes (a yardstick the port
-   never calls) and the least time the card could take (max of 5 products
-   x 2 D flops per live (row, key) pair over 989 TFLOP/s, or 67 in f32,
-   and q, k, v, g, lse, delta read and dq, dk, dv written once over 3.35
-   TB/s); the path cases also time each pass alone;
+   never calls) and the least time the card could take (max of those
+   flops over 989 TFLOP/s, or 67 in f32, and q, k, v, g, lse, delta read
+   and dq, dk, dv written once over 3.35 TB/s); the path cases also time
+   each pass alone. Phase 1 prints each kernel's ptxas registers, spills
+   and shared memory, and the dynamic shared memory each launch takes;
 8. one full-width f32 loss_fn gradient of the flagship through the
    kernels (attention="flash_force", seq 1024 x 2 and 2048 x 1) against
    the same gradient through reference attention: each parameter's
@@ -107,6 +114,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -161,6 +169,26 @@ FB_CASES = (  # B, sq, sk, dtype, causal, q_base, k_base
     (8, 768, 768, _BF, True, 768, 0),
     (2, 1536, 1536, _F32, True, 0, 1024),
 )
+# bf16 cases for what the tensor-core tiling can get wrong:
+# B, H, D, sq, sk, causal, q_base, k_base, packed (q, k, v strided views
+# into one [B, S, 3, H, D] tensor)
+FB_TILE_CASES = (
+    (2, 4, 128, 1024, 1024, True, 0, 0, False),    # D 128
+    (2, 4, 128, 2048, 2048, True, 0, 0, False),
+    (2, 6, 40, 1024, 1024, True, 0, 0, False),     # D 40: zero-filled cols
+    (2, 6, 40, 1500, 1500, True, 0, 0, False),
+    (3, 2, 64, 7, 7, True, 0, 0, False),           # below one mma tile
+    (3, 2, 64, 7, 7, False, 0, 0, False),
+    (1, 1, 64, 1000, 1000, True, 0, 0, False),     # B * H = 1
+    (1, 1, 64, 1500, 1500, True, 0, 0, False),
+    (2, 12, 64, 1024, 1024, True, 0, 0, True),     # packed qkv views
+    (2, 12, 64, 2048, 2048, True, 0, 0, True),
+    # q_base > k_base, the diagonal across tile edges
+    (2, 4, 64, 300, 260, True, 70, 5, False),
+    (2, 4, 64, 1300, 1200, True, 100, 37, False),
+)
+# the design of each route's kernels (the kernels line's "design")
+FB_DESIGN = {torch.bfloat16: "mma.sync bf16", torch.float32: "fmaf f32"}
 # the training slice: (seq, batch) of tools/lm_mfu.py:97-103, ~8k tokens
 LM_TRAIN = ((1024, 8), (2048, 4))
 # the full-width f32 gradient check: (seq, batch), one per regime
@@ -238,10 +266,53 @@ def phase_device():
     say(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"total {time.perf_counter() - t0:.2f} s")
     for name, log in kernels.BUILD_LOG.items():
-        regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        say(f"ptxas {name}: " + " | ".join(regs[:8]))
+        say(f"ptxas {name}: " + " | ".join(ptxas_report(log)))
+    smem = kernels.load("flash_bwd").mv_flash_bwd_smem_bytes
+    say("flash_bwd dynamic shared memory (bytes): " + ", ".join(
+        f"{kind} {route} D{d} {smem(code, dtype, d)}"
+        for route, dtype in (("bf16", 1), ("f32", 0)) for d in (64, 128)
+        for kind, code in (("fused", 0), ("dq", 1), ("dkv", 2))))
     return card
+
+
+def kernel_label(mangled: str) -> str:
+    """``name<template args>`` of a kernel in a namespace (``_ZN<len><ns>
+    <len><name>I<args>EEv...``), else the mangled name as it is."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    k = m and re.match(r"\d+", mangled[m.end() + int(m.group(1)):])
+    if not k:
+        return mangled
+    start = m.end() + int(m.group(1)) + k.end()
+    end = start + int(k.group(0))
+    args = re.match(r"I(.*?)EEv", mangled[end:])
+    if not args:
+        return mangled[start:end]
+    return (f"{mangled[start:end]}<"
+            + re.sub(r"L[a-z](\d+)E", r"\1,", args.group(1)).rstrip(",")
+            .replace("13__nv_bfloat16", "bf16") + ">")
+
+
+def ptxas_report(log: str):
+    """One entry per kernel of a ``ptxas -v`` log: its name and template
+    arguments, registers, spill bytes (stores + loads) and static shared
+    memory."""
+    out, name, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = kernel_label(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{name} {m.group(1)} regs, {spill} B spill, "
+                       f"{sm.group(1) if sm else 0} B static smem")
+            name, spill = None, 0
+    return out
 
 
 def phase_kernels():
@@ -454,101 +525,136 @@ def bwd_errors(got, ref):
             for a, b in zip(got, ref)]
 
 
-def phase_bwd_kernels():
-    """The flash backward kernels against their plain version on the card
-    (module docstring, phase 7)."""
+def bwd_case(B, H, D, sq, sk, dt, causal, qb, kb, packed=False):
+    """One backward case on the card (module docstring, phase 7): checks
+    the kernels against the plain version with each output zeroed as a
+    failing control, times kernel, plain and library, prints one line.
+    Returns (tag, result, the kernel call's args and kwargs)."""
     import torch.nn.functional as F
 
     fa = _fa()
-    H, D = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
-    bf = torch.bfloat16
     gen = torch.Generator(device="cpu").manual_seed(3)
-    results = {}
-    for B, sq, sk, dt, causal, qb, kb in FB_CASES:
-        q, g = (torch.randn((B, sq, H, D), generator=gen).to(DEV, dt)
-                for _ in range(2))
+    if packed:   # q, k, v: strided views into one [B, S, 3, H, D] tensor
+        qkv = torch.randn((B, sq, 3, H, D), generator=gen).to(DEV, dt)
+        q, k, v = qkv.unbind(2)
+    else:
+        q = torch.randn((B, sq, H, D), generator=gen).to(DEV, dt)
         k, v = (torch.randn((B, sk, H, D), generator=gen).to(DEV, dt)
                 for _ in range(2))
-        scale = 1.0 / D ** 0.5
-        # the rows' statistics from the forward kernel, as a caller has them
-        acc, m, l = fa._fa_cuda(q, k, v, qb, kb, causal=causal, scale=scale,
-                                normalize=False)
-        lse = m + torch.log(torch.clamp(l, min=1e-20))
-        out = acc / torch.clamp(l, min=1e-20).transpose(1, 2)[..., None]
-        delta = torch.einsum("bshd,bshd->bhs", g.float(), out).contiguous()
-        args = (q, k, v, g, lse, delta, qb, kb)
-        kw = dict(causal=causal, scale=scale)
-        kinds = fa.bwd_kernels(sk)
-        got = fa._bwd_cuda(*args, **kw)
-        torch.cuda.synchronize()
-        ref = fa._bwd_plain(*args, **kw)
-        errs = bwd_errors(got, ref)
-        tol = FB_TOL[dt]
-        tag = (f"B={B} sq={sq} sk={sk} {str(dt).split('.')[-1]} "
-               f"causal={int(causal)} offs=({qb},{kb}) {'+'.join(kinds)}")
-        finite = all(bool(torch.isfinite(x).all()) for x in got)
-        if not (finite and max(errs) <= tol):
-            fail(f"flash_bwd vs plain {tag}: max_abs_err / max|ref| of dq, "
-                 f"dk, dv {errs} (tolerance {tol}), finite {finite}")
-        dead = max(0, min(sq, kb - qb)) if causal else 0
-        if dead and bool((got[0][:, :dead] != 0).any()):
-            fail(f"flash_bwd {tag}: rows with no live key have dq != 0")
-        # negative controls: each output zeroed must fail the same check
-        for i, name in enumerate(("dq", "dk", "dv")):
-            zeroed = list(got)
-            zeroed[i] = torch.zeros_like(got[i])
-            if not bwd_errors(zeroed, ref)[i] > tol:
-                fail(f"flash_bwd {tag}: negative control: a zero {name} "
-                     f"passes the check")
-        ms = time_ms(lambda: fa._bwd_cuda(*args, **kw))
-        plain_ms = time_ms(lambda: fa._bwd_plain(*args, **kw))
-        lib_ms = None
-        if qb == kb == 0:
-            # the library's backward at the same shapes (the port never
-            # calls it): autograd of scaled_dot_product_attention
-            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                          for t in (q, k, v))
-            ot = F.scaled_dot_product_attention(qt, kt, vt,
-                                                is_causal=causal,
-                                                scale=scale)
-            gt = g.transpose(1, 2).contiguous()
-            lib_ms = time_ms(lambda: torch.autograd.grad(
-                ot, (qt, kt, vt), gt, retain_graph=True))
-            del qt, kt, vt, ot, gt
-        item = q.element_size()
-        bound, by = bwd_bound_ms("fused", B, H, D, sq, sk, causal, qb, kb,
-                                 item, dt)
-        r = dict(max_abs_err=max(e * b.abs().max().item()
-                                 for e, b in zip(errs, ref)),
-                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                 library_ms=lib_ms)
-        line = (f"kernel flash_bwd {tag}: err/max dq {errs[0]:.2e} dk "
-                f"{errs[1]:.2e} dv {errs[2]:.2e} (tol {tol}; each zeroed "
-                f"fails), ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                f"{fmt(lib_ms)} bound_ms {bound:.4f} ({by})")
+    g = torch.randn((B, sq, H, D), generator=gen).to(DEV, dt)
+    scale = 1.0 / D ** 0.5
+    # the rows' statistics from the forward kernel, as a caller has them
+    acc, m, l = fa._fa_cuda(q, k, v, qb, kb, causal=causal, scale=scale,
+                            normalize=False)
+    lse = m + torch.log(torch.clamp(l, min=1e-20))
+    out = acc / torch.clamp(l, min=1e-20).transpose(1, 2)[..., None]
+    delta = torch.einsum("bshd,bshd->bhs", g.float(), out).contiguous()
+    del acc, m, l, out
+    args = (q, k, v, g, lse, delta, qb, kb)
+    kw = dict(causal=causal, scale=scale)
+    kinds = fa.bwd_kernels(sk)
+    got = fa._bwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    ref = fa._bwd_plain(*args, **kw)
+    errs = bwd_errors(got, ref)
+    tol = FB_TOL[dt]
+    tag = (f"B={B} H={H} D={D} sq={sq} sk={sk} {str(dt).split('.')[-1]} "
+           f"causal={int(causal)} offs=({qb},{kb})"
+           f"{' packed' if packed else ''} {'+'.join(kinds)}")
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    if not (finite and max(errs) <= tol):
+        fail(f"flash_bwd vs plain {tag}: max_abs_err / max|ref| of dq, "
+             f"dk, dv {errs} (tolerance {tol}), finite {finite}")
+    dead = max(0, min(sq, kb - qb)) if causal else 0
+    if dead and bool((got[0][:, :dead] != 0).any()):
+        fail(f"flash_bwd {tag}: rows with no live key have dq != 0")
+    # negative controls: each output zeroed must fail the same check
+    for i, name in enumerate(("dq", "dk", "dv")):
+        zeroed = list(got)
+        zeroed[i] = torch.zeros_like(got[i])
+        if not bwd_errors(zeroed, ref)[i] > tol:
+            fail(f"flash_bwd {tag}: negative control: a zero {name} "
+                 f"passes the check")
+    ms = time_ms(lambda: fa._bwd_cuda(*args, **kw))
+    plain_ms = time_ms(lambda: fa._bwd_plain(*args, **kw))
+    lib_ms = None
+    if qb == kb == 0:
+        # the library's backward at the same shapes (the port never
+        # calls it): autograd of scaled_dot_product_attention
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                            scale=scale)
+        gt = g.transpose(1, 2).contiguous()
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), gt, retain_graph=True))
+        del qt, kt, vt, ot, gt
+    bound, by = bwd_bound_ms("fused", B, H, D, sq, sk, causal, qb, kb,
+                             q.element_size(), dt)
+    r = dict(max_abs_err=max(e * b.abs().max().item()
+                             for e, b in zip(errs, ref)),
+             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+             library_ms=lib_ms, design=FB_DESIGN[dt])
+    tflops = bwd_tflops("fused", B, H, D, sq, sk, causal, qb, kb, ms)
+    say(f"kernel flash_bwd {tag} [{FB_DESIGN[dt]}]: err/max dq "
+        f"{errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} (tol {tol}; each "
+        f"zeroed fails), ms {ms:.4f} ({tflops:.1f} TFLOP/s) plain_ms "
+        f"{plain_ms:.4f} library_ms {fmt(lib_ms)} bound_ms {bound:.4f} "
+        f"({by})")
+    del got, ref
+    return tag, r, args, kw
+
+
+def bwd_tflops(kind, B, H, D, sq, sk, causal, q_base, k_base, ms) -> float:
+    """Achieved TFLOP/s: the function's products over the live pairs
+    (FB_PRODUCTS x 2 D flops each) over the time."""
+    pairs = live_pairs(sq, sk, causal, q_base, k_base)
+    return FB_PRODUCTS[kind] * 2.0 * D * B * H * pairs / (ms * 1e-3) / 1e12
+
+
+def phase_bwd_kernels():
+    """The flash backward kernels against their plain version on the card
+    (module docstring, phase 7)."""
+    fa = _fa()
+    H, D = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    bf = torch.bfloat16
+    results = {}
+    cases = [(B, H, D, sq, sk, dt, causal, qb, kb, False)
+             for B, sq, sk, dt, causal, qb, kb in FB_CASES]
+    cases += [(B, h, d, sq, sk, bf, causal, qb, kb, packed)
+              for B, h, d, sq, sk, causal, qb, kb, packed in FB_TILE_CASES]
+    for B, h, d, sq, sk, dt, causal, qb, kb, packed in cases:
+        tag, r, args, kw = bwd_case(B, h, d, sq, sk, dt, causal, qb, kb,
+                                    packed)
         path = (dt == bf and causal and qb == kb == 0 and sq == sk
-                and (sq, B) in LM_TRAIN)
+                and (sq, B) in LM_TRAIN and (h, d) == (H, D) and not packed)
+        kinds = fa.bwd_kernels(sk)
         if path and kinds == ("fused",):
             results["fused"] = r
         if path and len(kinds) == 2:
             # each pass alone, for the kernels line
-            dq, dk, dv = (torch.empty_like(x) for x in got)
-            for kind, plain_kinds in (("dq", ("dq",)), ("dkv", ("dkv",))):
+            dq, dk, dv = (torch.empty(t.shape, device=DEV)
+                          for t in args[:3])
+            line = f"kernel flash_bwd {tag} passes alone:"
+            for kind in kinds:
                 k_ms = time_ms(lambda: fa._launch_bwd(
-                    kind, *args[:6], dq, dk, dv, qb, kb, **kw))
-                p_ms = time_ms(lambda: fa._bwd_plain(
-                    *args, **kw, kinds=plain_kinds))
-                b_ms, b_by = bwd_bound_ms(kind, B, H, D, sq, sk, causal, qb,
-                                          kb, item, dt)
+                    kind, *args[:6], dq, dk, dv, 0, 0, **kw))
+                p_ms = time_ms(lambda: fa._bwd_plain(*args, **kw,
+                                                     kinds=(kind,)))
+                b_ms, b_by = bwd_bound_ms(kind, B, h, d, sq, sk, causal, 0,
+                                          0, dq.new_empty((), dtype=dt)
+                                          .element_size(), dt)
                 results[kind] = dict(
                     max_abs_err=r["max_abs_err"], ms=k_ms, plain_ms=p_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    library_ms_of_backward=lib_ms)
-                line += (f"; {kind} alone ms {k_ms:.4f} plain_ms "
-                         f"{p_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+                    library_ms_of_backward=r["library_ms"],
+                    design=r["design"])
+                tflops = bwd_tflops(kind, B, h, d, sq, sk, causal, 0, 0, k_ms)
+                line += (f" {kind} ms {k_ms:.4f} ({tflops:.1f} TFLOP/s) "
+                         f"plain_ms {p_ms:.4f} bound_ms {b_ms:.4f} ({b_by});")
+            say(line)
             del dq, dk, dv
-        say(line)
-        del q, k, v, g, acc, m, l, out, lse, delta, got, ref, args
+        del args
         torch.cuda.empty_cache()
     return results
 

@@ -1,11 +1,11 @@
 // Flash-attention backward for Hopper (sm_90a): the CUDA counterpart of the
 // JAX package's three Pallas backward kernels,
-//   multiverso_tpu/ops/flash_attention.py::_bwd_fused_kernel (one pass, nk==1)
-//   multiverso_tpu/ops/flash_attention.py::_bwd_dq_kernel    (dq pass)
-//   multiverso_tpu/ops/flash_attention.py::_bwd_dkv_kernel   (dk/dv pass)
-// Two CUDA kernels cover the three: bwd_kv_kernel is the dk/dv pass and,
-// with kDQ, the one-pass kernel that also produces dq; bwd_dq_kernel is the
-// dq pass.
+//   multiverso_tpu/ops/flash_attention.py::_bwd_fused_kernel (:469, one pass, nk==1)
+//   multiverso_tpu/ops/flash_attention.py::_bwd_dq_kernel    (:350, dq pass)
+//   multiverso_tpu/ops/flash_attention.py::_bwd_dkv_kernel   (:409, dk/dv pass)
+// Two kernels cover the three on each route: the kv kernel is the dk/dv
+// pass and, with kDQ, the one-pass kernel that also produces dq; the dq
+// kernel is the dq pass.
 //
 // Contract (identical to the Pallas kernels'):
 //   q, g [B, Sq, H, D] and k, v [B, Sk, H, D], read through the given
@@ -18,7 +18,7 @@
 //   leaves with no live key has lse ~ -1e30, so exp(s - lse) is inf there
 //   and inf * 0 would be NaN. Causal masking is in global positions: key j
 //   of row i is live when k_base + j <= q_base + i. Ragged edges and
-//   Sq != Sk are masked here: nothing is padded.
+//   Sq != Sk are masked here: nothing is padded in device memory.
 //   dv += p^T g with p rounded to g's dtype (_bwd_dkv_kernel:451-453);
 //   ds = p * (g v^T - delta) * scale, rounded to k's dtype before ds k
 //   (dq) and to q's dtype before ds^T q (dk), as the Pallas kernels do.
@@ -26,30 +26,56 @@
 // What bounds it on this card: the backward does four (dq, dk/dv passes)
 // or five (one pass) products of 2 * D flops per live (row, key) pair and
 // reads each input once, so at the training path's shapes (S 1024-2048,
-// head_dim 64) the tensor cores' FLOP rate is the bound, not memory. This
-// first version keeps the products on the CUDA cores with f32 accumulation,
-// as flash_fwd.cu does; moving them onto wgmma is a later step. What the
-// design does about the bound: no [Sq, Sk] matrix reaches device memory
-// (p and ds are recomputed per tile from lse and delta), and tiles wholly
-// above the causal diagonal are never visited, which halves causal work.
+// head_dim 64) the tensor cores' bf16 rate (989 TFLOP/s) is the bound, not
+// memory. No [Sq, Sk] matrix reaches device memory (p and ds are
+// recomputed per tile from lse and delta), and tiles wholly above the
+// causal diagonal are never visited, which halves causal work.
 //
-// Design. The TPU's sequential grid axis that carried an accumulator in
-// VMEM becomes a loop inside one thread block:
-//   bwd_kv_kernel: one 128-thread block per (batch * head, 64-key tile).
-//     K and V of the tile stay in shared memory; the block walks the q
-//     tiles from the causal diagonal on, recomputes p and ds for the
-//     64 x 64 tile, and accumulates dk and dv in registers (thread pair
-//     per key row). With kDQ (the one-pass kernel, K5's function) it also
-//     forms the tile's dq contribution ds k, stages it in shared memory and
-//     adds it to dq with f32 atomicAdd, coalesced, into a dq the wrapper
-//     zeroed. Partial dq buffers per key tile would take nk times dq's size
-//     (16 x 25 MB at the flagship's seq 1024) and a second pass; the atomics
-//     are ~50 M adds a call, small beside the kernel's arithmetic. The cost:
-//     the order of the (at most Sk / 64) adds into one dq element changes
-//     from run to run, so dq is not bitwise reproducible; it differs from an
-//     ordered sum by a few f32 ulps of the sum of |contributions|.
-//   bwd_dq_kernel: one block per (batch * head, 64-row q tile), walking the
-//     key tiles up to the causal diagonal and accumulating dq in registers.
+// Two routes, chosen by the dtype (never by a failure):
+//
+// bf16: tensor-core kernels (mma_bwd_dq_kernel, mma_bwd_kv_kernel). Every
+//   product is an mma.sync.m16n8k16 with bf16 operands and f32
+//   accumulators; operands come from swizzled bf16 shared-memory tiles
+//   through ldmatrix (row XOR chunk swizzle: no bank conflicts), and the
+//   next tile is loaded with 16-byte cp.async (zero-filled past the rows
+//   and past D) while this one computes. The f32 accumulator fragment of
+//   s (or s^T) has the layout of the next product's A operand, so p and ds
+//   are formed, selected, rounded to bf16 and fed back from registers:
+//     mma_bwd_dq_kernel: one 4-warp block per (batch * head, 64-row q
+//       tile), each warp owning 16 q rows; Q and G stay in shared memory,
+//       K and V tiles are double-buffered; s = q k^T and dp = g v^T, then
+//       dq += ds k with k from ldmatrix.trans; dq is written once.
+//     mma_bwd_kv_kernel: one 4-warp block per (batch * head, 64-key tile),
+//       each warp owning 16 keys; K and V stay in shared memory, the q / g
+//       tiles and their lse / delta are double-buffered; s^T = k q^T and
+//       dp^T = v g^T, then dv += p^T g and dk += ds^T q with g and q from
+//       ldmatrix.trans, accumulated in registers and written once. At D 128
+//       the 64-column q tile is taken in two halves to bound registers.
+//       (4 warps of 16 rows: ptxas gives the D 64 kernels 223-251
+//       registers, two blocks an SM, without spills.)
+//       With kDQ (the one pass) ds^T also goes to shared memory as bf16,
+//       dq_tile = ds k is an mma with ds from ldmatrix.trans, and the f32
+//       partial is added into the zeroed dq with float2 atomicAdd (eight
+//       full 32-byte sectors a warp instruction). Partial dq buffers per
+//       key tile would take nk times dq's size (16 x 25 MB at the
+//       flagship's seq 1024) and a second pass. The cost: the order of the
+//       (at most Sk / 64) adds into one dq element changes from run to
+//       run, so dq is not bitwise reproducible; it differs from an ordered
+//       sum by a few f32 ulps of the sum of |contributions|.
+//   Head dims: the kernels are built for a D bucket of 64 or 128; a D that
+//   is a multiple of 8 below its bucket is zero-filled up to it in shared
+//   memory. The grid puts the longest blocks first under the causal mask:
+//   blockIdx.y walks key tiles from the first (which meets every q tile)
+//   and q tiles from the last (which meets every key tile). The 16-byte
+//   copies need each operand 16-byte aligned with batch, seq and head
+//   strides that are multiples of 8 elements (the wrapper checks; the
+//   entry point refuses others with cudaErrorMisalignedAddress).
+//
+// f32: CUDA-core kernels (bwd_dq_kernel, bwd_kv_kernel), fmaf products
+//   with f32 tiles in shared memory. On the tensor cores f32 would be
+//   TF32, which cannot hold f32 accuracy; their redesign is later work.
+//   Same blocks and loops as above: thread pairs own a tile row, and the
+//   one pass adds dq with coalesced f32 atomicAdd from a staged tile.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,9 +84,10 @@
 namespace {
 
 constexpr int kBlock = 64;     // q rows and keys per tile
-constexpr int kThreads = 128;  // two threads per tile row
-constexpr int kPP = kBlock + 1;  // padded row of the p / ds tiles
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kPP = kBlock + 1;  // padded row of the f32 route's p / ds tiles
 constexpr int kKindFused = 0, kKindDq = 1, kKindDkv = 2;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const void* q;
@@ -79,60 +106,596 @@ struct Args {
   int q_base, k_base;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// first q row (a multiple of kBlock) that sees key k0 under the mask
+__device__ __forceinline__ int first_q_tile(const Args& a, int k0) {
+  if (!a.causal) return 0;
+  const long long first = (long long)a.k_base + k0 - a.q_base;
+  const int q = first <= 0 ? 0 : (int)min((long long)a.Sq, first);
+  return q - q % kBlock;
 }
 
-// x rounded to T and back: the Pallas kernels' .astype(dtype) before a dot
-template <typename T> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) {
-  return x;
+// one past the last key that a row of [q0, q0 + kBlock) sees
+__device__ __forceinline__ int key_end(const Args& a, int q0) {
+  if (!a.causal) return a.Sk;
+  const int q_last = min(q0 + kBlock, a.Sq) - 1;
+  const long long lim = (long long)a.q_base + q_last - a.k_base + 1;
+  return (int)max(0LL, min((long long)a.Sk, lim));
 }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a b: a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 in one register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of C chunks a row. The
+// chunk index is XORed with r % 8, so the 8 rows that one ldmatrix matrix
+// reads fall in 8 different bank groups.
+template <int C>
+__device__ __forceinline__ uint32_t sw(int r, int c) {
+  return (uint32_t)((r * C + (c ^ (r & 7))) * 16);
+}
+
+// Per-thread byte offsets, in a swizzled tile of C chunks a row, of the
+// rows that ldmatrix reads for each operand shape. Every row a lane
+// addresses is lane % 8 modulo 8, so chunk pair j of a row is the lane's
+// offset XOR (j << 5), and 16 rows further on is + 256 C: the addresses of
+// a whole unrolled loop are one register and immediates.
+template <int C>
+struct Lanes {
+  uint32_t a;    // A, row-major: rows lane % 16, chunk lane / 16
+  uint32_t b;    // B held transposed (row n, k contiguous): rows lane % 8
+                 // + 8 (lane / 16), chunk (lane / 8) % 2
+  uint32_t bt;   // B held as it is (row k, n contiguous), ldmatrix.trans:
+                 // rows lane % 8 + 8 ((lane / 8) % 2), chunk lane / 16
+  __device__ __forceinline__ explicit Lanes(int lane) {
+    const int r7 = lane & 7, hi = lane >> 4, mid = (lane >> 3) & 1;
+    a = ((lane & 15) * C + (hi ^ r7)) * 16;
+    b = ((r7 + 8 * hi) * C + (mid ^ r7)) * 16;
+    bt = ((r7 + 8 * mid) * C + (hi ^ r7)) * 16;
+  }
+};
+
+// A operand: the 16 x 16 block at rows m0 (a multiple of 16), chunk pair j
+template <int C>
+__device__ __forceinline__ void ld_a(uint32_t (&r)[4], uint32_t tile,
+                                     const Lanes<C>& l, int m0, int j) {
+  ldsm(r, tile + m0 * C * 16 + (l.a ^ (j << 5)));
+}
+
+// B operands of two n8 blocks, rows n0 and n0 + 8 of a tile that holds B
+// transposed, chunk pair j (k): r[0..1] for n0, r[2..3] for n0 + 8
+template <int C>
+__device__ __forceinline__ void ld_b(uint32_t (&r)[4], uint32_t tile,
+                                     const Lanes<C>& l, int n0, int j) {
+  ldsm(r, tile + n0 * C * 16 + (l.b ^ (j << 5)));
+}
+
+// B operands of two n8 blocks, chunk pair j (n), rows k0..k0+15 of a tile
+// that holds B as it is: r[0..1] for the first n8 block, r[2..3] the next
+template <int C>
+__device__ __forceinline__ void ld_bt(uint32_t (&r)[4], uint32_t tile,
+                                      const Lanes<C>& l, int k0, int j) {
+  ldsm_t(r, tile + k0 * C * 16 + (l.bt ^ (j << 5)));
+}
+
+// rows [row0, row0 + kBlock) of one head of a [B, S, H, D] bf16 tensor into
+// a swizzled [kBlock][DM] tile; rows at or past n and columns at or past D
+// are zero-filled
+template <int DM>
+__device__ __forceinline__ void load_tile_async(uint32_t dst,
+                                                const __nv_bfloat16* src,
+                                                long long row_stride,
+                                                int row0, int n, int D) {
+  constexpr int C = DM / 8;
+#pragma unroll
+  for (int j = 0; j < kBlock * C / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int r = i / C, c = i % C;
+    const bool in = row0 + r < n && c * 8 < D;
+    const __nv_bfloat16* p =
+        in ? src + (long long)(row0 + r) * row_stride + c * 8 : src;
+    cp_async16(dst + sw<C>(r, c), p, in ? 16 : 0);
+  }
+}
+
+// A fragments of the next product from an f32 accumulator tile (16 x 8 NB)
+template <int NB>
+__device__ __forceinline__ void to_a(uint32_t (&a)[NB / 2][4],
+                                     const float (&c)[NB][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// dq tile: s (rows q, cols keys) -> ds in place. lse2 = lse * log2(e).
+template <bool kMask>
+__device__ __forceinline__ void dq_grad_tile(float (&s)[8][4],
+                                             const float (&dp)[8][4],
+                                             const Args& a, int r0, int k0,
+                                             int t, const float (&lse2)[2],
+                                             const float (&dl)[2]) {
+  const float sl2 = a.scale * kLog2e;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      bool live = true;
+      if (kMask) {
+        const int row = r0 + 8 * i, key = k0 + nb * 8 + 2 * t + (e & 1);
+        live = key < a.Sk && row < a.Sq
+            && (!a.causal || (long long)a.k_base + key
+                              <= (long long)a.q_base + row);
+      }
+      const float p = live ? exp2f(fmaf(s[nb][e], sl2, -lse2[i])) : 0.f;
+      s[nb][e] = live ? p * (dp[nb][e] - dl[i]) * a.scale : 0.f;
+    }
+}
+
+template <int DM>
+__global__ void __launch_bounds__(kThreads) mma_bwd_dq_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int C = DM / 8;
+  constexpr uint32_t kTileB = kBlock * DM * 2;
+  const uint32_t sQ = smem_u32(smem), sG = sQ + kTileB;
+  const uint32_t sKV = sG + kTileB;  // [2] x (K tile, V tile)
+
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int Sq = a.Sq, Sk = a.Sk, D = a.D;
+  // the last q tile meets the most key tiles: launch it first
+  const int q0 = ((Sq + kBlock - 1) / kBlock - 1 - (int)blockIdx.y) * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = warp * 16;  // this warp's q rows in the tile
+  const Lanes<C> L(lane);
+
+  using bf = __nv_bfloat16;
+  const bf* qp = static_cast<const bf*>(a.q) + b * a.qs[0] + h * a.qs[2];
+  const bf* kp = static_cast<const bf*>(a.k) + b * a.ks[0] + h * a.ks[2];
+  const bf* vp = static_cast<const bf*>(a.v) + b * a.vs[0] + h * a.vs[2];
+  const bf* gp = static_cast<const bf*>(a.g) + b * a.gs[0] + h * a.gs[2];
+
+  const int r0 = q0 + m0 + g;  // fragment rows r0 and r0 + 8
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    const long long o = (long long)bh * Sq + row;
+    lse2[i] = row < Sq ? a.lse[o] * kLog2e : 0.f;
+    dl[i] = row < Sq ? a.delta[o] : 0.f;
+  }
+
+  float dq[DM / 8][4];
+#pragma unroll
+  for (int j = 0; j < DM / 8; ++j)
+    dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  // keys past k_end are masked for every row of the tile: skip their tiles
+  const int nkt = (key_end(a, q0) + kBlock - 1) / kBlock;
+  if (nkt > 0) {
+    load_tile_async<DM>(sQ, qp, a.qs[1], q0, Sq, D);
+    load_tile_async<DM>(sG, gp, a.gs[1], q0, Sq, D);
+    load_tile_async<DM>(sKV, kp, a.ks[1], 0, Sk, D);
+    load_tile_async<DM>(sKV + kTileB, vp, a.vs[1], 0, Sk, D);
+    cp_async_commit();
+  }
+
+  for (int it = 0; it < nkt; ++it) {
+    const int k0 = it * kBlock;
+    const uint32_t sK = sKV + (it & 1) * 2 * kTileB, sV = sK + kTileB;
+    if (it + 1 < nkt) {   // the next key tile loads while this one computes
+      const uint32_t nK = sKV + ((it + 1) & 1) * 2 * kTileB;
+      load_tile_async<DM>(nK, kp, a.ks[1], k0 + kBlock, Sk, D);
+      load_tile_async<DM>(nK + kTileB, vp, a.vs[1], k0 + kBlock, Sk, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // s = q k^T and dp = g v^T: 16 rows x 64 keys a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DM / 16; ++kk) {
+      uint32_t aq[4], ag[4];
+      ld_a(aq, sQ, L, m0, kk);
+      ld_a(ag, sG, L, m0, kk);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4], bv[4];
+        ld_b(bk, sK, L, np * 16, kk);
+        ld_b(bv, sV, L, np * 16, kk);
+        mma(s[2 * np], aq, bk[0], bk[1]);
+        mma(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma(dp[2 * np], ag, bv[0], bv[1]);
+        mma(dp[2 * np + 1], ag, bv[2], bv[3]);
+      }
+    }
+
+    // tiles wholly below the diagonal and inside both lengths skip the mask
+    const bool full = k0 + kBlock <= Sk && q0 + kBlock <= Sq
+        && (!a.causal || (long long)a.k_base + k0 + kBlock - 1
+                             <= (long long)a.q_base + q0);
+    if (full) dq_grad_tile<false>(s, dp, a, r0, k0, t, lse2, dl);
+    else      dq_grad_tile<true>(s, dp, a, r0, k0, t, lse2, dl);
+    uint32_t ads[4][4];   // ds rounded to k's dtype, as A of ds k
+    to_a<8>(ads, s);
+
+    // dq += ds k, k from ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < DM / 16; ++np) {
+        uint32_t bk[4];
+        ld_bt(bk, sK, L, kk * 16, np);
+        mma(dq[2 * np], ads[kk], bk[0], bk[1]);
+        mma(dq[2 * np + 1], ads[kk], bk[2], bk[3]);
+      }
+    __syncthreads();   // this key buffer is free for the tile after next
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= Sq) continue;
+    float* drow = a.dq + (((long long)b * Sq + row) * a.H + h) * D;
+#pragma unroll
+    for (int nb = 0; nb < DM / 8; ++nb) {
+      const int c = nb * 8 + 2 * t;
+      if (c < D)
+        *reinterpret_cast<float2*>(drow + c) =
+            make_float2(dq[nb][2 * i], dq[nb][2 * i + 1]);
+    }
+  }
+}
+
+// kv tile: s^T (rows keys, cols q) -> p^T in s, ds^T in dp. lse and delta
+// of the tile's q columns from shared memory.
+template <bool kMask, int NB>
+__device__ __forceinline__ void kv_grad_tile(float (&s)[NB][4],
+                                             float (&dp)[NB][4],
+                                             const Args& a, int kr0, int c0,
+                                             int t, const float* lse_s,
+                                             const float* dl_s) {
+  const float sl2 = a.scale * kLog2e;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    const int cc = nb * 8 + 2 * t;   // column within lse_s / dl_s
+    const float2 lse = *reinterpret_cast<const float2*>(lse_s + cc);
+    const float2 dlt = *reinterpret_cast<const float2*>(dl_s + cc);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float l = (e & 1) ? lse.y : lse.x;
+      const float d = (e & 1) ? dlt.y : dlt.x;
+      bool live = true;
+      if (kMask) {
+        const int key = kr0 + 8 * (e >> 1), q = c0 + cc + (e & 1);
+        live = key < a.Sk && q < a.Sq
+            && (!a.causal || (long long)a.k_base + key
+                              <= (long long)a.q_base + q);
+      }
+      const float p = live ? exp2f(fmaf(s[nb][e], sl2, -l * kLog2e)) : 0.f;
+      dp[nb][e] = live ? p * (dp[nb][e] - d) * a.scale : 0.f;
+      s[nb][e] = p;
+    }
+  }
+}
+
+template <int DM, bool kDQ>
+__global__ void __launch_bounds__(kThreads) mma_bwd_kv_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int C = DM / 8;
+  constexpr uint32_t kTileB = kBlock * DM * 2;
+  // q columns of one s^T sub-tile: at D 128 the dk / dv accumulators alone
+  // take 128 registers a thread, so the 64-row q tile is taken in two
+  // halves to bound s^T and dp^T (the kernel still spills up to 96 bytes)
+  constexpr int NQ = DM <= 64 ? 64 : 32;
+  const uint32_t sK = smem_u32(smem), sV = sK + kTileB;
+  const uint32_t sQG = sV + kTileB;   // [2] x (Q tile, G tile)
+  float* stats = reinterpret_cast<float*>(smem + 6 * kTileB);  // [2][2][64]
+  const uint32_t sDS = sQG + 4 * kTileB + 4 * kBlock * 4;  // [key][q] bf16
+
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.y * kBlock;  // key tile 0 meets the most q tiles
+  const int Sq = a.Sq, Sk = a.Sk, D = a.D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = warp * 16;   // this warp's keys in the tile
+  const Lanes<C> L(lane);
+  const Lanes<8> l8(lane);      // the ds^T tile: 64 q columns a row
+  const int kr0 = k0 + m0 + g;  // fragment rows kr0 and kr0 + 8
+
+  using bf = __nv_bfloat16;
+  const bf* qp = static_cast<const bf*>(a.q) + b * a.qs[0] + h * a.qs[2];
+  const bf* kp = static_cast<const bf*>(a.k) + b * a.ks[0] + h * a.ks[2];
+  const bf* vp = static_cast<const bf*>(a.v) + b * a.vs[0] + h * a.vs[2];
+  const bf* gp = static_cast<const bf*>(a.g) + b * a.gs[0] + h * a.gs[2];
+  const float* lsep = a.lse + (long long)bh * Sq;
+  const float* dlp = a.delta + (long long)bh * Sq;
+
+  float dk[DM / 8][4], dv[DM / 8][4];
+#pragma unroll
+  for (int j = 0; j < DM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  // q tiles wholly above the diagonal see no key of this tile
+  const int q_start = first_q_tile(a, k0);
+  const int nqt = (Sq - q_start + kBlock - 1) / kBlock;
+
+  // one stage: the q / g tiles at q0 and their lse / delta
+  auto load_stage = [&](int buf, int q0) {
+    const uint32_t dst = sQG + buf * 2 * kTileB;
+    load_tile_async<DM>(dst, qp, a.qs[1], q0, Sq, D);
+    load_tile_async<DM>(dst + kTileB, gp, a.gs[1], q0, Sq, D);
+    const int i = threadIdx.x & (kBlock - 1), which = threadIdx.x / kBlock;
+    const bool in = q0 + i < Sq;
+    const float* src = (which ? dlp : lsep) + (in ? q0 + i : 0);
+    cp_async4(smem_u32(stats + (buf * 2 + which) * kBlock + i), src,
+              in ? 4 : 0);
+  };
+  if (nqt > 0) {
+    load_tile_async<DM>(sK, kp, a.ks[1], k0, Sk, D);
+    load_tile_async<DM>(sV, vp, a.vs[1], k0, Sk, D);
+    load_stage(0, q_start);
+    cp_async_commit();
+  }
+
+  for (int it = 0; it < nqt; ++it) {
+    const int q0 = q_start + it * kBlock, buf = it & 1;
+    const uint32_t sQ = sQG + buf * 2 * kTileB, sG = sQ + kTileB;
+    const float* lse_s = stats + buf * 2 * kBlock;
+    const float* dl_s = lse_s + kBlock;
+    if (it + 1 < nqt) {   // the next q tile loads while this one computes
+      load_stage(buf ^ 1, q0 + kBlock);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const bool full = k0 + kBlock <= Sk && q0 + kBlock <= Sq
+        && (!a.causal || (long long)a.k_base + k0 + kBlock - 1
+                             <= (long long)a.q_base + q0);
+#pragma unroll
+    for (int sub = 0; sub < kBlock / NQ; ++sub) {
+      const int qc = sub * NQ;   // first q column of the sub-tile
+      // s^T = k q^T and dp^T = v g^T: 16 keys x NQ q columns a warp
+      float s[NQ / 8][4], dp[NQ / 8][4];
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        ld_a(ak, sK, L, m0, kk);
+        ld_a(av, sV, L, m0, kk);
+#pragma unroll
+        for (int np = 0; np < NQ / 16; ++np) {
+          uint32_t bq[4], bg[4];
+          ld_b(bq, sQ, L, qc + np * 16, kk);
+          ld_b(bg, sG, L, qc + np * 16, kk);
+          mma(s[2 * np], ak, bq[0], bq[1]);
+          mma(s[2 * np + 1], ak, bq[2], bq[3]);
+          mma(dp[2 * np], av, bg[0], bg[1]);
+          mma(dp[2 * np + 1], av, bg[2], bg[3]);
+        }
+      }
+      if (full)
+        kv_grad_tile<false>(s, dp, a, kr0, q0 + qc, t, lse_s + qc, dl_s + qc);
+      else
+        kv_grad_tile<true>(s, dp, a, kr0, q0 + qc, t, lse_s + qc, dl_s + qc);
+      // p^T rounded to g's dtype, ds^T to q's: A of p^T g and ds^T q
+      uint32_t ap[NQ / 16][4], ads[NQ / 16][4];
+      to_a<NQ / 8>(ap, s);
+      to_a<NQ / 8>(ads, dp);
+
+      if constexpr (kDQ) {   // ds^T to shared memory for ds k
+        unsigned char* ds_t = smem + (sDS - sK);
+#pragma unroll
+        for (int kq = 0; kq < NQ / 16; ++kq) {
+          const int ch = (qc >> 3) + 2 * kq;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = m0 + g + 8 * (e & 1), c = ch + (e >> 1);
+            *reinterpret_cast<uint32_t*>(ds_t + sw<8>(row, c) + 4 * t) =
+                ads[kq][e];
+          }
+        }
+      }
+
+      // dv += p^T g, dk += ds^T q; g and q from ldmatrix.trans
+#pragma unroll
+      for (int kq = 0; kq < NQ / 16; ++kq)
+#pragma unroll
+        for (int np = 0; np < DM / 16; ++np) {
+          uint32_t bg[4], bq[4];
+          ld_bt(bg, sG, L, qc + kq * 16, np);
+          ld_bt(bq, sQ, L, qc + kq * 16, np);
+          mma(dv[2 * np], ap[kq], bg[0], bg[1]);
+          mma(dv[2 * np + 1], ap[kq], bg[2], bg[3]);
+          mma(dk[2 * np], ads[kq], bq[0], bq[1]);
+          mma(dk[2 * np + 1], ads[kq], bq[2], bq[3]);
+        }
+    }
+
+    if constexpr (kDQ) {
+      __syncthreads();   // every warp's ds^T is in shared memory
+      // this tile's dq contribution to q rows m0..m0+15: ds (16 x 64 keys)
+      // times k (64 keys x D), 64 columns of D at a time
+      const int qr0 = q0 + m0 + g;
+#pragma unroll
+      for (int dc = 0; dc < DM / 64; ++dc) {
+        float acc[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // ds (q rows, keys) as A: ldmatrix.trans of ds^T (row key, q
+          // contiguous) at keys kk * 16, q chunk pair `warp`, whose lane
+          // rows and chunks are those of a transposed B
+          uint32_t ads[4];
+          ldsm_t(ads, sDS + kk * 16 * 8 * 16 + (l8.b ^ (warp << 5)));
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t bk[4];
+            ld_bt(bk, sK, L, kk * 16, dc * 4 + np);
+            mma(acc[2 * np], ads, bk[0], bk[1]);
+            mma(acc[2 * np + 1], ads, bk[2], bk[3]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = qr0 + 8 * i;
+          if (row >= Sq) continue;
+          float* drow = a.dq + (((long long)b * Sq + row) * a.H + h) * D;
+#pragma unroll
+          for (int nb = 0; nb < 8; ++nb) {
+            const int c = dc * 64 + nb * 8 + 2 * t;
+            if (c < D)
+              atomicAdd(reinterpret_cast<float2*>(drow + c),
+                        make_float2(acc[nb][2 * i], acc[nb][2 * i + 1]));
+          }
+        }
+      }
+    }
+    __syncthreads();   // this stage's buffers (and ds^T) are free
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kr0 + 8 * i;
+    if (key >= Sk) continue;
+    const long long off = (((long long)b * Sk + key) * a.H + h) * D;
+#pragma unroll
+    for (int nb = 0; nb < DM / 8; ++nb) {
+      const int c = nb * 8 + 2 * t;
+      if (c < D) {
+        *reinterpret_cast<float2*>(a.dk + off + c) =
+            make_float2(dk[nb][2 * i], dk[nb][2 * i + 1]);
+        *reinterpret_cast<float2*>(a.dv + off + c) =
+            make_float2(dv[nb][2 * i], dv[nb][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// the 16-byte copies' alignment: pointer and (batch, seq, head) strides
+bool async_copy_ok(const void* p, const long long* strides) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && strides[0] % 8 == 0
+      && strides[1] % 8 == 0 && strides[2] % 8 == 0;
+}
+
+// ---------------------------------------------------------------------------
+// f32 route: CUDA cores
+// ---------------------------------------------------------------------------
 
 // rows [row0, row0 + kBlock) of one head of a [B, S, H, D] tensor into a
 // [kBlock][ld] f32 tile; rows at or past n are zero
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+__device__ __forceinline__ void load_tile(float* dst, int ld,
+                                          const float* src,
                                           long long row_stride, int row0,
                                           int n, int D) {
   for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
     const int r = i / D, c = i - r * D;
     const int row = row0 + r;
-    dst[r * ld + c] = row < n ? to_f32(src[(long long)row * row_stride + c])
-                              : 0.f;
+    dst[r * ld + c] = row < n ? src[(long long)row * row_stride + c] : 0.f;
   }
 }
 
 // DM: head_dim bucket (64 or 128) sizing the per-thread accumulators.
-template <typename T, int DM, bool kDQ>
+template <int DM, bool kDQ>
 __global__ void __launch_bounds__(kThreads) bwd_kv_kernel(Args a) {
-  extern __shared__ float smem[];
+  extern __shared__ float smemf[];
   const int D = a.D, DP = D + 1;  // padded rows: no bank conflicts
-  float* Ks = smem;               // [kBlock][DP] this block's keys
+  float* Ks = smemf;              // [kBlock][DP] this block's keys
   float* Vs = Ks + kBlock * DP;   // [kBlock][DP]
   float* Qs = Vs + kBlock * DP;   // [kBlock][DP] the q tile (dq staging)
   float* Gs = Qs + kBlock * DP;   // [kBlock][DP]
-  float* Ps = Gs + kBlock * DP;   // [key][q] p rounded to g's dtype
-  float* Ss = Ps + kBlock * kPP;  // [key][q] ds rounded to q's dtype
+  float* Ps = Gs + kBlock * DP;   // [key][q] p
+  float* Ss = Ps + kBlock * kPP;  // [key][q] ds
   float* lse_s = Ss + kBlock * kPP;  // [kBlock]
   float* dl_s = lse_s + kBlock;      // [kBlock]
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x * kBlock;
+  const int k0 = blockIdx.y * kBlock;
   const int tid = threadIdx.x;
   const int r = tid >> 1;      // key row of the tile (q row in the dq phase)
   const int half = tid & 1;    // which q rows / columns of the row it owns
   const int Sq = a.Sq, Sk = a.Sk;
 
-  const T* qp = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[2];
-  const T* kp = static_cast<const T*>(a.k) + b * a.ks[0] + h * a.ks[2];
-  const T* vp = static_cast<const T*>(a.v) + b * a.vs[0] + h * a.vs[2];
-  const T* gp = static_cast<const T*>(a.g) + b * a.gs[0] + h * a.gs[2];
+  const float* qp = static_cast<const float*>(a.q) + b * a.qs[0] + h * a.qs[2];
+  const float* kp = static_cast<const float*>(a.k) + b * a.ks[0] + h * a.ks[2];
+  const float* vp = static_cast<const float*>(a.v) + b * a.vs[0] + h * a.vs[2];
+  const float* gp = static_cast<const float*>(a.g) + b * a.gs[0] + h * a.gs[2];
   const float* lsep = a.lse + (long long)bh * Sq;
   const float* dlp = a.delta + (long long)bh * Sq;
 
@@ -146,16 +709,7 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_kernel(Args a) {
   const int kj = k0 + r;
   const long long k_pos = (long long)a.k_base + kj;
 
-  // q tiles wholly above the diagonal see no key of this tile: start at
-  // the tile of the first row that sees key k0
-  int q_start = 0;
-  if (a.causal) {
-    const long long first = (long long)a.k_base + k0 - a.q_base;
-    q_start = first <= 0 ? 0 : (int)min((long long)Sq, first);
-    q_start -= q_start % kBlock;
-  }
-
-  for (int q0 = q_start; q0 < Sq; q0 += kBlock) {
+  for (int q0 = first_q_tile(a, k0); q0 < Sq; q0 += kBlock) {
     __syncthreads();   // the previous tile's Qs / Gs / Ps / Ss are free
     load_tile(Qs, DP, qp, a.qs[1], q0, Sq, D);
     load_tile(Gs, DP, gp, a.gs[1], q0, Sq, D);
@@ -187,8 +741,8 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_kernel(Args a) {
           && (!a.causal || k_pos <= (long long)a.q_base + qi);
       const float p = live ? expf(s[i] * a.scale - lse_s[ii]) : 0.f;
       const float ds = live ? p * (dp[i] - dl_s[ii]) * a.scale : 0.f;
-      Ps[r * kPP + ii] = round_to<T>(p);
-      Ss[r * kPP + ii] = round_to<T>(ds);
+      Ps[r * kPP + ii] = p;
+      Ss[r * kPP + ii] = ds;
     }
     __syncwarp();      // key row r's p and ds come from this thread pair
 
@@ -248,28 +802,30 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_kernel(Args a) {
   }
 }
 
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
-  extern __shared__ float smem[];
+  extern __shared__ float smemf[];
   const int D = a.D, DP = D + 1;
-  float* Qs = smem;               // [kBlock][DP] this block's q rows
+  float* Qs = smemf;              // [kBlock][DP] this block's q rows
   float* Gs = Qs + kBlock * DP;   // [kBlock][DP]
   float* Ks = Gs + kBlock * DP;   // [kBlock][DP] the key tile
   float* Vs = Ks + kBlock * DP;   // [kBlock][DP]
-  float* Ss = Vs + kBlock * DP;   // [q][key] ds rounded to k's dtype
+  float* Ss = Vs + kBlock * DP;   // [q][key] ds
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * kBlock;
+  // the last q tile meets the most key tiles: launch it first
+  const int q0 = ((a.Sq + kBlock - 1) / kBlock - 1 - (int)blockIdx.y)
+      * kBlock;
   const int tid = threadIdx.x;
   const int r = tid >> 1;      // q row of the tile
   const int half = tid & 1;    // which keys / columns of the row it owns
   const int Sq = a.Sq, Sk = a.Sk;
 
-  const T* qp = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[2];
-  const T* kp = static_cast<const T*>(a.k) + b * a.ks[0] + h * a.ks[2];
-  const T* vp = static_cast<const T*>(a.v) + b * a.vs[0] + h * a.vs[2];
-  const T* gp = static_cast<const T*>(a.g) + b * a.gs[0] + h * a.gs[2];
+  const float* qp = static_cast<const float*>(a.q) + b * a.qs[0] + h * a.qs[2];
+  const float* kp = static_cast<const float*>(a.k) + b * a.ks[0] + h * a.ks[2];
+  const float* vp = static_cast<const float*>(a.v) + b * a.vs[0] + h * a.vs[2];
+  const float* gp = static_cast<const float*>(a.g) + b * a.gs[0] + h * a.gs[2];
 
   load_tile(Qs, DP, qp, a.qs[1], q0, Sq, D);
   load_tile(Gs, DP, gp, a.gs[1], q0, Sq, D);
@@ -284,13 +840,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
   const int nd = D / 2;
 
   // keys past k_end are masked for every row of the tile: skip their tiles
-  int k_end = Sk;
-  if (a.causal) {
-    const int q_last = min(q0 + kBlock, Sq) - 1;
-    const long long lim = (long long)a.q_base + q_last - a.k_base + 1;
-    k_end = (int)max(0LL, min((long long)Sk, lim));
-  }
-
+  const int k_end = key_end(a, q0);
   for (int k0 = 0; k0 < k_end; k0 += kBlock) {
     __syncthreads();   // the previous key tile is no longer read
     load_tile(Ks, DP, kp, a.ks[1], k0, Sk, D);
@@ -317,7 +867,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
           && (!a.causal || (long long)a.k_base + kj <= q_pos);
       const float p = live ? expf(s[i] * a.scale - lse) : 0.f;
       const float ds = live ? p * (dp[i] - delta) * a.scale : 0.f;
-      Ss[r * kPP + jj] = round_to<T>(ds);
+      Ss[r * kPP + jj] = ds;
     }
     __syncwarp();      // row r's ds comes from this thread pair
 
@@ -339,43 +889,48 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
   }
 }
 
-template <typename T, int DM>
-int launch(int kind, const Args& a, int B, cudaStream_t stream) {
-  const int D = a.D;
-  const size_t tile = (size_t)kBlock * (D + 1);
-  const size_t pair = (size_t)kBlock * kPP;
-  if (kind == kKindDq) {
-    const size_t smem = sizeof(float) * (4 * tile + pair);
-    auto kern = bwd_dq_kernel<T, DM>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((a.Sq + kBlock - 1) / kBlock, B * a.H);
-    kern<<<grid, kThreads, smem, stream>>>(a);
-    return (int)cudaGetLastError();
+// dynamic shared memory of kernel `kind` on route `dtype` at head dim D
+size_t smem_bytes(int kind, int dtype, int D) {
+  if (dtype == 1) {
+    const size_t tile = (size_t)kBlock * (D <= 64 ? 64 : 128) * 2;
+    if (kind == kKindDq) return 6 * tile;   // Q, G, 2 x (K, V)
+    // K, V, 2 x (Q, G), 2 x (lse, delta), the one pass's ds^T
+    return 6 * tile + 4 * kBlock * sizeof(float)
+        + (kind == kKindFused ? kBlock * kBlock * 2 : 0);
   }
-  const size_t smem = sizeof(float) * (4 * tile + 2 * pair + 2 * kBlock);
-  auto kern = kind == kKindFused ? bwd_kv_kernel<T, DM, true>
-                                 : bwd_kv_kernel<T, DM, false>;
+  const size_t tile = (size_t)kBlock * (D + 1), pair = (size_t)kBlock * kPP;
+  return sizeof(float) * (kind == kKindDq ? 4 * tile + pair
+                                          : 4 * tile + 2 * pair + 2 * kBlock);
+}
+
+template <int DM>
+int launch(int kind, int dtype, const Args& a, int B, cudaStream_t stream) {
+  void (*kern)(Args);
+  if (dtype == 1)
+    kern = kind == kKindDq      ? mma_bwd_dq_kernel<DM>
+         : kind == kKindFused   ? mma_bwd_kv_kernel<DM, true>
+                                : mma_bwd_kv_kernel<DM, false>;
+  else
+    kern = kind == kKindDq      ? bwd_dq_kernel<DM>
+         : kind == kKindFused   ? bwd_kv_kernel<DM, true>
+                                : bwd_kv_kernel<DM, false>;
+  // blockIdx.y walks the tiles, blockIdx.x the (batch, head) pairs
+  const int tiles = ((kind == kKindDq ? a.Sq : a.Sk) + kBlock - 1) / kBlock;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(kind, dtype, a.D);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sk + kBlock - 1) / kBlock, B * a.H);
-  kern<<<grid, kThreads, smem, stream>>>(a);
+  kern<<<dim3(B * a.H, tiles), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_d(int kind, const Args& a, int B, cudaStream_t stream) {
-  if (a.D <= 64) return launch<T, 64>(kind, a, B, stream);
-  return launch<T, 128>(kind, a, B, stream);
 }
 
 }  // namespace
 
 // kind: 0 = one pass (dq, dk, dv; dq must hold zeros), 1 = dq pass,
-// 2 = dk/dv pass. dtype: 0 = float32, 1 = bfloat16. Strides are in
-// elements: (batch, seq, head) for each of q, k, v, g. Returns
+// 2 = dk/dv pass. dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
+// cores; every operand 16-byte aligned, strides multiples of 8). Strides
+// are in elements: (batch, seq, head) for each of q, k, v, g. Returns
 // cudaGetLastError() of the launch (0 when there is nothing to launch).
 extern "C" int mv_flash_bwd(int kind, const void* q, const void* k,
                             const void* v, const void* g, const void* lse,
@@ -405,8 +960,17 @@ extern "C" int mv_flash_bwd(int kind, const void* q, const void* k,
     a.vs[i] = v_strides[i]; a.gs[i] = g_strides[i];
   }
   a.causal = causal; a.scale = scale; a.q_base = q_base; a.k_base = k_base;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 1
+      && !(async_copy_ok(q, q_strides) && async_copy_ok(k, k_strides)
+           && async_copy_ok(v, v_strides) && async_copy_ok(g, g_strides)))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(kind, a, B, st);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(kind, a, B, st);
-  return (int)cudaErrorInvalidValue;
+  return D <= 64 ? launch<64>(kind, dtype, a, B, st)
+                 : launch<128>(kind, dtype, a, B, st);
+}
+
+// the dynamic shared memory (bytes) that mv_flash_bwd gives a kernel
+extern "C" int mv_flash_bwd_smem_bytes(int kind, int dtype, int D) {
+  return (int)smem_bytes(kind, dtype, D);
 }

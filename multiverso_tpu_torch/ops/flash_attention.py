@@ -123,6 +123,27 @@ def _fa_plain(q, k, v, q_base: int, k_base: int, *, causal: bool,
     return pv, m, l
 
 
+def _async_copy_ok(t: torch.Tensor) -> bool:
+    """The bf16 backward kernels load tiles with 16-byte ``cp.async``
+    copies: an operand must start on 16 bytes, and its batch, seq and head
+    strides must be multiples of 8 elements."""
+    return t.data_ptr() % 16 == 0 and all(t.stride(i) % 8 == 0
+                                          for i in range(3))
+
+
+def _check_async_copy_alignment(tensors) -> None:
+    """Refuses, never copies, a bf16 view the 16-byte copies cannot read.
+    The forward checks too, so that a training step fails before it runs
+    rather than in its backward."""
+    for t in tensors:
+        if not _async_copy_ok(t):
+            raise ValueError(
+                f"flash_attention: bf16 operands must be 16-byte aligned "
+                f"with batch, seq and head strides that are multiples of 8 "
+                f"elements, got data_ptr % 16 = {t.data_ptr() % 16} and "
+                f"strides {tuple(t.stride())}")
+
+
 def _check_cuda_inputs(q, k, v, g=None) -> None:
     """What the CUDA kernels take; raises before anything is built or
     launched. ``g`` (the backward's output gradient) is shaped like q."""
@@ -146,6 +167,8 @@ def _check_cuda_inputs(q, k, v, g=None) -> None:
                          f"{tuple(k.shape)} v {tuple(v.shape)} disagree")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("flash_attention: head_dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_async_copy_alignment(tensors)
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError("flash_attention: the CUDA kernels take CUDA "
                          "tensors only")
@@ -305,8 +328,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, m, l = ctx.saved_tensors
-        if g.stride(-1) != 1:
-            g = g.contiguous()
+        if g.stride(-1) != 1 or (g.dtype == torch.bfloat16
+                                 and not _async_copy_ok(g)):
+            # autograd's own gradient tensor: a fresh copy meets the
+            # kernels' layout
+            g = g.clone(memory_format=torch.contiguous_format)
         lse = m + torch.log(torch.clamp(l, min=1e-20))
         delta = torch.einsum("bshd,bshd->bhs", g.float(), out.float())
         dq, dk, dv = _bwd_call(q, k, v, g, lse, delta, 0, 0,

@@ -208,3 +208,47 @@ def test_partial_forward_refuses_grad():
     with torch.no_grad():
         acc, _, _ = flash_attention_partial(q, q, q, 0, 0)
     assert acc.grad_fn is None
+
+
+def _views(kind):
+    """q, k, v, g views of the given layout (bf16 unless named f32)."""
+    bf = torch.bfloat16
+    if kind == "packed_qkv":   # strided views into one [B, S, 3, H, D]
+        q, k, v = torch.zeros((2, 16, 3, 2, 16), dtype=bf).unbind(2)
+        return q, k, v, torch.zeros((2, 16, 2, 16), dtype=bf)
+    if kind == "pointer_8_bytes":       # strides fine, start 8 bytes in
+        t = torch.zeros((2, 16, 2, 24), dtype=bf)[..., 4:20]
+    elif kind == "head_stride_20":      # start fine, head stride 20
+        t = torch.zeros((2, 16, 2, 20), dtype=bf)[..., :16]
+    elif kind == "seq_stride_36":       # start fine, seq stride 36
+        t = torch.zeros((2, 16, 36), dtype=bf)[..., :32].unflatten(-1,
+                                                                  (2, 16))
+    elif kind == "f32_pointer_8_bytes":  # the f32 route has no such copy
+        t = torch.zeros((2, 16, 2, 24))[..., 2:18]
+    else:
+        t = torch.zeros((2, 16, 2, 16), dtype=bf)
+    return t, t, t, t
+
+
+@pytest.mark.parametrize("kind,refused", [
+    ("contiguous", False), ("packed_qkv", False),
+    ("f32_pointer_8_bytes", False), ("pointer_8_bytes", True),
+    ("head_stride_20", True), ("seq_stride_36", True)])
+def test_cuda_wrapper_guards_the_16_byte_copies(kind, refused):
+    """The bf16 backward kernels load tiles with 16-byte cp.async copies:
+    the wrapper refuses, before its device check and without copying, a
+    bf16 view that does not start on 16 bytes or whose batch, seq or head
+    stride is not a multiple of 8 elements. An aligned view (packed q, k,
+    v included) passes the guard and meets the device check, as does f32,
+    which the CUDA-core kernels load element by element."""
+    q, k, v, g = _views(kind)
+    assert port_fa._async_copy_ok(q) is (kind in ("contiguous",
+                                                  "packed_qkv"))
+    lse = torch.zeros((2, 2, 16))
+    match = "16-byte aligned" if refused else "CUDA tensors only"
+    with pytest.raises(ValueError, match=match):
+        port_fa._bwd_cuda(q, k, v, g, lse, lse, 0, 0, causal=True,
+                          scale=0.25)
+    with pytest.raises(ValueError, match=match):   # the forward too
+        port_fa._fa_cuda(q, k, v, 0, 0, causal=True, scale=0.25,
+                         normalize=True)
