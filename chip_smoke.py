@@ -7,12 +7,29 @@ Phases, each printed on its own line:
 1. device: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel library of the port from the sources in this checkout
    (one nvcc per source, all started together), with its seconds;
-2. kernels against their plain versions on the card, at the serving path's
-   shapes, in bf16 (atol 2e-2) and f32 (atol 1e-4), causal and not, plus
-   offset partial blocks; for each case the max error, the kernel's time,
-   the plain version's time, torch's scaled_dot_product_attention time as
-   a yardstick (the port never calls it) and the least time the card could
-   take (max of FLOPs over 989 TFLOP/s and bytes over 3.35 TB/s);
+2. the flash forward kernels against their plain version on the card
+   (bf16 on the tensor-core kernel, f32 on the CUDA-core one): the serving
+   path's shapes (B 1 and 8 x S 1024 and 1536) and the training path's
+   (B 8 x S 1024, B 4 x S 2048), causal and not, offset partial blocks,
+   and bf16 cases for what the tensor-core tiling can get wrong: head_dim
+   128 and 40 (zero-filled columns), sq = sk = 7 (below one tile), B x H
+   = 1, q, k, v as strided views into one [B, S, 3, H, D] tensor, cross
+   lengths, q_base > k_base with the diagonal across tile edges, and
+   unnormalized partials whose first rows see no key (those rows must be
+   exactly m = -1e30, l = 0, out = 0). Each case holds out within 2e-2
+   (bf16) / 1e-4 (f32), an unnormalized accumulator relative to its row
+   sum, m within 1e-3 and l within 1e-3 relative; an all-zero out and the
+   plain output with keys 64-127 masked out must each fail that check.
+   Each case prints the kernel's time with its achieved TFLOP/s (4 D
+   flops per live (row, key) pair over the time), the plain version's,
+   torch's scaled_dot_product_attention time as a yardstick (the port
+   never calls it) and the least time the card could take (max of those
+   flops over 989 TFLOP/s, or 67 in f32, and q, k, v read and out, m, l
+   written once over 3.35 TB/s). A profiled bf16 call and f32 call must
+   each run their own route's kernel alone. Then the crossover:
+   flash_attention against reference_attention, bf16 causal, 12 heads of
+   64, B x H = 96 and 12, forward and forward + backward, at seq 128 to
+   2048, and the shortest length from which the kernel wins;
 3. the slice: the flagship LM (vocab 256, d_model 768, 12 layers, 12
    heads, d_ff 3072, max_seq 2048, bf16, random weights from seed 0)
    served by InferenceServer + DecodeEngine with monolithic contiguous
@@ -80,7 +97,8 @@ Phases 7-9 run after phase 3:
    flops over 989 TFLOP/s, or 67 in f32, and q, k, v, g, lse, delta read
    and dq, dk, dv written once over 3.35 TB/s); the path cases also time
    each pass alone. Phase 1 prints each kernel's ptxas registers, spills
-   and shared memory, and the dynamic shared memory each launch takes;
+   and shared memory, and the dynamic shared memory each launch takes,
+   forward and backward;
 8. one full-width f32 loss_fn gradient of the flagship through the
    kernels (attention="flash_force", seq 1024 x 2 and 2048 x 1) against
    the same gradient through reference attention: each parameter's
@@ -95,14 +113,17 @@ Phases 7-9 run after phase 3:
    multiverso_tpu/**/*.py and *.md bytes, at seq 1024 x batch 8 and seq
    2048 x batch 4; the loss must be finite and its mean over the last 3
    steps 0.1 below the first step's; every backward kernel and both
-   forward regimes must have been launched by the run; one step runs
+   forward regimes on both routes (bf16 steps, the f32 app) must have
+   been launched by the run; one step runs
    with torch.cuda.set_sync_debug_mode("error") (no host sync); prints ms
    per step, tokens/s, the share of 989 TFLOP/s by tools/lm_mfu.py's FLOP
    count and a torch.profiler top-10 of one step with the device busy
    share.
 
 The line before the last is a JSON object with one entry per kernel
-regime; the last line is {"ok": true, "device": {...}}. Any failure exits
+regime (the forward's also with the training shape's time, bound and
+library time, and the training run's bf16 launches beside the serving
+run's); the last line is {"ok": true, "device": {...}}. Any failure exits
 nonzero before either line is printed. Without a CUDA device, or without
 the package beside this file, the script fails. To debug one phase, call
 it directly, e.g. ``python3 -c "import chip_smoke as c;
@@ -187,7 +208,8 @@ FB_TILE_CASES = (
     (2, 4, 64, 300, 260, True, 70, 5, False),
     (2, 4, 64, 1300, 1200, True, 100, 37, False),
 )
-# the design of each route's kernels (the kernels line's "design")
+# the design of each route's kernels, forward and backward (the kernels
+# line's "design")
 FB_DESIGN = {torch.bfloat16: "mma.sync bf16", torch.float32: "fmaf f32"}
 # the training slice: (seq, batch) of tools/lm_mfu.py:97-103, ~8k tokens
 LM_TRAIN = ((1024, 8), (2048, 4))
@@ -267,6 +289,10 @@ def phase_device():
         f"total {time.perf_counter() - t0:.2f} s")
     for name, log in kernels.BUILD_LOG.items():
         say(f"ptxas {name}: " + " | ".join(ptxas_report(log)))
+    smem = kernels.load("flash_fwd").mv_flash_fwd_smem_bytes
+    say("flash_fwd dynamic shared memory (bytes): " + ", ".join(
+        f"{route} D{d} {smem(dtype, d)}"
+        for route, dtype in (("bf16", 1), ("f32", 0)) for d in (64, 128)))
     smem = kernels.load("flash_bwd").mv_flash_bwd_smem_bytes
     say("flash_bwd dynamic shared memory (bytes): " + ", ".join(
         f"{kind} {route} D{d} {smem(code, dtype, d)}"
@@ -315,88 +341,280 @@ def ptxas_report(log: str):
     return out
 
 
-def phase_kernels():
-    import torch.nn.functional as F
+# the forward's check, kernel vs plain: out within FA_ATOL (an
+# unnormalized accumulator relative to its row sum l, i.e. as the
+# normalized output), m within FA_M_TOL and l within FA_L_REL relative
+FA_ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+FA_M_TOL, FA_L_REL = 1e-3, 1e-3
 
-    fa = importlib.import_module("multiverso_tpu_torch.ops.flash_attention")
 
-    dev = torch.device("cuda")
-    H, D = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
-    cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for sk in (1024, 1536):
-            for causal in (True, False):
-                cases.append(dict(B=8, sq=sk, sk=sk, dtype=dtype,
-                                  causal=causal, q_base=0, k_base=0,
-                                  normalize=True))
-    for sk in (1024, 1536):   # one admission's prefill: batch 1
-        cases.append(dict(B=1, sq=sk, sk=sk, dtype=torch.bfloat16,
-                          causal=True, q_base=0, k_base=0, normalize=True))
+def fa_case(B, sq, sk, dtype, causal=True, q_base=0, k_base=0,
+            normalize=True, H=12, D=64, packed=False, name=None):
+    return dict(B=B, sq=sq, sk=sk, dtype=dtype, causal=causal,
+                q_base=q_base, k_base=k_base, normalize=normalize, H=H, D=D,
+                packed=packed, name=name)
+
+
+# forward cases; "name" marks the main paths' shapes for the kernels line
+FA_CASES = [fa_case(8, sk, sk, dt, causal)
+            for dt in (_BF, _F32) for sk in (1024, 1536)
+            for causal in (True, False)
+            if (dt, sk, causal) != (_BF, 1024, True)]
+FA_CASES += [
+    # the training path: K3's regime (key length <= 1024) and K4's
+    fa_case(8, 1024, 1024, _BF, name="train_short"),
+    fa_case(4, 2048, 2048, _BF, name="train_long"),
+    fa_case(4, 2048, 2048, _F32),
+    # one admission's prefill: batch 1
+    fa_case(1, 1024, 1024, _BF, name="serve_short"),
+    fa_case(1, 1536, 1536, _BF, name="serve_long"),
     # ring-step partials: a later q shard against an earlier k shard, and
     # an offset that leaves the first 512 rows fully masked
-    cases.append(dict(B=8, sq=768, sk=768, dtype=torch.bfloat16, causal=True,
-                      q_base=768, k_base=0, normalize=False))
-    cases.append(dict(B=8, sq=768, sk=768, dtype=torch.float32, causal=True,
-                      q_base=0, k_base=512, normalize=False))
+    fa_case(8, 768, 768, _BF, q_base=768, normalize=False),
+    fa_case(8, 768, 768, _F32, k_base=512, normalize=False),
+]
+# bf16 cases for what the tensor-core tiling can get wrong
+FA_CASES += [
+    fa_case(2, 1024, 1024, _BF, H=4, D=128),           # D 128
+    fa_case(2, 1500, 1500, _BF, False, H=4, D=128),
+    fa_case(2, 1024, 1024, _BF, H=6, D=40),            # zero-filled cols
+    fa_case(2, 1500, 1500, _BF, H=6, D=40),
+    fa_case(3, 7, 7, _BF, H=2),                        # below one tile
+    fa_case(3, 7, 7, _BF, False, H=2),
+    fa_case(1, 1000, 1000, _BF, H=1),                  # B x H = 1, ragged
+    fa_case(1, 1500, 1500, _BF, H=1),
+    fa_case(2, 1024, 1024, _BF, packed=True),          # packed qkv views
+    fa_case(2, 2048, 2048, _BF, packed=True),
+    fa_case(2, 512, 1536, _BF, H=4),                   # cross lengths
+    fa_case(2, 1536, 512, _BF, H=4),
+    fa_case(2, 300, 700, _BF, False, H=4),
+    # q_base > k_base, the diagonal across tile edges
+    fa_case(2, 300, 260, _BF, q_base=70, k_base=5, H=4),
+    fa_case(2, 1300, 1200, _BF, q_base=100, k_base=37, normalize=False,
+            H=4),
+    # unnormalized partials whose first rows see no key
+    fa_case(2, 300, 400, _BF, k_base=100, normalize=False, H=4),
+    fa_case(2, 300, 400, _BF, q_base=37, k_base=101, normalize=False, H=4,
+            D=128),
+]
+# keys left out by the wrong-mask negative control
+FA_CONTROL_KEYS = (64, 128)
+
+
+def fa_errors(got, ref, normalize: bool):
+    """(max out error, max m error, max l relative error) of ``got``
+    against ``ref``, both ``(out, m, l)``."""
+    out, m, l = got
+    ref_out, ref_m, ref_l = ref
+    diff = (out.float() - ref_out.float()).abs()
+    if not normalize:
+        # an unnormalized accumulator grows with the row sum l: hold its
+        # error relative to the row (the normalized output's error)
+        diff = diff / ref_l.clamp(min=1.0).transpose(1, 2)[..., None]
+    return (diff.max().item(), (m - ref_m).abs().max().item(),
+            ((l - ref_l).abs() / ref_l.abs().clamp(min=1.0)).max().item())
+
+
+def fa_passes(errs, atol: float) -> bool:
+    err, m_err, l_rel = errs
+    return bool(np.isfinite(err) and err <= atol and m_err <= FA_M_TOL
+                and l_rel <= FA_L_REL)
+
+
+def plain_without_keys(fa, q, k, v, q_base, k_base, lo, hi, *, causal,
+                       scale, normalize):
+    """The plain version with keys [lo, hi) left out, a wrong mask: the
+    plain partials of the keys before and after them, merged."""
+    (acc_a, m_a, l_a), (acc_b, m_b, l_b) = (
+        fa._fa_plain(q, k[:, a:b], v[:, a:b], q_base, k_base + a,
+                     causal=causal, scale=scale, normalize=False)
+        for a, b in ((0, lo), (hi, k.shape[1])))
+    m, l, acc = fa.merge_partials(m_a, l_a, acc_a, m_b, l_b, acc_b)
+    if normalize:
+        acc = (acc / torch.clamp(l, min=1e-20).transpose(1, 2)[..., None]
+               ).to(q.dtype)
+    return acc, m, l
+
+
+def fa_bound_ms(B, H, D, sq, sk, causal, q_base, k_base, item, normalize,
+                dtype):
+    """The least time of one forward call (module docstring) and what
+    bounds it, with the flops it needs."""
+    pairs = live_pairs(sq, sk, causal, q_base, k_base)
+    flops = 4.0 * B * H * D * pairs
+    out_bytes = B * sq * H * D * (item if normalize else 4)
+    nbytes = (B * sq * H * D + 2 * B * sk * H * D) * item + out_bytes \
+        + 2 * B * H * sq * 4
+    peak = TFLOPS_BF16 if dtype == torch.bfloat16 else TFLOPS_F32
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def device_kernels(fn):
+    """Names of the device kernels that one call of ``fn`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")}
+
+
+def fa_case_run(fa, c, gen):
+    """One forward case on the card (module docstring, phase 2): the
+    kernel against the plain version, its two negative controls, dead
+    rows, times; prints one line and returns the result."""
+    import torch.nn.functional as F
+
+    B, H, D, sq, sk, dt = (c[x] for x in ("B", "H", "D", "sq", "sk",
+                                          "dtype"))
+    qb, kb, causal, norm = c["q_base"], c["k_base"], c["causal"], \
+        c["normalize"]
+    if c["packed"]:   # q, k, v: strided views into one [B, S, 3, H, D]
+        q, k, v = torch.randn((B, sq, 3, H, D), generator=gen).to(
+            DEV, dt).unbind(2)
+    else:
+        q = torch.randn((B, sq, H, D), generator=gen).to(DEV, dt)
+        k, v = (torch.randn((B, sk, H, D), generator=gen).to(DEV, dt)
+                for _ in range(2))
+    scale = 1.0 / D ** 0.5
+    kw = dict(causal=causal, scale=scale, normalize=norm)
+    got = fa._fa_cuda(q, k, v, qb, kb, **kw)
+    torch.cuda.synchronize()
+    ref = fa._fa_plain(q, k, v, qb, kb, **kw)
+    errs = fa_errors(got, ref, norm)
+    atol = FA_ATOL[dt]
+    tag = (f"B={B} H={H} D={D} sq={sq} sk={sk} {str(dt).split('.')[-1]} "
+           f"causal={int(causal)} offs=({qb},{kb}) norm={int(norm)}"
+           f"{' packed' if c['packed'] else ''}")
+    if not fa_passes(errs, atol):
+        fail(f"flash kernel vs plain {tag}: max_abs_err {errs[0]} (atol "
+             f"{atol}), m err {errs[1]} (tol {FA_M_TOL}), l rel err "
+             f"{errs[2]} (tol {FA_L_REL})")
+    dead = max(0, min(sq, kb - qb)) if causal else 0
+    out, m, l = got
+    if dead and not (bool((m[:, :, :dead] == -1e30).all())
+                     and bool((l[:, :, :dead] == 0).all())
+                     and bool((out[:, :dead] == 0).all())):
+        fail(f"flash kernel {tag}: rows with no live key are not m = "
+             f"-1e30, l = 0, out = 0")
+    # negative controls: each must fail the same check
+    controls = {"zero out": (torch.zeros_like(out), m, l)}
+    lo, hi = FA_CONTROL_KEYS
+    if sk > lo and (not causal or qb + sq - 1 >= kb + lo):
+        controls[f"keys {lo}-{hi - 1} masked"] = plain_without_keys(
+            fa, q, k, v, qb, kb, lo, hi, **kw)
+    for name, ctl in controls.items():
+        if fa_passes(fa_errors(ctl, ref, norm), atol):
+            fail(f"flash kernel {tag}: negative control: the {name} "
+                 f"passes the check")
+    failing = ", ".join(controls)
+    del ref, controls
+    ms = time_ms(lambda: fa._fa_cuda(q, k, v, qb, kb, **kw))
+    plain_ms = time_ms(lambda: fa._fa_plain(q, k, v, qb, kb, **kw))
+    lib_ms = None
+    if norm and qb == kb == 0:
+        # the library call (the port never calls it), top-left causal
+        # mask as the kernel's at equal offsets
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale))
+        del qt, kt, vt
+    bound, by, flops = fa_bound_ms(B, H, D, sq, sk, causal, qb, kb,
+                                   q.element_size(), norm, dt)
+    tflops = flops / (ms * 1e-3) / 1e12
+    say(f"kernel flash_fwd {tag} [{FB_DESIGN[dt]}]: max_abs_err "
+        f"{errs[0]:.3e} m_err {errs[1]:.3e} l_rel {errs[2]:.3e} (failing "
+        f"controls: {failing}{f'; {dead} dead rows exact' if dead else ''})"
+        f" ms {ms:.4f} ({tflops:.1f} TFLOP/s) plain_ms {plain_ms:.4f} "
+        f"library_ms {fmt(lib_ms)} bound_ms {bound:.4f} ({by})")
+    return dict(max_abs_err=errs[0], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                tflops=tflops)
+
+
+def phase_kernels():
+    """The forward kernels against their plain version on the card
+    (module docstring, phase 2). Returns the named cases' results."""
+    fa = _fa()
     gen = torch.Generator(device="cpu").manual_seed(0)
     results = {}
-    for c in cases:
-        B, sq, sk, dt = c["B"], c["sq"], c["sk"], c["dtype"]
-        q = torch.randn((B, sq, H, D), generator=gen).to(dev, dt)
-        k = torch.randn((B, sk, H, D), generator=gen).to(dev, dt)
-        v = torch.randn((B, sk, H, D), generator=gen).to(dev, dt)
-        scale = 1.0 / D ** 0.5
-        kw = dict(causal=c["causal"], scale=scale, normalize=c["normalize"])
-        out, m, l = fa._fa_cuda(q, k, v, c["q_base"], c["k_base"], **kw)
-        torch.cuda.synchronize()
-        ref_out, ref_m, ref_l = fa._fa_plain(q, k, v, c["q_base"],
-                                             c["k_base"], **kw)
-        diff = (out.float() - ref_out.float()).abs()
-        if not c["normalize"]:
-            # an unnormalized accumulator grows with the row sum l: hold
-            # its error relative to the row (the normalized output's error)
-            diff = diff / ref_l.clamp(min=1.0).transpose(1, 2)[..., None]
-        err = diff.max().item()
-        m_err = (m - ref_m).abs().max().item()
-        l_rel = ((l - ref_l).abs() / ref_l.abs().clamp(min=1.0)).max().item()
-        atol = 2e-2 if dt == torch.bfloat16 else 1e-4
-        tag = (f"B={B} sq={sq} sk={sk} {str(dt).split('.')[-1]} "
-               f"causal={int(c['causal'])} offs=({c['q_base']},"
-               f"{c['k_base']}) norm={int(c['normalize'])}")
-        if not (np.isfinite(err) and err <= atol and m_err <= 1e-3
-                and l_rel <= 1e-3):
-            fail(f"flash kernel vs plain {tag}: max_abs_err {err} "
-                 f"(atol {atol}), m err {m_err}, l rel err {l_rel}")
-        ms = time_ms(lambda: fa._fa_cuda(q, k, v, c["q_base"], c["k_base"],
-                                         **kw))
-        plain_ms = time_ms(lambda: fa._fa_plain(q, k, v, c["q_base"],
-                                                c["k_base"], **kw))
-        lib_ms = None
-        if c["normalize"]:
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=c["causal"], scale=scale))
-        item = q.element_size()
-        pairs = live_pairs(sq, sk, c["causal"], c["q_base"], c["k_base"])
-        flops = 4.0 * B * H * D * pairs
-        out_bytes = B * sq * H * D * (item if c["normalize"] else 4)
-        nbytes = (B * sq * H * D + 2 * B * sk * H * D) * item + out_bytes \
-            + 2 * B * H * sq * 4
-        peak = TFLOPS_BF16 if dt == torch.bfloat16 else TFLOPS_F32
-        bound_ms = max(flops / peak, nbytes / HBM_BYTES_S) * 1e3
-        bound_by = "operations" if flops / peak >= nbytes / HBM_BYTES_S \
-            else "bytes"
-        say(f"kernel flash_fwd {tag}: max_abs_err {err:.3e} m_err "
-            f"{m_err:.3e} l_rel {l_rel:.3e} ms {ms:.4f} plain_ms "
-            f"{plain_ms:.4f} library_ms "
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms "
-            f"{bound_ms:.4f} ({bound_by})")
-        results[(B, sk, str(dt), c["causal"], c["q_base"], c["k_base"])] = \
-            dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by=bound_by, library_ms=lib_ms)
-        del q, k, v, out, m, l, ref_out, ref_m, ref_l
-    torch.cuda.empty_cache()
+    for c in FA_CASES:
+        r = fa_case_run(fa, c, gen)
+        if c["name"]:
+            results[c["name"]] = r
+        torch.cuda.empty_cache()
+    # each route launches its own kernel and only it
+    q = torch.randn((2, 256, 4, 64), generator=gen).to(DEV)
+    for dt, want, other in ((_BF, "mma_fwd_kernel", "flash_fwd_kernel"),
+                            (_F32, "flash_fwd_kernel", "mma_fwd_kernel")):
+        x = q.to(dt)
+        names = [n for n in device_kernels(lambda: fa._fa_cuda(
+            x, x, x, 0, 0, causal=True, scale=0.125, normalize=True))
+            if "fwd" in n]
+        say(f"flash_fwd {str(dt).split('.')[-1]} call ran: {names}")
+        if not names or not all(want in n and other not in n
+                                for n in names):
+            fail(f"a {dt} forward call ran {names}, not {want} alone")
     return results
+
+
+# the crossover sweep: sequence lengths, and batches giving B x H = 96
+# (the seq 1024 x 8 training step's programs) and 12 (one prefill)
+CROSS_SEQS = (128, 256, 512, 1024, 1536, 2048)
+CROSS_BATCHES = (8, 1)
+
+
+def phase_crossover():
+    """flash_attention against reference_attention on the card, bf16
+    causal at the flagship's 12 heads of 64: the forward alone (a prefill)
+    and forward + backward (a training step's attention) at each length of
+    CROSS_SEQS. The crossover is the shortest length from which the kernel
+    is faster at every longer one (FLASH_CROSSOVER_SEQ and the in-model
+    min_flash_seq mirror the JAX package's TPU values)."""
+    from multiverso_tpu_torch.ops.ring_attention import reference_attention
+
+    fa = _fa()
+    H, D = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    for B in CROSS_BATCHES:
+        wins = {"forward": [], "forward+backward": []}
+        for S in CROSS_SEQS:
+            q, k, v, g = (torch.randn((B, S, H, D), generator=gen).to(
+                DEV, torch.bfloat16) for _ in range(4))
+            ms = {}
+            for name, fn in (("flash", fa.flash_attention),
+                             ("reference", reference_attention)):
+                ms[name, "forward"] = time_ms(
+                    lambda: fn(q, k, v, causal=True))
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+                def step():
+                    out = fn(*leaves, causal=True)
+                    torch.autograd.grad(out, leaves, g)
+
+                ms[name, "forward+backward"] = time_ms(step)
+                del leaves
+            for what in wins:
+                wins[what].append(ms["flash", what] < ms["reference", what])
+            say(f"crossover B={B} H={H} D={D} S={S} bf16 causal: forward "
+                f"flash {ms['flash', 'forward']:.4f} ms reference "
+                f"{ms['reference', 'forward']:.4f} ms; forward+backward "
+                f"flash {ms['flash', 'forward+backward']:.4f} ms reference "
+                f"{ms['reference', 'forward+backward']:.4f} ms")
+            del q, k, v, g
+            torch.cuda.empty_cache()
+        for what, won in wins.items():
+            # the shortest length from which flash wins at every longer one
+            i = len(won)
+            while i > 0 and won[i - 1]:
+                i -= 1
+            at = f"S >= {CROSS_SEQS[i]}" if i < len(won) else "none measured"
+            say(f"crossover B x H = {B * H}, {what}: the kernel is faster "
+                f"from {at} (seqs {list(CROSS_SEQS)})")
 
 
 def phase_slice(card: str):
@@ -785,6 +1003,9 @@ def phase_lm_train(card: str):
     torch.cuda.synchronize()
     fa.reset_launches()       # the main path: counts to 0 just before
     runs = {}
+    # forward launches of the bf16 (tensor-core) route by regime: the
+    # flagship's bf16 steps; the app trains in f32 (the CUDA-core route)
+    bf16_fwd = {"short": 0, "long": 0}
     for seq, batch in LM_TRAIN:
         t0 = time.perf_counter()
         widths = [f"-{k}" if i == 0 else str(FLAGSHIP[k])
@@ -801,6 +1022,7 @@ def phase_lm_train(card: str):
             f"-lr {LM_LR} -sample 8 (f32, the app's default dtype) ran in "
             f"{time.perf_counter() - t0:.1f} s")
         mv.init(["chip_smoke", "-device=cuda"])
+        before = fa.LAUNCHES_BY_KEY_LEN[seq]
         cfg = tf.TransformerConfig(**dict(FLAGSHIP, max_seq=seq),
                                    dtype=torch.bfloat16, attention="flash",
                                    learning_rate=LM_LR, momentum=0.9)
@@ -843,6 +1065,8 @@ def phase_lm_train(card: str):
             fail(f"lm loss at seq {seq} not finite and falling by "
                  f"{LM_LOSS_DROP}: {losses}")
         runs[seq] = dict(step_ms=step_ms, tok_s=tok_s, losses=losses)
+        bf16_fwd["short" if seq <= 1024 else "long"] += \
+            fa.LAUNCHES_BY_KEY_LEN[seq] - before
         mv.shutdown()
         del lm
         torch.cuda.empty_cache()
@@ -853,11 +1077,14 @@ def phase_lm_train(card: str):
     fwd_long = sum(n for sk, n in by_len.items() if sk > 1024)
     say(f"lm train launches: backward {json.dumps(launches)}, forward key "
         f"len <= 1024: {fwd_short}, > 1024: {fwd_long} (by key len "
-        f"{json.dumps(by_len, sort_keys=True)})")
-    if min(launches.values()) <= 0 or fwd_short <= 0 or fwd_long <= 0:
+        f"{json.dumps(by_len, sort_keys=True)}; of them the bf16 route "
+        f"{json.dumps(bf16_fwd)}, the f32 app's the rest)")
+    if min(launches.values()) <= 0 or min(bf16_fwd.values()) <= 0 \
+            or fwd_short <= bf16_fwd["short"] or fwd_long <= bf16_fwd["long"]:
         fail(f"the training run did not launch every backward kernel and "
-             f"both forward regimes: {launches}, {by_len}")
-    return launches
+             f"both forward regimes on both routes: {launches}, {by_len}, "
+             f"bf16 {bf16_fwd}")
+    return launches, bf16_fwd
 
 
 def zipf_ids(rng, vocab: int, n: int) -> np.ndarray:
@@ -1269,7 +1496,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_device()
-    kernels_line = lm_phases(card) + lm_train_phases(card)
+    fwd_results, serve_counts = lm_phases(card)
+    bwd, train_counts = lm_train_phases(card)
+    kernels_line = fwd_entries(fwd_results, serve_counts, train_counts) + bwd
     wk = phase_w2v_kernels()
     import multiverso_tpu_torch as mv
 
@@ -1300,34 +1529,51 @@ def main() -> None:
 
 
 def lm_phases(card: str):
+    """Phases 2-3 and the crossover; the forward's results and the serving
+    run's launches by regime."""
     results = phase_kernels()
-    counts = phase_slice(card)
-    bf16 = str(torch.bfloat16)
-    kernels_line = []
-    for name, sk, regime, line in (
-            ("flash_fwd[key_len<=1024]", 1024, "short", 165),
-            ("flash_fwd[key_len>1024]", 1536, "long", 83)):
-        r = results[(1, sk, bf16, True, 0, 0)]
-        kernels_line.append({
-            "name": name, "route": "cuda", "source": FA_SRC,
-            "replaces": f"{FA_JAX}:{line}", "launches": counts[regime],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    return kernels_line
+    phase_crossover()
+    return results, phase_slice(card)
 
 
 def lm_train_phases(card: str):
-    """Phases 7-9; the kernels line's entries of the backward kernels."""
+    """Phases 7-9; the kernels line's entries of the backward kernels and
+    the training run's bf16 forward launches by regime."""
     results = phase_bwd_kernels()
     phase_grad_check()
-    launches = phase_lm_train(card)
+    launches, bf16_fwd = phase_lm_train(card)
     entries = []
     for kind in ("fused", "dq", "dkv"):
         entries.append({
             "name": f"flash_bwd[{kind}]", "route": "cuda", "source": FB_SRC,
             "replaces": f"{FA_JAX}:{FB_JAX_LINES[kind]}",
             "launches": launches[kind], **results[kind]})
+    return entries, bf16_fwd
+
+
+def fwd_entries(results, serve_counts, train_counts):
+    """The kernels line's forward entries: K3 (key length <= 1024) and K4
+    (> 1024), each at the serving path's batch-1 shape, with the training
+    path's shape (B 8 x S 1024, B 4 x S 2048) beside it."""
+    entries = []
+    for name, regime, line in (("flash_fwd[key_len<=1024]", "short", 165),
+                               ("flash_fwd[key_len>1024]", "long", 83)):
+        r, tr = results[f"serve_{regime}"], results[f"train_{regime}"]
+        case = next(c for c in FA_CASES if c["name"] == f"train_{regime}")
+        entries.append({
+            "name": name, "route": "cuda", "source": FA_SRC,
+            "replaces": f"{FA_JAX}:{line}",
+            "launches": serve_counts[regime],
+            "launches_train": train_counts[regime],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "design": FB_DESIGN[torch.bfloat16],
+            "train_shape": f"B {case['B']} x S {case['sk']}",
+            "train_ms": tr["ms"], "train_tflops": tr["tflops"],
+            "train_library_ms": tr["library_ms"],
+            "train_bound_ms": tr["bound_ms"],
+            "train_bound_by": tr["bound_by"]})
     return entries
 
 

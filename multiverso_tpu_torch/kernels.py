@@ -3,8 +3,10 @@
 Each kernel source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first use, into
 ``build/kernels/`` at the root of the checkout, and loaded with
-``ctypes``. The library name carries a hash of its source, so an edited
-source is rebuilt and a stale library is never loaded. Nothing here runs
+``ctypes``. The library name carries a hash of its source and of every
+header under ``csrc/`` that the source includes (``#include "..."``,
+followed through headers), so an edited source or header is rebuilt and
+a stale library is never loaded. Nothing here runs
 at import time: the CPU tests import every module of the package on a
 host with no ``nvcc``.
 """
@@ -14,12 +16,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -48,10 +51,29 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> List[Path]:
+    """The source of library ``name`` and the local headers it includes,
+    directly or through another header, in the order first reached."""
+    files: List[Path] = []
+    todo = [_PKG / "csrc" / SOURCES[name]]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = _PKG / "csrc" / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _compile_cmd(name: str, out: Path):

@@ -3,9 +3,10 @@
 Counterpart of ``multiverso_tpu/ops/flash_attention.py``. The JAX module
 runs two Pallas kernels for the forward, ``_fa_kernel_single`` (the whole
 K/V in one block) and ``_fa_kernel`` (online softmax over key blocks);
-here one CUDA kernel, ``csrc/flash_fwd.cu``, covers both, and
-:func:`_fa_plain` beside it computes the same ``(out, m, l)`` as one full
-softmax in PyTorch. Its three Pallas backward kernels (one pass when the
+here one CUDA kernel a dtype in ``csrc/flash_fwd.cu`` covers both (bf16
+on the tensor cores, f32 on the CUDA cores), and :func:`_fa_plain`
+beside it computes the same ``(out, m, l)`` as one full softmax in
+PyTorch. Its three Pallas backward kernels (one pass when the
 keys fit one 1024-key block, else a dq pass and a dk/dv pass) are
 ``csrc/flash_bwd.cu``, with :func:`_bwd_plain` beside them.
 
