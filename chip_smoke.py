@@ -6,7 +6,9 @@ Phases, each printed on its own line:
 
 1. device: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel library of the port from the sources in this checkout
-   (one nvcc per source, all started together), with its seconds;
+   (one nvcc per source, all started together), with its seconds, each
+   kernel's ptxas report, and the reduction opcodes in the SASS of the
+   scatter-add kernels (the 16-byte vector forms must be there);
 2. the flash forward kernels against their plain version on the card
    (bf16 on the tensor-core kernel, f32 on the CUDA-core one): the serving
    path's shapes (B 1 and 8 x S 1024 and 1536) and the training path's
@@ -55,9 +57,27 @@ Phases, each printed on its own line:
    = |x0| + the sum of |delta| the largest magnitude its exact running
    sum can reach and A' = A + h x ulp(A) (the rounding it can gather); a
    scatter that leaves the table unchanged must fail both.
-   Each case prints its time, the plain version's, the PyTorch call's
-   (index_select / index_add_, a yardstick the port never calls) and the
-   least time the card could take (bytes over 3.35 TB/s);
+   The routes the word2vec step runs are held the same way: the gather of
+   a bf16 table widened to f32 (bitwise, at the path's shapes and with
+   wrapped and out-of-range ids), and the fused scatter with alpha and a
+   per-row scale table, on the exact grid (alpha -1/2 and scales 2^-k, the
+   deltas divided by their product, so every landing delta is on the grid:
+   bitwise, wrapped and dropped ids included) and at the path's scale
+   (alpha -0.025, scales in [1/2, 1], within the tolerance above); each
+   with a negative control that must fail (the gather: the rows of the ids
+   rolled by one; the fused scatter: the update without alpha and scale,
+   and an unchanged table).
+   Each timed case prints its time (ms: calls back to back under CUDA
+   events, host included), its device time (device_ms: the CUPTI
+   durations of the kernels its calls ran, under torch.profiler), the
+   plain version's time, the PyTorch call's (index_select / index_add_,
+   a yardstick the port never calls; for the f32-out gather, index_select
+   and the cast as two calls) with its device time, and the least time
+   the card could take (bytes over 3.35 TB/s). Then: one f32-out gather
+   and one fused scatter captured in a CUDA graph, whose replays must
+   equal the eager calls bit for bit; and the gather of a contiguous
+   [1, D] table whose size-1 dim has stride 1 (a [D, 1] tensor
+   transposed), bitwise against its plain version;
 5. one full-width word2vec step of the bench configuration on the card
    and on CPU copies of the same tables with the same draws, held on the
    CHANGE of each table (after - before): each element within h x
@@ -74,7 +94,7 @@ Phases, each printed on its own line:
    fall, and both kernels must have been launched by the run; one more
    call runs with torch.cuda.set_sync_debug_mode("error") (no host sync
    inside a call); then a torch.profiler top-10 of one call by device
-   time.
+   time, with the device kernels it ran per step.
 
 Phases 7-9 run after phase 3:
 
@@ -159,6 +179,7 @@ FA_JAX = "multiverso_tpu/ops/flash_attention.py"
 W2V_VOCAB, W2V_DIM, W2V_BATCH, W2V_G = 71291, 200, 65536, 64
 W2V_WORDS, W2V_STEPS, W2V_ITERS = 4_000_000, 25, 20
 W2V_PATH = f"path n={W2V_BATCH} bfloat16"
+W2V_ALPHA = -0.025         # the bench's -lr at the start of training
 W2V_SRC = {"row_gather": "multiverso_tpu_torch/csrc/row_gather.cu",
            "row_scatter_add": "multiverso_tpu_torch/csrc/row_scatter_add.cu"}
 PROBE = "tools/w2v_kernel_probe.py"
@@ -298,7 +319,35 @@ def phase_device():
         f"{kind} {route} D{d} {smem(code, dtype, d)}"
         for route, dtype in (("bf16", 1), ("f32", 0)) for d in (64, 128)
         for kind, code in (("fused", 0), ("dq", 1), ("dkv", 2))))
+    reds = sass_reductions(
+        kernels.library_path("row_scatter_add"),
+        os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump"))
+    say("row_scatter_add SASS reductions: " + " | ".join(
+        f"{name} {' '.join(sorted(ops))}" for name, ops in reds.items()))
+    ops = set().union(*reds.values())
+    for want in ("REDG.E.ADD.BF16x8", "REDG.E.ADD.F32x4"):
+        if not any(op.startswith(want) for op in ops):
+            fail(f"row_scatter_add: no {want} (16-byte vector reduction) "
+                 f"in its SASS: {sorted(ops)}")
     return card
+
+
+def sass_reductions(lib, cuobjdump: str) -> dict:
+    """Each kernel of a built library and the reduction and atomic
+    opcodes (RED*, ATOM*) that ``cuobjdump -sass`` shows in it."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = kernel_label(m.group(1))
+            out[name] = set()
+            continue
+        m = re.search(r"\b((?:RED|ATOM)[A-Z0-9.x]*)", ln)
+        if m and name:
+            out[name].add(m.group(1))
+    return out
 
 
 def kernel_label(mangled: str) -> str:
@@ -971,6 +1020,12 @@ def train_flops_per_step(d_model, n_layers, d_ff, vocab, batch, seq):
 def profile_window(fn):
     """One call of ``fn`` under torch.profiler: (wall ms with the profiler
     on, device busy ms, top-10 table by device time)."""
+    return profile_kernels(fn)[:3]
+
+
+def profile_kernels(fn):
+    """:func:`profile_window`'s three values and the number of device
+    kernels (and copies) the call ran."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -985,9 +1040,11 @@ def profile_window(fn):
            else "self_cuda_time_total")
     # device busy time: the device-side events (kernels, copies) only; the
     # ops that launch them carry the same time again
-    busy_us = sum(getattr(e, key) for e in avg
-                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return wall * 1e3, busy_us / 1e3, avg.table(sort_by=key, row_limit=10)
+    dev = [e for e in avg
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_us = sum(getattr(e, key) for e in dev)
+    return (wall * 1e3, busy_us / 1e3, avg.table(sort_by=key, row_limit=10),
+            sum(e.count for e in dev))
 
 
 def phase_lm_train(card: str):
@@ -1199,6 +1256,129 @@ def exact_case(V: int, D: int, ids: torch.Tensor, dtype, delta_dtype,
     return x0.mul_(unit).to(dtype), deltas
 
 
+W2V_EXACT_ALPHA = -0.5
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 2):
+    """``(ms, kernels)`` of one call of ``fn`` on the card: the CUPTI
+    durations of the device kernels that ``iters`` calls ran under
+    torch.profiler, each kernel's mean duration summed over the kernels a
+    call runs (each once), and the kernel records a call left. Each
+    duration is the kernel's own, so host time between the calls is not
+    counted and no device sleep is needed to hide it. The mean, not the
+    sum over ``iters``: a profiler that has run before in the process may
+    drop the first records of a window (fewer than one kernel a call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(avg[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    dev = [e for e in avg
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return (sum(getattr(e, key) / e.count for e in dev) / 1e3,
+            sum(e.count for e in dev) / iters)
+
+
+def exact_scaled(ids: torch.Tensor, V: int, deltas: torch.Tensor,
+                 seed: int = 13):
+    """``(alpha, row_scale, deltas)`` for the fused scatter on the exact
+    grid: alpha -1/2 and a row scale of 2^-k (k in 0..3) for each row, and
+    the exact-grid deltas divided by alpha x scale[row], so that every
+    product alpha x scale x delta is an exact-grid delta again and every
+    summation order gives the same bits."""
+    dev = ids.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scale = torch.exp2(-torch.randint(0, 4, (V,), generator=g,
+                                      device=dev).float())
+    w, ok = _emb()._wrapped(ids, V)
+    coef = W2V_EXACT_ALPHA * scale[torch.where(ok, w, torch.zeros_like(w))]
+    pre = (deltas.float() / coef[:, None]).to(deltas.dtype)
+    return W2V_EXACT_ALPHA, scale, pre
+
+
+def graph_replay(V: int, D: int, ids_np: np.ndarray):
+    """One f32-out gather and one fused scatter (alpha and row scale, on
+    the exact grid) captured in a torch.cuda.CUDAGraph and replayed: each
+    replay must equal the eager call bit for bit."""
+    emb = _emb()
+    ids = torch.from_numpy(ids_np).to(DEV)
+    table = torch.randn(V, D, device=DEV).to(torch.bfloat16)
+    start, deltas = exact_case(V, D, ids, torch.bfloat16, torch.float32,
+                               seed=17)
+    alpha, scale, deltas = exact_scaled(ids, V, deltas)
+    work = start.clone()
+
+    def gather():
+        return emb.embedding_lookup(table, ids, out_dtype=torch.float32)
+
+    def scatter():
+        return emb.scatter_add_rows(work, ids, deltas, alpha=alpha,
+                                    row_scale=scale)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gather()
+        scatter()
+    torch.cuda.current_stream().wait_stream(side)
+    g_gather, g_scatter = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g_gather):
+        captured = gather()
+    with torch.cuda.graph(g_scatter):
+        scatter()
+    captured.zero_()
+    work.copy_(start)
+    g_gather.replay()
+    g_scatter.replay()
+    torch.cuda.synchronize()
+    eager_rows = gather()
+    eager = emb.scatter_add_rows(start.clone(), ids, deltas, alpha=alpha,
+                                 row_scale=scale)
+    torch.cuda.synchronize()
+    if not torch.equal(bits(captured), bits(eager_rows)):
+        fail("row_gather CUDA graph replay differs from the eager call")
+    if not torch.equal(bits(work), bits(eager)):
+        fail("row_scatter_add CUDA graph replay differs from the eager call")
+    if torch.equal(bits(work), bits(start)):
+        fail("row_scatter_add CUDA graph: negative control: the replay "
+             "left the table unchanged")
+    say(f"CUDA graph: a captured f32-out gather and fused scatter "
+        f"(n={ids.numel()}) replay bitwise equal to eager")
+
+
+def one_row_view(D: int):
+    """The gather of a contiguous [1, D] table whose size-1 dim has stride
+    1, not D (a [D, 1] tensor transposed): the kernel must read rows of D
+    elements, bitwise against the plain version, in both dtypes and both
+    output dtypes; the rows of the table reversed must fail that check."""
+    emb = _emb()
+    ids = torch.tensor([0, -1, 0, 1, -2], dtype=torch.int32, device=DEV)
+    for dt, out_dtype in ((torch.float32, None), (torch.bfloat16, None),
+                          (torch.bfloat16, torch.float32)):
+        table = torch.randn(D, 1, device=DEV).to(dt).t()
+        got = emb._gather_cuda(table, ids, out_dtype)
+        torch.cuda.synchronize()
+        want = emb._gather_plain(table, ids, out_dtype)
+        if not torch.equal(bits(got), bits(want)):
+            fail(f"row_gather [1, {D}] view {dt}: differs from the plain "
+                 f"version")
+        if torch.equal(bits(got), bits(emb._gather_plain(
+                table.flip(1).contiguous(), ids, out_dtype))):
+            fail(f"row_gather [1, {D}] view {dt}: negative control: the "
+                 f"reversed row passes the same check")
+    say(f"kernel row_gather on a [1, {D}] view of a [{D}, 1] tensor: "
+        f"bitwise equal, f32 / bf16 / bf16 -> f32")
+
+
 def phase_w2v_kernels():
     """Row gather and row scatter-add against their plain versions on the
     card (module docstring, phase 4)."""
@@ -1207,38 +1387,70 @@ def phase_w2v_kernels():
     rng = np.random.default_rng(7)
     results = {}
 
-    def gather_case(tag, V, D, dtype, ids_np):
+    def gather_case(tag, V, D, dtype, ids_np, out_dtype=None):
         table = torch.from_numpy(
             rng.standard_normal((V, D)).astype(np.float32)).to(dev, dtype)
         ids = torch.from_numpy(ids_np).to(dev)
-        out = emb._gather_cuda(table, ids)
+        out = emb._gather_cuda(table, ids, out_dtype)
         torch.cuda.synchronize()
-        ref = emb._gather_plain(table, ids)
+        ref = emb._gather_plain(table, ids, out_dtype)
         if not torch.equal(bits(out), bits(ref)):
             fail(f"row_gather {tag}: differs from the plain version")
+        rolled = torch.roll(ids, 1)
+        if not torch.equal(rolled, ids) and torch.equal(
+                bits(out), bits(emb._gather_plain(table, rolled,
+                                                  out_dtype))):
+            fail(f"row_gather {tag}: negative control: the rows of the ids "
+                 f"rolled by one pass the same check")
         uniq = int(torch.unique(ids).numel())
-        row = D * table.element_size()
-        nbytes = uniq * row + ids.numel() * (row + 4)
-        ms = time_ms(lambda: emb._gather_cuda(table, ids), iters=20)
-        plain_ms = time_ms(lambda: emb._gather_plain(table, ids), iters=20)
+        nbytes = uniq * D * table.element_size() + ids.numel() * (
+            D * out.element_size() + 4)
+
+        def call():
+            return emb._gather_cuda(table, ids, out_dtype)
+
+        ms = time_ms(call, iters=20)
+        dev_ms, per_call = device_ms(call)
+        plain_ms = time_ms(lambda: emb._gather_plain(table, ids, out_dtype),
+                           iters=20)
         # the library call has no wrap/NaN rule (a bad id is a device
-        # assert): timed on in-range ids only
-        lib_ms = (time_ms(lambda: torch.index_select(table, 0, ids),
-                          iters=20) if in_range(ids, V) else None)
+        # assert): timed on in-range ids only. No one call widens while
+        # it gathers: the f32 route's yardstick is two calls, the gather
+        # and the cast the word2vec step made before
+        lib = None
+        if in_range(ids, V):
+            lib = ((lambda: torch.index_select(table, 0, ids))
+                   if out_dtype is None else
+                   (lambda: torch.index_select(table, 0, ids).float()))
+        lib_ms = time_ms(lib, iters=20) if lib else None
+        lib_dev = device_ms(lib)[0] if lib else None
         r = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                  bound_ms=nbytes / HBM_BYTES_S * 1e3, bound_by="bytes",
-                 library_ms=lib_ms)
+                 library_ms=lib_ms if out_dtype is None else None,
+                 device_ms=dev_ms, library_device_ms=(
+                     lib_dev if out_dtype is None else None))
+        if out_dtype is not None:
+            r.update(two_call_ms=lib_ms, two_call_device_ms=lib_dev)
         say(f"kernel row_gather {tag}: bitwise equal, unique rows {uniq}, "
-            f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {fmt(lib_ms)} "
-            f"bound_ms {r['bound_ms']:.4f} (bytes)")
+            f"ms {ms:.4f} device_ms {dev_ms:.4f} ({per_call:g} kernel "
+            f"records a call) plain_ms {plain_ms:.4f} "
+            + (f"library_ms {fmt(lib_ms)} device {fmt(lib_dev)}"
+               if out_dtype is None else
+               f"index_select+float ms {fmt(lib_ms)} device {fmt(lib_dev)}")
+            + f" bound_ms {r['bound_ms']:.4f} (bytes)")
         results[("gather", tag)] = r
 
-    def scatter_exact(tag, V, D, dtype, ids_np, delta_dtype=torch.float32):
+    def scatter_exact(tag, V, D, dtype, ids_np, delta_dtype=torch.float32,
+                      fused=False):
         ids = torch.from_numpy(ids_np).to(dev)
         table, deltas = exact_case(V, D, ids, dtype, delta_dtype, seed=11)
-        got = emb._scatter_add_cuda(table.clone(), ids, deltas)
+        alpha = scale = None
+        if fused:
+            alpha, scale, deltas = exact_scaled(ids, V, deltas)
+        got = emb._scatter_add_cuda(table.clone(), ids, deltas, alpha, scale)
         torch.cuda.synchronize()
-        want = emb._scatter_add_plain(table.clone(), ids, deltas)
+        want = emb._scatter_add_plain(table.clone(), ids, deltas, alpha,
+                                      scale)
         if not torch.equal(bits(got), bits(want)):
             n_bad = int((bits(got) != bits(want)).sum())
             fail(f"row_scatter_add exact {tag}: {n_bad} elements differ "
@@ -1246,23 +1458,37 @@ def phase_w2v_kernels():
         if torch.equal(bits(table), bits(want)):
             fail(f"row_scatter_add exact {tag}: negative control: the "
                  f"plain version left the table unchanged")
+        if fused and torch.equal(bits(got), bits(
+                emb._scatter_add_plain(table.clone(), ids, deltas))):
+            fail(f"row_scatter_add exact {tag}: negative control: the "
+                 f"update without alpha and row scale gives the same table")
         w, ok = emb._wrapped(ids, V)
         hits = torch.bincount(w[ok], minlength=V)
         say(f"kernel row_scatter_add exact {tag}: bitwise equal, max hits "
             f"{int(hits.max())}")
 
     def scatter_real(tag, V, D, dtype, ids_np, delta_dtype=torch.float32,
-                     timed=True):
+                     timed=True, fused=False):
         table = torch.from_numpy(((rng.random((V, D)) - 0.5) / D)
                                  .astype(np.float32)).to(dev, dtype)
+        # fused: grads that alpha x scale (the bench's -lr, scales in
+        # [1/2, 1]) bring to the same N(0, 1e-4) scale as the plain case
+        sd = 1e-4 / abs(W2V_ALPHA) if fused else 1e-4
         deltas = torch.from_numpy(
-            (rng.standard_normal((ids_np.shape[0], D)) * 1e-4)
+            (rng.standard_normal((ids_np.shape[0], D)) * sd)
             .astype(np.float32)).to(dev, delta_dtype)
+        alpha = scale = None
+        if fused:
+            alpha = W2V_ALPHA
+            scale = torch.from_numpy(
+                (0.5 + 0.5 * rng.random(V)).astype(np.float32)).to(dev)
         ids = torch.from_numpy(ids_np).to(dev)
-        got = emb._scatter_add_cuda(table.clone(), ids, deltas)
+        got = emb._scatter_add_cuda(table.clone(), ids, deltas, alpha, scale)
         torch.cuda.synchronize()
-        want = emb._scatter_add_plain(table.clone(), ids, deltas)
-        hits, absum, _ = scatter_stats(table, ids, deltas)
+        want = emb._scatter_add_plain(table.clone(), ids, deltas, alpha,
+                                      scale)
+        landed = emb._landing_deltas(table, ids, deltas, alpha, scale)[2]
+        hits, absum, _ = scatter_stats(table, ids, landed)
         tol = scatter_tolerance(table, hits, absum, dtype)
         flat = (V, D)
         diff = (got.float() - want.float()).abs().reshape(flat)
@@ -1276,42 +1502,73 @@ def phase_w2v_kernels():
         if not control > 1.0:
             fail(f"row_scatter_add {tag}: negative control: an unchanged "
                  f"table is within the tolerance ({control:.3f})")
-        uniq = int((hits > 0).sum())
+        # elements exactly at the bound: ties that round to even in
+        # opposite directions in the two orders at every add (PERF.md)
+        at_bound = int(((diff == tol) & (tol > 0)).sum())
         line = (f"kernel row_scatter_add {tag}: max_abs_err {err:.3e} "
-                f"({ex:.3f} of the tolerance; unchanged table "
-                f"{control:.3g}), max hits {int(hits.max())}, unique rows "
-                f"{uniq}")
+                f"({ex:.6f} of the tolerance, {at_bound} elements at it; "
+                f"unchanged table {control:.3g}")
+        if fused:
+            unscaled = emb._scatter_add_plain(table.clone(), ids, deltas)
+            uctl = excess((unscaled.float() - want.float()).abs()
+                          .reshape(flat), tol)
+            if not uctl > 1.0:
+                fail(f"row_scatter_add {tag}: negative control: the update "
+                     f"without alpha and row scale is within the tolerance "
+                     f"({uctl:.3f})")
+            line += f", unscaled update {uctl:.3g}"
+        uniq = int((hits > 0).sum())
+        line += (f"), max hits {int(hits.max())}, unique rows {uniq}")
         if timed:
             row = D * table.element_size()
             nbytes = 2 * uniq * row + ids.numel() * (
-                D * deltas.element_size() + 4)
+                D * deltas.element_size() + 4) + (4 * uniq if fused else 0)
             work = table.clone()
-            ms = time_ms(lambda: emb._scatter_add_cuda(work, ids, deltas),
-                         iters=20)
-            plain_ms = time_ms(
-                lambda: emb._scatter_add_plain(work, ids, deltas), iters=20)
-            cast = deltas.to(dtype)
-            lib_ms = (time_ms(lambda: work.index_add_(0, ids, cast),
-                              iters=20) if in_range(ids, V) else None)
+
+            def call():
+                return emb._scatter_add_cuda(work, ids, deltas, alpha, scale)
+
+            ms = time_ms(call, iters=20)
+            dev_ms, per_call = device_ms(call)
+            plain_ms = time_ms(lambda: emb._scatter_add_plain(
+                work, ids, deltas, alpha, scale), iters=5, warmup=1)
+            cast = landed
+            lib_ms = lib_dev = None
+            if in_range(ids, V):
+                def lib():
+                    return work.index_add_(0, ids, cast)
+                lib_ms = time_ms(lib, iters=20)
+                lib_dev = device_ms(lib)[0]
             r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                      bound_ms=nbytes / HBM_BYTES_S * 1e3, bound_by="bytes",
-                     library_ms=lib_ms)
+                     library_ms=lib_ms, device_ms=dev_ms,
+                     library_device_ms=lib_dev)
             results[("scatter", tag)] = r
-            line += (f", ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                     f"{fmt(lib_ms)} bound_ms {r['bound_ms']:.4f} (bytes)")
+            line += (f", ms {ms:.4f} device_ms {dev_ms:.4f} ({per_call:g} "
+                     f"kernel records a call) plain_ms {plain_ms:.4f} "
+                     f"library_ms {fmt(lib_ms)} device {fmt(lib_dev)} "
+                     f"bound_ms {r['bound_ms']:.4f} (bytes)")
         say(line)
 
     V, D = W2V_VOCAB, W2V_DIM
+    f32 = torch.float32
     # centers/targets, and the B/G x K negatives
     for n in (W2V_BATCH, W2V_BATCH // W2V_G * 5):
         ids = zipf_ids(rng, V, n)
-        for dt in (torch.bfloat16, torch.float32):
+        for dt in (torch.bfloat16, f32):
             name = f"path n={n} {str(dt).split('.')[-1]}"
             gather_case(name, V, D, dt, ids)
             scatter_real(name, V, D, dt, ids)
             scatter_exact(name, V, D, dt, ids)
+        # what the word2vec step runs on its bf16 tables: rows widened to
+        # f32, and f32 grads scaled by -lr x the row's scale
+        name = f"path n={n} bfloat16 -> float32"
+        gather_case(name, V, D, torch.bfloat16, ids, out_dtype=f32)
+        name = f"fused path n={n} bfloat16"
+        scatter_real(name, V, D, torch.bfloat16, ids, fused=True)
+        scatter_exact(name, V, D, torch.bfloat16, ids, fused=True)
     # duplicate-free: every row hit once, so the tolerance is 0 (bitwise)
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (torch.bfloat16, f32):
         uniq_ids = rng.permutation(V)[:5120].astype(np.int32)
         scatter_real(f"unique n=5120 {str(dt).split('.')[-1]}", V, D, dt,
                      uniq_ids, timed=False)
@@ -1320,18 +1577,30 @@ def phase_w2v_kernels():
     odd[:64] = -1 - odd[:64]           # negative: wraps
     odd[64:96] = V + 5                 # out of range: dropped / NaN row
     gather_case("wrap+oob n=4096 bfloat16", V, D, torch.bfloat16, odd)
+    gather_case("wrap+oob n=4096 bfloat16 -> float32", V, D, torch.bfloat16,
+                odd, out_dtype=f32)
     scatter_real("wrap+drop n=4096 bf16 deltas", V, D, torch.bfloat16, odd,
                  delta_dtype=torch.bfloat16, timed=False)
     scatter_exact("wrap+drop n=4096 bf16 deltas", V, D, torch.bfloat16, odd,
                   delta_dtype=torch.bfloat16)
+    # the fused scale read at wrapped ids, never at dropped ones; the
+    # exact-grid table's bf16 grads (the step's G = 1 raw-sum case)
+    scatter_exact("fused wrap+drop n=4096 bf16 deltas", V, D,
+                  torch.bfloat16, odd, delta_dtype=torch.bfloat16,
+                  fused=True)
+    scatter_exact("fused wrap+drop n=4096 float32", V, D, f32, odd,
+                  fused=True)
     # the probe's shape (w2v_kernel_probe.py:61-82) and K1b's (:231-252)
     probe_ids = zipf_ids(np.random.default_rng(7), 71296, 204800)
     probe = "probe V=71296 D=256 N=204800 float32"
-    gather_case(probe, 71296, 256, torch.float32, probe_ids)
-    scatter_real(probe, 71296, 256, torch.float32, probe_ids)
-    scatter_exact(probe, 71296, 256, torch.float32, probe_ids)
-    gather_case("k1b V=64 D=256 N=8 float32", 64, 256, torch.float32,
+    gather_case(probe, 71296, 256, f32, probe_ids)
+    scatter_real(probe, 71296, 256, f32, probe_ids)
+    scatter_exact(probe, 71296, 256, f32, probe_ids)
+    gather_case("k1b V=64 D=256 N=8 float32", 64, 256, f32,
                 rng.integers(0, 64, 8).astype(np.int32))
+    path_ids = zipf_ids(rng, V, W2V_BATCH)
+    graph_replay(V, D, path_ids)
+    one_row_view(D)
     torch.cuda.empty_cache()
     return results
 
@@ -1380,12 +1649,14 @@ def phase_w2v_step():
         stats = {c_in._data.data_ptr(): None, c_out._data.data_ptr(): None}
         plain = emb._scatter_add_plain
 
-        def recording(table, ids, deltas):
-            got = scatter_stats(table, ids, deltas)
+        def recording(table, ids, deltas, alpha=None, row_scale=None):
+            landed = emb._landing_deltas(table, ids, deltas, alpha,
+                                         row_scale)[2]
+            got = scatter_stats(table, ids, landed)
             seen = stats[table.data_ptr()]
             stats[table.data_ptr()] = got if seen is None else tuple(
                 a + b for a, b in zip(seen, got))
-            return plain(table, ids, deltas)
+            return plain(table, ids, deltas, alpha, row_scale)
 
         emb._scatter_add_plain = recording
         try:
@@ -1483,13 +1754,16 @@ def phase_w2v_slice(card: str):
     say(f"w2v sync check: one {W2V_STEPS}-step call ran with "
         f"set_sync_debug_mode('error'), no host sync")
     # where one call's device time goes
-    wall_ms, busy_ms, table = profile_window(
+    wall_ms, busy_ms, table, n_dev = profile_kernels(
         lambda: float(model.train_device_steps(W2V_STEPS)[0]))
     say(f"w2v profile of one {W2V_STEPS}-step call: wall {wall_ms:.3f} "
         f"ms (profiler on), device busy {busy_ms:.3f} ms "
-        f"({busy_ms / wall_ms:.3f} of wall); top 10 by device "
+        f"({busy_ms / wall_ms:.3f} of wall), {n_dev} device kernels "
+        f"({n_dev / W2V_STEPS:.2f} a step); top 10 by device "
         f"time:\n{table}")
-    return {"launches": launches, "pairs_per_sec": res["pairs_per_sec"]}
+    return {"launches": launches, "pairs_per_sec": res["pairs_per_sec"],
+            "dispatch_ms": res["dispatch_ms"],
+            "kernels_per_step": n_dev / W2V_STEPS}
 
 
 def main() -> None:
@@ -1510,17 +1784,22 @@ def main() -> None:
     n_s = w2v["launches"]["row_scatter_add"]
     for name, r, line, n in (
             ("row_gather", wk[("gather", W2V_PATH)], 95, n_g),
+            ("row_gather[f32 out]",
+             wk[("gather", W2V_PATH + " -> float32")], 95, n_g),
             ("row_gather[k1b]",
              wk[("gather", "k1b V=64 D=256 N=8 float32")], 231, n_g),
-            ("row_scatter_add", wk[("scatter", W2V_PATH)], 157, n_s)):
+            ("row_scatter_add", wk[("scatter", W2V_PATH)], 157, n_s),
+            ("row_scatter_add[fused]",
+             wk[("scatter", "fused " + W2V_PATH)], 157, n_s)):
         entry = {"name": name, "route": "cuda",
                  "source": W2V_SRC[name.split("[")[0]],
                  "replaces": f"{PROBE}:{line}", "launches": n, **r}
-        if name == "row_gather[k1b]":
-            # K1b is K1's function at an 8-row shape that the path never
-            # gives it: its launches are the row_gather kernel's, all at
-            # the path's shapes
-            entry["launches_of"] = "row_gather"
+        if "[" in name:
+            # one kernel's route or shape: K1b's 8 rows the path never
+            # gives it, the f32-out gather and the fused scatter that the
+            # path runs; the launches are the kernel's, all at the path's
+            # shapes
+            entry["launches_of"] = name.split("[")[0]
         kernels_line.append(entry)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

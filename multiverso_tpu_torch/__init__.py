@@ -26,15 +26,23 @@ from .runtime import Session
 __version__ = "0.1.0"
 
 
-def init(argv: Optional[Sequence[str]] = None, **flags: Any) -> List[str]:
-    """Initialise the process; ``-device=cuda|cpu`` picks the device."""
+def init(argv: Optional[Sequence[str]] = None, sync: Optional[bool] = None,
+         updater: Optional[str] = None, **flags: Any) -> List[str]:
+    """Initialise the process (``MV_Init``); ``-device=cuda|cpu`` picks the
+    device. ``sync`` sets ``-sync`` and ``updater`` ``-updater_type``, as
+    in the JAX package."""
+    if sync is not None:
+        set_flag("sync", bool(sync))
+    if updater is not None:
+        set_flag("updater_type", updater)
     for key, value in flags.items():
         set_flag(key, value)
     return Session.get().start(argv)
 
 
-def shutdown() -> None:
-    Session.get().stop()
+def shutdown(finalize: bool = True) -> None:
+    """``MV_ShutDown``."""
+    Session.get().stop(finalize)
 
 
 def barrier() -> None:

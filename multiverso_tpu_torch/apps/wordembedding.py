@@ -12,7 +12,10 @@ device budget rotate through equal-length chunks.
 
 One process, one device. Not ported yet, and refused: the host-stream path
 (``iter_pair_batches`` with the loader thread; ``device_corpus=False``, or
-a corpus too small for the device path), multi-process data partition, the
+``device_corpus=None`` on a corpus under max(batch + 2*window + 2, 65,536)
+tokens, where the JAX trainer's auto rule streams from the host; ``True``
+trains such a corpus on the device path, as it does in JAX),
+multi-process data partition, the
 async delta pusher and SSP (which need the distributed paths). The JAX
 trainer's ``kv`` word-count table only records the epoch's words; the
 ``kv`` table is not ported, so :func:`train` keeps the count in
@@ -222,6 +225,9 @@ class TrainResult:
 
 # one chunk's token budget on the device (128M tokens, ~1.5 GB of buffers)
 _DEVICE_CORPUS_MAX_TOKENS = 1 << 27
+# below this many tokens the auto rule (device_corpus=None) streams from
+# the host: the fast path's defaults do not pay off on a small corpus
+_DEVICE_CORPUS_AUTO_MIN_TOKENS = 1 << 16
 
 
 def _auto_row_mean(cfg: Word2VecConfig, counts: np.ndarray) -> bool:
@@ -252,8 +258,11 @@ def train(
     output_path_ctx: Optional[str] = None,
 ) -> TrainResult:
     """Full training loop (reference ``TrainNeuralNetwork``) on the
-    device-resident corpus path. ``device_corpus`` None or True selects it
-    (False, the host-stream path, is not ported). Left as None,
+    device-resident corpus path. ``device_corpus`` True selects it, and so
+    does None (the JAX trainer's auto rule) on a corpus of at least
+    max(batch + 2*window + 2, 65,536) tokens; False, and None on a smaller
+    corpus, mean the host-stream path, which is not ported and raises.
+    Left as None,
     ``steps_per_call`` / ``oversample`` resolve to the device path's tuned
     values (32 / 2.5) when the cfg holds its defaults. The caller's ``cfg``
     is never mutated."""
@@ -287,6 +296,13 @@ def train(
                   f"2*window + 2 = {min_positions} positions; the corpus has "
                   f"{n_enc} (the host-stream path for small corpora is not "
                   f"ported yet)")
+    auto_min = max(min_positions, _DEVICE_CORPUS_AUTO_MIN_TOKENS)
+    if device_corpus is None and n_enc < auto_min:
+        # the JAX trainer's auto rule streams such a corpus from the host
+        Log.fatal(f"device_corpus=None picks the host-stream path for a "
+                  f"corpus under {auto_min} tokens (this one has {n_enc}), "
+                  f"and the host-stream path is not ported yet; pass "
+                  f"device_corpus=True to train it on the device path")
     # fast-path defaults, resolved before the model validates them
     if cfg.steps_per_call <= 1 and steps_per_call is None:
         cfg.steps_per_call = 32

@@ -3,7 +3,10 @@
 Each kernel source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first use, into
 ``build/kernels/`` at the root of the checkout, and loaded with
-``ctypes``. The library name carries a hash of its source and of every
+``ctypes``; :func:`bind` gives a wrapper one of its C functions with the
+signature bound once, and :func:`launch_target` the device and stream a
+launch goes to, without building any Python object. The library name
+carries a hash of its source and of every
 header under ``csrc/`` that the source includes (``#include "..."``,
 followed through headers), so an edited source or header is rebuilt and
 a stale library is never loaded. Nothing here runs
@@ -22,7 +25,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -122,3 +127,36 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+_bound: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def bind(name: str, symbol: str, argtypes: Sequence[type]):
+    """The C function ``symbol`` of library ``name`` (built and loaded
+    first if needed) with its argument types bound once and an ``int``
+    result: every C entry of the port returns a CUDA error code."""
+    fn = _bound.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _bound[(name, symbol)] = fn
+    return fn
+
+
+def launch_target(t: torch.Tensor) -> Tuple[int, int]:
+    """``(device ordinal, raw handle of PyTorch's current stream there)``
+    for a launch on ``t``'s card. The C entry takes the ordinal and makes
+    that device current only when it is not (``csrc/launch.cuh``), so the
+    wrapper needs no ``torch.cuda.device`` context and builds no
+    ``torch.cuda.Stream`` object."""
+    dev = t.get_device()
+    return dev, torch._C._cuda_getCurrentRawStream(dev)
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (a refused launch never
+    runs, and a later synchronize does not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

@@ -242,21 +242,22 @@ class Word2Vec:
         return pairs / (self.config.window + 1)
 
     # -- one step ------------------------------------------------------------
-    def _objective_grads(self, h, w_out, target_word, ex_mask, negs=None):
-        """Negative-sampling objective on hidden vectors ``h`` ``[B, D]``:
-        returns the mean loss, the f32 grad wrt ``h`` and the ``(rows,
-        grads, occurrence)`` scatter sets for ``w_out``. One implementation
-        for exact (G = 1) and group-shared (G > 1) draws."""
+    def _objective_grads(self, hf, w_out, target_word, ex_mask, negs=None):
+        """Negative-sampling objective on f32 hidden vectors ``hf`` ``[B,
+        D]``: returns the mean loss, the f32 grad wrt ``hf`` and the
+        ``(rows, grads, occurrence)`` scatter sets for ``w_out``. One
+        implementation for exact (G = 1) and group-shared (G > 1) draws.
+        Rows are gathered straight into f32 (the kernel widens bf16)."""
         cfg = self.config
         G = max(int(cfg.shared_negatives), 1)
         K = cfg.negative
-        B, D = h.shape
+        B, D = hf.shape
+        f32 = torch.float32
         if negs is None:
             negs = sample_negatives(self._gen, self._packed_alias,
                                     (B // G, K))
-        hf = h.float()
         # positive pairs (always exact, per pair); f32 scores
-        u_pos = embedding_lookup(w_out, target_word).float()    # [B, D]
+        u_pos = embedding_lookup(w_out, target_word, out_dtype=f32)
         s_pos = torch.clamp((hf * u_pos).sum(-1), -30.0, 30.0)
         g_pos = (torch.sigmoid(s_pos) - 1.0) * ex_mask
         loss = ((_softplus(s_pos) - s_pos) * ex_mask).sum()
@@ -268,7 +269,7 @@ class Word2Vec:
         scatters = [(target_word, (g_pos[:, None] * hf).to(scat_dt),
                      ex_mask)]
         # negatives: [B/G, K, D] rows shared by each group of G pairs
-        u_neg = embedding_lookup(w_out, negs).float()
+        u_neg = embedding_lookup(w_out, negs, out_dtype=f32)
         hg = hf.reshape(B // G, G, D)
         mg = ex_mask.reshape(B // G, G)
         s_neg = torch.clamp(torch.einsum("gbd,gkd->gbk", hg, u_neg),
@@ -287,77 +288,55 @@ class Word2Vec:
         loss = loss / torch.clamp(ex_mask.sum(), min=1.0)
         return loss, grad_h, scatters
 
-    def _safe_rows(self, rows: torch.Tensor) -> torch.Tensor:
-        """Rows wrapped like the scatter's ids, out-of-range ones sent to
-        row 0 (their updates are dropped by the scatter anyway), so a
-        ``[V]`` lookup never faults."""
-        w, ok = _wrapped(rows, self.config.vocab_size)
-        return torch.where(ok, w, torch.zeros_like(w))
-
     def _row_counts(self, sets) -> torch.Tensor:
         """Per-row contribution counts summed over ALL scatter sets of one
         table (one joint count keeps the cap a per-table bound)."""
         V = self.config.vocab_size
         counts = torch.zeros((V,), dtype=torch.float32, device=self.device)
         for rows, occ in sets:
-            _, ok = _wrapped(rows, V)
-            counts.index_add_(0, self._safe_rows(rows),
+            w, ok = _wrapped(rows, V)
+            counts.index_add_(0, torch.where(ok, w, torch.zeros_like(w)),
                               occ.reshape(-1) * ok)
         return counts
 
-    def _row_scale_vec(self, counts: torch.Tensor,
-                       rows: torch.Tensor) -> torch.Tensor:
-        """``[N]`` multiplier ``min(count, cap) / count`` of each row."""
+    def _row_scale_table(self, counts: torch.Tensor) -> torch.Tensor:
+        """``[V]`` multiplier ``min(count, cap) / count`` of every row, the
+        scatter kernel's ``row_scale``."""
         cap = max(float(self.config.row_update_cap), 1.0)
-        c = torch.clamp(counts[self._safe_rows(rows)], min=1.0)
+        c = torch.clamp(counts, min=1.0)
         return torch.clamp(c, max=cap) / c
-
-    def _static_scales(self, in_rows, scatters):
-        """Expected-count scale lookup (``row_mean_static``)."""
-        if self._static_scale_in is None:
-            Log.fatal("row_mean_static needs the expected-count tables "
-                      "from load_corpus_chunk (device-corpus path)")
-        in_scale = self._static_scale_in[self._safe_rows(in_rows)]
-        out_scales = [self._static_scale_out[self._safe_rows(rows)]
-                      for rows, _, _ in scatters]
-        return in_scale, out_scales
-
-    @staticmethod
-    def _apply_sgd(w, rows, grads, lr: float, scale=None) -> None:
-        """``w[rows] += -lr * scale * grads`` in place: the update in f32,
-        rounded to the table dtype by the scatter kernel."""
-        if scale is None:
-            upd = grads.float() * -lr
-        else:
-            upd = (scale * -lr)[:, None] * grads.float()
-        scatter_add_rows(w, rows, upd)
 
     def _apply_updates(self, w_in, w_out, in_rows, in_grads, in_occ,
                        scatters, lr: float) -> None:
+        """``w[rows] += -lr * scale[rows] * grads`` in place for every
+        scatter set, ``scale`` a ``[V]`` table (the row-mean stabilisers)
+        or none: the products in f32, in the JAX step's order, and the
+        rounding to the table dtype, all in the scatter kernel."""
         cfg = self.config
-        in_scale = out_counts = out_scales = None
+        in_scale = out_scale = None
         if cfg.row_mean_updates and cfg.row_mean_static:
-            in_scale, out_scales = self._static_scales(in_rows, scatters)
+            if self._static_scale_in is None:
+                Log.fatal("row_mean_static needs the expected-count tables "
+                          "from load_corpus_chunk (device-corpus path)")
+            in_scale = self._static_scale_in
+            out_scale = self._static_scale_out
         elif cfg.row_mean_updates:
-            in_counts = self._row_counts([(in_rows, in_occ)])
-            out_counts = self._row_counts(
-                [(rows, occ) for rows, _, occ in scatters])
-            in_scale = self._row_scale_vec(in_counts, in_rows)
-        self._apply_sgd(w_in, in_rows, in_grads, lr, in_scale)
-        for i, (rows, grads, _) in enumerate(scatters):
-            if out_scales is not None:
-                scale = out_scales[i]
-            else:
-                scale = (None if out_counts is None
-                         else self._row_scale_vec(out_counts, rows))
-            self._apply_sgd(w_out, rows, grads, lr, scale)
+            in_scale = self._row_scale_table(
+                self._row_counts([(in_rows, in_occ)]))
+            out_scale = self._row_scale_table(self._row_counts(
+                [(rows, occ) for rows, _, occ in scatters]))
+        scatter_add_rows(w_in, in_rows, in_grads, alpha=-lr,
+                         row_scale=in_scale)
+        for rows, grads, _ in scatters:
+            scatter_add_rows(w_out, rows, grads, alpha=-lr,
+                             row_scale=out_scale)
 
     def _raw_step(self, w_in, w_out, centers, contexts, mask, lr: float,
                   negs=None) -> torch.Tensor:
         """One skip-gram batch on table tensors, updated in place; returns
         the mean loss (a device scalar). ``negs`` ``[B/G, K]`` int32, drawn
         from the model's generator when None."""
-        h = embedding_lookup(w_in, centers)
+        h = embedding_lookup(w_in, centers, out_dtype=torch.float32)
         loss, grad_h, scatters = self._objective_grads(h, w_out, contexts,
                                                        mask, negs)
         self._apply_updates(w_in, w_out, centers, grad_h, mask, scatters, lr)

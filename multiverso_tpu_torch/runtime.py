@@ -99,7 +99,10 @@ class Session:
             Log.info("multiverso_tpu_torch initialised on %s", self.device)
             return rest
 
-    def stop(self) -> None:
+    def stop(self, finalize: bool = True) -> None:
+        """``MV_ShutDown``. ``finalize`` is the reference's ask to finalize
+        the message-passing layer as well; one process has none, so it is
+        accepted, as the JAX package accepts it, and changes nothing."""
         with self._lock:
             if not self.started:
                 return

@@ -5,17 +5,17 @@ On CPU tensors ``embedding_lookup`` and ``scatter_add_rows`` run their plain
 versions, which the card's kernels are held to by ``chip_smoke.py``: the
 gather bitwise, the scatter-add bitwise on data whose every running sum is
 exact and within the duplicate-order bound on data at the path's scale.
-Here the plain
-versions are held against ``jnp.take`` / ``.at[].add`` and against the
-TPU kernels themselves, K1 (``pallas_gather``) and K2 (``pallas_rmw``) of
-``tools/w2v_kernel_probe.py`` in Pallas interpret mode, at shrunken shapes
-(``CHUNK``/``DEPTH`` monkeypatched as ``tests/test_kernel_probe.py`` does),
-plus K1b's 8-row shape. Tolerances: gathers are bitwise (NaN rows
-included). Scatter-adds: f32 1e-6 absolute (a different order of the
-duplicate sums); bf16 rows within (hits + 1) bf16 ulps of the row's
-magnitude, because XLA on the CPU accumulates a bf16 scatter in f32 and
-rounds once while the port rounds after every add, as the card's bf16
-atomics do.
+Here the plain versions are held against ``jnp.take`` / ``.at[].add`` and
+against the TPU kernels themselves, K1 (``pallas_gather``) and K2
+(``pallas_rmw``) of ``tools/w2v_kernel_probe.py`` in Pallas interpret mode,
+at shrunken shapes (``CHUNK``/``DEPTH`` monkeypatched as
+``tests/test_kernel_probe.py`` does), plus K1b's 8-row shape. Tolerances:
+gathers are bitwise (NaN rows included). Scatter-adds against
+``.at[].add`` are bitwise, duplicates included: XLA's scatter on the CPU
+rounds after every add, a row's adds in index order, and so does the
+plain version (the card's kernel rounds after every add too, in an order
+that is not fixed). Against the Pallas RMW, f32 1e-4 absolute (it sums in
+another order).
 """
 
 import jax.numpy as jnp
@@ -111,19 +111,36 @@ def test_gather_at_k1b_shape(monkeypatch):
         _host(got), _host(jnp.take(jt, jnp.asarray(ids), axis=0)))
 
 
+@pytest.mark.parametrize("shape,view", [((7, 12), False),
+                                        ((5, 3, 4), False),
+                                        ((12, 1), True)],
+                         ids=["rows", "rows-of-3x4", "one-row-view"])
+def test_row_width_is_what_the_kernels_are_given(shape, view):
+    """The row width both CUDA wrappers pass their kernel is the row's
+    element count, also for a contiguous ``[1, D]`` view whose size-1 dim
+    has stride 1 (a ``[D, 1]`` tensor transposed), where ``stride(0)``
+    would give 1; the plain gather of such a view is ``jnp.take``'s."""
+    rng = np.random.default_rng(8)
+    host = rng.standard_normal(shape).astype(np.float32)
+    table = torch.from_numpy(host)
+    if view:
+        table, host = table.t(), host.T
+    assert table.is_contiguous()
+    assert temb._row_elems(table) == int(np.prod(host.shape[1:]))
+    ids = np.array([0, -1, host.shape[0], 0], np.int32)
+    np.testing.assert_array_equal(
+        _host(temb.embedding_lookup(table, torch.from_numpy(ids))),
+        _host(jemb.embedding_lookup(jnp.asarray(host), jnp.asarray(ids))))
+
+
 def _assert_scatter_close(got, want, before, ids, name):
-    got, want, before = _host(got), _host(want), _host(before)
-    if name == "float32":
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-        return
-    V = before.shape[0]
-    w = np.where(ids < 0, ids + V, ids)
-    hits = np.bincount(w[(w >= 0) & (w < V)], minlength=V)
-    mag = np.max(np.maximum(np.maximum(np.abs(before), np.abs(want)),
-                            np.abs(got)), axis=1, keepdims=True)
-    ulp = 2.0 ** (np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
-    excess = np.abs(got - want) / ((hits[:, None] + 1) * ulp)
-    assert excess.max() <= 1.0, excess.max()
+    """Bitwise: both sides round each add on its own, in index order."""
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def _bits(x) -> np.ndarray:
+    """The f32 bits of a table (a bf16 value widens exactly)."""
+    return _host(x).view(np.int32)
 
 
 @pytest.mark.parametrize("name", DTYPES)
@@ -198,3 +215,80 @@ def test_wrappers_count_no_launch_on_the_cpu_and_refuse_other_devices():
         temb.embedding_lookup(meta, ids)
     with pytest.raises(ValueError, match="unsupported device"):
         temb.scatter_add_rows(meta, ids, torch.zeros((1, 2), device="meta"))
+
+
+@pytest.mark.parametrize("hits,delta,want", [(2, 0.004, 1.015625),
+                                             (8, 0.004, 1.0625),
+                                             (1000, 1e-3, 1.0)])
+def test_scatter_add_rounds_every_add_as_jax_does(hits, delta, want):
+    """bf16 1.0 plus ``hits`` adds of bf16(delta) on one row: XLA rounds
+    after every add, so 1,000 adds of 1e-3 (under half an ulp of 1.0) leave
+    1.0, where one rounding of the f32 sum would give 2.0."""
+    table = torch.ones((3, 4), dtype=torch.bfloat16)
+    ids = np.ones(hits, np.int32)
+    d = np.full((hits, 4), delta, np.float32)
+    temb.scatter_add_rows(table, torch.from_numpy(ids), torch.from_numpy(d))
+    jt = jnp.ones((3, 4), jnp.bfloat16).at[jnp.asarray(ids)].add(
+        jnp.asarray(d).astype(jnp.bfloat16))
+    np.testing.assert_array_equal(_bits(table), _bits(jt))
+    assert _host(table)[1, 0] == want
+    assert (_host(table)[[0, 2]] == 1.0).all()
+
+
+@pytest.mark.parametrize("name", DTYPES)
+def test_gather_to_float32_matches_take_astype(name):
+    """``out_dtype=torch.float32``: ``jnp.take(...).astype(f32)`` bit for
+    bit, NaN rows of wrapped-out ids included."""
+    rng = np.random.default_rng(6)
+    V, D = 50, 16
+    tt, jt = _table(rng, V, D, name)
+    ids = _ids(rng, V, 200).reshape(20, 10)
+    got = temb.embedding_lookup(tt, torch.from_numpy(ids),
+                                out_dtype=torch.float32)
+    want = jnp.take(jt, jnp.asarray(ids), axis=0).astype(jnp.float32)
+    assert got.dtype == torch.float32 and got.shape == (20, 10, D)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+    assert np.isnan(got.numpy()[0, 2:5]).all()
+
+
+def _scaled_at_add(jt, ids, grads, lr, scale):
+    """The JAX step's update (``multiverso_tpu/models/word2vec.py``
+    ``apply_sgd``, ``update_impl="scatter"``) on the same inputs."""
+    g = jnp.asarray(grads)
+    upd = -lr * g if scale is None else \
+        (-lr) * jnp.take(jnp.asarray(scale), jnp.asarray(ids), axis=0)[
+            :, None] * g
+    return jt.at[jnp.asarray(ids)].add(upd.astype(jt.dtype))
+
+
+@pytest.mark.parametrize("name", DTYPES)
+@pytest.mark.parametrize("delta_dtype", ["float32", "table"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["alpha",
+                                                       "alpha+row_scale"])
+def test_scatter_add_with_alpha_and_row_scale_matches_jax(name, delta_dtype,
+                                                          scaled):
+    """``alpha = -lr`` and a ``[V]`` f32 scale table against the JAX step's
+    ``w.at[rows].add(((-lr) * scale[rows][:, None] * grads)
+    .astype(w.dtype))``, bit for bit: zipf duplicates, negative ids that
+    wrap (and read the scale of the row they wrap to) and out-of-range ids
+    that are dropped (and read no scale)."""
+    rng = np.random.default_rng(7)
+    V, D, n = 40, 10, 300
+    tt, jt = _table(rng, V, D, name)
+    ids = _ids(rng, V, n)
+    grads = (rng.standard_normal((n, D)) * 0.1).astype(np.float32)
+    td = torch.from_numpy(grads)
+    if delta_dtype == "table":
+        td = td.to(tt.dtype)
+    scale = (rng.random(V) + 0.05).astype(np.float32) if scaled else None
+    lr = float(np.float32(0.025))
+    temb.scatter_add_rows(tt, torch.from_numpy(ids), td, alpha=-lr,
+                          row_scale=None if scale is None
+                          else torch.from_numpy(scale))
+    want = _scaled_at_add(jt, ids, _host(td), np.float32(lr), scale)
+    np.testing.assert_array_equal(_bits(tt), _bits(want))
+    # the scaling was applied: the unscaled update is another table
+    plain = _table(np.random.default_rng(7), V, D, name)[0]
+    temb.scatter_add_rows(plain, torch.from_numpy(ids), td)
+    assert not np.array_equal(_bits(plain), _bits(tt))

@@ -13,6 +13,7 @@ import pytest
 from multiverso_tpu_torch import kernels
 
 HEADER = "mma_sm90.cuh"
+LAUNCH_HEADER = "launch.cuh"
 
 
 @pytest.fixture
@@ -34,21 +35,24 @@ def test_flash_sources_include_the_shared_header():
             kernels.SOURCES[name], HEADER]
     for name in ("row_gather", "row_scatter_add"):
         assert [p.name for p in kernels.source_files(name)] == [
-            kernels.SOURCES[name]]
+            kernels.SOURCES[name], LAUNCH_HEADER]
 
 
-@pytest.mark.parametrize("edited", [HEADER, "flash_fwd.cu", "row_gather.cu"])
+@pytest.mark.parametrize("edited", [HEADER, LAUNCH_HEADER, "flash_fwd.cu",
+                                    "row_gather.cu"])
 def test_library_name_follows_its_files(csrc_copy, edited):
     """Editing a file renames exactly the libraries built from it: the
-    header renames both flash libraries, a source only its own."""
+    tile header renames both flash libraries, the launch header both row
+    libraries, a source only its own."""
     before = _names()
     with open(csrc_copy / edited, "a") as f:
         f.write("\n// edited\n")
     after = _names()
     users = {name for name in kernels.SOURCES
              if edited in [p.name for p in kernels.source_files(name)]}
-    assert users == ({"flash_fwd", "flash_bwd"} if edited == HEADER
-                     else {edited.rsplit(".", 1)[0]})
+    assert users == {HEADER: {"flash_fwd", "flash_bwd"},
+                     LAUNCH_HEADER: {"row_gather", "row_scatter_add"}}.get(
+                         edited, {edited.rsplit(".", 1)[0]})
     for name in kernels.SOURCES:
         assert (after[name] != before[name]) == (name in users), name
 

@@ -68,11 +68,12 @@ def _zipf_corpus(path, n_words=3000, vocab=60, seed=0):
 
 
 def _assert_tables_close(jtab, ttab, dtype, before=None, hits=None):
-    """f32: 1e-5 absolute. bf16: the port rounds after every scatter add
-    (as the card's bf16 atomics do) while XLA on the CPU accumulates a
-    bf16 scatter in f32 and rounds once, so a row hit h times may differ by
-    up to h half-ulps plus a rounding of each side: held per row at
-    (hits + 2) ulps of the row's largest magnitude (before or after)."""
+    """f32: 1e-5 absolute. bf16: both sides round after every scatter add,
+    but the f32 deltas they round come from products summed in another
+    order, so a delta may round to the other bf16 neighbour and a row hit h
+    times may differ by up to h half-ulps plus a rounding of each side:
+    held per row at (hits + 2) ulps of the row's largest magnitude (before
+    or after)."""
     want = np.asarray(jtab.get(), np.float32)
     got = ttab.get()
     if dtype == torch.float32:
@@ -338,8 +339,10 @@ def test_app_train_learns_cooccurrence(port, tmp_path):
     cfg = tw2v.Word2VecConfig(embedding_size=16, window=2, negative=3,
                               init_lr=0.03, batch_size=128, seed=3)
     out = str(tmp_path / "vec.txt")
+    # 1,200 tokens: the auto rule would stream them from the host (not
+    # ported), so this asks for the device path, as JAX can be asked
     result = tapp.train(corpus, out, cfg, epochs=3, min_count=1, sample=0,
-                        log_every=1)
+                        log_every=1, device_corpus=True)
     assert result.words_trained == 3600 and result.pairs_trained > 0
     assert np.isfinite(result.final_loss)
     with open(out) as f:
@@ -372,6 +375,18 @@ def test_unported_options_raise(port, opts):
     with pytest.raises(FatalError):
         tw2v.Word2Vec(tw2v.Word2VecConfig(vocab_size=8, **opts), w_in, w_out,
                       counts=np.ones(8))
+
+
+def test_auto_rule_refuses_a_small_corpus(port, tmp_path):
+    """``device_corpus=None`` on a corpus under max(batch + 2*window + 2,
+    65,536) tokens is the JAX trainer's host-stream path
+    (``multiverso_tpu/apps/wordembedding.py:564-566``), which the port does
+    not have: it refuses instead of training it on the device path."""
+    corpus = _toy_corpus(tmp_path)                 # 1,200 tokens
+    cfg = tw2v.Word2VecConfig(embedding_size=16, window=2, negative=3,
+                              batch_size=128, seed=3)
+    with pytest.raises(FatalError, match="host-stream"):
+        tapp.train(corpus, None, cfg, min_count=1, sample=0)
 
 
 def test_unported_paths_raise(port, tmp_path):
@@ -439,15 +454,19 @@ def test_app_main_runs_and_refuses_unported_options(tmp_path):
             "-window", "2", "-negative", "2", "-batch_size", "64",
             "-min_count", "1", "-sample", "0", "-save_vocab",
             str(tmp_path / "v.txt"), "-device=cpu"]
+    # the 1,200-token corpus takes the device path only when asked
+    dev = base + ["-device_corpus", "1"]
     Session._instance = None
     try:
-        assert tapp.main(base) == 0
+        assert tapp.main(dev) == 0
         assert out.read_text().splitlines()[0] == "6 8"
         assert (tmp_path / "v.txt").read_text().count("\n") == 6
-        assert tapp.main(base + ["-bogus", "1"]) == 2
+        assert tapp.main(dev + ["-bogus", "1"]) == 2
         assert tapp.main([]) == 2
         with pytest.raises(FatalError, match="cbow"):
-            tapp.main(base + ["-cbow", "1"])
+            tapp.main(dev + ["-cbow", "1"])
+        with pytest.raises(FatalError, match="host-stream"):
+            tapp.main(base)
         with pytest.raises(FatalError, match="host-stream"):
             tapp.main(base + ["-device_corpus", "0"])
     finally:
