@@ -140,6 +140,27 @@ Phases 7-9 run after phase 3:
    count and a torch.profiler top-10 of one step with the device busy
    share.
 
+Phase 10 runs right after phase 3:
+
+10. the serving engine at the JAX package's default flags: the flagship
+   of phase 3 served with no feature flag passed (chunked prefill of 32
+   tokens, paged KV of 16-position blocks, a pool of 8 x 100 blocks,
+   prefix cache, preemption, flight recorder and watchdog on) over phase
+   3's 16 prompts, six prompts sharing a 512-token prefix, one full-hit
+   resubmission, priorities 0-3 and one request that must expire in the
+   queue. Run A at the defaults, B with a 150-block pool (it must
+   preempt), C with the prefix cache and preemption off, D in phase 3's
+   monolithic contiguous layout. Each run must complete every request
+   but the expired one, keep one signature per program, balance its
+   pool, never trip the watchdog and record every iteration; A and B
+   must equal C token for token, except full hits and preempted
+   requests, which may differ only from a near-tie (the bound is in
+   ``phase_defaults``'s docstring, with a negative control). Prints each
+   run's tokens/s, TTFT and ITL p50/p99, the recorder's median chunk and
+   step times, prefix hits, copies and preemptions, and each run's
+   agreement with phase 3's oracle (each mismatch's position and top-2
+   logit gap).
+
 The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
 library time, and the training run's bf16 launches beside the serving
@@ -742,6 +763,7 @@ def phase_slice(card: str):
              f"{by_len}")
 
     mismatches = 0
+    oracle = []
     for p, rep in zip(prompts, replies):
         got = np.asarray(rep["result"])
         if got.shape != (MAX_NEW,) or got.min() < 0 \
@@ -755,6 +777,7 @@ def phase_slice(card: str):
                 cfg, params, toks, torch.tensor([len(p)], device=dev),
                 MAX_NEW, slots=SLOTS, cache_len=MAX_PROMPT + MAX_NEW)
         want = want[0].cpu().numpy()
+        oracle.append(want)
         if not np.array_equal(got, want):
             mismatches += 1
             first = int(np.argmax(got != want))
@@ -765,7 +788,322 @@ def phase_slice(card: str):
     if mismatches:
         fail(f"{mismatches} outputs differ from greedy_decode")
     mv.shutdown()
-    return {"short": short, "long": long_}
+    return {"short": short, "long": long_, "prompts": prompts,
+            "oracle": oracle}
+
+
+# phase 10: the serving engine at the JAX package's default flags
+DEF_SHARED = 512          # shared prefix: 32 blocks of 16, 16 chunks of 32
+DEF_SUFFIX = (16, 200)    # the shared-prefix prompts' distinct suffixes
+DEF_N_SHARED = 6
+# run B's pool: 1.5 sequences' worst case (100 blocks). Chunked admission
+# brings one ~96-block prompt in at a time, so larger pools rarely fill:
+# on this traffic at d_model 32 on a CPU (the schedule depends on neither
+# the width nor the device), pools of 300 and 250 blocks never preempted,
+# 200 once, 150 six times
+DEF_POOL_B = 150
+DEF_DEADLINE_S = 0.001    # expires while queued behind the burst
+BF16_U = 2.0 ** -8        # bf16 unit roundoff (8-bit significand)
+
+
+def default_traffic(base, vocab: int):
+    """Phase 3's prompts, then six prompts sharing one 512-token prefix
+    with distinct 16-200-token suffixes (the first rounded up to whole
+    blocks: it is resubmitted after its reply, a full prefix hit), and
+    priorities 0-3. Returns (prompts, priorities, index of the
+    resubmitted prompt)."""
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, vocab, DEF_SHARED)
+    lens = rng.integers(DEF_SUFFIX[0], DEF_SUFFIX[1] + 1, DEF_N_SHARED)
+    lens[0] = -(-lens[0] // 16) * 16
+    prompts = list(base) + [
+        np.concatenate([shared, rng.integers(0, vocab, int(n))])
+        for n in lens]
+    return prompts, rng.integers(0, 4, len(prompts)), len(base)
+
+
+@torch.no_grad()
+def top2_gaps(cfg, params, prompt, out):
+    """For each generated position j of ``prompt + out``: the top-2 logit
+    gap of the logits that predict ``out[j]``, and the bound
+    2 u sum_d |h_d| (|e_1d| + |e_2d|) (phase 10's docstring), from one
+    forward through reference attention."""
+    from multiverso_tpu_torch.models import transformer as tf
+
+    toks = torch.from_numpy(np.concatenate([prompt, out[:-1]])).to(DEV)
+    h = params["embed"][toks[None]] + params["pos"][:toks.shape[0]]
+    for layer in tf._layers(params):
+        h, _, _ = tf._block(cfg, layer, h)
+    h = tf._rmsnorm(h, params["ln_f_g"])[0, len(prompt) - 1:].float()
+    e = params["embed"].float()
+    top = (h @ e.t()).topk(2, dim=-1)
+    ea = e.abs()
+    bound = 2 * BF16_U * (h.abs() * (ea[top.indices[:, 0]]
+                                     + ea[top.indices[:, 1]])).sum(-1)
+    gap = top.values[:, 0] - top.values[:, 1]
+    return gap.cpu().numpy(), bound.cpu().numpy()
+
+
+def first_mismatch(a, b):
+    diff = np.nonzero(np.asarray(a) != np.asarray(b))[0]
+    return int(diff[0]) if diff.size else None
+
+
+def divergence_allowed(cfg, params, prompt, got, ref):
+    """``(ok, (j, gap, bound))``: ``got`` may differ from the reference
+    run's ``ref`` only from a position where ref's top-2 gap is under the
+    bf16 bound."""
+    j = first_mismatch(got, ref)
+    if j is None:
+        return True, None
+    gap, bound = top2_gaps(cfg, params, prompt, ref)
+    return bool(gap[j] < bound[j]), (j, float(gap[j]), float(bound[j]))
+
+
+def serve_defaults(srv, lm, label, prompts, prios, repeat, **knobs):
+    """One run of the default-flag engine: the burst, the expiring
+    request, then the resubmission once the first reply is in. Fails
+    unless every request but the expired one completes, that one raises
+    DeadlineExceededError unadmitted, each program keeps one signature,
+    the books balance after the drain, the watchdog never tripped and
+    the recorder holds a record per iteration."""
+    from multiverso_tpu_torch.serving import DeadlineExceededError
+
+    name = f"lm_{label}"
+    eng = srv.register_decoder(name, lm, slots=SLOTS, max_prompt=MAX_PROMPT,
+                               max_new=MAX_NEW, **knobs)
+    admitted, full_hits, preempted = set(), set(), set()
+    begin, preempt = eng._begin_prefill, eng._preempt
+
+    def begin_seen(req, slot):
+        begin(req, slot)
+        admitted.add(id(req.future))
+        if req.full_hit:
+            full_hits.add(id(req.future))
+
+    def preempt_seen(req, why=""):
+        preempted.add(id(req.future))
+        preempt(req, why)
+
+    eng._begin_prefill, eng._preempt = begin_seen, preempt_seen
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [srv.submit(name, {"prompt": p, "max_new": MAX_NEW,
+                              "priority": int(pr)})
+            for p, pr in zip(prompts, prios)]
+    late = srv.submit(name, {"prompt": prompts[0], "max_new": MAX_NEW,
+                             "priority": 0, "deadline_s": DEF_DEADLINE_S})
+    futs[repeat].result(timeout=600)
+    futs.append(srv.submit(name, {"prompt": prompts[repeat],
+                                  "max_new": MAX_NEW,
+                                  "priority": int(prios[repeat])}))
+    outs = [np.asarray(f.result(timeout=600)["result"]) for f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    try:
+        late.result(timeout=600)
+        fail(f"run {label}: the {DEF_DEADLINE_S} s deadline request was "
+             f"served")
+    except DeadlineExceededError:
+        pass
+    if id(late) in admitted:
+        fail(f"run {label}: the expired request was admitted")
+    deadline = time.monotonic() + 30
+    while (eng.health()["live_seqs"] or eng.queue_depth()
+           or eng.recorder.total < eng.iters_total):
+        if time.monotonic() > deadline:
+            fail(f"run {label}: the engine did not drain")
+        time.sleep(0.01)
+    st = eng.stats()
+    recs = eng.recorder.records()
+    chunk_ms = [r["busy_ms"] - r["step_ms"] for r in recs
+                if r["prefill_toks"] > 0]
+    step_ms = [r["step_ms"] for r in recs if r["step_ms"] > 0]
+    paged = st["kv_block_size"] > 0
+    drift = eng.pool_drift() or (eng._pool.drift() if paged else None)
+    # a monolithic engine has one admission signature per prompt bucket
+    prefill_sigs = 1 if st["prefill_token_budget"] else len(BUCKETS)
+    problems = []
+    if st["completed"] != len(futs) or st["deadline_drops"] != 1:
+        problems.append(f"completed {st['completed']} of {len(futs)}, "
+                        f"deadline drops {st['deadline_drops']}")
+    if st["step_traces"] != 1 or st["prefill_traces"] > prefill_sigs:
+        problems.append(f"signatures: step {st['step_traces']}, prefill "
+                        f"{st['prefill_traces']}")
+    if drift is not None or st.get("kv_blocks_live", 0):
+        problems.append(f"pool after the drain: {drift}, "
+                        f"{st.get('kv_blocks_live')} live blocks")
+    if st["watchdog_trips"] or eng.recorder.total < st["iters_total"]:
+        problems.append(f"watchdog trips {st['watchdog_trips']}, "
+                        f"{eng.recorder.total} records for "
+                        f"{st['iters_total']} iterations")
+    vocab = lm.config.vocab_size
+    if any(o.shape != (MAX_NEW,) or o.min() < 0 or o.max() >= vocab
+           for o in outs):
+        problems.append("an output of the wrong shape or range")
+    if problems:
+        fail(f"run {label}: " + "; ".join(problems))
+    flags = ", ".join(f"{k}={v}" for k, v in knobs.items())
+    pass_name = "chunk" if st["prefill_token_budget"] else "admission"
+    say(f"defaults run {label} ({flags or 'no feature flags'}): "
+        f"{len(outs)} requests, {st['tokens']} tokens in {wall:.3f} s = "
+        f"{st['tokens'] / wall:.1f} tok/s, TTFT p50 {st['ttft_p50_ms']:.2f} "
+        f"p99 {st['ttft_p99_ms']:.2f} ms, ITL p50 {st['itl_p50_ms']:.2f} "
+        f"p99 {st['itl_p99_ms']:.2f} ms, median {pass_name} "
+        f"{float(np.median(chunk_ms)):.3f} ms ({len(chunk_ms)} "
+        f"iterations with one, the step left out), median step "
+        f"{float(np.median(step_ms)):.3f} ms ({len(step_ms)} steps), "
+        f"prefix hits {st.get('prefix_hits', 0)} misses "
+        f"{st.get('prefix_misses', 0)} tokens saved "
+        f"{st.get('prefill_tokens_saved', 0)}, copy-on-write "
+        f"{st.get('cow_copies', 0)}, preemptions {st['preemptions']} "
+        f"({st['preempted']} requests), iterations {st['iters_total']}, "
+        f"block-table uploads {st.get('block_table_uploads', 0)}, peak "
+        f"live {st['peak_live_seqs']}, card {card_line()}")
+    eng.stop()
+    index = {id(f): i for i, f in enumerate(futs)}
+    return {"outs": outs, "stats": st,
+            "full_hits": {index[k] for k in full_hits if k in index},
+            "preempted": {index[k] for k in preempted if k in index}}
+
+
+_CARD = []
+
+
+def card_line() -> str:
+    return _CARD[0] if _CARD else "?"
+
+
+def phase_defaults(card: str, base_prompts, oracle):
+    """10. the serving engine at the JAX package's default flags (runs
+    right after phase 3, on its configuration): the flagship in bf16 from
+    seed 0, 8 slots, max_prompt 1536, max_new 64, and no feature flag
+    passed, so budget 32, block 16, a pool of 8 x 100 blocks, prefix
+    cache, preemption, flight recorder and watchdog on. The traffic is
+    phase 3's 16 prompts, six prompts sharing a 512-token prefix, one
+    resubmission of a whole-block prompt after its reply (a full hit, so
+    a copy-on-write), priorities 0-3 and one request whose 1 ms deadline
+    expires in the queue. Three runs: A at the defaults, B with a pool of
+    150 blocks (so the optimistic admission must preempt), C with the
+    prefix cache and preemption off (the control). A fourth run, D, is
+    phase 3's layout (monolithic flash prefill, contiguous KV) on the
+    same traffic, the baseline for chunked admission's TTFT and ITL; it
+    is held to the same run checks and to phase 3's oracle, not to C.
+
+    Every request of A and B must equal C's wherever the two computed the
+    same shapes: every request that was neither a full hit nor preempted
+    (the shared prefix ends on a chunk boundary, so the suffix chunks are
+    C's row for row). A full hit recomputes position P - 1 through the
+    decode step and a preempted request re-prefills its emitted tokens
+    through chunks, so their bf16 roundings differ from C's and an argmax
+    may flip at a near-tie. The bound: if the layers below agree to
+    rounding, the last hidden state h (bf16) of the two programs differs
+    by at most one rounding of each element on each side, |dh_d| <= 2 u
+    |h_d| with u = 2^-8, and the logit gap of the top two candidates
+    moves by at most 2 u sum_d |h_d| (|e_1d| + |e_2d|) (e the tied
+    embedding rows). The absolute sum leaves room, sqrt(768)-fold for
+    random signs, for differences carried up from the layers below. A
+    full hit's or a preempted request's first mismatch with C must sit
+    where C's top-2 gap (recomputed by one reference-attention forward)
+    is under this bound. Negative control: C's own output with the token
+    at its largest gap-to-bound position swapped for the runner-up must
+    fail the same check."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models import transformer as tf
+    from multiverso_tpu_torch.serving import InferenceServer
+
+    _CARD[:] = [card]
+    mv.init(["chip_smoke", "-device=cuda"])
+    cfg = tf.TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16,
+                               attention="flash_force")
+    lm = tf.TransformerLM(cfg)
+    params, _ = lm.snapshot_params()
+    ref_cfg = tf.TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16,
+                                   attention="reference")
+    prompts, prios, repeat = default_traffic(base_prompts, cfg.vocab_size)
+    all_prompts = prompts + [prompts[repeat]]
+    srv = InferenceServer("chip_smoke_defaults")
+    runs = {"A": serve_defaults(srv, lm, "A", prompts, prios, repeat),
+            "B": serve_defaults(srv, lm, "B", prompts, prios, repeat,
+                                kv_pool_blocks=DEF_POOL_B),
+            "C": serve_defaults(srv, lm, "C", prompts, prios, repeat,
+                                prefix_cache=False, preempt=False),
+            # phase 3's layout on this traffic: chunked against monolithic
+            "D": serve_defaults(srv, lm, "D", prompts, prios, repeat,
+                                prompt_buckets=BUCKETS,
+                                prefill_token_budget=0, kv_block_size=0)}
+    a, b, c = runs["A"]["stats"], runs["B"]["stats"], runs["C"]["stats"]
+    if not (a["prefix_hits"] > 0 and a["cow_copies"] >= 1):
+        fail(f"run A: prefix hits {a['prefix_hits']}, copy-on-write "
+             f"{a['cow_copies']}")
+    if b["preemptions"] <= 0:
+        fail(f"run B: no preemption with a {DEF_POOL_B}-block pool")
+    if c["prefix_hits"] or c["preemptions"]:
+        fail("run C: the control hit the prefix cache or preempted")
+
+    ref = runs["C"]["outs"]
+    for label in ("A", "B"):
+        run = runs[label]
+        exact = others = 0
+        for i, got in enumerate(run["outs"]):
+            excused = i in run["full_hits"] or i in run["preempted"]
+            if np.array_equal(got, ref[i]):
+                exact += 1
+                continue
+            if not excused:
+                fail(f"run {label}: request {i} ("
+                     f"{len(all_prompts[i])}-token prompt), neither a full "
+                     f"hit nor preempted, differs from run C at token "
+                     f"{first_mismatch(got, ref[i])}")
+            ok, (j, gap, bound) = divergence_allowed(
+                ref_cfg, params, all_prompts[i], got, ref[i])
+            others += 1
+            say(f"defaults run {label}: request {i} ("
+                f"{'full hit' if i in run['full_hits'] else 'preempted'}) "
+                f"first differs from C at token {j}: C's top-2 gap "
+                f"{gap:.5f}, bound {bound:.5f}")
+            if not ok:
+                fail(f"run {label}: request {i} diverges from C at token {j}"
+                     f" where C's top-2 gap {gap:.5f} >= bound {bound:.5f}")
+        say(f"defaults run {label} vs C: {exact}/{len(ref)} token-identical, "
+            f"{others} within the bf16 bound; full hits "
+            f"{sorted(run['full_hits'])}, preempted "
+            f"{sorted(run['preempted'])}")
+
+    # negative control: a divergence at C's widest margin must fail
+    gap, bound = top2_gaps(ref_cfg, params, all_prompts[repeat], ref[repeat])
+    j = int(np.argmax(gap / bound))
+    if gap[j] < bound[j]:
+        fail(f"negative control: the bound exceeds every gap of C's "
+             f"request {repeat} (largest gap/bound {gap[j] / bound[j]:.3f})")
+    fake = ref[repeat].copy()
+    fake[j] = (fake[j] + 1) % cfg.vocab_size
+    ok, _ = divergence_allowed(ref_cfg, params, all_prompts[repeat], fake,
+                               ref[repeat])
+    if ok:
+        fail("negative control: a divergence at a wide gap passed")
+    say(f"defaults negative control: a divergence at token {j} of request "
+        f"{repeat}, C's top-2 gap {gap[j]:.5f} against bound "
+        f"{bound[j]:.5f}, fails the check; median bound over its tokens "
+        f"{float(np.median(bound)):.5f}, median gap "
+        f"{float(np.median(gap)):.5f}")
+
+    # phase 3's oracle: monolithic flash prefill, contiguous decode
+    for label in ("A", "B", "C", "D"):
+        outs = runs[label]["outs"]
+        same, notes = 0, []
+        for i, want in enumerate(oracle):
+            j = first_mismatch(outs[i], want)
+            if j is None:
+                same += 1
+                continue
+            g, _ = top2_gaps(ref_cfg, params, all_prompts[i], want)
+            notes.append(f"request {i} at token {j} (gap {g[j]:.5f})")
+        say(f"defaults run {label} vs phase 3's greedy_decode oracle: "
+            f"{same}/{len(oracle)} token-identical"
+            + (f"; mismatches: {', '.join(notes)}" if notes else ""))
+    srv.stop()
+    mv.shutdown()
 
 
 def _fa():
@@ -1808,11 +2146,13 @@ def main() -> None:
 
 
 def lm_phases(card: str):
-    """Phases 2-3 and the crossover; the forward's results and the serving
-    run's launches by regime."""
+    """Phases 2-3, the crossover and phase 10; the forward's results and
+    the serving run's launches by regime."""
     results = phase_kernels()
     phase_crossover()
-    return results, phase_slice(card)
+    served = phase_slice(card)
+    phase_defaults(card, served["prompts"], served["oracle"])
+    return results, served
 
 
 def lm_train_phases(card: str):

@@ -20,7 +20,7 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, List
+from typing import Any, Dict, Iterator, List, Optional
 
 
 class Monitor:
@@ -195,6 +195,9 @@ class Dashboard:
     _histograms: Dict[str, Histogram] = {}
     _gauges: Dict[str, Gauge] = {}
     _counters: Dict[str, Counter] = {}
+    # running reporter threads (engine watchdogs; anything with
+    # .detach()): reset() stops them so a test cannot leak one
+    _reporters: List[Any] = []
     _lock = threading.Lock()
 
     @classmethod
@@ -216,6 +219,20 @@ class Dashboard:
     def add_counter(cls, counter: Counter) -> None:
         with cls._lock:
             cls._counters[counter.name] = counter
+
+    @classmethod
+    def attach_reporter(cls, reporter: Any) -> None:
+        """Track a running reporter thread; ``reset()`` detaches and
+        stops whatever is still attached."""
+        with cls._lock:
+            if reporter not in cls._reporters:
+                cls._reporters.append(reporter)
+
+    @classmethod
+    def detach_reporter(cls, reporter: Any) -> None:
+        with cls._lock:
+            if reporter in cls._reporters:
+                cls._reporters.remove(reporter)
 
     @classmethod
     def _get_or_create(cls, table: Dict[str, Any], kind, name: str):
@@ -250,6 +267,47 @@ class Dashboard:
                     + list(cls._counters.values()))
 
     @classmethod
+    def stats(cls, name: str) -> Optional[Dict[str, Any]]:
+        """One instrument's state, or None when nothing has that name."""
+        with cls._lock:
+            mon = cls._monitors.get(name)
+            hist = cls._histograms.get(name)
+            gauge = cls._gauges.get(name)
+            counter = cls._counters.get(name)
+        if mon is not None:
+            return {"count": mon.count, "total_ms": mon.total_ms,
+                    "avg_ms": mon.average_ms()}
+        if hist is not None:
+            return hist.summary()
+        if gauge is not None:
+            return {"value": gauge.get()}
+        if counter is not None:
+            return {"value": counter.get()}
+        return None
+
+    @classmethod
+    def snapshot(cls) -> Dict[str, Dict[str, Any]]:
+        """Every instrument's state as one JSON-serializable dict,
+        ``{name: {"type": kind, ...stats}}`` (the JAX dashboard's
+        layout)."""
+        with cls._lock:
+            monitors = list(cls._monitors.values())
+            histograms = list(cls._histograms.values())
+            gauges = list(cls._gauges.values())
+            counters = list(cls._counters.values())
+        out: Dict[str, Dict[str, Any]] = {}
+        for m in monitors:
+            out[m.name] = {"type": "monitor", "count": m.count,
+                           "total_ms": m.total_ms, "avg_ms": m.average_ms()}
+        for h in histograms:
+            out[h.name] = {"type": "histogram", **h.summary()}
+        for g in gauges:
+            out[g.name] = {"type": "gauge", "value": g.get()}
+        for c in counters:
+            out[c.name] = {"type": "counter", "value": c.get()}
+        return out
+
+    @classmethod
     def display(cls, emit=None) -> str:
         lines = ["--------------Dashboard--------------"]
         lines += [inst.info_string() for inst in cls._all()]
@@ -262,11 +320,17 @@ class Dashboard:
 
     @classmethod
     def reset(cls) -> None:
+        """Drop every instrument and stop every attached reporter (outside
+        the lock: a reporter may need it to finish its poll)."""
         with cls._lock:
             cls._monitors.clear()
             cls._histograms.clear()
             cls._gauges.clear()
             cls._counters.clear()
+            reporters = list(cls._reporters)
+            cls._reporters.clear()
+        for reporter in reporters:
+            reporter.detach()
 
 
 @contextmanager

@@ -5,8 +5,10 @@ and training slices: the config, the random parameters (drawn from the
 same numpy stream, so one seed gives the same weights in both packages),
 the training ``forward`` and ``loss_fn``, the causal prefill, the
 one-token decode step over a slotted KV cache, the cache insert, the
-greedy decode oracle, and :class:`TransformerLM` (one-device momentum-SGD
-trainer and serving surface). The JAX trainer's mesh (dp batches, tp
+chunked prefill and the paged KV programs (decode step, chunk, insert,
+monolithic admission, copy-on-write), the greedy decode oracle, and
+:class:`TransformerLM` (one-device momentum-SGD trainer and serving
+surface). The JAX trainer's mesh (dp batches, tp
 weights) belongs to the distributed paths.
 
 Pre-LN, learned positions, tied input/output embeddings. Parameters are a
@@ -298,13 +300,14 @@ def cache_insert(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  slots, ks: torch.Tensor, vs: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write b prefilled sequences' K/V ``[L, b, P, D]`` into ``slots``
-    [b], in place. Rows are written last-to-first so that row 0 wins when
-    pad rows of a partial batch point at ``slots[0]``."""
+    [b] (a sequence, or a tensor read on its device without a host
+    sync), in place. Rows are written last-to-first so that row 0 wins
+    when pad rows of a partial batch point at ``slots[0]``."""
     P = ks.shape[2]
+    slots = torch.as_tensor(slots, device=k_cache.device)
     for i in reversed(range(ks.shape[1])):
-        s = int(slots[i])
-        k_cache[:, s, :P] = ks[:, i]
-        v_cache[:, s, :P] = vs[:, i]
+        k_cache[:, :, :P].index_copy_(1, slots[i:i + 1], ks[:, i:i + 1])
+        v_cache[:, :, :P].index_copy_(1, slots[i:i + 1], vs[:, i:i + 1])
     return k_cache, v_cache
 
 
@@ -313,6 +316,251 @@ def first_tokens(logits: torch.Tensor, lengths: torch.Tensor,
     """Greedy token at each prompt's last real position."""
     rows = torch.arange(logits.shape[0], device=logits.device)
     return torch.argmax(logits[rows, lengths - 1], dim=-1).to(dtype)
+
+
+# -- serving: chunked prefill and the paged KV cache ------------------------
+#
+# The chunked, paged and copy-on-write programs of the JAX engine. Every
+# argument that places data (slot, offset, length, block tables, block ids,
+# positions) is a tensor of fixed shape, never a Python int, so one engine
+# config calls each program with one signature; 0-d tensors are indexed
+# through ``view(1)``, never converted to a Python int (that would read
+# the device). The JAX functions lean on two contracts PyTorch does not
+# have: ``.at[].set`` drops writes past the end and ``jnp.take`` clamps
+# reads. Here reads are clamped and writes are redirected explicitly:
+#
+# * a contiguous chunk's pad lanes past the cache end (JAX drops them)
+#   write again, at ``T - 1``, the value of the lane at ``T - 1``: the
+#   duplicate writes carry one value, so the cache ends as JAX leaves it;
+# * paged pad lanes and dead decode lanes write into the scratch block 0,
+#   and dead lanes of the contiguous decode step at ``T - 1``, as in JAX.
+#   No live mask reaches the scratch block, and decode overwrites ``T -
+#   1`` before its mask reaches it.
+#
+# Duplicate indices with different values land only in the scratch block
+# and at dead lanes' ``T - 1``; which write wins there is undefined and
+# never read.
+#
+# A gathered per-slot view has the contiguous cache's shape and layout
+# ([T, D] per slot, T = the engine's logical cache length), built with one
+# flat row index per position, so the paged attention operand is the
+# contiguous one and paged decode equals contiguous decode bit for bit.
+
+
+def _chunk_attention(q, k_cache, v_cache, n_heads: int,
+                     offset) -> torch.Tensor:
+    """Chunk attention: ``q`` [C, D] against one slot's cache [T, D].
+    Chunk position ``i`` (cache position ``offset + i``) attends cache
+    positions ``<= offset + i``; f32 scores and softmax, as
+    :func:`_cached_attention`."""
+    C, D = q.shape
+    T = k_cache.shape[0]
+    dh = D // n_heads
+    qh = q.reshape(C, n_heads, dh)
+    kh = k_cache.reshape(T, n_heads, dh)
+    vh = v_cache.reshape(T, n_heads, dh)
+    scores = torch.einsum("chd,thd->hct", qh.float(),
+                          kh.float()) / math.sqrt(dh)
+    rows = offset + torch.arange(C, device=q.device)
+    mask = (torch.arange(T, device=q.device)[None, :]
+            <= rows[:, None])[None, :, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("hct,thd->chd", probs.to(vh.dtype), vh)
+    return out.reshape(C, D).to(q.dtype)
+
+
+def _chunk_embed(params: Dict[str, Any], tokens: torch.Tensor,
+                 pos_ix: torch.Tensor) -> torch.Tensor:
+    # pad lanes may sit past max_seq: clamp the position read (their
+    # hidden states are garbage that never reaches a real row)
+    pos_ix = pos_ix.clamp(max=params["pos"].shape[0] - 1)
+    return params["embed"][tokens] + params["pos"][pos_ix]
+
+
+def _last_logits(params: Dict[str, Any], h: torch.Tensor,
+                 length: torch.Tensor) -> torch.Tensor:
+    """f32 logits [V] of chunk row ``length - 1`` after the final norm."""
+    last = h.index_select(0, (length - 1).reshape(1))
+    return _logits(_rmsnorm(last, params["ln_f_g"]), params["embed"])[0]
+
+
+@torch.no_grad()
+def prefill_chunk(cfg: TransformerConfig, params: Dict[str, Any],
+                  k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  slot: torch.Tensor, tokens: torch.Tensor,
+                  offset: torch.Tensor, length: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fixed-size chunk of one slot's prompt into the contiguous
+    caches ``[L, S, T, D]``, in place. ``tokens`` [C] right-padded ids,
+    ``slot``/``offset``/``length`` 0-d tensors (``1 <= length <= C``):
+    chunk position ``i`` is cache position ``offset + i``. Each layer
+    writes the chunk's K/V before its attention, so row ``i`` sees the
+    prefix inserted by earlier chunks and the chunk's rows ``<= i``. Pad
+    lanes past the cache end are dropped, as in JAX (see above). Returns
+    ``(k_cache, v_cache, logits [V] f32 of position offset + length -
+    1)``: on a prompt's final chunk, its first generated token."""
+    C = tokens.shape[0]
+    T = k_cache.shape[2]
+    dev = tokens.device
+    lane = torch.arange(C, device=dev)
+    pos_ix = offset + lane
+    # lanes past the end rewrite the value of the lane at T - 1
+    src = torch.where(pos_ix < T, lane, T - 1 - offset)
+    write_pos = pos_ix.clamp(max=T - 1)
+    slot_ix = slot.reshape(1).expand(C)
+    h = _chunk_embed(params, tokens, pos_ix)
+    for i, layer in enumerate(_layers(params)):
+        x = _rmsnorm(h, layer["ln1_g"])
+        q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
+        k_cache[i, slot_ix, write_pos] = k[src]
+        v_cache[i, slot_ix, write_pos] = v[src]
+        kc = k_cache[i].index_select(0, slot.reshape(1))[0]
+        vc = v_cache[i].index_select(0, slot.reshape(1))[0]
+        h = h + _chunk_attention(q, kc, vc, cfg.n_heads, offset) \
+            @ layer["w_o"]
+        x = _rmsnorm(h, layer["ln2_g"])
+        h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
+    return k_cache, v_cache, _last_logits(params, h, length)
+
+
+def _flat_rows(table: torch.Tensor, block_size: int, t: int) -> torch.Tensor:
+    """Flat pool-row index of logical positions ``0 .. t-1`` through
+    block-table rows ``table`` [..., M] (a pool layer viewed as
+    ``[N * Bs, D]``)."""
+    p = torch.arange(t, device=table.device)
+    return table[..., p // block_size] * block_size + p % block_size
+
+
+@torch.no_grad()
+def decode_step_paged(cfg: TransformerConfig, params: Dict[str, Any],
+                      k_pool: torch.Tensor, v_pool: torch.Tensor,
+                      block_tables: torch.Tensor, tok: torch.Tensor,
+                      pos: torch.Tensor, active: torch.Tensor,
+                      t_logical: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """:func:`decode_step` against the paged pools ``[L, N, Bs, D]``
+    (block 0 scratch) through ``block_tables`` [S, M] (int64), in place.
+    Each live slot writes its token's K/V at ``(block_tables[s, pos //
+    Bs], pos % Bs)`` and attends its gathered ``[T, D]`` view (``T =
+    t_logical``, default ``M * Bs``); dead lanes park their writes in the
+    scratch block. Returns ``(k_pool, v_pool, next_tok, pos)``."""
+    Bs = k_pool.shape[2]
+    M = block_tables.shape[1]
+    D = k_pool.shape[3]
+    T = M * Bs if t_logical is None else int(t_logical)
+    blk = block_tables.gather(
+        1, (pos // Bs).clamp(max=M - 1)[:, None])[:, 0]
+    write_blk = torch.where(active, blk, torch.zeros_like(blk))
+    write_off = torch.where(active, pos % Bs, torch.zeros_like(pos))
+    rows = _flat_rows(block_tables, Bs, T)                  # [S, T]
+    h = params["embed"][tok] + params["pos"][pos]
+    for i, layer in enumerate(_layers(params)):
+        x = _rmsnorm(h, layer["ln1_g"])
+        q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
+        k_pool[i, write_blk, write_off] = k
+        v_pool[i, write_blk, write_off] = v
+        kc = k_pool[i].view(-1, D)[rows]                    # [S, T, D]
+        vc = v_pool[i].view(-1, D)[rows]
+        h = h + _cached_attention(q, kc, vc, cfg.n_heads,
+                                  pos) @ layer["w_o"]
+        x = _rmsnorm(h, layer["ln2_g"])
+        h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
+    h = _rmsnorm(h, params["ln_f_g"])
+    out = _logits(h, params["embed"])
+    nxt = torch.argmax(out, dim=-1).to(tok.dtype)
+    nxt = torch.where(active, nxt, torch.zeros_like(nxt))
+    pos = torch.where(active, pos + 1, pos)
+    return k_pool, v_pool, nxt, pos
+
+
+@torch.no_grad()
+def prefill_chunk_paged(cfg: TransformerConfig, params: Dict[str, Any],
+                        k_pool: torch.Tensor, v_pool: torch.Tensor,
+                        block_tables: torch.Tensor, slot: torch.Tensor,
+                        tokens: torch.Tensor, offset: torch.Tensor,
+                        length: torch.Tensor,
+                        t_logical: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`prefill_chunk` against the paged pools: K/V writes go to
+    ``(block_tables[slot, p // Bs], p % Bs)`` and the chunk attends the
+    slot's gathered ``[T, D]`` view. Pad lanes (``i >= length``) write
+    into the scratch block. Returns ``(k_pool, v_pool, logits [V])``."""
+    C = tokens.shape[0]
+    Bs = k_pool.shape[2]
+    M = block_tables.shape[1]
+    D = k_pool.shape[3]
+    T = M * Bs if t_logical is None else int(t_logical)
+    dev = tokens.device
+    bt_row = block_tables.index_select(0, slot.reshape(1))[0]   # [M]
+    lane = torch.arange(C, device=dev)
+    pos_ix = offset + lane
+    valid = lane < length
+    blk = torch.where(valid, bt_row[(pos_ix // Bs).clamp(0, M - 1)],
+                      torch.zeros_like(pos_ix))
+    off = torch.where(valid, pos_ix % Bs, torch.zeros_like(pos_ix))
+    rows = _flat_rows(bt_row, Bs, T)                        # [T]
+    h = _chunk_embed(params, tokens, pos_ix)
+    for i, layer in enumerate(_layers(params)):
+        x = _rmsnorm(h, layer["ln1_g"])
+        q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
+        k_pool[i, blk, off] = k
+        v_pool[i, blk, off] = v
+        kc = k_pool[i].view(-1, D)[rows]                    # [T, D]
+        vc = v_pool[i].view(-1, D)[rows]
+        h = h + _chunk_attention(q, kc, vc, cfg.n_heads, offset) \
+            @ layer["w_o"]
+        x = _rmsnorm(h, layer["ln2_g"])
+        h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
+    return k_pool, v_pool, _last_logits(params, h, length)
+
+
+def cache_insert_paged(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                       block_tables: torch.Tensor, ks: torch.Tensor,
+                       vs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write b prefilled sequences' K/V ``[L, b, P, D]`` through per-row
+    block tables ``[b, M]``, in place: row ``r``'s position ``p`` goes to
+    ``(block_tables[r, p // Bs], p % Bs)``. Pad rows point their whole
+    table at the scratch block; positions past a row's reservation reach
+    scratch through the table's sentinel padding."""
+    L, b, P, _ = ks.shape
+    Bs = k_pool.shape[2]
+    M = block_tables.shape[1]
+    p = torch.arange(P, device=block_tables.device)
+    blk = block_tables[:, (p // Bs).clamp(0, M - 1)]            # [b, P]
+    off = (p % Bs).expand(b, P)
+    for i in range(L):
+        k_pool[i, blk, off] = ks[i]
+        v_pool[i, blk, off] = vs[i]
+    return k_pool, v_pool
+
+
+@torch.no_grad()
+def admit_insert_paged(cfg: TransformerConfig, params: Dict[str, Any],
+                       k_pool: torch.Tensor, v_pool: torch.Tensor,
+                       block_tables: torch.Tensor, tokens: torch.Tensor,
+                       lengths: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Monolithic admission against the paged pools: whole-prompt
+    :func:`prefill`, the first token at each last real position, and
+    :func:`cache_insert_paged`. Returns ``(first [b], k_pool,
+    v_pool)``."""
+    logits, ks, vs = prefill(cfg, params, tokens)
+    first = first_tokens(logits, lengths, tokens.dtype)
+    cache_insert_paged(k_pool, v_pool, block_tables, ks, vs)
+    return first, k_pool, v_pool
+
+
+def cow_block_copy(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                   src: torch.Tensor, dst: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Copy-on-write: block ``src`` of both pools into block ``dst``
+    (0-d tensors), in place."""
+    for pool in (k_pool, v_pool):
+        pool.index_copy_(1, dst.reshape(1),
+                         pool.index_select(1, src.reshape(1)))
+    return k_pool, v_pool
 
 
 @torch.no_grad()

@@ -1,46 +1,78 @@
 """Continuous-batching decode engine: slot KV cache + iteration scheduling.
 
-Counterpart of ``multiverso_tpu/serving/decode_engine.py`` for its
-monolithic, contiguous configuration (``prefill_token_budget=0``,
-``kv_block_size=0``): the Orca design of iteration-level scheduling over
-a persistent slotted KV cache.
+Counterpart of ``multiverso_tpu/serving/decode_engine.py`` at the JAX
+package's default flags and in its A/B baselines: the Orca design of
+iteration-level scheduling over a persistent KV cache, with
 
-* **slots** — a slot is one in-flight sequence; the cache is one pair of
-  contiguous strips ``[L, S, T, D]`` with ``T = max_prompt + max_new``.
-* **monolithic admission** — each iteration admits as many queued
-  prompts as there are free slots. Each arrival is right-padded to its
-  prompt bucket and prefilled by :func:`models.transformer.prefill` (on
-  the card, the flash kernel with ``attention="flash_force"``), its first
-  token taken at its last real position, and its K/V inserted into its
-  slot. The JAX engine prefills an admission group as one padded batch;
-  here each arrival is its own ``[1, bucket]`` prefill, so a request's
-  numbers never depend on which strangers it was admitted with (on the
-  card the GEMM library picks its kernel by shape).
-* **one fused step per iteration** — every iteration runs ONE
-  :func:`models.transformer.decode_step` over all S slots, live or dead.
-* **iteration-granular completion** — a slot frees the moment its
-  sequence emits ``eos_id`` or reaches its per-request ``max_new``.
+* **slots**: a slot is one in-flight sequence; the live set is an
+  ``active`` lanes vector, and every iteration runs ONE fused decode step
+  over all S slots, live or dead (:func:`models.transformer.decode_step`
+  or :func:`~models.transformer.decode_step_paged`).
+* **the paged KV cache** (``kv_block_size``, default 16): one block pool
+  ``[L, n_blocks + 1, block_size, D]`` per K and V plus per-slot block
+  tables ``[S, M]`` (``serving/block_pool.py`` keeps the books). A
+  request whose ``prompt + max_new`` can never fit the pool sheds at
+  submit. ``kv_block_size=0`` keeps the contiguous ``[L, S, T, D]``
+  strips, ``T = max_prompt + max_new``.
+* **chunked admission** (``prefill_token_budget``, default 32): an
+  arriving prompt prefills in fixed-size chunks straight into its slot,
+  at most one chunk per iteration beside the fused step, so a long
+  prompt delays the live generations by one chunk of work an iteration.
+  The first token falls out of the final chunk. ``prefill_token_budget=0``
+  keeps monolithic admission: each arrival is its own ``[1, bucket]``
+  whole-prompt :func:`~models.transformer.prefill` (the JAX engine pads
+  an admission group into one batch; one request per prefill keeps a
+  request's numbers independent of its neighbours on the card, where the
+  GEMM library picks its kernel by shape), then its K/V is inserted.
+* **prefix caching** (``prefix_cache``, paged + chunked only): every full
+  block a prefill writes is registered under a hash chain seeded by the
+  pinned snapshot version; an arriving prompt splices the longest cached
+  prefix into its table and prefills from the first uncached token. A
+  fully cached prompt goes live at ``P - 1`` after one copy-on-write of
+  its last block, and its first token falls out of the next step.
+* **priorities, deadlines and preemption** (``preempt``, paged + chunked
+  only): requests carry a ``priority`` class (0-7) and an optional
+  ``deadline_s``; the queue is a set of per-class lanes under a stride
+  scheduler with bounded lookahead, and an expired request is dropped at
+  pop time, before any prefill. Admission reserves the prompt's blocks
+  only and grows at decode time; on pool exhaustion the lowest-priority,
+  youngest sequence is preempted (its blocks decref tail first) and
+  recomputes from ``prompt + emitted tokens`` on re-admission. A
+  per-request preemption budget and the rule that the oldest live
+  sequence is never preempted keep it from livelocking.
+* **the flight recorder and the watchdog** (on by default): one record
+  per iteration into a ring, and a thread that trips on a stall, a
+  queue-age breach or pool drift (``serving/watchdog.py``).
+
+The JAX engine's one-compiled-trace-per-program invariant has no compiler
+here; its counterpart is :class:`_Program`, which records the distinct
+shape/dtype signatures of each program's tensor arguments. Block tables,
+positions, slot, offset and length are tensors of fixed shape, so every
+program keeps one signature per engine config (``step_cache_size()``,
+``prefill_cache_size()``; a monolithic engine has one per prompt bucket).
+The block tables' device copy is uploaded only on an iteration that
+changed the host mirror. Per iteration the host reads the step's next
+tokens and, on a prompt's final chunk, its first token.
 
 Snapshot pinning as in the JAX engine: an admission pins the current
-params snapshot, and the pin only moves while no slot is live.
+params snapshot; the pin only moves while nothing is in flight and no
+preempted request waits to resume.
 
-Every other feature of the JAX engine (chunked prefill, the paged KV
-pool, prefix caching, tensor-parallel decode, speculative decoding, int8
-KV or params, sequence-parallel prefill, preemption, the flight
-recorder, the watchdog, latency SLOs and the cost ledger) is not ported
-yet: turning one on raises :class:`~..log.FatalError` naming its flag.
-The flag defaults stay the JAX package's, so callers of this engine pass
-the values that turn them off.
+Not ported yet, each raising :class:`~..log.FatalError` by name:
+``decode_tp``, ``spec_k``, ``kv_quant``, ``decode_param_quant``,
+``prefill_sp``, ``slo_ttft_ms``, ``slo_itl_ms`` and ``cost_ledger``, as
+is the disaggregated serving surface (``submit_prefill``, ``splice``).
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import Deque, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,8 +80,13 @@ import torch
 from .. import trace
 from ..dashboard import Dashboard
 from ..log import Log
-from .batcher import OverloadedError, bucket_for, shape_buckets
+from .batcher import (DeadlineExceededError, OverloadedError, bucket_for,
+                      shape_buckets)
+from .block_pool import SCRATCH_BLOCK, BlockPool, chain_hashes, \
+    kv_bytes_per_block
+from .flight_recorder import FlightRecorder
 from .snapshot import SnapshotManager
+from .watchdog import EngineWatchdog, WatchdogConfig
 
 
 @dataclass
@@ -60,22 +97,31 @@ class DecodeEngineConfig:
     eos_id: Optional[int] = None
     max_queue: int = 256        # admission queue depth before shedding
     max_staleness_s: float = 0.05
-    # prompt pad buckets (powers of two up to max_prompt by default)
+    # prompt pad buckets (monolithic admission only; powers of two up to
+    # max_prompt by default)
     prompt_buckets: Optional[Tuple[int, ...]] = None
-    # the switches of the JAX engine's other features, None = the
-    # matching flag; only the values that turn each feature off are
-    # served by this port (their sub-knobs come with the features)
-    prefill_token_budget: Optional[int] = None
-    kv_block_size: Optional[int] = None
+    # None = the matching flag, for every knob below
+    prefill_token_budget: Optional[int] = None   # 0 = monolithic
+    kv_block_size: Optional[int] = None          # 0 = contiguous strips
+    kv_pool_blocks: Optional[int] = None         # <= 0 = slots * M
+    prefix_cache: Optional[bool] = None          # paged + chunked only
+    preempt: Optional[bool] = None               # paged + chunked only
+    preempt_budget: Optional[int] = None
+    sched_lookahead: Optional[int] = None
+    flight_recorder: Optional[bool] = None
+    flight_recorder_capacity: Optional[int] = None
+    watchdog: Optional[bool] = None
+    watchdog_interval_s: Optional[float] = None
+    watchdog_stall_s: Optional[float] = None
+    watchdog_queue_age_s: Optional[float] = None
+    debug_dump_dir: Optional[str] = None
+    # the JAX engine's features this port does not have yet; only the
+    # values that turn each off are served
     decode_tp: Optional[int] = None
-    prefix_cache: Optional[bool] = None
     prefill_sp: Optional[bool] = None
     spec_k: Optional[int] = None
     kv_quant: Optional[str] = None
     decode_param_quant: Optional[str] = None
-    preempt: Optional[bool] = None
-    flight_recorder: Optional[bool] = None
-    watchdog: Optional[bool] = None
     slo_ttft_ms: Optional[float] = None
     slo_itl_ms: Optional[float] = None
     cost_ledger: Optional[bool] = None
@@ -93,22 +139,29 @@ class DecodeEngineConfig:
             return tuple(self.prompt_buckets)
         return shape_buckets(self.max_prompt)
 
+    def resolved_kv_pool_blocks(self, blocks_per_seq: int) -> int:
+        n = int(self._resolved("kv_pool_blocks"))
+        if n <= 0:                   # auto: contiguous-equivalent capacity
+            n = self.slots * blocks_per_seq
+        return n
+
+    def resolved_watchdog_config(self) -> WatchdogConfig:
+        return WatchdogConfig(
+            interval_s=float(self._resolved("watchdog_interval_s")),
+            stall_s=float(self._resolved("watchdog_stall_s")),
+            queue_age_s=float(self._resolved("watchdog_queue_age_s")),
+            dump_dir=str(self._resolved("debug_dump_dir")))
+
     def unported(self) -> List[str]:
         """``flag=value`` for every resolved setting that turns on a
         feature this port does not have."""
         on = []
         checks = (
-            ("prefill_token_budget", lambda v: int(v) != 0),
-            ("kv_block_size", lambda v: int(v) != 0),
             ("decode_tp", lambda v: int(v) != 1),
-            ("prefix_cache", bool),
             ("spec_k", lambda v: int(v) != 0),
             ("kv_quant", lambda v: str(v) != "none"),
             ("decode_param_quant", lambda v: str(v) != "none"),
             ("prefill_sp", bool),
-            ("preempt", bool),
-            ("flight_recorder", bool),
-            ("watchdog", bool),
             ("slo_ttft_ms", lambda v: float(v) > 0),
             ("slo_itl_ms", lambda v: float(v) > 0),
             ("cost_ledger", bool),
@@ -120,12 +173,204 @@ class DecodeEngineConfig:
         return on
 
 
+class _Program:
+    """One serving program and the distinct signatures (shape, dtype and
+    device of each tensor argument; the value of each Python scalar) it
+    was called with: the counterpart of the JAX engine's compiled-trace
+    count. Parameter dicts are not part of the signature."""
+
+    def __init__(self, fn) -> None:
+        self.fn = fn
+        self.signatures: set = set()
+
+    def __call__(self, *args):
+        sig = []
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                sig.append((tuple(a.shape), a.dtype, a.device.type))
+            elif not isinstance(a, dict):
+                sig.append((type(a).__name__, a))
+        self.signatures.add(tuple(sig))
+        return self.fn(*args)
+
+    def cache_size(self) -> int:
+        return len(self.signatures)
+
+
+def _signatures(fn) -> int:
+    size = getattr(fn, "cache_size", None)
+    return size() if size is not None else 0
+
+
+# process-unique small request ids: the flight recorder's admitted/
+# completed columns join ring records to requests
+_RIDS = itertools.count(1)
+
+# priority classes 0..7, higher = more important; the stride scheduler
+# weights class p by 2**p, so every non-empty class keeps a positive share
+MAX_PRIORITY = 7
+DEFAULT_PRIORITY = 1
+
+
+class _PrioQueue:
+    """Per-priority FIFO lanes under a stride (weighted-fair) scheduler.
+
+    Each decision picks the non-empty lane with the smallest pass value
+    and advances it by ``1 / 2**p``; ties go to the higher class, and an
+    idle lane re-activates at the current frontier. Within a lane order
+    is FIFO, except that a block-starved head lets up to ``lookahead``
+    younger requests of its lane pass it (each bypass counts a skip on
+    the head; at ``lookahead`` skips all admission freezes until it
+    fits), and a preempted request re-enters at the FRONT of its lane
+    (:meth:`appendleft`). Expired-deadline requests are dropped when the
+    scan touches them and handed back to the caller. Callers hold the
+    engine lock."""
+
+    def __init__(self, name: str, lookahead: int) -> None:
+        self._name = name
+        self._lookahead = int(lookahead)
+        self._lanes: Dict[int, Deque["_Request"]] = {}
+        self._passes: Dict[int, float] = {}
+        self._gauges: Dict[int, object] = {}
+        self._n = 0
+        # queued requests preempted mid-generation: while any wait, the
+        # engine holds its snapshot pin (the resume recomputes under the
+        # first life's params)
+        self.n_resumed = 0
+
+    def __len__(self) -> int:
+        return self._n
+
+    def _gauge(self, p: int):
+        g = self._gauges.get(p)
+        if g is None:
+            g = Dashboard.get_or_create_gauge(
+                f"QUEUE_DEPTH[{self._name}.p{p}]")
+            self._gauges[p] = g
+        return g
+
+    def _min_pass(self) -> float:
+        active = [self._passes[p] for p, lane in self._lanes.items()
+                  if lane]
+        return min(active) if active else 0.0
+
+    def _charge(self, p: int) -> None:
+        self._passes[p] += 1.0 / (1 << min(p, MAX_PRIORITY))
+
+    def _add(self, req: "_Request", front: bool) -> None:
+        lane = self._lanes.get(req.priority)
+        if lane is None:
+            lane = self._lanes[req.priority] = collections.deque()
+            self._passes.setdefault(req.priority, 0.0)
+        if not lane:
+            self._passes[req.priority] = max(
+                self._passes[req.priority], self._min_pass())
+        (lane.appendleft if front else lane.append)(req)
+        self._n += 1
+        if req.resumed:
+            self.n_resumed += 1
+        self._gauge(req.priority).set(float(len(lane)))
+
+    def _removed(self, req: "_Request") -> "_Request":
+        self._n -= 1
+        if req.resumed:
+            self.n_resumed -= 1
+        return req
+
+    def append(self, req: "_Request") -> None:
+        self._add(req, front=False)
+
+    def appendleft(self, req: "_Request") -> None:
+        """Preempted re-enqueue: the front of the request's lane."""
+        self._add(req, front=True)
+
+    def oldest_t_enq(self) -> Optional[float]:
+        heads = [lane[0].t_enq for lane in self._lanes.values() if lane]
+        return min(heads) if heads else None
+
+    def pop_admissible(self, now: float, covers):
+        """One scheduling decision: ``(request or None, expired)``;
+        ``covers(req)`` is the admission gate (block coverage)."""
+        expired: List["_Request"] = []
+
+        def dead(r: "_Request") -> bool:
+            return r.deadline is not None and r.deadline <= now
+
+        def sweep(p) -> None:
+            lane = self._lanes[p]
+            while lane and dead(lane[0]):
+                expired.append(self._removed(lane.popleft()))
+
+        thresh = self._lookahead if self._lookahead > 0 else 1
+        order = sorted((p for p, lane in self._lanes.items() if lane),
+                       key=lambda p: (self._passes[p], -p))
+        for p in list(order):
+            sweep(p)
+        # a head at its bypass bound freezes every other admission
+        starved = [p for p in order
+                   if self._lanes[p] and self._lanes[p][0].skips >= thresh]
+        scan = starved or [p for p in order if self._lanes[p]]
+        frozen = bool(starved)
+        checked: List["_Request"] = []   # heads found non-coverable
+        try:
+            for p in scan:
+                lane = self._lanes[p]
+                head = lane[0]
+                if covers(head):
+                    self._removed(lane.popleft())
+                    self._charge(p)
+                    for h in checked:
+                        h.skips += 1
+                    return head, expired
+                checked.append(head)
+                if frozen or self._lookahead <= 0 \
+                        or head.skips >= self._lookahead:
+                    continue
+                i, scanned = 1, 0
+                while i < len(lane) and scanned < self._lookahead:
+                    cand = lane[i]
+                    if dead(cand):
+                        del lane[i]
+                        expired.append(self._removed(cand))
+                        continue
+                    scanned += 1
+                    if covers(cand):
+                        del lane[i]
+                        self._removed(cand)
+                        self._charge(p)
+                        for h in checked:
+                            h.skips += 1
+                        return cand, expired
+                    i += 1
+            return None, expired
+        finally:
+            for p in order:
+                self._gauge(p).set(float(len(self._lanes[p])))
+
+    def drain(self) -> List["_Request"]:
+        """Remove and return everything (the failure path)."""
+        out: List["_Request"] = []
+        for p, lane in self._lanes.items():
+            out.extend(lane)
+            lane.clear()
+            self._gauge(p).set(0.0)
+        self._n = 0
+        self.n_resumed = 0
+        return out
+
+
 class _Request:
     __slots__ = ("prompt", "max_new", "future", "t_enq", "t_last", "slot",
-                 "out", "version", "ctx")
+                 "out", "version", "ctx", "pf_off", "pf_chunks", "t_admit",
+                 "blocks", "rid", "hashes", "hash_seed", "n_hit",
+                 "full_hit", "saved", "pf_reg", "ttft_pending", "priority",
+                 "deadline", "preempts", "resumed", "skips", "prompt0")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
-                 ctx: Optional[trace.SpanContext] = None) -> None:
+                 ctx: Optional[trace.SpanContext] = None,
+                 priority: int = DEFAULT_PRIORITY,
+                 deadline: Optional[float] = None) -> None:
+        self.rid = next(_RIDS)
         self.prompt = prompt
         self.max_new = max_new
         self.future: Future = Future()
@@ -134,7 +379,33 @@ class _Request:
         self.slot = -1
         self.out: List[int] = []
         self.version = -1
+        self.blocks: List[int] = []  # paged: the reservation's block ids
         self.ctx = ctx
+        # chunked prefill: next chunk's offset, chunks run, admission time
+        self.pf_off = 0
+        self.pf_chunks = 0
+        self.t_admit = 0.0
+        # prefix caching: the prompt's hash chain (memoized per seed),
+        # blocks matched at admission, whether the whole prompt was
+        # cached, prefill tokens skipped, prompt blocks registered so far,
+        # and whether the next step's token is the request's first
+        self.hashes: Optional[List[bytes]] = None
+        self.hash_seed: Optional[bytes] = None
+        self.n_hit = 0
+        self.full_hit = False
+        self.saved = 0
+        self.pf_reg = 0
+        self.ttft_pending = False
+        # overload scheduling: class, absolute monotonic deadline, times
+        # preempted, whether a preemption interrupted emitted output,
+        # lookahead bypasses at the lane head, and the original prompt
+        # (``prompt`` grows to prompt0 + emitted tokens on preemption)
+        self.priority = int(priority)
+        self.deadline = deadline
+        self.preempts = 0
+        self.resumed = False
+        self.skips = 0
+        self.prompt0 = prompt
 
 
 class DecodeEngine:
@@ -143,14 +414,15 @@ class DecodeEngine:
     ``lm`` is a :class:`models.transformer.TransformerLM`; ``submit``
     enqueues a prompt and returns a Future resolving to
     ``{"result", "snapshot_version", "staleness_s"}`` where ``result`` is
-    the generated id array (truncated at eos).
+    the generated id array (truncated at eos). The device state lives on
+    ``lm.device``.
     """
 
     def __init__(self, name: str, lm,
                  config: Optional[DecodeEngineConfig] = None) -> None:
-        from ..models import transformer
+        from ..models import transformer as tf
 
-        self._tf = transformer
+        self._tf = tf
         self.name = name
         self.config = config or DecodeEngineConfig()
         ec = self.config
@@ -159,9 +431,7 @@ class DecodeEngine:
         unported = ec.unported()
         if unported:
             Log.fatal(f"DecodeEngine {name!r}: not ported to "
-                      f"multiverso_tpu_torch yet: {', '.join(unported)} "
-                      f"(this engine serves prefill_token_budget=0, "
-                      f"kv_block_size=0 with every other feature off)")
+                      f"multiverso_tpu_torch yet: {', '.join(unported)}")
         if ec.max_prompt + ec.max_new > cfg.max_seq:
             Log.fatal(f"DecodeEngine {name!r}: max_prompt {ec.max_prompt} + "
                       f"max_new {ec.max_new} exceeds max_seq {cfg.max_seq}")
@@ -172,16 +442,92 @@ class DecodeEngine:
                       f"{ec.max_prompt}")
         S = ec.slots
         L, D = cfg.n_layers, cfg.d_model
-        T = ec.max_prompt + ec.max_new
+        self._cache_len = T = ec.max_prompt + ec.max_new
         self.device = lm.device
 
+        # -- paged KV geometry -----------------------------------------------
+        self._block_size = int(ec._resolved("kv_block_size"))
+        if self._block_size < 0:
+            Log.fatal(f"DecodeEngine {name!r}: negative kv_block_size "
+                      f"{self._block_size}")
+        self._paged = self._block_size > 0
+        self._pool: Optional[BlockPool] = None
+        self._blocks_per_seq = 0
+        if self._paged:
+            self._blocks_per_seq = -(-T // self._block_size)
+            self._pool = BlockPool(
+                ec.resolved_kv_pool_blocks(self._blocks_per_seq),
+                self._block_size, name=name)
+            # host mirror [S, M] (all-scratch rows until an admission
+            # installs its reservation) and its device copy, uploaded on
+            # the iterations that changed the mirror
+            self._block_tables = np.full((S, self._blocks_per_seq),
+                                         SCRATCH_BLOCK, np.int64)
+            self._bt_dev = torch.zeros((S, self._blocks_per_seq),
+                                       dtype=torch.int64, device=self.device)
+            self._bt_dirty = False
+        self.table_uploads = 0
+
+        # -- admission knobs -------------------------------------------------
+        self._budget = int(ec._resolved("prefill_token_budget"))
+        if self._budget < 0:
+            Log.fatal(f"DecodeEngine {name!r}: negative "
+                      f"prefill_token_budget {self._budget}")
+        # a chunk never needs more than the longest admissible prompt
+        self._budget = min(self._budget, ec.max_prompt)
+        chunked = self._budget > 0
+        # prefix caching and preemption need paged blocks AND chunked
+        # prefill; they are inert otherwise, as in the JAX engine
+        self._prefix = (self._paged and chunked
+                        and bool(ec._resolved("prefix_cache")))
+        self._hash_seed = b""        # pinned-version scope for the chain
+        self._preempt_on = (self._paged and chunked
+                            and bool(ec._resolved("preempt")))
+        self._preempt_budget = int(ec._resolved("preempt_budget"))
+        if self._preempt_budget < 0:
+            Log.fatal(f"DecodeEngine {name!r}: negative preempt_budget "
+                      f"{self._preempt_budget}")
+        self._lookahead = int(ec._resolved("sched_lookahead"))
+        if self._lookahead < 0:
+            Log.fatal(f"DecodeEngine {name!r}: negative sched_lookahead "
+                      f"{self._lookahead}")
+
+        # -- programs --------------------------------------------------------
+        if self._paged:
+            self._step_fn = _Program(
+                lambda p, kc, vc, bt, tok, pos, active:
+                tf.decode_step_paged(cfg, p, kc, vc, bt, tok, pos, active,
+                                     t_logical=T))
+            self._chunk_fn = _Program(
+                lambda p, kc, vc, bt, slot, toks, off, n:
+                tf.prefill_chunk_paged(cfg, p, kc, vc, bt, slot, toks, off,
+                                       n, t_logical=T))
+            self._admit_fn = _Program(
+                lambda p, kc, vc, bt, toks, lens:
+                tf.admit_insert_paged(cfg, p, kc, vc, bt, toks, lens))
+        else:
+            self._step_fn = _Program(
+                lambda p, kc, vc, tok, pos, active:
+                tf.decode_step(cfg, p, kc, vc, tok, pos, active))
+            self._chunk_fn = _Program(
+                lambda p, kc, vc, slot, toks, off, n:
+                tf.prefill_chunk(cfg, p, kc, vc, slot, toks, off, n))
+            self._admit_fn = _Program(self._admit_contiguous)
+        self._cow_fn = (_Program(tf.cow_block_copy) if self._prefix
+                        else None)
+
         self._manager = SnapshotManager.of(lm, name=name)
-        self._snap = None            # pinned while any slot is live
+        self._snap = None            # pinned while anything is in flight
         self._pinned = None
+        self._pinned_version: Optional[int] = None
         self.pin_copies = 0
 
         # -- device state (owned by the loop thread) --------------------------
-        self._k_cache = torch.zeros((L, S, T, D), dtype=cfg.dtype,
+        if self._paged:
+            shape = (L, self._pool.capacity + 1, self._block_size, D)
+        else:
+            shape = (L, S, T, D)
+        self._k_cache = torch.zeros(shape, dtype=cfg.dtype,
                                     device=self.device)
         self._v_cache = torch.zeros_like(self._k_cache)
         # -- host state -------------------------------------------------------
@@ -190,7 +536,12 @@ class DecodeEngine:
         self._tok = np.zeros(S, np.int64)
         self._pos = np.zeros(S, np.int64)
         self._active = np.zeros(S, bool)
-        self._q: Deque[_Request] = collections.deque()
+        # the one admission prefilling in chunks (slot reserved, not live)
+        self._pf: Optional[_Request] = None
+        # a monolithic admission in progress holds reservations before
+        # any slot goes live (the watchdog's leak check must not fire)
+        self._admitting = False
+        self._q = _PrioQueue(name, self._lookahead)
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._stop = threading.Event()
@@ -203,6 +554,11 @@ class DecodeEngine:
         self.occ_gauge = Dashboard.get_or_create_gauge(f"SLOT_OCC[{name}]")
         self.shed_counter = Dashboard.get_or_create_counter(
             f"SERVE_SHED[{name}]")
+        self.preempt_counter = Dashboard.get_or_create_counter(
+            f"PREEMPTIONS[{name}]")
+        self.deadline_counter = Dashboard.get_or_create_counter(
+            f"DEADLINE_DROPS[{name}]")
+        self._shed_class_counters: Dict[int, object] = {}
         self.steps_counter = Dashboard.get_or_create_counter(
             f"DECODE_STEPS[{name}]")
         self.prefill_tok_counter = Dashboard.get_or_create_counter(
@@ -212,13 +568,33 @@ class DecodeEngine:
         self.iters_counter = Dashboard.get_or_create_counter(
             f"ENGINE_ITERS[{name}]")
         self.iters_total = 0
+        self._last_progress = time.monotonic()
+        self.recorder: Optional[FlightRecorder] = None
+        if bool(ec._resolved("flight_recorder")):
+            self.recorder = FlightRecorder(
+                int(ec._resolved("flight_recorder_capacity")), name=name)
+            self.recorder.meta.update(decode_tp=1, mesh_devices=1)
+        # per-iteration scratch the recorder drains
+        self._it_admitted: List[int] = []
+        self._it_completed: List[int] = []
+        self._it_prefill = 0
+        self._it_decode = 0
         self.completed = 0
         self.shed = 0
         self.tokens = 0
-        self.prefill_tokens = 0
+        # peak concurrent sequences (live slots + the mid-prefill one)
         self.peak_live = 0
-        # host-clock seconds in admission (prefill + insert + first-token
-        # readback) and in fused decode steps (dispatch to readback)
+        self.prefill_tokens = 0
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefill_tokens_saved = 0
+        self.cow_copies = 0
+        # preemption events, distinct requests preempted, deadline drops
+        self.preemptions = 0
+        self.preempted = 0
+        self.deadline_drops = 0
+        # host-clock seconds in admission (prefill chunks or whole-prompt
+        # prefills, with their readbacks) and in fused decode steps
         self.prefill_s = 0.0
         self.decode_s = 0.0
         self.t_first: Optional[float] = None
@@ -227,6 +603,12 @@ class DecodeEngine:
         self._thread = threading.Thread(
             target=self._loop, name=f"serve-decode-{name}", daemon=True)
         self._thread.start()
+        # the watchdog reads the public health surface, so it starts
+        # after the loop thread exists
+        self.watchdog: Optional[EngineWatchdog] = None
+        if bool(ec._resolved("watchdog")):
+            self.watchdog = EngineWatchdog(
+                self, ec.resolved_watchdog_config())
 
     # -- client side ----------------------------------------------------------
     def validate(self, prompt, max_new: Optional[int]) -> None:
@@ -238,20 +620,57 @@ class DecodeEngine:
             raise ValueError(f"max_new {max_new} outside "
                              f"[1, {self.config.max_new}]")
 
+    def _shed_class(self, priority: int) -> None:
+        counter = self._shed_class_counters.get(priority)
+        if counter is None:
+            counter = Dashboard.get_or_create_counter(
+                f"SHED_BY_CLASS[{self.name}.p{priority}]")
+            self._shed_class_counters[priority] = counter
+        counter.inc()
+
+    def _shed(self, priority: int) -> None:
+        self.shed += 1
+        self.shed_counter.inc()
+        self._shed_class(priority)
+
     def submit(self, prompt, max_new: Optional[int] = None,
-               ctx: Optional[trace.SpanContext] = None) -> Future:
-        """Enqueue one prompt; fast-rejects with :class:`OverloadedError`
-        at the admission-queue cap. ``ctx`` is the request's trace
-        handoff token (or None)."""
+               ctx: Optional[trace.SpanContext] = None,
+               priority: Optional[int] = None,
+               deadline_s: Optional[float] = None) -> Future:
+        """Enqueue one prompt. Sheds with :class:`OverloadedError` at the
+        queue cap, and (paged) when ``prompt + max_new`` needs more blocks
+        than the whole pool (``retriable=False``). ``priority`` is the
+        class (0..7, None = 1); ``deadline_s`` (None = none) is seconds
+        from now past which the request is dropped at queue pop with
+        :class:`DeadlineExceededError`, before any prefill. ``ctx`` is the
+        request's trace handoff token."""
         self.validate(prompt, max_new)
+        prio = DEFAULT_PRIORITY if priority is None else int(priority)
+        if not 0 <= prio <= MAX_PRIORITY:
+            raise ValueError(f"priority {prio} outside "
+                             f"[0, {MAX_PRIORITY}]")
+        deadline = None
+        if deadline_s is not None:
+            if float(deadline_s) <= 0:
+                raise ValueError(f"deadline_s must be > 0, "
+                                 f"got {deadline_s}")
+            deadline = time.monotonic() + float(deadline_s)
         p = np.asarray(prompt, np.int64).ravel()
-        req = _Request(p, int(max_new or self.config.max_new), ctx)
+        req = _Request(p, int(max_new or self.config.max_new), ctx,
+                       priority=prio, deadline=deadline)
         with self._cv:
             if self._stop.is_set():
                 raise RuntimeError(f"decode engine {self.name!r} is stopped")
+            if self._paged:
+                need = self._pool.blocks_needed(p.shape[0] + req.max_new)
+                if need > self._pool.capacity:
+                    self._shed(prio)
+                    raise OverloadedError(self.name, need,
+                                          self._pool.capacity,
+                                          what="kv block pool",
+                                          retriable=False)
             if len(self._q) >= self.config.max_queue:
-                self.shed += 1
-                self.shed_counter.inc()
+                self._shed(prio)
                 raise OverloadedError(self.name, len(self._q),
                                       self.config.max_queue)
             if self.t_first is None:
@@ -264,75 +683,504 @@ class DecodeEngine:
         with self._lock:
             return len(self._q)
 
+    def health(self) -> dict:
+        """The watchdog's poll surface: progress, liveness and queue age,
+        without the histogram sorts of ``stats()``."""
+        now = time.monotonic()
+        with self._lock:
+            depth = len(self._q)
+            oldest = self._q.oldest_t_enq()
+            pinned = self._pinned_version
+        return {
+            "iters_total": self.iters_total,
+            "last_iter_age_s": now - self._last_progress,
+            "snapshot_version": -1 if pinned is None else int(pinned),
+            # an admission in flight (chunked or monolithic) is live work
+            "live_seqs": int(self._active.sum())
+            + (1 if self._pf is not None else 0)
+            + (1 if self._admitting else 0),
+            "active_slots": int(self._active.sum()),
+            "queue_depth": depth,
+            "queue_age_s": (now - oldest) if oldest is not None else 0.0,
+            "preemptions": self.preemptions,
+            "stopped": self._stop.is_set(),
+        }
+
+    def pool_drift(self) -> Optional[str]:
+        """Paged-KV books: allocator invariant violations, or live blocks
+        while nothing is alive to hold them. Sampled racily; the watchdog
+        needs the verdict on two consecutive polls."""
+        if not self._paged:
+            return None
+        msg = self._pool.drift()
+        if msg is not None:
+            return msg
+        live_blocks = self._pool.n_live
+        if (live_blocks > 0 and not self._active.any()
+                and self._pf is None and not self._admitting
+                and not self._q):
+            return (f"{live_blocks} live block(s) with zero live "
+                    f"sequences (leaked reservation)")
+        return None
+
+    # -- admission gate -------------------------------------------------------
+    def _req_hashes(self, req: _Request) -> List[bytes]:
+        """The prompt's full-block hash chain, memoized per seed."""
+        if req.hashes is None or req.hash_seed != self._hash_seed:
+            req.hashes = chain_hashes(req.prompt, self._block_size,
+                                      self._hash_seed)
+            req.hash_seed = self._hash_seed
+        return req.hashes
+
+    def _prefix_usable_hits(self, req: _Request) -> int:
+        """Net blocks the prefix cache saves ``req`` against the
+        reclaimable supply (free + cached). A live-shared hit saves a
+        block; a cached one is claimed out of that supply and cancels
+        out; a fully cached prompt pays one fresh block for the
+        copy-on-write of its last block. Floored at 0: the copy's source
+        returns to the supply before the fresh allocation."""
+        m, cached = self._pool.peek_counts(self._req_hashes(req))
+        usable = m - 1 if (m and m * self._block_size == len(req.prompt)) \
+            else m
+        return max(0, usable - cached)
+
+    def _reservation_blocks(self, req: _Request) -> int:
+        """Prompt + remaining generation worth of blocks, or (optimistic,
+        ``preempt``) the prompt's blocks only, unless the request spent
+        its preemption budget: then it re-admits pessimistically."""
+        if self._preempt_on and req.preempts < self._preempt_budget:
+            return self._pool.blocks_needed(len(req.prompt))
+        return self._pool.blocks_needed(
+            len(req.prompt) + req.max_new - len(req.out))
+
+    def _blocks_cover(self, req: _Request, reserved: int) -> bool:
+        """Paged gate: the reservation (less what earlier arrivals of the
+        same wave take, less usable prefix hits) fits free + cached."""
+        if not self._paged:
+            return True
+        need = self._reservation_blocks(req)
+        if self._prefix:
+            need -= self._prefix_usable_hits(req)
+        return need + reserved <= self._pool.n_free + self._pool.n_cached
+
+    def _drop_expired(self, dropped: List[_Request]) -> None:
+        """Fail requests whose deadline passed while queued, before any
+        prefill (futures resolve outside the engine lock)."""
+        now = time.monotonic()
+        for req in dropped:
+            self.deadline_drops += 1
+            self.deadline_counter.inc()
+            if trace.enabled() and req.ctx is not None:
+                trace.record_span("queue.wait", req.ctx, req.t_enq, now,
+                                  cause="deadline")
+            if req.future.set_running_or_notify_cancel():
+                req.future.set_exception(DeadlineExceededError(
+                    f"decode request rid {req.rid} missed its deadline "
+                    f"after {now - req.t_enq:.3f}s queued "
+                    f"(engine {self.name!r})"))
+
     # -- engine thread --------------------------------------------------------
     def _loop(self) -> None:
+        chunked = self._budget > 0
         while True:
             with self._cv:
-                while (not self._q and not self._active.any()
+                while (not self._q and self._pf is None
+                       and not self._active.any()
                        and not self._stop.is_set()):
                     self._cv.wait()
-                if self._stop.is_set() and not self._q \
-                        and not self._active.any():
+                if (self._stop.is_set() and not self._q
+                        and self._pf is None and not self._active.any()):
                     return
+                now = time.monotonic()
                 arrivals: List[_Request] = []
-                while len(arrivals) < len(self._free_q) and self._q:
-                    arrivals.append(self._q.popleft())
+                expired: List[_Request] = []
+                if chunked:
+                    # one admission prefills at a time
+                    if self._pf is None and self._free_q and self._q:
+                        req, expired = self._q.pop_admissible(
+                            now, lambda r: self._blocks_cover(r, 0))
+                        if req is not None:
+                            arrivals.append(req)
+                else:
+                    reserved = 0
+                    while len(arrivals) < len(self._free_q) and self._q:
+                        req, exp = self._q.pop_admissible(
+                            now, lambda r, res=reserved:
+                            self._blocks_cover(r, res))
+                        expired.extend(exp)
+                        if req is None:
+                            break
+                        if self._paged:
+                            reserved += self._reservation_blocks(req)
+                        arrivals.append(req)
+            if expired:
+                self._drop_expired(expired)
+            # the progress clock restarts when the loop picks work up: an
+            # idle engine is not a stalled one
+            t_work0 = time.monotonic()
+            self._last_progress = t_work0
+            self._it_admitted.clear()
+            self._it_completed.clear()
+            self._it_prefill = self._it_decode = 0
+            step_ms = 0.0
+            worked = False
             try:
-                if arrivals:
-                    t0 = time.monotonic()
-                    self._admit(arrivals)
-                    self.prefill_s += time.monotonic() - t0
-                live = int(self._active.sum())
+                if chunked:
+                    if arrivals:
+                        self._begin_prefill(arrivals[0],
+                                            self._free_q.popleft())
+                    # a full prefix hit costs no chunk: keep admitting
+                    # until a chunk is pending or nothing is admissible
+                    while self._pf is None and self._free_q:
+                        with self._cv:
+                            if not self._q:
+                                break
+                            req, exp = self._q.pop_admissible(
+                                time.monotonic(),
+                                lambda r: self._blocks_cover(r, 0))
+                        if exp:
+                            self._drop_expired(exp)
+                        if req is None:
+                            break
+                        arrivals.append(req)
+                        self._begin_prefill(req, self._free_q.popleft())
+                    if self._pf is not None:
+                        # at most one budget-sized chunk per iteration
+                        self._prefill_one_chunk()
+                        worked = True
+                elif arrivals:
+                    self._admitting = True
+                    try:
+                        self._admit(arrivals)
+                    finally:
+                        self._admitting = False
+                    worked = True
+                t_step0 = time.monotonic()
+                self.prefill_s += t_step0 - t_work0
+                live = int(self._active.sum()) + (self._pf is not None)
                 self.peak_live = max(self.peak_live, live)
                 if self._active.any():
-                    t0 = time.monotonic()
                     self._step()
-                    self.decode_s += time.monotonic() - t0
+                    step_s = time.monotonic() - t_step0
+                    self.decode_s += step_s
+                    step_ms = step_s * 1e3
+                    worked = True
             except Exception as exc:          # pragma: no cover - defensive
+                # popped arrivals may not be slotted yet: fail them too
                 self._fail_all(exc, arrivals)
                 return
-            self.iters_total += 1
-            self.iters_counter.inc()
+            if worked:
+                self._record_iteration(t_work0, step_ms)
+            elif not arrivals and not expired:
+                # only block-starved waiters: yield instead of spinning
+                time.sleep(0.0005)
 
-    def _maybe_refresh(self) -> None:
-        """Move the pinned snapshot only while no generation is live."""
+    def _record_iteration(self, t_work0: float, step_ms: float) -> None:
+        """One iteration retired: the progress clock, the counters, and
+        the flight-recorder record (gauge samples, not accounting)."""
+        now = time.monotonic()
+        self.iters_total += 1
+        self.iters_counter.inc()
+        self._last_progress = now
+        recorder = self.recorder
+        if recorder is None:
+            return
+        try:
+            oldest = self._q.oldest_t_enq()
+        except (IndexError, RuntimeError):   # racing a concurrent submit
+            oldest = None
+        paged = self._paged
+        recorder.record((
+            self.iters_total, now, (now - t_work0) * 1e3, step_ms,
+            int(self._active.sum()), 1 if self._pf is not None else 0,
+            len(self._q),
+            0.0 if oldest is None else (now - oldest) * 1e3,
+            self._it_prefill, self._it_decode,
+            self._pool.n_free if paged else -1,
+            self._pool.n_live if paged else -1,
+            self._pool.n_shared if paged else -1,
+            self._snap.version if self._snap is not None else -1,
+            tuple(self._it_admitted), tuple(self._it_completed)))
+
+    def _maybe_refresh(self, hold: bool = False) -> None:
+        """Move the pinned snapshot only while no generation is in flight:
+        no live slot, no mid-prefill admission, and no preempted request
+        waiting to resume (``hold`` covers the one being re-admitted). The
+        pinned params memoize on snapshot version; when the pin moves, the
+        prefix cache of the old version is flushed."""
         snap = self._snap
         if snap is None:
             snap = self._manager.current()
-        elif not self._active.any():
+        elif (not hold and not self._active.any() and self._pf is None
+                and self._q.n_resumed == 0):
             snap = self._manager.ensure_fresh(self.config.max_staleness_s)
-        if snap is not self._snap:
-            with trace.span("snapshot.pin", engine=self.name,
-                            version=snap.version):
-                # the snapshot is already a private copy on the model's
-                # device: pinning it copies nothing more
-                self._pinned = snap.value
-            self.pin_copies += 1
+        if self._snap is not snap or self._pinned is None:
+            if self._pinned is None or snap.version != self._pinned_version:
+                with trace.span("snapshot.pin", engine=self.name,
+                                version=snap.version):
+                    # the snapshot is already a private copy on the
+                    # model's device: pinning it copies nothing more
+                    self._pinned = snap.value
+                self._pinned_version = snap.version
+                self.pin_copies += 1
             self._snap = snap
+            if self._prefix:
+                seed = str(int(snap.version)).encode()
+                if seed != self._hash_seed:
+                    self._hash_seed = seed
+                    self._pool.flush_cache()
+
+    # -- device inputs --------------------------------------------------------
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """One host-to-device copy of a packed int64 array."""
+        return torch.from_numpy(host).to(self.device)
+
+    def _tables(self) -> torch.Tensor:
+        """The block tables' device copy, uploaded if the host mirror
+        changed since the last upload."""
+        if self._bt_dirty:
+            self._bt_dev.copy_(torch.from_numpy(self._block_tables))
+            self._bt_dirty = False
+            self.table_uploads += 1
+        return self._bt_dev
+
+    def _set_row(self, slot: int, blocks: List[int]) -> None:
+        row = self._block_tables[slot]
+        row[:] = SCRATCH_BLOCK
+        row[: len(blocks)] = blocks
+        self._bt_dirty = True
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    # -- admission ------------------------------------------------------------
+    def _reserve_blocks(self, req: _Request, slot: int) -> None:
+        """Paged: claim the reservation and install it in the slot's
+        table row (the gate guaranteed coverage). With prefix caching the
+        longest cached prefix splices in with a refcount bump; a fully
+        cached prompt copy-on-writes its last block before the table
+        reaches the step, which will rewrite position ``P - 1`` there."""
+        if not self._paged:
+            return
+        total = self._reservation_blocks(req)
+        matched: List[int] = []
+        hashes: List[bytes] = []
+        full_hit_cow = False
+        if self._prefix:
+            hashes = self._req_hashes(req)
+            matched = self._pool.lookup(hashes)
+            req.n_hit = len(matched)
+            req.full_hit = bool(matched) and (
+                len(matched) * self._block_size == len(req.prompt))
+            req.blocks = matched
+            if req.full_hit:
+                shared_last = matched[-1]
+                dup = self._pool.alloc(1)[0]
+                ids = self._upload(np.array([shared_last, dup], np.int64))
+                self._cow_fn(self._k_cache, self._v_cache, ids[0], ids[1])
+                self._pool.decref([shared_last])
+                matched[-1] = dup
+                full_hit_cow = True
+            req.saved = (len(req.prompt) if req.full_hit
+                         else req.n_hit * self._block_size)
+        req.blocks = matched + self._pool.alloc(total - len(matched))
+        if self._prefix:
+            if full_hit_cow:
+                self.cow_copies += 1
+            self.prefix_hits += req.n_hit
+            self.prefix_misses += len(hashes) - req.n_hit
+            self.prefill_tokens_saved += req.saved
+        self._set_row(slot, req.blocks)
+
+    def _release_seq(self, req: _Request) -> None:
+        """Completion: the slot returns to the free set and (paged) the
+        reservation drops this holder, TAIL first: release order is LRU
+        order and lookups walk a chain head first, so eviction must
+        shrink a chain from its end."""
+        if self._paged and req.blocks:
+            self._pool.decref(reversed(req.blocks))
+            req.blocks = []
+            self._set_row(req.slot, [])
+        self._free_q.append(req.slot)
+
+    def _begin_prefill(self, req: _Request, slot: int) -> None:
+        """Reserve ``slot`` (and its blocks) and pin the snapshot for one
+        chunked admission; its prompt then prefills one chunk per
+        iteration, from the first uncached token."""
+        self._maybe_refresh(hold=req.resumed)
+        req.version = self._snap.version
+        req.slot = slot
+        self._reserve_blocks(req, slot)
+        req.pf_chunks = 0
+        req.t_admit = time.monotonic()
+        self._it_admitted.append(req.rid)
+        if self._prefix and req.full_hit:
+            # no prefill at all: the slot goes live at P - 1 with the
+            # prompt's last token; the next step rewrites that position's
+            # K/V (into the copied block) and emits the first token
+            if trace.enabled() and req.ctx is not None:
+                now = time.monotonic()
+                extra = {"preempted": req.preempts} if req.preempts else {}
+                trace.record_span("queue.wait", req.ctx, req.t_enq,
+                                  req.t_admit, cause="admission")
+                trace.record_span(
+                    "decode.admit", req.ctx, req.t_admit, now,
+                    slot=slot, prompt_len=len(req.prompt), chunks=0,
+                    budget=self._budget, snapshot_version=req.version,
+                    blocks=len(req.blocks), pool_free=self._pool.n_free,
+                    prefix_hit_blocks=req.n_hit,
+                    prefill_tokens_saved=req.saved, **extra)
+            # a resumed full hit recorded its TTFT in its first life
+            req.ttft_pending = not req.resumed
+            req.t_last = req.t_admit
+            self._slot_req[slot] = req
+            self._tok[slot] = int(req.prompt[-1])
+            self._pos[slot] = len(req.prompt) - 1
+            self._active[slot] = True
+            self._pf = None
+            return
+        req.pf_off = req.n_hit * self._block_size if self._prefix else 0
+        req.pf_reg = req.n_hit
+        self._pf = req
+
+    def _prefill_one_chunk(self) -> None:
+        """ONE budget-sized chunk of the in-flight admission; on the final
+        chunk the first token falls out and the slot goes live (or
+        resolves at once on eos-at-first-token)."""
+        req = self._pf
+        C = self._budget
+        off = req.pf_off
+        n = min(C, len(req.prompt) - off)
+        host = np.zeros(C + 3, np.int64)
+        host[: n] = req.prompt[off: off + n]
+        host[C:] = (req.slot, off, n)
+        args = self._upload(host)
+        toks, slot, off_t, n_t = args[:C], args[C], args[C + 1], args[C + 2]
+        tracing = trace.enabled()
+        t0 = time.monotonic() if tracing else 0.0
+        if self._paged:
+            _, _, logits = self._chunk_fn(
+                self._pinned, self._k_cache, self._v_cache, self._tables(),
+                slot, toks, off_t, n_t)
+        else:
+            _, _, logits = self._chunk_fn(
+                self._pinned, self._k_cache, self._v_cache, slot, toks,
+                off_t, n_t)
+        req.pf_off = off + n
+        req.pf_chunks += 1
+        self.prefill_tokens += n
+        self.prefill_tok_counter.inc(n)
+        self._it_prefill += n
+        if self._prefix:
+            # every prompt block this chunk completed gains its identity
+            # now: a concurrent same-prefix arrival can share it
+            hashes = self._req_hashes(req)
+            while (req.pf_reg < len(hashes)
+                   and (req.pf_reg + 1) * self._block_size <= req.pf_off):
+                self._pool.register(req.blocks[req.pf_reg],
+                                    hashes[req.pf_reg])
+                req.pf_reg += 1
+        final = req.pf_off >= len(req.prompt)
+        if not final:
+            # retire each chunk in its iteration: chunks queued ahead of
+            # the device would all land on the next step's readback
+            self._sync()
+            if tracing and req.ctx is not None:
+                trace.record_span(
+                    "decode.prefill_chunk", req.ctx, t0, time.monotonic(),
+                    slot=req.slot, offset=off, chunk=req.pf_chunks - 1,
+                    tokens=n, budget=C)
+            return
+        # the final chunk's logits are the first token (the host read)
+        tok0 = int(torch.argmax(logits))
+        now = time.monotonic()
+        if tracing and req.ctx is not None:
+            trace.record_span(
+                "decode.prefill_chunk", req.ctx, t0, now, slot=req.slot,
+                offset=off, chunk=req.pf_chunks - 1, tokens=n, budget=C)
+        if req.resumed:
+            # a preemption's recompute: TTFT happened in the first life,
+            # and this gap carries the whole preemption stall
+            self.itl_hist.record((now - req.t_last) * 1e3)
+        else:
+            self.ttft_hist.record((now - req.t_enq) * 1e3)
+        req.t_last = now
+        self.tokens += 1
+        self.decode_tok_counter.inc()
+        self._it_decode += 1
+        req.out.append(tok0)
+        if tracing and req.ctx is not None:
+            trace.record_span("queue.wait", req.ctx, req.t_enq,
+                              req.t_admit, cause="admission")
+            extra = ({"blocks": len(req.blocks),
+                      "pool_free": self._pool.n_free}
+                     if self._paged else {})
+            if self._prefix:
+                extra["prefix_hit_blocks"] = req.n_hit
+                extra["prefill_tokens_saved"] = req.saved
+            if req.preempts:
+                extra["preempted"] = req.preempts
+            trace.record_span(
+                "decode.admit", req.ctx, req.t_admit, now, slot=req.slot,
+                prompt_len=len(req.prompt), chunks=req.pf_chunks,
+                budget=C, snapshot_version=req.version, **extra)
+        self._pf = None
+        if self._finished(req, tok0):
+            # the slot never goes live; its K/V is dead weight a later
+            # admission overwrites
+            self._release_seq(req)
+            self._resolve(req)
+            return
+        self._slot_req[req.slot] = req
+        self._tok[req.slot] = tok0
+        self._pos[req.slot] = len(req.prompt)
+        self._active[req.slot] = True
+
+    def _admit_contiguous(self, params, k_cache, v_cache, slot, toks,
+                          lengths):
+        """The contiguous monolithic admission program: whole-prompt
+        prefill, the first token, and the K/V insert into ``slot`` [1]."""
+        tf = self._tf
+        logits, ks, vs = tf.prefill(self._model_cfg, params, toks)
+        tf.cache_insert(k_cache, v_cache, slot, ks, vs)
+        return tf.first_tokens(logits, lengths), k_cache, v_cache
 
     @torch.no_grad()
     def _admit(self, arrivals: List[_Request]) -> None:
+        """Monolithic admission: each arrival its own ``[1, bucket]``
+        whole-prompt prefill, one readback for the whole wave."""
         t_admit = time.monotonic()
         self._maybe_refresh()
         version = self._snap.version
-        cfg = self._model_cfg
-        firsts = []
-        buckets = []
+        M = self._blocks_per_seq
+        firsts, buckets = [], []
         for req in arrivals:
             pb = bucket_for(len(req.prompt), self._prompt_buckets)
-            toks = np.zeros((1, pb), np.int64)
-            toks[0, : len(req.prompt)] = req.prompt
             slot = self._free_q.popleft()
             req.slot = slot
-            logits, ks, vs = self._tf.prefill(
-                cfg, self._pinned, torch.from_numpy(toks).to(self.device))
-            lens = torch.tensor([len(req.prompt)], device=self.device)
-            firsts.append(self._tf.first_tokens(logits, lens))
-            self._tf.cache_insert(self._k_cache, self._v_cache, [slot], ks,
-                                  vs)
+            self._reserve_blocks(req, slot)
+            host = np.zeros(pb + 2 + M, np.int64)
+            host[: len(req.prompt)] = req.prompt
+            host[pb: pb + 2] = (len(req.prompt), slot)
+            if self._paged:
+                host[pb + 2:] = self._block_tables[slot]
+            args = self._upload(host)
+            toks, lens = args[:pb].view(1, pb), args[pb: pb + 1]
+            if self._paged:
+                first, _, _ = self._admit_fn(
+                    self._pinned, self._k_cache, self._v_cache,
+                    args[pb + 2:].view(1, M), toks, lens)
+            else:
+                first, _, _ = self._admit_fn(
+                    self._pinned, self._k_cache, self._v_cache,
+                    args[pb + 1: pb + 2], toks, lens)
+            firsts.append(first)
             buckets.append(pb)
             self.prefill_tokens += len(req.prompt)
             self.prefill_tok_counter.inc(len(req.prompt))
+            self._it_prefill += len(req.prompt)
+            self._it_admitted.append(req.rid)
         first = torch.cat(firsts).cpu().numpy()   # one sync per admission
         now = time.monotonic()
         tracing = trace.enabled()
@@ -343,16 +1191,20 @@ class DecodeEngine:
             self.ttft_hist.record((now - req.t_enq) * 1e3)
             self.tokens += 1
             self.decode_tok_counter.inc()
+            self._it_decode += 1
             req.out.append(tok0)
             if tracing and req.ctx is not None:
                 trace.record_span("queue.wait", req.ctx, req.t_enq, t_admit,
                                   cause="admission")
+                extra = ({"blocks": len(req.blocks),
+                          "pool_free": self._pool.n_free}
+                         if self._paged else {})
                 trace.record_span(
                     "decode.admit", req.ctx, t_admit, now, slot=req.slot,
                     prompt_len=len(req.prompt), prompt_bucket=buckets[i],
-                    snapshot_version=version)
+                    snapshot_version=version, **extra)
             if self._finished(req, tok0):
-                self._free_q.append(req.slot)
+                self._release_seq(req)
                 self._resolve(req)
                 continue
             self._slot_req[req.slot] = req
@@ -360,21 +1212,136 @@ class DecodeEngine:
             self._pos[req.slot] = len(req.prompt)
             self._active[req.slot] = True
 
+    # -- preemption -----------------------------------------------------------
+    def _admitted_requests(self) -> List[_Request]:
+        reqs = [r for r in self._slot_req if r is not None]
+        if self._pf is not None:
+            reqs.append(self._pf)
+        return reqs
+
+    def _pick_victim(self, grower: _Request) -> Optional[_Request]:
+        """Among admitted sequences, the lowest-priority then youngest,
+        never the grower and never the oldest (the guaranteed-progress
+        floor). Unless the grower is the oldest, a victim must have budget
+        left and rank below the grower."""
+        cands = [r for r in self._admitted_requests() if r is not grower]
+        if not cands:
+            return None
+        oldest = min(cands + [grower], key=lambda r: r.t_enq)
+        cands = [r for r in cands if r is not oldest]
+        if not cands:
+            return None
+        if oldest is not grower:
+            cands = [r for r in cands
+                     if r.preempts < self._preempt_budget
+                     and (r.priority < grower.priority
+                          or (r.priority == grower.priority
+                              and r.t_enq > grower.t_enq))]
+            if not cands:
+                return None
+        return min(cands, key=lambda r: (r.priority, -r.t_enq))
+
+    def _preempt(self, req: _Request, why: str = "") -> None:
+        """Evict one admitted sequence and free its blocks (tail first);
+        it re-enters the front of its lane and recomputes from ``prompt +
+        emitted tokens`` on re-admission. Host-side scheduling only: the
+        block tables are data."""
+        t0 = time.monotonic()
+        slot = req.slot
+        freed = len(req.blocks)
+        if req is self._pf:
+            self._pf = None
+        else:
+            self._active[slot] = False
+            self._slot_req[slot] = None
+        if req.blocks:
+            self._pool.decref(reversed(req.blocks))
+            req.blocks = []
+        self._set_row(slot, [])
+        self._free_q.append(slot)
+        req.slot = -1
+        if req.preempts == 0:
+            self.preempted += 1
+        req.preempts += 1
+        self.preemptions += 1
+        self.preempt_counter.inc()
+        if req.out:
+            req.prompt = np.concatenate(
+                [req.prompt0, np.asarray(req.out, np.int64)])
+            req.resumed = True
+        req.hashes = None
+        req.n_hit = 0
+        req.full_hit = False
+        req.saved = 0
+        req.pf_off = req.pf_chunks = req.pf_reg = 0
+        req.ttft_pending = False
+        if trace.enabled() and req.ctx is not None:
+            trace.record_span(
+                "decode.preempt", req.ctx, t0, time.monotonic(),
+                victim=req.rid, slot=slot, blocks_freed=freed,
+                preempts=req.preempts, priority=req.priority, why=why)
+        with self._cv:
+            self._q.appendleft(req)
+
+    def _ensure_growth(self) -> None:
+        """Optimistic admission's decode-time half: before the step, each
+        live reservation must cover the position this iteration writes.
+        On pool exhaustion a victim is preempted; with no admissible
+        victim the grower yields. Growers go highest class, oldest
+        first."""
+        order = [s for s in range(self.config.slots)
+                 if self._slot_req[s] is not None]
+        order.sort(key=lambda s: (-self._slot_req[s].priority,
+                                  self._slot_req[s].t_enq))
+        for s in order:
+            req = self._slot_req[s]
+            if req is None:          # victimized by an earlier grower
+                continue
+            grow = (self._pool.blocks_needed(int(self._pos[s]) + 1)
+                    - len(req.blocks))
+            if grow <= 0:
+                continue
+            while self._slot_req[s] is req:
+                if self._pool.can_alloc(grow):
+                    blocks = self._pool.alloc(grow)
+                    base = len(req.blocks)
+                    req.blocks.extend(blocks)
+                    self._block_tables[s][base: base + grow] = blocks
+                    self._bt_dirty = True
+                    break
+                victim = self._pick_victim(req)
+                if victim is None:
+                    self._preempt(req, why="yield: no admissible victim")
+                    break
+                self._preempt(victim, why=f"growth for rid {req.rid}")
+
+    # -- the fused step -------------------------------------------------------
     @torch.no_grad()
     def _step(self) -> None:
         tracing = trace.enabled()
-        t_it0 = time.monotonic()
-        dev = self.device
-        _, _, nxt, _ = self._tf.decode_step(
-            self._model_cfg, self._pinned, self._k_cache, self._v_cache,
-            torch.from_numpy(self._tok).to(dev),
-            torch.from_numpy(self._pos).to(dev),
-            torch.from_numpy(self._active).to(dev))
+        t_it0 = time.monotonic() if tracing else 0.0
+        if self._preempt_on:
+            self._ensure_growth()
+            if not self._active.any():
+                return
+        S = self.config.slots
+        host = np.empty((3, S), np.int64)
+        host[0], host[1], host[2] = self._tok, self._pos, self._active
+        ctl = self._upload(host)
+        tok, pos, active = ctl[0], ctl[1], ctl[2] != 0
+        if self._paged:
+            _, _, nxt, _ = self._step_fn(
+                self._pinned, self._k_cache, self._v_cache, self._tables(),
+                tok, pos, active)
+        else:
+            _, _, nxt, _ = self._step_fn(
+                self._pinned, self._k_cache, self._v_cache, tok, pos,
+                active)
         nxt = nxt.cpu().numpy()       # the host sync point
         now = time.monotonic()
         self.steps_counter.inc()
         n_active = 0
-        for s in range(self.config.slots):
+        for s in range(S):
             req = self._slot_req[s]
             if req is None:
                 continue
@@ -385,7 +1352,13 @@ class DecodeEngine:
             req.out.append(tok)
             self.tokens += 1
             self.decode_tok_counter.inc()
-            self.itl_hist.record((now - req.t_last) * 1e3)
+            self._it_decode += 1
+            if req.ttft_pending:
+                # a fully cached admission's first token is TTFT
+                req.ttft_pending = False
+                self.ttft_hist.record((now - req.t_enq) * 1e3)
+            else:
+                self.itl_hist.record((now - req.t_last) * 1e3)
             req.t_last = now
             if tracing and req.ctx is not None:
                 trace.record_span("decode.iter", req.ctx, t_it0, now,
@@ -393,11 +1366,11 @@ class DecodeEngine:
             if self._finished(req, tok):
                 self._active[s] = False
                 self._slot_req[s] = None
-                self._free_q.append(s)
+                self._release_seq(req)
                 self._resolve(req)
-        self._occ_sum += n_active / self.config.slots
+        self._occ_sum += n_active / S
         self._occ_n += 1
-        self.occ_gauge.set(int(self._active.sum()) / self.config.slots)
+        self.occ_gauge.set(int(self._active.sum()) / S)
         t_first = self.t_first
         if t_first is not None and now > t_first:
             self.tps_gauge.set(self.tokens / (now - t_first))
@@ -408,6 +1381,7 @@ class DecodeEngine:
 
     def _resolve(self, req: _Request) -> None:
         self.completed += 1
+        self._it_completed.append(req.rid)
         if req.future.set_running_or_notify_cancel():
             req.future.set_result({
                 "result": np.asarray(req.out, np.int32),
@@ -419,9 +1393,20 @@ class DecodeEngine:
                   in_flight: Optional[List[_Request]] = None) -> None:
         with self._cv:
             self._stop.set()
-            pending = list(self._q)
-            self._q.clear()
+            pending = self._q.drain()
         live = [r for r in self._slot_req if r is not None]
+        if self._pf is not None:
+            live.append(self._pf)
+            self._pf = None
+        if self._paged:
+            # the dying requests' reservations go back (decref: a shared
+            # block carries one holder per request)
+            for req in live + (in_flight or []):
+                if req.blocks:
+                    self._pool.decref(req.blocks)
+                    req.blocks = []
+            self._block_tables[:] = SCRATCH_BLOCK
+            self._bt_dirty = True
         self._active[:] = False
         self._slot_req = [None] * self.config.slots
         self._free_q = collections.deque(range(self.config.slots))
@@ -434,6 +1419,61 @@ class DecodeEngine:
                 req.future.set_exception(exc)
 
     # -- introspection --------------------------------------------------------
+    def step_cache_size(self) -> int:
+        """Distinct signatures the fused step was called with: 1 at any
+        engine config (fixed slots, active-lane masking, block tables as
+        data)."""
+        return _signatures(self._step_fn)
+
+    def prefill_cache_size(self) -> int:
+        """Distinct signatures of the admission program: the one
+        fixed-size chunk program when chunked, else one per prompt bucket
+        used."""
+        if self._budget > 0:
+            return _signatures(self._chunk_fn)
+        return _signatures(self._admit_fn)
+
+    @torch.no_grad()
+    def warmup(self) -> None:
+        """Run every serving program once at its serving signature against
+        scratch caches, pinning the snapshot through the serving path, so
+        no request pays a program's first call (allocator growth, library
+        handles). Call it before taking traffic."""
+        self._maybe_refresh()
+        params = self._pinned
+        S, dev = self.config.slots, self.device
+        i64 = dict(dtype=torch.int64, device=dev)
+        zero = torch.zeros((), **i64)
+
+        def scratch():
+            return torch.zeros_like(self._k_cache), \
+                torch.zeros_like(self._v_cache)
+
+        bt = (torch.full((S, self._blocks_per_seq), SCRATCH_BLOCK, **i64)
+              if self._paged else None)
+        if self._budget > 0:
+            toks = torch.ones(self._budget, **i64)
+            one = torch.ones((), **i64)
+            if self._paged:
+                self._chunk_fn(params, *scratch(), bt, zero, toks, zero, one)
+            else:
+                self._chunk_fn(params, *scratch(), zero, toks, zero, one)
+        else:
+            lens = torch.ones(1, **i64)
+            for pb in self._prompt_buckets:
+                toks = torch.ones((1, pb), **i64)
+                where = bt[:1] if self._paged else torch.zeros(1, **i64)
+                self._admit_fn(params, *scratch(), where, toks, lens)
+        if self._cow_fn is not None:
+            self._cow_fn(*scratch(), zero, zero)
+        tok = torch.zeros(S, **i64)
+        active = torch.zeros(S, dtype=torch.bool, device=dev)
+        if self._paged:
+            self._step_fn(params, *scratch(), bt, tok, tok, active)
+        else:
+            self._step_fn(params, *scratch(), tok, tok, active)
+        self._sync()
+
     def stats(self) -> dict:
         t_first = self.t_first
         elapsed = (time.monotonic() - t_first) if t_first else 0.0
@@ -441,12 +1481,49 @@ class DecodeEngine:
         itl = self.itl_hist.percentiles((50, 99))
         issued = self.completed + self.shed
         busy = self.prefill_s + self.decode_s
+        pool: Dict[str, Any] = {"kv_block_size": 0}
+        if self._paged:
+            cfg = self._model_cfg
+            lookups = self.prefix_hits + self.prefix_misses
+            pool = {
+                "kv_block_size": self._block_size,
+                "kv_pool_blocks": self._pool.capacity,
+                "kv_bytes_per_device": (self._pool.capacity + 1)
+                * kv_bytes_per_block(cfg.n_layers, cfg.d_model,
+                                     self._block_size, cfg.dtype),
+                "kv_blocks_free": self._pool.n_free,
+                "kv_blocks_live": self._pool.n_live,
+                "kv_blocks_cached": self._pool.n_cached,
+                "blocks_shared": self._pool.n_shared,
+                "block_allocs": self._pool.allocs,
+                "block_frees": self._pool.frees,
+                "block_table_uploads": self.table_uploads,
+                "prefix_cache": int(self._prefix),
+                "prefix_hits": self.prefix_hits,
+                "prefix_misses": self.prefix_misses,
+                "prefix_hit_rate": (self.prefix_hits / lookups
+                                    if lookups else 0.0),
+                "prefill_tokens_saved": self.prefill_tokens_saved,
+                "prefix_evictions": self._pool.evictions,
+                "cow_copies": self.cow_copies,
+            }
+        health = self.health()
         return {
-            "kv_block_size": 0,
-            "prefill_token_budget": 0,
+            **pool,
+            "decode_step_retraces": max(0, self.step_cache_size() - 1),
             "pin_copies": self.pin_copies,
-            "iters_total": self.iters_total,
+            "iters_total": health["iters_total"],
+            "last_iter_age_s": health["last_iter_age_s"],
+            "live_seqs": health["live_seqs"],
+            "watchdog_trips": (self.watchdog.trip_count
+                               if self.watchdog is not None else 0),
+            "flight_records": (self.recorder.total
+                               if self.recorder is not None else 0),
             "peak_live_seqs": self.peak_live,
+            "preempt": int(self._preempt_on),
+            "preemptions": self.preemptions,
+            "preempted": self.preempted,
+            "deadline_drops": self.deadline_drops,
             "completed": self.completed,
             "shed": self.shed,
             "shed_rate": self.shed / issued if issued else 0.0,
@@ -461,6 +1538,9 @@ class DecodeEngine:
             "active_slots": int(self._active.sum()),
             "queue_depth": self.queue_depth(),
             "snapshot_publishes": self._manager.publishes,
+            "step_traces": self.step_cache_size(),
+            "prefill_traces": self.prefill_cache_size(),
+            "prefill_token_budget": self._budget,
             "prefill_tokens": self.prefill_tokens,
             "prefill_s": self.prefill_s,
             "decode_s": self.decode_s,
@@ -469,8 +1549,11 @@ class DecodeEngine:
 
     # -- lifecycle ------------------------------------------------------------
     def stop(self) -> None:
-        """Drain queued + in-flight generations, then retire the loop."""
+        """Drain queued + in-flight generations, then retire the loop and
+        its watchdog."""
         with self._cv:
             self._stop.set()
             self._cv.notify_all()
         self._thread.join(timeout=600)
+        if self.watchdog is not None:
+            self.watchdog.stop()

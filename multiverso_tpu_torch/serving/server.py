@@ -19,7 +19,7 @@ from ..log import Log
 from .decode_engine import DecodeEngine, DecodeEngineConfig
 
 # payload keys of the JAX server whose features this port does not have
-_UNPORTED_PAYLOAD_KEYS = ("priority", "deadline_s", "tenant")
+_UNPORTED_PAYLOAD_KEYS = ("tenant",)
 
 
 class _DecoderEntry:
@@ -29,8 +29,9 @@ class _DecoderEntry:
 
     def submit(self, payload: Any,
                ctx: Optional[trace.SpanContext] = None) -> Future:
-        """Payload: a 1-D prompt id array, or a dict with ``prompt`` and an
-        optional per-request ``max_new``."""
+        """Payload: a 1-D prompt id array, or a dict with ``prompt`` and
+        the optional per-request ``max_new``, ``priority`` (class 0..7)
+        and ``deadline_s``."""
         if isinstance(payload, dict):
             if "prompt" not in payload:
                 raise ValueError("decoder payload dict needs a 'prompt' key")
@@ -38,8 +39,10 @@ class _DecoderEntry:
                 if payload.get(key) is not None:
                     Log.fatal(f"serving: payload key {key!r} is not ported "
                               f"to multiverso_tpu_torch yet")
-            return self.engine.submit(payload["prompt"],
-                                      payload.get("max_new"), ctx=ctx)
+            return self.engine.submit(
+                payload["prompt"], payload.get("max_new"), ctx=ctx,
+                priority=payload.get("priority"),
+                deadline_s=payload.get("deadline_s"))
         return self.engine.submit(payload, ctx=ctx)
 
 
@@ -64,6 +67,7 @@ class InferenceServer:
                          prompt_buckets: Optional[tuple] = None,
                          prefill_token_budget: Optional[int] = None,
                          kv_block_size: Optional[int] = None,
+                         kv_pool_blocks: Optional[int] = None,
                          decode_tp: Optional[int] = None,
                          prefix_cache: Optional[bool] = None,
                          prefill_sp: Optional[bool] = None,
@@ -71,29 +75,36 @@ class InferenceServer:
                          kv_quant: Optional[str] = None,
                          decode_param_quant: Optional[str] = None,
                          preempt: Optional[bool] = None,
+                         preempt_budget: Optional[int] = None,
+                         sched_lookahead: Optional[int] = None,
                          flight_recorder: Optional[bool] = None,
                          watchdog: Optional[bool] = None,
+                         debug_dump_dir: Optional[str] = None,
                          slo_ttft_ms: Optional[float] = None,
                          slo_itl_ms: Optional[float] = None,
                          cost_ledger: Optional[bool] = None
                          ) -> DecodeEngine:
         """Attach a continuous-batching decode engine under ``name``. The
-        arguments are the JAX server's feature switches (None = the
-        matching flag), plus ``flight_recorder``; each feature this port
-        does not serve yet raises :class:`~..log.FatalError` when its
-        resolved value turns it on (see :mod:`.decode_engine`). The
-        features' sub-knobs (pool size, seqpar backend, preemption budget,
-        watchdog timings, ...) come with the features."""
+        arguments are the JAX server's knobs, plus ``flight_recorder``
+        (None = the matching flag; the defaults serve chunked, paged,
+        prefix-cached and preemptive admission with the recorder and the
+        watchdog on, see :mod:`.decode_engine`). The features this port
+        does not have yet (``decode_tp``, ``prefill_sp``, ``spec_k``,
+        ``kv_quant``, ``decode_param_quant``, the SLOs, ``cost_ledger``)
+        raise :class:`~..log.FatalError` when their resolved value turns
+        them on."""
         cfg = DecodeEngineConfig(
             slots=slots, max_prompt=max_prompt, max_new=max_new,
             eos_id=eos_id, max_queue=max_queue,
             max_staleness_s=max_staleness_s, prompt_buckets=prompt_buckets,
             prefill_token_budget=prefill_token_budget,
-            kv_block_size=kv_block_size, decode_tp=decode_tp,
-            prefix_cache=prefix_cache, prefill_sp=prefill_sp, spec_k=spec_k,
-            kv_quant=kv_quant, decode_param_quant=decode_param_quant,
-            preempt=preempt, flight_recorder=flight_recorder,
-            watchdog=watchdog, slo_ttft_ms=slo_ttft_ms,
+            kv_block_size=kv_block_size, kv_pool_blocks=kv_pool_blocks,
+            decode_tp=decode_tp, prefix_cache=prefix_cache,
+            prefill_sp=prefill_sp, spec_k=spec_k, kv_quant=kv_quant,
+            decode_param_quant=decode_param_quant, preempt=preempt,
+            preempt_budget=preempt_budget, sched_lookahead=sched_lookahead,
+            flight_recorder=flight_recorder, watchdog=watchdog,
+            debug_dump_dir=debug_dump_dir, slo_ttft_ms=slo_ttft_ms,
             slo_itl_ms=slo_itl_ms, cost_ledger=cost_ledger)
         with self._lock:
             if self._stopped:

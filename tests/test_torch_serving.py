@@ -4,9 +4,12 @@ The port's InferenceServer + DecodeEngine (monolithic admission,
 contiguous KV strips, every other feature off) serve requests on
 ``-device=cpu``; their outputs must be token-identical to the JAX
 package's ``greedy_decode`` on the same weights. Also: per-request
-``max_new`` and ``eos_id``, queue-cap shedding, the loud refusal of every
-engine feature not ported yet, the session's refusal to fall back to the
-CPU, and import hygiene (no port module pulls in jax or the JAX package).
+``max_new`` and ``eos_id``, queue-cap shedding, each ported engine
+feature and the JAX flag defaults building and serving, the loud refusal
+of every engine feature not ported yet, the session's refusal to fall
+back to the CPU, and import hygiene (no port module pulls in jax or the
+JAX package). ``tests/test_torch_decode_defaults.py`` holds the ported
+features to the JAX engine's contract.
 """
 
 import os
@@ -179,11 +182,15 @@ def test_concurrent_submitters(port):
 
 
 UNPORTED = [
-    ("prefill_token_budget", 32), ("kv_block_size", 16), ("decode_tp", 2),
-    ("prefix_cache", True), ("spec_k", 2), ("kv_quant", "int8"),
-    ("decode_param_quant", "int8"), ("prefill_sp", True), ("preempt", True),
-    ("flight_recorder", True), ("watchdog", True), ("cost_ledger", True),
-    ("slo_ttft_ms", 50.0), ("slo_itl_ms", 5.0),
+    ("decode_tp", 2), ("spec_k", 2), ("kv_quant", "int8"),
+    ("decode_param_quant", "int8"), ("prefill_sp", True),
+    ("cost_ledger", True), ("slo_ttft_ms", 50.0), ("slo_itl_ms", 5.0),
+]
+# each ported feature, turned on alone over OFF
+PORTED = [
+    ("prefill_token_budget", 32), ("kv_block_size", 16),
+    ("prefix_cache", True), ("preempt", True), ("flight_recorder", True),
+    ("watchdog", True),
 ]
 
 
@@ -197,20 +204,49 @@ def test_unported_feature_raises(port, flag, value):
                              **{**OFF, flag: value})
 
 
-def test_jax_flag_defaults_are_refused(port):
-    """The flag defaults stay the JAX package's (chunked, paged, prefix
-    cache, preemption, recorder, watchdog on): none is silently dropped."""
+@pytest.mark.parametrize("flag,value", PORTED)
+def test_ported_feature_builds(port, flag, value):
+    """Each ported feature builds and serves on its own (prefix caching
+    and preemption are inert without paged + chunked, as in JAX)."""
     _, lm = _model()
-    with pytest.raises(FatalError) as exc:
-        InferenceServer("t").register_decoder("lm", lm, max_prompt=16,
-                                              max_new=4)
-    for flag in ("prefill_token_budget", "kv_block_size", "prefix_cache",
-                 "preempt", "flight_recorder", "watchdog"):
-        assert flag in str(exc.value)
+    srv = InferenceServer("t")
+    eng = srv.register_decoder("lm", lm, slots=2, max_prompt=16, max_new=4,
+                               prompt_buckets=BUCKETS,
+                               **{**OFF, flag: value})
+    prompts = _prompts(3, seed=5)
+    replies = [f.result(timeout=120) for f in
+               [srv.submit("lm", p) for p in prompts]]
+    want = _jax_oracle(prompts, 4)
+    for i, rep in enumerate(replies):
+        np.testing.assert_array_equal(rep["result"], want[i])
+    stats = eng.stats()
+    assert stats["completed"] == 3
+    assert stats["step_traces"] == 1
+    assert (eng.recorder is not None) == (flag == "flight_recorder")
+    assert (eng.watchdog is not None) == (flag == "watchdog")
 
 
-@pytest.mark.parametrize("key,value", [("priority", 2), ("deadline_s", 1.0),
-                                       ("tenant", "acme")])
+def test_engine_builds_at_jax_flag_defaults(port):
+    """With no feature flag passed, the engine takes the JAX package's
+    defaults (chunked prefill, paged KV, prefix cache, preemption,
+    recorder, watchdog) and serves token-identically to JAX."""
+    _, lm = _model()
+    srv = InferenceServer("t")
+    eng = srv.register_decoder("lm", lm, max_prompt=16, max_new=4)
+    stats = eng.stats()
+    assert (stats["prefill_token_budget"], stats["kv_block_size"]) == \
+        (16, 16)                      # the 32 budget, clamped to max_prompt
+    assert stats["prefix_cache"] == stats["preempt"] == 1
+    assert eng.recorder is not None and eng.watchdog is not None
+    prompts = _prompts(6, seed=6)
+    replies = [f.result(timeout=120) for f in
+               [srv.submit("lm", p) for p in prompts]]
+    want = _jax_oracle(prompts, 4)
+    for i, rep in enumerate(replies):
+        np.testing.assert_array_equal(rep["result"], want[i])
+
+
+@pytest.mark.parametrize("key,value", [("tenant", "acme")])
 def test_unported_payload_keys_raise(port, key, value):
     _, lm = _model()
     srv = InferenceServer("t")
@@ -218,6 +254,16 @@ def test_unported_payload_keys_raise(port, key, value):
                          prompt_buckets=BUCKETS, **OFF)
     with pytest.raises(FatalError, match=key):
         srv.submit("lm", {"prompt": [1, 2], key: value})
+
+
+@pytest.mark.parametrize("key,value", [("priority", 2), ("deadline_s", 30.0)])
+def test_ported_payload_keys_served(port, key, value):
+    _, lm = _model()
+    srv = InferenceServer("t")
+    srv.register_decoder("lm", lm, slots=2, max_prompt=16, max_new=4)
+    prompt = _prompts(1, seed=7)[0]
+    rep = srv.submit("lm", {"prompt": prompt, key: value}).result(timeout=120)
+    np.testing.assert_array_equal(rep["result"], _jax_oracle([prompt], 4)[0])
 
 
 def test_init_without_cpu_flag_refuses_to_fall_back():
@@ -249,7 +295,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'multiverso_tpu' "
         "or m.startswith('multiverso_tpu.'))\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 18, names\n"
+        "for m in ('block_pool', 'flight_recorder', 'watchdog', "
+        "'decode_engine'):\n"
+        "    assert 'multiverso_tpu_torch.serving.' + m in names, m\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
