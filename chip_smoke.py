@@ -11,8 +11,9 @@ Phases, each printed on its own line:
    scatter-add kernels (the 16-byte vector forms must be there);
 2. the flash forward kernels against their plain version on the card
    (bf16 on the tensor-core kernel, f32 on the CUDA-core one): the serving
-   path's shapes (B 1 and 8 x S 1024 and 1536) and the training path's
-   (B 8 x S 1024, B 4 x S 2048), causal and not, offset partial blocks,
+   path's shapes (B 1 and 8 x S 1024 and 1536), the training path's
+   (B 8 x S 1024, B 4 x S 2048) and phase 11's micro-batched prefill
+   (B 8 x S 128), causal and not, offset partial blocks,
    and bf16 cases for what the tensor-core tiling can get wrong: head_dim
    128 and 40 (zero-filled columns), sq = sk = 7 (below one tile), B x H
    = 1, q, k, v as strided views into one [B, S, 3, H, D] tensor, cross
@@ -161,10 +162,31 @@ Phase 10 runs right after phase 3:
    agreement with phase 3's oracle (each mismatch's position and top-2
    logit gap).
 
+Phase 11 runs right after phase 10:
+
+11. the single-card serving surface on the same flagship
+   (``phase_serving_surface``): (a) speculative decoding, spec_k 4
+   against 0 on the serving bench's repetitive-tail trace, the tokens
+   held to the spec_k=0 run under phase 10's near-tie rule (with its
+   negative control); (b) int8 KV against bf16 at equal pool bytes on
+   the bench's shared-prefix trace, and the int8 pool's layer-0 rows
+   held to the write path's bound (a perturbed scale must fail it); (c)
+   int8 parameter pins, each int8 engine's argmax match against its
+   bf16 control at least 0.7; (d) the micro-batcher serving
+   EmbeddingNeighbors (against an independent matmul + topk, the query
+   rows through the row gather kernel) and LMGreedyDecode (through the
+   flash prefill, each reply held to greedy_decode through plain
+   attention on its flush's padded batch under the near-tie rule); (e)
+   train-while-serving, each reply held to greedy_decode on the snapshot
+   of the version it reports, through the one-pass backward kernel; (f)
+   the SLO rows of the dashboard. Each prints its numbers with the card.
+
 The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
 library time, and the training run's bf16 launches beside the serving
-run's); the last line is {"ok": true, "device": {...}}. Any failure exits
+run's, and phase 11's beside them as ``launches_surface`` with that
+path's shape's error and times as ``surface_*``); the last
+line is {"ok": true, "device": {...}}. Any failure exits
 nonzero before either line is printed. Without a CUDA device, or without
 the package beside this file, the script fails. To debug one phase, call
 it directly, e.g. ``python3 -c "import chip_smoke as c;
@@ -173,6 +195,7 @@ c.phase_device(); c.phase_w2v_kernels()"``.
 
 from __future__ import annotations
 
+import collections
 import importlib
 import json
 import os
@@ -438,6 +461,8 @@ FA_CASES += [
     # one admission's prefill: batch 1
     fa_case(1, 1024, 1024, _BF, name="serve_short"),
     fa_case(1, 1536, 1536, _BF, name="serve_long"),
+    # phase 11's LMGreedyDecode prefill: a full bucket of 8 at max_prompt
+    fa_case(8, 128, 128, _BF, name="surface_lmg"),
     # ring-step partials: a later q shard against an earlier k shard, and
     # an offset that leaves the first 512 rows fully masked
     fa_case(8, 768, 768, _BF, q_base=768, normalize=False),
@@ -1104,6 +1129,658 @@ def phase_defaults(card: str, base_prompts, oracle):
             + (f"; mismatches: {', '.join(notes)}" if notes else ""))
     srv.stop()
     mv.shutdown()
+
+
+# phase 11: the single-card serving surface
+SPEC_K, SPEC_SLOTS, SPEC_PROMPT, SPEC_CAP, SPEC_MIN_NEW = 4, 2, 12, 64, 48
+SPEC_N, SPEC_BLOCK = 24, 8
+QKV_BLOCK, QKV_PREFIX, QKV_TAIL, QKV_CAP, QKV_MIN_NEW = 8, 64, 8, 24, 12
+QKV_N, QKV_SLOTS, QKV_FP_BLOCKS = 48, 24, 23
+# the int8 engines' argmax-match floor against their bf16 control, the
+# JAX package's (tests/test_quant_serving.py)
+QUANT_MATCH_FLOOR = 0.7
+EMB_K, EMB_IDS, EMB_THREADS, EMB_BATCH, EMB_TOL = 8, 256, 8, 32, 1e-3
+LMG_PROMPT, LMG_NEW, LMG_N, LMG_BATCH = 128, 32, 16, 8
+# train-while-serving: 1024-token windows (the forward at 1024 keys, so
+# the one-pass backward), 5 steps taken while 4 waves of requests are
+# served (two during the first wave, one during each later one)
+TWS_SEQ, TWS_BATCH, TWS_STEPS, TWS_WAVES = 1024, 8, 5, 4
+SLO_TTFT_MS, SLO_ITL_MS = 2000.0, 50.0
+
+
+def dev_sync() -> None:
+    if DEV.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def spec_trace(vocab: int):
+    """tools/serving_bench.py:832-900's trace: motifs of 2-5 tokens tiled
+    to 6-12, 48 + zipf(1.6) new tokens capped at 64, arrival offsets."""
+    rng = np.random.default_rng(37)
+    trace, t = [], 0.0
+    for _ in range(SPEC_N):
+        t += float(rng.exponential(0.002))
+        motif = rng.integers(1, vocab, int(rng.integers(2, 6)))
+        plen = int(rng.integers(6, SPEC_PROMPT + 1))
+        prompt = np.tile(motif, -(-plen // len(motif)))[:plen]
+        trace.append((t, prompt, int(min(SPEC_CAP, SPEC_MIN_NEW
+                                         + rng.zipf(1.6)))))
+    return trace
+
+
+def quant_trace(vocab: int):
+    """tools/serving_bench.py:721-800's trace: 4 zipf-chosen 64-token
+    prefixes plus 1-8-token tails, 12 + zipf(1.6) new tokens capped at
+    24, arrival offsets."""
+    rng = np.random.default_rng(23)
+    prefixes = [rng.integers(1, vocab, QKV_PREFIX) for _ in range(4)]
+    trace, t = [], 0.0
+    for _ in range(QKV_N):
+        t += float(rng.exponential(0.002))
+        head = prefixes[min(int(rng.zipf(1.8)) - 1, len(prefixes) - 1)]
+        tail = rng.integers(1, vocab, int(rng.integers(1, QKV_TAIL + 1)))
+        trace.append((t, np.concatenate([head, tail]),
+                      int(min(QKV_CAP, QKV_MIN_NEW + rng.zipf(1.6)))))
+    return trace
+
+
+def play(srv, name, trace):
+    """Submit a trace at its arrival offsets; (outputs, wall seconds)."""
+    dev_sync()
+    t0 = time.perf_counter()
+    futs = []
+    for t, prompt, n_new in trace:
+        lag = t - (time.perf_counter() - t0)
+        if lag > 0:
+            time.sleep(lag)
+        futs.append(srv.submit(name, {"prompt": prompt, "max_new": n_new}))
+    outs = [np.asarray(f.result(timeout=600)["result"]) for f in futs]
+    dev_sync()
+    return outs, time.perf_counter() - t0
+
+
+def argmax_match(a, b) -> float:
+    """Token agreement over the longer length (the JAX quant metric)."""
+    n, m = min(a.size, b.size), max(a.size, b.size)
+    return float((a[:n] == b[:n]).sum()) / m if m else 1.0
+
+
+def median_step_ms(eng, verify=None) -> float:
+    """Median fused-step ms of an engine's recorded iterations; with
+    ``verify`` True/False only those that ran (did not run) a window."""
+    recs = [r for r in eng.recorder.records() if r["step_ms"] > 0
+            and (verify is None or (r["spec_proposed"] > 0) == verify)]
+    return float(np.median([r["step_ms"] for r in recs])) if recs else 0.0
+
+
+def near_tie_check(ref_cfg, params, label, prompts, got, ref):
+    """Every output of ``got`` equals ``ref`` or first differs where
+    ref's top-2 gap is under phase 10's bf16 bound; returns the count of
+    exact outputs and prints each divergence."""
+    exact = 0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if np.array_equal(g, r):
+            exact += 1
+            continue
+        ok, (j, gap, bound) = divergence_allowed(ref_cfg, params,
+                                                 prompts[i], g, r)
+        say(f"{label}: request {i} first differs at token {j}: top-2 gap "
+            f"{gap:.5f}, bound {bound:.5f}")
+        if not ok:
+            fail(f"{label}: request {i} diverges at token {j} where the "
+                 f"top-2 gap {gap:.5f} >= bound {bound:.5f}")
+    return exact
+
+
+def write_path_check(eng, cfg, params, blocks, seq, n_prompt,
+                     perturb=None):
+    """Layer 0's K/V rows depend only on tokens and positions. For every
+    position ``p`` the request wrote (``seq[p]``, its blocks ``blocks``),
+    the row from the engine's own bf16 layer-0 inputs as an f32 product,
+    against the int8 pool's dequantized row: each element within
+    ``s (1 + n) / 2 + 2^-8 |row| + 2 D 2^-24 (|x| |w|)``, where ``s`` is
+    the block's final scale, ``n`` the writes into the block after the
+    row's (each may grow the scale and re-round the row once; prompt rows
+    of a block come in one chunk, every later position in its own step),
+    ``2^-8 |row|`` the engine's bf16 rounding of its product and the last
+    term the two f32 sums' order. ``perturb`` (block, factor) scales one
+    block's layer-0 scales first: the negative control. Returns (worst
+    excess over the bound, elements checked)."""
+    from multiverso_tpu_torch.models import transformer as tf
+
+    Bs = eng._block_size
+    P = len(seq)
+    toks = torch.from_numpy(np.asarray(seq, np.int64)).to(DEV)
+    pos = torch.arange(P, device=DEV)
+    layer = tf._layers(params)[0]
+    h = params["embed"][toks] + params["pos"][pos]
+    x = tf._rmsnorm(h, layer["ln1_g"])
+    D = x.shape[-1]
+    blk = torch.tensor([blocks[p // Bs] for p in range(P)], device=DEV)
+    off = pos % Bs
+    # writes into a row's block after the row: decode positions only
+    later = np.zeros(P)
+    for p in range(P):
+        end = min(P, (p // Bs + 1) * Bs)
+        later[p] = max(0, end - max(p + 1, n_prompt))
+    later = torch.from_numpy(later).to(DEV, torch.float32)[:, None]
+    worst, n = -float("inf"), 0
+    for name, pool, scales in (("w_k", eng._k_cache, eng._k_scales),
+                               ("w_v", eng._v_cache, eng._v_scales)):
+        w = layer[name]
+        row = x.float() @ w.float()
+        order = 2 * D * 2.0 ** -24 * (x.float().abs() @ w.float().abs())
+        s = scales[0, blk].clone()
+        if perturb is not None:
+            s = torch.where(blk == perturb[0], s * perturb[1], s)
+        deq = pool[0, blk, off].float() * s[:, None]
+        bound = (s[:, None] * (1 + later) / 2 + BF16_U * row.abs()
+                 + order)
+        worst = max(worst, float(((deq - row).abs() - bound).max()))
+        n += row.numel()
+    return worst, n
+
+
+def phase_serving_surface(card: str, base_prompts):
+    """11. The single-card serving surface on the flagship of phase 3
+    (bf16, seed 0, attention="flash_force"), each sub-phase's numbers
+    on lines of their own with the card's name and power limit:
+
+    a. speculation A/B on tools/serving_bench.py's repetitive-tail trace
+       (24 requests, 2 slots, max_prompt 12, max_new 64, block 8, chunks
+       of 12): spec_k 4 against 0; tokens must equal the spec_k=0 run's
+       under phase 10's near-tie rule (with its negative control), and
+       the verify program keeps one signature;
+    b. int8 KV against bf16 at equal pool bytes (23 bf16 blocks of 8) on
+       the bench's shared-prefix trace (48 requests, 24 slots): blocks,
+       peak live sequences, tokens/s, the argmax-match rate (at least
+       QUANT_MATCH_FLOOR, the JAX package's 0.7); then one
+       more request whose layer-0 K/V rows in the int8 pool are held to
+       the write path's bound (``write_path_check``), and the same check
+       with one block's scales perturbed must fail;
+    c. int8 parameter pins on (a)'s trace (spec_k 0): one pin copy, the
+       resident bytes, the per-call dequantization ms, the match rate
+       (at least the floor); then spec_k 4, int8 KV, int8 pins and both
+       SLOs on one engine, its match rate held to the same floor;
+    d. the micro-batcher: EmbeddingNeighbors (k 8) over a [71291, 200]
+       bf16 table, 256 ids from 8 threads at max_batch 32, each reply
+       against an independent f32 matmul + topk on the card (scores
+       within 1e-3, ids equal wherever the neighbouring scores differ by
+       more), the query rows through the row gather kernel; then
+       LMGreedyDecode (max_prompt 128, max_new 32, 16 requests, batches
+       of up to 8) through the flash kernel, each flush's replies held
+       to greedy_decode through plain attention on the same padded batch
+       under the near-tie rule (phase 2 holds the kernel itself against
+       plain at this prefill's shape, B 8 x S 128);
+    e. train-while-serving: train_batch on phase 9's corpus (8 windows
+       of 1024 tokens, lr 0.003, 5 steps) while phase 10's configuration
+       A serves its prompts in 4 waves, the steps taken while a wave is
+       served (two in the first, one in each later one) and each wave
+       submitted once the steps before it are done (max_staleness_s 0,
+       so the pin moves at each drain and every later wave serves a new
+       version); each reply
+       within the near-tie rule of greedy_decode on the snapshot of the
+       version it reports, through the one-pass backward kernel;
+    f. the SLO rows of Dashboard.snapshot() for (e)'s engine
+       (slo_ttft_ms 2000, slo_itl_ms 50).
+
+    Returns the launches of the kernels this phase ran, by kernel."""
+    import threading
+
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.apps import lm as app
+    from multiverso_tpu_torch.dashboard import Dashboard
+    from multiverso_tpu_torch.models import transformer as tf
+    from multiverso_tpu_torch.ops import embedding as emb_ops
+    from multiverso_tpu_torch.serving import (EmbeddingNeighbors,
+                                              InferenceServer,
+                                              LMGreedyDecode)
+    from multiverso_tpu_torch.serving.block_pool import (blocks_for_bytes,
+                                                         kv_bytes_per_block)
+
+    fa = _fa()
+    _CARD[:] = [card]
+    mv.init(["chip_smoke", f"-device={DEV.type}"])
+    cfg = tf.TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16,
+                               attention="flash_force",
+                               learning_rate=LM_LR, momentum=0.9)
+    ref_cfg = tf.TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16,
+                                   attention="reference")
+    lm = tf.TransformerLM(cfg)
+    params, _ = lm.snapshot_params()
+    vocab = cfg.vocab_size
+    srv = InferenceServer("chip_smoke_surface")
+    launches = {}
+
+    # -- a. speculation -----------------------------------------------------
+    trace = spec_trace(vocab)
+    prompts = [p for _, p, _ in trace]
+    useful = sum(n for _, _, n in trace)
+    spec = {}
+    for label, k in (("spec", SPEC_K), ("base", 0)):
+        eng = srv.register_decoder(
+            f"lm_spec_{label}", lm, slots=SPEC_SLOTS, max_prompt=SPEC_PROMPT,
+            max_new=SPEC_CAP, prompt_buckets=(SPEC_PROMPT,),
+            kv_block_size=SPEC_BLOCK, prefill_token_budget=SPEC_PROMPT,
+            spec_k=k, max_queue=64)
+        eng.warmup()
+        eng.reset_stats()
+        outs, wall = play(srv, f"lm_spec_{label}", trace)
+        spec[label] = dict(eng=eng, outs=outs, wall=wall, st=eng.stats())
+    s_st, b_st = spec["spec"]["st"], spec["base"]["st"]
+    tps = {k: useful / v["wall"] for k, v in spec.items()}
+    verify_ms = median_step_ms(spec["spec"]["eng"], verify=True)
+    step_ms = median_step_ms(spec["base"]["eng"])
+    say(f"surface a (speculation, spec_k {SPEC_K} vs 0, {SPEC_N} requests, "
+        f"{useful} tokens, {SPEC_SLOTS} slots): {tps['spec']:.1f} vs "
+        f"{tps['base']:.1f} tok/s = {tps['spec'] / tps['base']:.3f}x; "
+        f"acceptance {s_st['acceptance_rate']:.3f}, accepted per step "
+        f"{s_st['accepted_per_step']:.3f}, verify steps "
+        f"{s_st['spec_steps']}; median verify {verify_ms:.3f} ms vs "
+        f"median plain step {step_ms:.3f} ms; verify_traces "
+        f"{s_st['verify_traces']}, step_traces {s_st['step_traces']}/"
+        f"{b_st['step_traces']}; ITL p50 {s_st['itl_p50_ms']:.2f} vs "
+        f"{b_st['itl_p50_ms']:.2f} ms; card {card_line()}")
+    if s_st["verify_traces"] != 1 or s_st["step_traces"] > 1 \
+            or b_st["step_traces"] != 1 or s_st["spec_accepted"] <= 0:
+        fail(f"surface a: verify_traces {s_st['verify_traces']}, "
+             f"step_traces {s_st['step_traces']}/{b_st['step_traces']}, "
+             f"accepted {s_st['spec_accepted']}")
+    for out, (_, p, n) in zip(spec["spec"]["outs"], trace):
+        if out.shape != (n,) or out.min() < 0 or out.max() >= vocab:
+            fail(f"surface a: an output of the wrong shape or range")
+    exact = near_tie_check(ref_cfg, params, "surface a", prompts,
+                           spec["spec"]["outs"], spec["base"]["outs"])
+    say(f"surface a: {exact}/{SPEC_N} spec outputs token-identical to "
+        f"spec_k=0, the rest within the near-tie bound")
+    # negative control: a divergence at the baseline's widest margin
+    ref0 = spec["base"]["outs"][0]
+    gap, bound = top2_gaps(ref_cfg, params, prompts[0], ref0)
+    j = int(np.argmax(gap / bound))
+    fake = ref0.copy()
+    fake[j] = (fake[j] + 1) % vocab
+    if gap[j] < bound[j] or divergence_allowed(ref_cfg, params, prompts[0],
+                                               fake, ref0)[0]:
+        fail("surface a: the near-tie negative control passed")
+    say(f"surface a negative control: a divergence at token {j}, gap "
+        f"{gap[j]:.5f} against bound {bound[j]:.5f}, fails the check")
+    base_outs = spec["base"]["outs"]
+
+    # -- b. int8 KV at equal bytes ---------------------------------------------
+    qtrace = quant_trace(vocab)
+    qprompts = [p for _, p, _ in qtrace]
+    q_useful = sum(n for _, _, n in qtrace)
+    L, D = cfg.n_layers, cfg.d_model
+    budget = QKV_FP_BLOCKS * kv_bytes_per_block(L, D, QKV_BLOCK, cfg.dtype)
+    qmax_prompt = QKV_PREFIX + QKV_TAIL
+    qkv = {}
+    for label, quant in (("bf16", "none"), ("int8", "int8")):
+        blocks = blocks_for_bytes(budget, L, D, QKV_BLOCK, cfg.dtype,
+                                  quant=quant)
+        eng = srv.register_decoder(
+            f"lm_qkv_{label}", lm, slots=QKV_SLOTS, max_prompt=qmax_prompt,
+            max_new=QKV_CAP, prompt_buckets=(qmax_prompt,),
+            kv_block_size=QKV_BLOCK, kv_pool_blocks=blocks,
+            prefill_token_budget=32, kv_quant=quant, max_queue=64)
+        eng.warmup()
+        eng.reset_stats()
+        outs, wall = play(srv, f"lm_qkv_{label}", qtrace)
+        qkv[label] = dict(eng=eng, outs=outs, wall=wall, st=eng.stats(),
+                          blocks=blocks)
+    rate = float(np.mean([argmax_match(a, b) for a, b in
+                          zip(qkv["bf16"]["outs"], qkv["int8"]["outs"])]))
+    qkv["int8"]["eng"].record_argmax_match(rate)
+    q_st, f_st = qkv["int8"]["eng"].stats(), qkv["bf16"]["st"]
+    say(f"surface b (int8 KV at {budget} pool bytes, {QKV_N} requests, "
+        f"{q_useful} tokens): blocks {qkv['int8']['blocks']} vs "
+        f"{qkv['bf16']['blocks']}, peak live {q_st['peak_live_seqs']} vs "
+        f"{f_st['peak_live_seqs']}, {q_useful / qkv['int8']['wall']:.1f} vs "
+        f"{q_useful / qkv['bf16']['wall']:.1f} tok/s, argmax match "
+        f"{rate:.4f}, median step {median_step_ms(qkv['int8']['eng']):.3f} "
+        f"vs {median_step_ms(qkv['bf16']['eng']):.3f} ms, "
+        f"preemptions {q_st['preemptions']} vs {f_st['preemptions']}, "
+        f"written blocks {q_st['quant_scale_blocks']}, step_traces "
+        f"{q_st['step_traces']}, prefill_traces {q_st['prefill_traces']}; "
+        f"card {card_line()}")
+    if rate < QUANT_MATCH_FLOOR:
+        fail(f"surface b: int8 KV argmax match {rate:.4f} under the "
+             f"{QUANT_MATCH_FLOOR} floor")
+    if q_st["step_traces"] != 1 or q_st["prefill_traces"] != 1 \
+            or q_st["quant_scale_blocks"] <= 0 \
+            or any(o.min() < 0 or o.max() >= vocab
+                   for o in qkv["int8"]["outs"]):
+        fail(f"surface b: {q_st}")
+    # the write path: one more request, alone, its blocks kept in view
+    eng = qkv["int8"]["eng"]
+    seen = {}
+    release = eng._release_seq
+
+    def keep_blocks(req):
+        seen.setdefault("blocks", list(req.blocks))
+        release(req)
+
+    eng._release_seq = keep_blocks
+    rng = np.random.default_rng(41)
+    probe = rng.integers(1, vocab, qmax_prompt)
+    out = np.asarray(srv.submit(f"lm_qkv_int8", {
+        "prompt": probe, "max_new": QKV_CAP}).result(timeout=600)["result"])
+    eng._release_seq = release
+    dev_sync()
+    seq = np.concatenate([probe, out[:-1]])
+    worst, n = write_path_check(eng, cfg, params, seen["blocks"], seq,
+                                len(probe))
+    if worst > 0:
+        fail(f"surface b: an int8 K/V row exceeds the write-path bound by "
+             f"{worst:.6g}")
+    bad, _ = write_path_check(eng, cfg, params, seen["blocks"], seq,
+                              len(probe),
+                              perturb=(seen["blocks"][1], 1.5))
+    if bad <= 0:
+        fail("surface b: the write-path check passed a perturbed scale")
+    say(f"surface b write path: {n} layer-0 K/V elements of "
+        f"{len(seq)} positions within the bound (worst excess "
+        f"{worst:.6g}); block {seen['blocks'][1]}'s scales x 1.5 exceeds "
+        f"it by {bad:.6g}")
+
+    # -- c. int8 parameter pins --------------------------------------------------
+    eng = srv.register_decoder(
+        "lm_pq", lm, slots=SPEC_SLOTS, max_prompt=SPEC_PROMPT,
+        max_new=SPEC_CAP, prompt_buckets=(SPEC_PROMPT,),
+        kv_block_size=SPEC_BLOCK, prefill_token_budget=SPEC_PROMPT,
+        decode_param_quant="int8", max_queue=64)
+    eng.warmup()
+    eng.reset_stats()
+    pq_outs, pq_wall = play(srv, "lm_pq", trace)
+    pq_st = eng.stats()
+    pinned = eng._pinned
+    leaves = [t for v in pinned.values()
+              for t in ((v,) if "q" in v else v.values())]
+    q_bytes = sum(t["q"].nbytes + t["s"].nbytes for t in leaves)
+    p_bytes = sum(t.nbytes for t in tf._leaves(params))
+    deq_ms = time_ms(lambda: tf.dequantize_decode_params(pinned, cfg.dtype)) \
+        if DEV.type == "cuda" else 0.0
+    pq_rate = float(np.mean([argmax_match(a, b)
+                             for a, b in zip(pq_outs, base_outs)]))
+    say(f"surface c (int8 parameter pins on a's trace, spec_k 0): "
+        f"pin_copies {pq_st['pin_copies']}, resident parameters {q_bytes} "
+        f"bytes int8 + scales vs {p_bytes} bf16, dequantization "
+        f"{deq_ms:.4f} ms a call, median step "
+        f"{median_step_ms(eng):.3f} ms vs {step_ms:.3f} bf16, "
+        f"{useful / pq_wall:.1f} tok/s, argmax match vs a's spec_k=0 run "
+        f"{pq_rate:.4f}; card {card_line()}")
+    if pq_st["pin_copies"] != 1 or pq_st["step_traces"] != 1 \
+            or q_bytes >= p_bytes or pq_rate < QUANT_MATCH_FLOOR:
+        fail(f"surface c: {pq_st}")
+    # all of slice 8's engine features on one engine, on (a)'s trace
+    eng = srv.register_decoder(
+        "lm_all", lm, slots=SPEC_SLOTS, max_prompt=SPEC_PROMPT,
+        max_new=SPEC_CAP, prompt_buckets=(SPEC_PROMPT,),
+        kv_block_size=SPEC_BLOCK, prefill_token_budget=SPEC_PROMPT,
+        spec_k=SPEC_K, kv_quant="int8", decode_param_quant="int8",
+        slo_ttft_ms=SLO_TTFT_MS, slo_itl_ms=SLO_ITL_MS, max_queue=64)
+    eng.warmup()
+    eng.reset_stats()
+    all_outs, all_wall = play(srv, "lm_all", trace)
+    all_st = eng.stats()
+    all_rate = float(np.mean([argmax_match(a, b)
+                              for a, b in zip(all_outs, base_outs)]))
+    say(f"surface c (spec_k {SPEC_K}, int8 KV, int8 pins and both SLOs on "
+        f"one engine, a's trace): {useful / all_wall:.1f} tok/s, "
+        f"acceptance {all_st['acceptance_rate']:.3f}, accepted per step "
+        f"{all_st['accepted_per_step']:.3f}, median verify "
+        f"{median_step_ms(eng, verify=True):.3f} ms, argmax match vs a's "
+        f"spec_k=0 run {all_rate:.4f}, verify_traces "
+        f"{all_st['verify_traces']}, step_traces {all_st['step_traces']}, "
+        f"pin_copies {all_st['pin_copies']}; card {card_line()}")
+    if all_st["verify_traces"] != 1 or all_st["step_traces"] > 1 \
+            or all_st["spec_steps"] <= 0 or all_st["pin_copies"] != 1 \
+            or all_rate < QUANT_MATCH_FLOOR \
+            or any(o.min() < 0 or o.max() >= vocab for o in all_outs):
+        fail(f"surface c, all features: {all_st}")
+
+    # -- d. the micro-batcher --------------------------------------------------
+    table = mv.create_table("matrix", W2V_VOCAB, W2V_DIM,
+                            init_value="random", dtype=torch.bfloat16,
+                            seed=0)
+    work = EmbeddingNeighbors(table, k=EMB_K)
+    srv.register("w2v", work, max_batch=EMB_BATCH)
+    ids = np.random.default_rng(43).integers(0, W2V_VOCAB, EMB_IDS)
+    replies = [None] * EMB_IDS
+    srv.predict("w2v", 0, timeout_s=600)   # warm: the normalized table
+    n_warm = len(srv._entry("w2v").batcher.flushes)
+    dev_sync()
+    emb_ops.reset_launches()
+
+    def client(lo):
+        futs = [(i, srv.submit("w2v", int(ids[i])))
+                for i in range(lo, EMB_IDS, EMB_THREADS)]
+        for i, f in futs:
+            replies[i] = f.result(timeout=600)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(EMB_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    emb_wall = time.perf_counter() - t0
+    gathers = emb_ops.LAUNCHES["row_gather"]
+    e = table.array.float()
+    normed = e / e.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    q_ids = torch.from_numpy(ids).to(DEV)
+    sims = normed[q_ids] @ normed.t()
+    sims[torch.arange(EMB_IDS, device=DEV), q_ids] = -float("inf")
+    ref = sims.topk(EMB_K + 1, dim=-1)
+    ref_s, ref_i = ref.values.cpu().numpy(), ref.indices.cpu().numpy()
+    worst_s, checked = 0.0, 0
+    for i, rep in enumerate(replies):
+        got_i, got_s = rep["result"]
+        worst_s = max(worst_s, float(np.abs(got_s - ref_s[i, :EMB_K]).max()))
+        for j in range(EMB_K):
+            lo_gap = ref_s[i, j] - ref_s[i, j + 1]
+            hi_gap = ref_s[i, j - 1] - ref_s[i, j] if j else np.inf
+            if min(lo_gap, hi_gap) > EMB_TOL:
+                checked += 1
+                if got_i[j] != ref_i[i, j]:
+                    fail(f"surface d: id {ids[i]} neighbour {j} is "
+                         f"{got_i[j]}, the reference's {ref_i[i, j]}")
+    flushes = list(srv._entry("w2v").batcher.flushes)[n_warm:]
+    say(f"surface d (EmbeddingNeighbors k {EMB_K}, [{W2V_VOCAB}, "
+        f"{W2V_DIM}] bf16 table, {EMB_IDS} ids from {EMB_THREADS} threads, "
+        f"max_batch {EMB_BATCH}): {len(flushes)} flushes (sizes "
+        f"{sorted(n for n, _, _ in flushes)}), signatures "
+        f"{work.jit_cache_size()} (the warm call's bucket 1 included), "
+        f"{EMB_IDS / emb_wall:.1f} replies/s, "
+        f"max |score - reference| {worst_s:.3g} (limit {EMB_TOL}), "
+        f"{checked} separated ids equal, row_gather launches {gathers}; "
+        f"card {card_line()}")
+    # on the CPU (a rehearsal) the wrappers take their plain versions,
+    # which count no launch
+    on_card = DEV.type == "cuda"
+    if worst_s > EMB_TOL or (on_card and gathers <= 0):
+        fail(f"surface d: score error {worst_s}, row_gather launches "
+             f"{gathers}")
+    launches["row_gather"] = gathers
+
+    lmg = LMGreedyDecode(lm, max_prompt=LMG_PROMPT, max_new=LMG_NEW)
+    batches = []
+    run = lmg.run
+
+    def run_seen(payloads, bucket, snap):
+        out = run(payloads, bucket, snap)
+        batches.append((list(payloads), bucket, snap.value, out))
+        return out
+
+    srv.register("lm_batch", lmg, max_batch=LMG_BATCH, deadline_ms=5.0)
+    srv.predict("lm_batch", np.arange(1, 9), timeout_s=600)   # warm
+    lmg.run = run_seen
+    rng = np.random.default_rng(47)
+    lmg_prompts = [rng.integers(0, vocab, int(n))
+                   for n in rng.integers(1, LMG_PROMPT + 1, LMG_N)]
+    dev_sync()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    futs = [srv.submit("lm_batch", p) for p in lmg_prompts]
+    lmg_outs = [np.asarray(f.result(timeout=600)["result"]) for f in futs]
+    dev_sync()
+    lmg_wall = time.perf_counter() - t0
+    # the serving run's launches, before the oracle below adds its own
+    flash = dict(fa.LAUNCHES_BY_KEY_LEN)
+    launches["flash_fwd"] = fa.LAUNCHES
+    # the oracle: greedy_decode through plain attention (ref_cfg) on the
+    # same padded batch, so the flash prefill is held to the plain one
+    same = checked = 0
+    for payloads, bucket, value, outs in batches:
+        host = np.zeros((bucket, LMG_PROMPT), np.int64)
+        lens = np.ones(bucket, np.int64)
+        for i, p in enumerate(payloads):
+            host[i, : len(p)] = p
+            lens[i] = len(p)
+        want = tf.greedy_decode(ref_cfg, value,
+                                torch.from_numpy(host).to(DEV),
+                                torch.from_numpy(lens).to(DEV), LMG_NEW)
+        want = want.cpu().numpy()
+        for i, got in enumerate(outs):
+            got = np.asarray(got)
+            checked += 1
+            if np.array_equal(got, want[i]):
+                same += 1
+                continue
+            ok, (j, gap, bound) = divergence_allowed(
+                ref_cfg, value, np.asarray(payloads[i]), got, want[i])
+            say(f"surface d: LMGreedyDecode row {i} of bucket {bucket} "
+                f"first differs from plain greedy_decode at token {j}: "
+                f"top-2 gap {gap:.5f}, bound {bound:.5f}")
+            if not ok:
+                fail(f"surface d: LMGreedyDecode row {i} of bucket {bucket} "
+                     f"diverges at token {j} where the top-2 gap {gap:.5f} "
+                     f">= bound {bound:.5f}")
+    say(f"surface d (LMGreedyDecode flash_force, max_prompt {LMG_PROMPT}, "
+        f"max_new {LMG_NEW}, {LMG_N} requests): {len(batches)} flushes "
+        f"(buckets {[b for _, b, _, _ in batches]}), {same}/{LMG_N} replies "
+        f"token-identical to greedy_decode through plain attention on the "
+        f"same padded batch (the rest within the near-tie bound), "
+        f"{LMG_N * LMG_NEW / lmg_wall:.1f} tok/s, signatures "
+        f"{lmg.jit_cache_size()} (the warm call's bucket 1 included), "
+        f"flash launches {launches['flash_fwd']} (by key len "
+        f"{json.dumps(flash, sort_keys=True)}); card {card_line()}")
+    if checked != LMG_N or (on_card and launches["flash_fwd"] <= 0) \
+            or len(lmg_outs) != LMG_N:
+        fail(f"surface d: {checked}/{LMG_N} replies checked, flash launches "
+             f"{launches['flash_fwd']}")
+
+    # -- e. train-while-serving, f. the SLOs --------------------------------------
+    prompts_e, prios, _ = default_traffic(base_prompts, vocab)
+    eng = srv.register_decoder(
+        "lm_tws", lm, slots=SLOTS, max_prompt=MAX_PROMPT, max_new=MAX_NEW,
+        max_staleness_s=0.0, slo_ttft_ms=SLO_TTFT_MS, slo_itl_ms=SLO_ITL_MS)
+    published = {}
+    publish = eng._manager.publish
+
+    def publish_seen():
+        snap = publish()
+        published[snap.version] = snap.value
+        return snap
+
+    eng._manager.publish = publish_seen
+    eng.warmup()
+    data = app.load_bytes(lm_corpus())
+    gen = app.batches(data, TWS_BATCH, TWS_SEQ - 1, seed=0)
+    losses = []
+    # each wave lets the trainer take its steps while the wave is served
+    # (two in the first, one in each later one) and starts only once
+    # they are done, so every wave after the first pins a new version
+    go = threading.Semaphore(0)
+    stepped = threading.Condition()
+
+    def trainer():
+        for _ in range(TWS_STEPS):
+            go.acquire()
+            loss = float(lm.train_batch(next(gen)))
+            with stepped:
+                losses.append(loss)
+                stepped.notify_all()
+
+    dev_sync()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    tr = threading.Thread(target=trainer)
+    tr.start()
+    replies = []
+    waves = np.array_split(np.arange(len(prompts_e)), TWS_WAVES)
+    steps_by = np.cumsum([TWS_STEPS - TWS_WAVES + 1]
+                         + [1] * (TWS_WAVES - 1))
+    released = 0
+    for wave, n_steps in zip(waves, steps_by):
+        futs = [srv.submit("lm_tws", {"prompt": prompts_e[i],
+                                      "max_new": MAX_NEW,
+                                      "priority": int(prios[i])})
+                for i in wave]
+        while released < n_steps:
+            go.release()
+            released += 1
+        replies += [f.result(timeout=600) for f in futs]
+        with stepped:
+            stepped.wait_for(lambda: len(losses) >= n_steps, timeout=600)
+    tr.join(timeout=600)
+    dev_sync()
+    tws_wall = time.perf_counter() - t0
+    bwd = dict(fa.BWD_LAUNCHES)
+    launches["flash_bwd_fused"] = bwd["fused"]
+    versions = [rep["snapshot_version"] for rep in replies]
+    exact = 0
+    for i, rep in enumerate(replies):
+        v = rep["snapshot_version"]
+        if v not in published:
+            fail(f"surface e: reply {i} reports version {v}, never pinned")
+        p = prompts_e[i]
+        want = tf.greedy_decode(
+            cfg, published[v], torch.from_numpy(p[None]).to(DEV),
+            torch.tensor([len(p)], device=DEV), MAX_NEW)[0].cpu().numpy()
+        got = np.asarray(rep["result"])
+        if np.array_equal(got, want):
+            exact += 1
+            continue
+        ok, (j, gap, bound) = divergence_allowed(ref_cfg, published[v], p,
+                                                 got, want)
+        say(f"surface e: request {i} (version {v}) first differs from "
+            f"greedy_decode at token {j}: gap {gap:.5f}, bound {bound:.5f}")
+        if not ok:
+            fail(f"surface e: request {i} diverges at token {j} where the "
+                 f"top-2 gap {gap:.5f} >= bound {bound:.5f}")
+    st = eng.stats()
+    say(f"surface e (train-while-serving: {TWS_STEPS} train_batch steps of "
+        f"{TWS_BATCH} x {TWS_SEQ} tokens, losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}, while {len(replies)} "
+        f"requests in {TWS_WAVES} waves were served): {tws_wall:.3f} s, "
+        f"versions served {dict(sorted(collections.Counter(versions).items()))}"
+        f", pin copies {st['pin_copies']}, publishes "
+        f"{st['snapshot_publishes']}, {exact}/{len(replies)} "
+        f"token-identical to greedy_decode on their version (the rest "
+        f"within the near-tie bound), backward launches {json.dumps(bwd)}; "
+        f"card {card_line()}")
+    if len(losses) != TWS_STEPS or not np.all(np.isfinite(losses)) \
+            or (on_card and bwd["fused"] <= 0) or len(set(versions)) < 2:
+        fail(f"surface e: losses {losses}, backward {bwd}, versions "
+             f"{sorted(set(versions))}")
+    rows = {k: v for k, v in Dashboard.snapshot().items()
+            if v["type"] == "slo"}
+    for name, row in sorted(rows.items()):
+        say(f"surface f: {name} {json.dumps(row, sort_keys=True)}; card "
+            f"{card_line()}")
+    want_rows = {f"SLO_P99[SERVE_{kind}[{name}]]" for kind in ("TTFT", "ITL")
+                 for name in ("lm_tws", "lm_all")}
+    if not want_rows <= set(rows) or any(rows[r]["window"] <= 0
+                                         for r in want_rows):
+        fail(f"surface f: SLO rows {sorted(rows)}")
+    srv.stop()
+    table = work = None
+    mv.shutdown()
+    del lm, params, published
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
 
 
 def _fa():
@@ -2139,6 +2816,16 @@ def main() -> None:
             # shapes
             entry["launches_of"] = name.split("[")[0]
         kernels_line.append(entry)
+    # phase 11's own launches (the micro-batcher's flash prefills and row
+    # gathers, train-while-serving's one-pass backward), each counted
+    # from 0 just before its sub-phase
+    surface = serve_counts["surface"]
+    for entry in kernels_line:
+        key = {"flash_fwd[key_len<=1024]": "flash_fwd",
+               "flash_bwd[fused]": "flash_bwd_fused",
+               "row_gather": "row_gather"}.get(entry["name"])
+        if key is not None:
+            entry["launches_surface"] = surface[key]
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2146,12 +2833,14 @@ def main() -> None:
 
 
 def lm_phases(card: str):
-    """Phases 2-3, the crossover and phase 10; the forward's results and
-    the serving run's launches by regime."""
+    """Phases 2-3, the crossover, phase 10 and phase 11; the forward's
+    results, the serving run's launches by regime and phase 11's
+    launches by kernel."""
     results = phase_kernels()
     phase_crossover()
     served = phase_slice(card)
     phase_defaults(card, served["prompts"], served["oracle"])
+    served["surface"] = phase_serving_surface(card, served["prompts"])
     return results, served
 
 
@@ -2193,6 +2882,15 @@ def fwd_entries(results, serve_counts, train_counts):
             "train_library_ms": tr["library_ms"],
             "train_bound_ms": tr["bound_ms"],
             "train_bound_by": tr["bound_by"]})
+    # phase 11's micro-batched prefill runs K3 at its own shape
+    sr = results["surface_lmg"]
+    case = next(c for c in FA_CASES if c["name"] == "surface_lmg")
+    entries[0].update({
+        "surface_shape": f"B {case['B']} x S {case['sk']}",
+        "surface_max_abs_err": sr["max_abs_err"], "surface_ms": sr["ms"],
+        "surface_plain_ms": sr["plain_ms"],
+        "surface_bound_ms": sr["bound_ms"],
+        "surface_library_ms": sr["library_ms"]})
     return entries
 
 

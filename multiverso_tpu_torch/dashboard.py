@@ -13,10 +13,18 @@ device hooks are torch's: ``monitor(..., sync=True)`` calls
 ``torch.cuda.synchronize`` before the span closes so it covers device
 execution, not just the asynchronous launch, and :func:`profile_trace`
 wraps ``torch.profiler``.
+
+Windowed latency objectives (:class:`SLO`, ``Dashboard.set_slo``) ride
+every ``Dashboard.snapshot()`` as ``SLO_P<p>[<histogram>]`` rows, and
+:meth:`Histogram.buckets` exports a window as log-bucket counts on the
+JAX package's bucket boundaries, so exports of both packages merge
+(:func:`merge_buckets`).
 """
 
 from __future__ import annotations
 
+import bisect
+import math
 import threading
 import time
 from contextlib import contextmanager
@@ -66,6 +74,83 @@ class Monitor:
                 f"[{self.name}] count = {self.count} total = {self.total_ms:.3f} ms "
                 f"avg = {avg:.3f} ms"
             )
+
+
+# -- mergeable log-bucket export ---------------------------------------------
+#
+# Bucket i holds samples in (BUCKET_BASE**i, BUCKET_BASE**(i+1)]; a merge
+# adds counts per index, and a percentile read off (merged) counts returns
+# the containing bucket's geometric midpoint BUCKET_BASE**(i + 0.5), within
+# BUCKET_REL_ERROR (~9.05%) of the pooled nearest-rank sample. Samples <= 0
+# land in a "zero" bucket below every indexed one and read back as 0.0. The
+# base and the index rule are the JAX package's, bit for bit.
+
+BUCKET_BASE = 2 ** 0.25
+BUCKET_REL_ERROR = BUCKET_BASE ** 0.5 - 1
+_BUCKET_LOG = math.log(BUCKET_BASE)
+
+
+def bucket_index(value_ms: float) -> Optional[int]:
+    """Log-bucket index for one sample (None = the zero bucket)."""
+    if value_ms <= 0.0:
+        return None
+    return math.floor(math.log(value_ms) / _BUCKET_LOG)
+
+
+def bucket_value(index: int) -> float:
+    """The bucket's representative: the geometric midpoint of its edges."""
+    return BUCKET_BASE ** (index + 0.5)
+
+
+def merge_buckets(exports: List[Optional[Dict[str, Any]]]) -> Dict[str, Any]:
+    """Sum per-index counts across exports (:meth:`Histogram.buckets`
+    dicts; ``None`` entries are skipped). Counts key as strings, the JSON
+    wire form."""
+    counts: Dict[str, int] = {}
+    zero = 0
+    count = 0
+    for ex in exports:
+        if not ex:
+            continue
+        zero += int(ex.get("zero", 0))
+        count += int(ex.get("count", 0))
+        for k, n in ex.get("counts", {}).items():
+            counts[str(k)] = counts.get(str(k), 0) + int(n)
+    return {"base": BUCKET_BASE, "count": count, "zero": zero,
+            "counts": counts}
+
+
+def bucket_percentile(export: Dict[str, Any], p: float) -> float:
+    """Nearest-rank percentile over a (possibly merged) bucket export:
+    :meth:`Histogram._rank`'s rank walked over cumulative bucket counts,
+    returning the containing bucket's midpoint."""
+    counts = export.get("counts", {})
+    zero = int(export.get("zero", 0))
+    n = zero + sum(int(v) for v in counts.values())
+    if n == 0:
+        return 0.0
+    rank = min(n - 1, max(0, int(round(p / 100.0 * (n - 1)))))
+    if rank < zero:
+        return 0.0
+    seen = zero
+    for idx in sorted(int(k) for k in counts):
+        seen += int(counts[str(idx)])
+        if rank < seen:
+            return bucket_value(idx)
+    return bucket_value(max(int(k) for k in counts))   # pragma: no cover
+
+
+def bucket_breach_frac(export: Dict[str, Any], threshold_ms: float) -> float:
+    """Fraction of a bucketed window above ``threshold_ms``: a bucket
+    breaches when its midpoint exceeds the threshold, so the answer is
+    exact up to the one bucket straddling the target."""
+    counts = export.get("counts", {})
+    n = int(export.get("zero", 0)) + sum(int(v) for v in counts.values())
+    if n == 0:
+        return 0.0
+    over = sum(int(v) for k, v in counts.items()
+               if bucket_value(int(k)) > threshold_ms)
+    return over / n
 
 
 class Histogram:
@@ -122,17 +207,51 @@ class Histogram:
     def percentile(self, p: float) -> float:
         return self.percentiles((p,))[p]
 
-    def summary(self) -> Dict[str, float]:
-        count, data = self._window()
+    def window_stats(self, p: float, threshold_ms: float, window=None):
+        """``(window n, pXX, fraction of the window above threshold)`` in
+        one sort, or none when ``window`` (an already sorted sample list)
+        is given: the SLO's read."""
+        data = self._window()[1] if window is None else window
         if not data:
-            return {"count": count, "p50_ms": 0.0, "p95_ms": 0.0,
-                    "p99_ms": 0.0, "mean_ms": 0.0, "max_ms": 0.0}
-        return {"count": count,
-                "p50_ms": self._rank(data, 50),
-                "p95_ms": self._rank(data, 95),
-                "p99_ms": self._rank(data, 99),
-                "mean_ms": sum(data) / len(data),
-                "max_ms": data[-1]}
+            return 0, 0.0, 0.0
+        frac = 1.0 - bisect.bisect_right(data, threshold_ms) / len(data)
+        return len(data), self._rank(data, p), frac
+
+    def summary(self) -> Dict[str, float]:
+        return self._summarize(*self._window())[0]
+
+    def _summarize(self, count, data):
+        """``(summary dict, sorted window)`` from one ``_window()`` read, so
+        ``Dashboard.snapshot()`` hands the same samples to the SLO row."""
+        if not data:
+            return ({"count": count, "p50_ms": 0.0, "p95_ms": 0.0,
+                     "p99_ms": 0.0, "mean_ms": 0.0, "max_ms": 0.0}, data)
+        return ({"count": count,
+                 "p50_ms": self._rank(data, 50),
+                 "p95_ms": self._rank(data, 95),
+                 "p99_ms": self._rank(data, 99),
+                 "mean_ms": sum(data) / len(data),
+                 "max_ms": data[-1]}, data)
+
+    def buckets(self) -> Dict[str, Any]:
+        """Log-bucket export of the retained window: ``{"base", "count"
+        (lifetime), "n" (window), "zero", "counts": {str(index):
+        count}}``. One window copy, no sort."""
+        with self._lock:
+            count = self.count
+            data = (list(self._buf) if self._n == len(self._buf)
+                    else self._buf[: self._n])
+        counts: Dict[str, int] = {}
+        zero = 0
+        for v in data:
+            idx = bucket_index(v)
+            if idx is None:
+                zero += 1
+            else:
+                key = str(idx)
+                counts[key] = counts.get(key, 0) + 1
+        return {"base": BUCKET_BASE, "count": count, "n": len(data),
+                "zero": zero, "counts": counts}
 
     def info_string(self) -> str:
         s = self.summary()
@@ -188,6 +307,45 @@ class Counter:
         return f"[{self.name}] total = {self.get()}"
 
 
+class SLO:
+    """Windowed latency objective over a registered :class:`Histogram`:
+    "the windowed p<percentile> of ``source`` stays under ``target_ms``".
+    ``summary()`` reports the percentile, the fraction of the window over
+    the target and the burn rate (that fraction over the error budget
+    ``1 - percentile/100``; above 1 the tail eats its budget too fast)."""
+
+    def __init__(self, source: str, target_ms: float,
+                 percentile: float = 99.0, register: bool = True) -> None:
+        self.source = source
+        self.target_ms = float(target_ms)
+        self.percentile = float(percentile)
+        self.name = f"SLO_P{percentile:g}[{source}]"
+        if register:
+            Dashboard.add_slo(self)
+
+    def summary(self, window=None) -> Dict[str, float]:
+        hist = Dashboard.get_or_create_histogram(self.source)
+        n, value, frac = hist.window_stats(self.percentile, self.target_ms,
+                                           window=window)
+        budget = max(1.0 - self.percentile / 100.0, 1e-9)
+        return {
+            "target_ms": self.target_ms,
+            "percentile": self.percentile,
+            "window": n,
+            "value_ms": value,
+            "breach_frac": frac,
+            "burn": frac / budget,
+            "ok": 0 if (n and value > self.target_ms) else 1,
+        }
+
+    def info_string(self) -> str:
+        s = self.summary()
+        state = "OK" if s["ok"] else "BURNING"
+        return (f"[{self.name}] p{self.percentile:g} = {s['value_ms']:.3f} "
+                f"ms target = {self.target_ms:.3f} ms burn = "
+                f"{s['burn']:.2f} ({state})")
+
+
 class Dashboard:
     """Process-global instrument registry (reference ``dashboard.h:16-24``)."""
 
@@ -195,6 +353,7 @@ class Dashboard:
     _histograms: Dict[str, Histogram] = {}
     _gauges: Dict[str, Gauge] = {}
     _counters: Dict[str, Counter] = {}
+    _slos: Dict[str, SLO] = {}
     # running reporter threads (engine watchdogs; anything with
     # .detach()): reset() stops them so a test cannot leak one
     _reporters: List[Any] = []
@@ -219,6 +378,25 @@ class Dashboard:
     def add_counter(cls, counter: Counter) -> None:
         with cls._lock:
             cls._counters[counter.name] = counter
+
+    @classmethod
+    def add_slo(cls, slo: SLO) -> None:
+        with cls._lock:
+            cls._slos[slo.name] = slo
+
+    @classmethod
+    def set_slo(cls, source: str, target_ms: float,
+                percentile: float = 99.0) -> SLO:
+        """Declare (or re-target) a latency objective over histogram
+        ``source``; its row rides every ``snapshot()``."""
+        name = f"SLO_P{percentile:g}[{source}]"
+        with cls._lock:
+            slo = cls._slos.get(name)
+        if slo is None:
+            slo = SLO(source, target_ms, percentile)
+        else:
+            slo.target_ms = float(target_ms)
+        return slo
 
     @classmethod
     def attach_reporter(cls, reporter: Any) -> None:
@@ -264,7 +442,8 @@ class Dashboard:
             return (list(cls._monitors.values())
                     + list(cls._histograms.values())
                     + list(cls._gauges.values())
-                    + list(cls._counters.values()))
+                    + list(cls._counters.values())
+                    + list(cls._slos.values()))
 
     @classmethod
     def stats(cls, name: str) -> Optional[Dict[str, Any]]:
@@ -274,6 +453,7 @@ class Dashboard:
             hist = cls._histograms.get(name)
             gauge = cls._gauges.get(name)
             counter = cls._counters.get(name)
+            slo = cls._slos.get(name)
         if mon is not None:
             return {"count": mon.count, "total_ms": mon.total_ms,
                     "avg_ms": mon.average_ms()}
@@ -283,6 +463,8 @@ class Dashboard:
             return {"value": gauge.get()}
         if counter is not None:
             return {"value": counter.get()}
+        if slo is not None:
+            return slo.summary()
         return None
 
     @classmethod
@@ -295,16 +477,24 @@ class Dashboard:
             histograms = list(cls._histograms.values())
             gauges = list(cls._gauges.values())
             counters = list(cls._counters.values())
+            slos = list(cls._slos.values())
         out: Dict[str, Dict[str, Any]] = {}
         for m in monitors:
             out[m.name] = {"type": "monitor", "count": m.count,
                            "total_ms": m.total_ms, "avg_ms": m.average_ms()}
+        windows: Dict[str, list] = {}
         for h in histograms:
-            out[h.name] = {"type": "histogram", **h.summary()}
+            summary, windows[h.name] = h._summarize(*h._window())
+            out[h.name] = {"type": "histogram", **summary}
         for g in gauges:
             out[g.name] = {"type": "gauge", "value": g.get()}
         for c in counters:
             out[c.name] = {"type": "counter", "value": c.get()}
+        for slo in slos:
+            # the source histogram's sorted window: the SLO row describes
+            # the same samples as the histogram row
+            out[slo.name] = {"type": "slo",
+                             **slo.summary(window=windows.get(slo.source))}
         return out
 
     @classmethod
@@ -327,6 +517,7 @@ class Dashboard:
             cls._histograms.clear()
             cls._gauges.clear()
             cls._counters.clear()
+            cls._slos.clear()
             reporters = list(cls._reporters)
             cls._reporters.clear()
         for reporter in reporters:

@@ -7,7 +7,10 @@ a ``Fatal`` level that (by default) raises instead of killing the process, and
 ``CHECK`` / ``CHECK_NOTNULL`` assertion helpers that route through ``Fatal``.
 
 Built on the stdlib ``logging`` module rather than a hand-rolled sink so user
-code can attach handlers; the reference-facing API surface is preserved.
+code can attach handlers; the reference-facing API surface is preserved. The
+stdlib logger is the port's own (``multiverso_tpu_torch``): in a process that
+imports both packages, the port's level and file sink leave the JAX package's
+``multiverso`` logger alone.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ class FatalError(RuntimeError):
 class Logger:
     """Instance logger; static facade below mirrors the reference's ``Log``."""
 
-    def __init__(self, name: str = "multiverso", level: LogLevel = LogLevel.INFO) -> None:
+    def __init__(self, name: str = "multiverso_tpu_torch",
+                 level: LogLevel = LogLevel.INFO) -> None:
         self._logger = logging.getLogger(name)
         self._logger.propagate = False
         if not self._logger.handlers:

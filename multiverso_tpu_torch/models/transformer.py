@@ -225,24 +225,63 @@ def loss_fn(cfg: TransformerConfig, params: Dict[str, Any],
     return -logp.gather(-1, tokens[:, 1:, None]).mean()
 
 
-def _cached_attention(q, k_cache, v_cache, n_heads: int,
+def _verify_attention(q, k_cache, v_cache, n_heads: int,
                       pos: torch.Tensor) -> torch.Tensor:
-    """One-token attention: ``q`` [B, D] against cache [B, T, D]; cache
-    entries at positions <= ``pos`` [B] are live."""
-    B, D = q.shape
+    """Window attention: ``q`` [S, K1, D] against each slot's cache [S, T,
+    D]. Window position ``j`` sits at cache position ``pos[s] + j`` and
+    attends positions ``<= pos[s] + j`` (causal within the window); f32
+    scores and softmax. Every serving program's attention."""
+    S, K1, D = q.shape
     T = k_cache.shape[1]
     dh = D // n_heads
-    qh = q.reshape(B, n_heads, dh)
-    kh = k_cache.reshape(B, T, n_heads, dh)
-    vh = v_cache.reshape(B, T, n_heads, dh)
-    scores = torch.einsum("bhd,bthd->bht", qh.float(),
+    qh = q.reshape(S, K1, n_heads, dh)
+    kh = k_cache.reshape(S, T, n_heads, dh)
+    vh = v_cache.reshape(S, T, n_heads, dh)
+    scores = torch.einsum("skhd,sthd->shkt", qh.float(),
                           kh.float()) / math.sqrt(dh)
-    mask = (torch.arange(T, device=q.device)[None, :]
-            <= pos[:, None])[:, None, :]
+    rows = pos[:, None] + torch.arange(K1, device=q.device)[None, :]
+    mask = (torch.arange(T, device=q.device)[None, None, :]
+            <= rows[:, :, None])[:, None, :, :]
     scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bht,bthd->bhd", probs.to(vh.dtype), vh)
-    return out.reshape(B, D).to(q.dtype)
+    out = torch.einsum("shkt,sthd->skhd", probs.to(vh.dtype), vh)
+    return out.reshape(S, K1, D).to(q.dtype)
+
+
+def _serve_layers(cfg: TransformerConfig, params: Dict[str, Any],
+                  h: torch.Tensor, pos: torch.Tensor,
+                  kv: Callable) -> torch.Tensor:
+    """The layer loop of every serving program over windows ``h`` [S, K1,
+    D]: row ``j`` of lane ``s`` sits at cache position ``pos[s] + j``.
+    ``kv(i, k, v)`` writes layer ``i``'s new K/V [S, K1, D] into the
+    program's cache (contiguous, paged or int8) and returns the lanes'
+    ``[S, T, D]`` views of it, which each row attends up to its own
+    position."""
+    for i, layer in enumerate(_layers(params)):
+        x = _rmsnorm(h, layer["ln1_g"])
+        q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
+        kc, vc = kv(i, k, v)
+        h = h + _verify_attention(q, kc, vc, cfg.n_heads, pos) @ layer["w_o"]
+        x = _rmsnorm(h, layer["ln2_g"])
+        h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
+    return h
+
+
+def _window_out(params: Dict[str, Any], h: torch.Tensor,
+                valid: torch.Tensor, dtype) -> torch.Tensor:
+    """Greedy token after every window position; 0 where not valid."""
+    h = _rmsnorm(h, params["ln_f_g"])
+    # torch.argmax returns the first maximal index, as jnp.argmax does
+    nxt = torch.argmax(_logits(h, params["embed"]), dim=-1).to(dtype)
+    return torch.where(valid, nxt, torch.zeros_like(nxt))
+
+
+def _step_out(params: Dict[str, Any], h: torch.Tensor, tok: torch.Tensor,
+              pos: torch.Tensor, active: torch.Tensor):
+    """A token step's ``(next_tok, pos)`` from its windows of one ``h``
+    [S, 1, D]: dead lanes emit 0 and keep their ``pos``."""
+    nxt = _window_out(params, h, active[:, None], tok.dtype)[:, 0]
+    return nxt, torch.where(active, pos + 1, pos)
 
 
 @torch.no_grad()
@@ -277,23 +316,15 @@ def decode_step(cfg: TransformerConfig, params: Dict[str, Any],
     T = k_cache.shape[2]
     slot_ix = torch.arange(S, device=tok.device)
     write_pos = torch.where(active, pos, torch.full_like(pos, T - 1))
+
+    def kv(i, k, v):
+        k_cache[i, slot_ix, write_pos] = k[:, 0]
+        v_cache[i, slot_ix, write_pos] = v[:, 0]
+        return k_cache[i], v_cache[i]
+
     h = params["embed"][tok] + params["pos"][pos]
-    for i, layer in enumerate(_layers(params)):
-        x = _rmsnorm(h, layer["ln1_g"])
-        q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
-        k_cache[i, slot_ix, write_pos] = k
-        v_cache[i, slot_ix, write_pos] = v
-        h = h + _cached_attention(q, k_cache[i], v_cache[i], cfg.n_heads,
-                                  pos) @ layer["w_o"]
-        x = _rmsnorm(h, layer["ln2_g"])
-        h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
-    h = _rmsnorm(h, params["ln_f_g"])
-    out = _logits(h, params["embed"])
-    # torch.argmax returns the first maximal index, as jnp.argmax does
-    nxt = torch.argmax(out, dim=-1).to(tok.dtype)
-    nxt = torch.where(active, nxt, torch.zeros_like(nxt))
-    pos = torch.where(active, pos + 1, pos)
-    return k_cache, v_cache, nxt, pos
+    h = _serve_layers(cfg, params, h[:, None], pos, kv)
+    return (k_cache, v_cache) + _step_out(params, h, tok, pos, active)
 
 
 def cache_insert(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -348,26 +379,13 @@ def first_tokens(logits: torch.Tensor, lengths: torch.Tensor,
 
 
 def _chunk_attention(q, k_cache, v_cache, n_heads: int,
-                     offset) -> torch.Tensor:
+                     offset: torch.Tensor) -> torch.Tensor:
     """Chunk attention: ``q`` [C, D] against one slot's cache [T, D].
-    Chunk position ``i`` (cache position ``offset + i``) attends cache
-    positions ``<= offset + i``; f32 scores and softmax, as
-    :func:`_cached_attention`."""
-    C, D = q.shape
-    T = k_cache.shape[0]
-    dh = D // n_heads
-    qh = q.reshape(C, n_heads, dh)
-    kh = k_cache.reshape(T, n_heads, dh)
-    vh = v_cache.reshape(T, n_heads, dh)
-    scores = torch.einsum("chd,thd->hct", qh.float(),
-                          kh.float()) / math.sqrt(dh)
-    rows = offset + torch.arange(C, device=q.device)
-    mask = (torch.arange(T, device=q.device)[None, :]
-            <= rows[:, None])[None, :, :]
-    scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("hct,thd->chd", probs.to(vh.dtype), vh)
-    return out.reshape(C, D).to(q.dtype)
+    Chunk position ``i`` (cache position ``offset + i``, ``offset`` a 0-d
+    tensor) attends cache positions ``<= offset + i``: one window of
+    :func:`_verify_attention`."""
+    return _verify_attention(q[None], k_cache[None], v_cache[None],
+                             n_heads, offset.reshape(1))[0]
 
 
 def _chunk_embed(params: Dict[str, Any], tokens: torch.Tensor,
@@ -409,19 +427,16 @@ def prefill_chunk(cfg: TransformerConfig, params: Dict[str, Any],
     src = torch.where(pos_ix < T, lane, T - 1 - offset)
     write_pos = pos_ix.clamp(max=T - 1)
     slot_ix = slot.reshape(1).expand(C)
-    h = _chunk_embed(params, tokens, pos_ix)
-    for i, layer in enumerate(_layers(params)):
-        x = _rmsnorm(h, layer["ln1_g"])
-        q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
-        k_cache[i, slot_ix, write_pos] = k[src]
-        v_cache[i, slot_ix, write_pos] = v[src]
-        kc = k_cache[i].index_select(0, slot.reshape(1))[0]
-        vc = v_cache[i].index_select(0, slot.reshape(1))[0]
-        h = h + _chunk_attention(q, kc, vc, cfg.n_heads, offset) \
-            @ layer["w_o"]
-        x = _rmsnorm(h, layer["ln2_g"])
-        h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
-    return k_cache, v_cache, _last_logits(params, h, length)
+
+    def kv(i, k, v):
+        k_cache[i, slot_ix, write_pos] = k[0, src]
+        v_cache[i, slot_ix, write_pos] = v[0, src]
+        return (k_cache[i].index_select(0, slot.reshape(1)),
+                v_cache[i].index_select(0, slot.reshape(1)))
+
+    h = _serve_layers(cfg, params, _chunk_embed(params, tokens, pos_ix)[None],
+                      offset.reshape(1), kv)
+    return k_cache, v_cache, _last_logits(params, h[0], length)
 
 
 def _flat_rows(table: torch.Tensor, block_size: int, t: int) -> torch.Tensor:
@@ -430,6 +445,22 @@ def _flat_rows(table: torch.Tensor, block_size: int, t: int) -> torch.Tensor:
     ``[N * Bs, D]``)."""
     p = torch.arange(t, device=table.device)
     return table[..., p // block_size] * block_size + p % block_size
+
+
+def _paged_kv(k_pool: torch.Tensor, v_pool: torch.Tensor,
+              blk: torch.Tensor, off: torch.Tensor,
+              rows: torch.Tensor) -> Callable:
+    """The fp pools' ``kv`` for :func:`_serve_layers`: new rows [S, K1, D]
+    land at ``(blk, off)`` [S, K1], views gather flat pool rows ``rows``
+    [S, T]."""
+    D = k_pool.shape[3]
+
+    def kv(i, k, v):
+        k_pool[i, blk, off] = k
+        v_pool[i, blk, off] = v
+        return k_pool[i].view(-1, D)[rows], v_pool[i].view(-1, D)[rows]
+
+    return kv
 
 
 @torch.no_grad()
@@ -448,31 +479,24 @@ def decode_step_paged(cfg: TransformerConfig, params: Dict[str, Any],
     scratch block. Returns ``(k_pool, v_pool, next_tok, pos)``."""
     Bs = k_pool.shape[2]
     M = block_tables.shape[1]
-    D = k_pool.shape[3]
     T = M * Bs if t_logical is None else int(t_logical)
-    blk = block_tables.gather(
-        1, (pos // Bs).clamp(max=M - 1)[:, None])[:, 0]
-    write_blk = torch.where(active, blk, torch.zeros_like(blk))
-    write_off = torch.where(active, pos % Bs, torch.zeros_like(pos))
-    rows = _flat_rows(block_tables, Bs, T)                  # [S, T]
+    write_blk, write_off = _step_slots(block_tables, pos, active, Bs)
+    kv = _paged_kv(k_pool, v_pool, write_blk[:, None], write_off[:, None],
+                   _flat_rows(block_tables, Bs, T))
     h = params["embed"][tok] + params["pos"][pos]
-    for i, layer in enumerate(_layers(params)):
-        x = _rmsnorm(h, layer["ln1_g"])
-        q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
-        k_pool[i, write_blk, write_off] = k
-        v_pool[i, write_blk, write_off] = v
-        kc = k_pool[i].view(-1, D)[rows]                    # [S, T, D]
-        vc = v_pool[i].view(-1, D)[rows]
-        h = h + _cached_attention(q, kc, vc, cfg.n_heads,
-                                  pos) @ layer["w_o"]
-        x = _rmsnorm(h, layer["ln2_g"])
-        h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
-    h = _rmsnorm(h, params["ln_f_g"])
-    out = _logits(h, params["embed"])
-    nxt = torch.argmax(out, dim=-1).to(tok.dtype)
-    nxt = torch.where(active, nxt, torch.zeros_like(nxt))
-    pos = torch.where(active, pos + 1, pos)
-    return k_pool, v_pool, nxt, pos
+    h = _serve_layers(cfg, params, h[:, None], pos, kv)
+    return (k_pool, v_pool) + _step_out(params, h, tok, pos, active)
+
+
+def _step_slots(block_tables: torch.Tensor, pos: torch.Tensor,
+                active: torch.Tensor, block_size: int):
+    """Where each lane of a token step writes: ``(blk, off)`` [S], dead
+    lanes at ``(scratch block, 0)``."""
+    M = block_tables.shape[1]
+    blk = block_tables.gather(
+        1, (pos // block_size).clamp(max=M - 1)[:, None])[:, 0]
+    return (torch.where(active, blk, torch.zeros_like(blk)),
+            torch.where(active, pos % block_size, torch.zeros_like(pos)))
 
 
 @torch.no_grad()
@@ -490,30 +514,19 @@ def prefill_chunk_paged(cfg: TransformerConfig, params: Dict[str, Any],
     C = tokens.shape[0]
     Bs = k_pool.shape[2]
     M = block_tables.shape[1]
-    D = k_pool.shape[3]
     T = M * Bs if t_logical is None else int(t_logical)
-    dev = tokens.device
-    bt_row = block_tables.index_select(0, slot.reshape(1))[0]   # [M]
-    lane = torch.arange(C, device=dev)
+    bt_row = block_tables.index_select(0, slot.reshape(1))      # [1, M]
+    lane = torch.arange(C, device=tokens.device)
     pos_ix = offset + lane
     valid = lane < length
-    blk = torch.where(valid, bt_row[(pos_ix // Bs).clamp(0, M - 1)],
+    blk = torch.where(valid, bt_row[0, (pos_ix // Bs).clamp(0, M - 1)],
                       torch.zeros_like(pos_ix))
     off = torch.where(valid, pos_ix % Bs, torch.zeros_like(pos_ix))
-    rows = _flat_rows(bt_row, Bs, T)                        # [T]
-    h = _chunk_embed(params, tokens, pos_ix)
-    for i, layer in enumerate(_layers(params)):
-        x = _rmsnorm(h, layer["ln1_g"])
-        q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
-        k_pool[i, blk, off] = k
-        v_pool[i, blk, off] = v
-        kc = k_pool[i].view(-1, D)[rows]                    # [T, D]
-        vc = v_pool[i].view(-1, D)[rows]
-        h = h + _chunk_attention(q, kc, vc, cfg.n_heads, offset) \
-            @ layer["w_o"]
-        x = _rmsnorm(h, layer["ln2_g"])
-        h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
-    return k_pool, v_pool, _last_logits(params, h, length)
+    kv = _paged_kv(k_pool, v_pool, blk[None], off[None],
+                   _flat_rows(bt_row, Bs, T))
+    h = _serve_layers(cfg, params, _chunk_embed(params, tokens, pos_ix)[None],
+                      offset.reshape(1), kv)
+    return k_pool, v_pool, _last_logits(params, h[0], length)
 
 
 def cache_insert_paged(k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -561,6 +574,361 @@ def cow_block_copy(k_pool: torch.Tensor, v_pool: torch.Tensor,
         pool.index_copy_(1, dst.reshape(1),
                          pool.index_select(1, src.reshape(1)))
     return k_pool, v_pool
+
+
+# -- serving: speculative decoding (the fixed-K verify step) ----------------
+#
+# One forward scores a window of K + 1 positions per slot: position 0 is the
+# token the plain step would consume, positions 1..K the host drafter's
+# guesses. The host accepts the longest drafted prefix that matches the
+# window's own argmax chain, plus one correction token, so the emitted
+# tokens are plain greedy decode's. K + 1 is the only new shape: drafts,
+# per-slot valid counts, positions and block tables are tensors of fixed
+# shape, so the verify program keeps one signature per engine config.
+
+
+def _window_slots(block_tables: torch.Tensor, pos: torch.Tensor,
+                  active: torch.Tensor, n_valid: torch.Tensor,
+                  block_size: int, k1: int):
+    """Where each window position writes: ``(pos_ix, valid, blk, off)``,
+    all ``[S, K1]``. Window position ``j`` of slot ``s`` is cache position
+    ``pos[s] + j``; dead lanes and positions ``j >= n_valid[s]`` write to
+    ``(scratch block, 0)``, so two writes share an index only there."""
+    M = block_tables.shape[1]
+    lane = torch.arange(k1, device=pos.device)
+    pos_ix = pos[:, None] + lane[None, :]
+    valid = (lane[None, :] < n_valid[:, None]) & active[:, None]
+    blk = block_tables.gather(1, (pos_ix // block_size).clamp(0, M - 1))
+    blk = torch.where(valid, blk, torch.zeros_like(blk))
+    off = torch.where(valid, pos_ix % block_size, torch.zeros_like(pos_ix))
+    return pos_ix, valid, blk, off
+
+
+@torch.no_grad()
+def verify_step_paged(cfg: TransformerConfig, params: Dict[str, Any],
+                      k_pool: torch.Tensor, v_pool: torch.Tensor,
+                      block_tables: torch.Tensor, toks: torch.Tensor,
+                      pos: torch.Tensor, active: torch.Tensor,
+                      n_valid: torch.Tensor,
+                      t_logical: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused multi-position step over the paged pools, in place.
+
+    ``toks`` [S, K1] is each slot's window, ``pos`` [S] the cache position
+    of ``toks[:, 0]``, ``n_valid`` [S] in ``[1, K1]`` the window's real
+    entries. Every valid position writes its K/V before the attention (so
+    the window sees itself) and attends the slot's gathered ``[T, D]``
+    view; the rest park in the scratch block. The engine clamps drafts to
+    the request's remaining budget, so valid writes stay inside its
+    reservation, and rejected positions need no rollback: the next window
+    rewrites them before any mask reaches them. Returns ``(k_pool,
+    v_pool, out_tok [S, K1])``, ``out_tok[s, j]`` the greedy token after
+    ``toks[s, :j + 1]``."""
+    S, K1 = toks.shape
+    Bs = k_pool.shape[2]
+    M = block_tables.shape[1]
+    T = M * Bs if t_logical is None else int(t_logical)
+    pos_ix, valid, blk, off = _window_slots(block_tables, pos, active,
+                                            n_valid, Bs, K1)
+    kv = _paged_kv(k_pool, v_pool, blk, off, _flat_rows(block_tables, Bs, T))
+    h = _serve_layers(cfg, params, _chunk_embed(params, toks, pos_ix), pos,
+                      kv)
+    return k_pool, v_pool, _window_out(params, h, valid, toks.dtype)
+
+
+# -- serving: the int8 paged KV cache ----------------------------------------
+#
+# The ``_q`` programs keep the pools as int8 with one fp32 scale per (layer,
+# block): ``k_scales``/``v_scales`` [L, N] tensors of fixed shape passed
+# beside the block tables, so each program keeps one signature.
+#
+# A write gathers the blocks it touches, dequantizes them with the old
+# scale, inserts the new fp32 rows and requantizes the whole block against
+# ``max(old scale, rowmax / 127)``. ``round(q * s / s) == q`` for |q| <= 127
+# in fp32, so untouched rows (and whole untouched blocks swept up by a
+# row-wide write: scratch padding, shared prefix blocks) get their exact old
+# bytes back: duplicate writes of such blocks carry one value. A growing
+# scale re-rounds a block's earlier rows once. The first write at a block's
+# offset 0 drops the previous occupant's scale (``base = 0``), so a
+# reallocated block does not keep its predecessor's scale. Rows divide by
+# the scale (as JAX does, not multiply by a reciprocal) and round half to
+# even (``torch.round``, as ``jnp.round``). Reads dequantize the gathered
+# blocks before attention, so the attention operand has the fp programs'
+# shape.
+
+_KV_QMAX = 127.0
+
+
+def _kv_q_safe(scale: torch.Tensor) -> torch.Tensor:
+    """A never-written (scale 0) block divides by 1: zeros stay zeros."""
+    return torch.where(scale > 0, scale, torch.ones_like(scale))
+
+
+def _kv_q_requant(rows: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """fp32 ``rows`` [..., Bs, D] against per-block ``scale`` [...] ->
+    int8 (symmetric, clipped)."""
+    q = torch.round(rows / _kv_q_safe(scale)[..., None, None])
+    return q.clamp(-_KV_QMAX, _KV_QMAX).to(torch.int8)
+
+
+def _kv_q_dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 blocks [..., Bs, D] * per-block ``scale`` [...] -> fp32."""
+    return q.float() * scale[..., None, None]
+
+
+def _amax_into(n: int, index: torch.Tensor, values: torch.Tensor,
+               dim: int = -1) -> torch.Tensor:
+    """``zeros(n + 1).at[index].max(values)[:n]`` along ``dim`` (the last
+    slot takes the dropped lanes): JAX's scatter-max with ``mode="drop"``
+    onto zeros, for non-negative values."""
+    shape = list(index.shape)
+    shape[dim] = n + 1
+    out = torch.zeros(shape, dtype=values.dtype, device=values.device)
+    out.scatter_reduce_(dim, index, values, reduce="amax")
+    return out.narrow(dim, 0, n)
+
+
+def _row_write_q(pool: torch.Tensor, scales: torch.Tensor,
+                 tables: torch.Tensor, flat_ix: torch.Tensor,
+                 blk_local: torch.Tensor, fresh: torch.Tensor,
+                 valid: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The whole-row quantized write of one layer, in place: each row of
+    ``tables`` [R, M] round-trips through fp32, ``rows`` [R, C, D] land at
+    flat positions ``flat_ix`` [R, C] (``M * Bs`` = dropped), the scales
+    reset where ``fresh`` and grow by each written block's row max.
+    Returns the dequantized rows ``[R, M * Bs, D]`` as written."""
+    R, M = tables.shape
+    Bs, D = pool.shape[1], pool.shape[2]
+    row_s = scales[tables]                                   # [R, M]
+    flat = _kv_q_dequant(pool[tables], row_s).reshape(R, M * Bs, D)
+    flat = torch.cat([flat, flat.new_zeros(R, 1, D)], dim=1)
+    rows32 = rows.float()
+    flat[torch.arange(R, device=flat.device)[:, None], flat_ix] = rows32
+    flat = flat[:, : M * Bs]
+    reset = _amax_into(M, blk_local, fresh) > 0
+    contrib = _amax_into(M, blk_local, torch.where(
+        valid, rows32.abs().amax(-1), torch.zeros_like(fresh)))
+    new_s = torch.maximum(torch.where(reset, torch.zeros_like(row_s), row_s),
+                          contrib / _KV_QMAX)
+    new_q = _kv_q_requant(flat.reshape(R, M, Bs, D), new_s)
+    pool[tables] = new_q
+    scales[tables] = new_s
+    return _kv_q_dequant(new_q, new_s).reshape(R, M * Bs, D)
+
+
+def _gather_q(pool: torch.Tensor, scales: torch.Tensor,
+              block_tables: torch.Tensor, T: int, dtype) -> torch.Tensor:
+    """Dequantized per-slot views ``[S, T, D]`` of one layer's pool."""
+    S, M = block_tables.shape
+    Bs, D = pool.shape[1], pool.shape[2]
+    view = _kv_q_dequant(pool[block_tables], scales[block_tables])
+    return view.to(dtype).reshape(S, M * Bs, D)[:, :T]
+
+
+def _row_kv_q(k_pool: torch.Tensor, v_pool: torch.Tensor,
+              k_scales: torch.Tensor, v_scales: torch.Tensor,
+              tables: torch.Tensor, flat_ix: torch.Tensor,
+              blk_local: torch.Tensor, fresh: torch.Tensor,
+              valid: torch.Tensor, T: int) -> Callable:
+    """The int8 pools' whole-row ``kv`` for :func:`_serve_layers`: each
+    layer's new rows [R, K1, D] go through :func:`_row_write_q`, and the
+    views are the rows as written, cut to ``T``."""
+    def kv(i, k, v):
+        kc = _row_write_q(k_pool[i], k_scales[i], tables, flat_ix,
+                          blk_local, fresh, valid, k)
+        vc = _row_write_q(v_pool[i], v_scales[i], tables, flat_ix,
+                          blk_local, fresh, valid, v)
+        return kc[:, :T].to(k.dtype), vc[:, :T].to(v.dtype)
+
+    return kv
+
+
+def _window_write_ix(pos_ix: torch.Tensor, valid: torch.Tensor,
+                     block_size: int, n_blocks: int):
+    """:func:`_row_write_q`'s ``(flat_ix, blk_local, fresh)`` for window
+    positions ``pos_ix`` [R, K1]: invalid lanes are dropped, and a valid
+    write at a block's offset 0 resets its scale."""
+    drop = n_blocks * block_size
+    return (torch.where(valid, pos_ix, drop),
+            torch.where(valid, (pos_ix // block_size).clamp(
+                0, n_blocks - 1), n_blocks),
+            (valid & (pos_ix % block_size == 0)).float())
+
+
+@torch.no_grad()
+def decode_step_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
+                        k_pool: torch.Tensor, v_pool: torch.Tensor,
+                        k_scales: torch.Tensor, v_scales: torch.Tensor,
+                        block_tables: torch.Tensor, tok: torch.Tensor,
+                        pos: torch.Tensor, active: torch.Tensor,
+                        t_logical: Optional[int] = None):
+    """:func:`decode_step_paged` over int8 pools ``[L, N, Bs, D]`` and
+    fp32 ``k_scales``/``v_scales`` [L, N], in place. Each live slot writes
+    one block it owns alone (the engine copies a shared block before any
+    write), so the write is a per-slot gather, requantize and scatter of
+    that block; dead lanes park on the scratch block. Returns ``(k_pool,
+    v_pool, k_scales, v_scales, next_tok, pos)``."""
+    S = tok.shape[0]
+    Bs = k_pool.shape[2]
+    M = block_tables.shape[1]
+    T = M * Bs if t_logical is None else int(t_logical)
+    write_blk, write_off = _step_slots(block_tables, pos, active, Bs)
+    lanes = torch.arange(S, device=tok.device)
+
+    def write(pool, scales, rows):
+        cur_s = scales[write_blk]                            # [S]
+        cur = _kv_q_dequant(pool[write_blk], cur_s)          # [S, Bs, D]
+        rows32 = rows.float()
+        cur[lanes, write_off] = rows32
+        # entering a block at offset 0 drops the prior occupant's scale
+        base = torch.where(write_off == 0, torch.zeros_like(cur_s), cur_s)
+        new_s = torch.maximum(base, rows32.abs().amax(-1) / _KV_QMAX)
+        pool[write_blk] = _kv_q_requant(cur, new_s)
+        scales[write_blk] = new_s
+
+    def kv(i, k, v):
+        write(k_pool[i], k_scales[i], k[:, 0])
+        write(v_pool[i], v_scales[i], v[:, 0])
+        return (_gather_q(k_pool[i], k_scales[i], block_tables, T, k.dtype),
+                _gather_q(v_pool[i], v_scales[i], block_tables, T, v.dtype))
+
+    h = params["embed"][tok] + params["pos"][pos]
+    h = _serve_layers(cfg, params, h[:, None], pos, kv)
+    return (k_pool, v_pool, k_scales, v_scales) \
+        + _step_out(params, h, tok, pos, active)
+
+
+@torch.no_grad()
+def prefill_chunk_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
+                          k_pool: torch.Tensor, v_pool: torch.Tensor,
+                          k_scales: torch.Tensor, v_scales: torch.Tensor,
+                          block_tables: torch.Tensor, slot: torch.Tensor,
+                          tokens: torch.Tensor, offset: torch.Tensor,
+                          length: torch.Tensor,
+                          t_logical: Optional[int] = None):
+    """:func:`prefill_chunk_paged` over the int8 pools: the chunk's writes
+    span several blocks of one slot, so the slot's whole table row
+    round-trips through fp32 (pad lanes dropped); untouched blocks get
+    their exact old bytes back. Returns ``(k_pool, v_pool, k_scales,
+    v_scales, logits [V])``."""
+    C = tokens.shape[0]
+    Bs = k_pool.shape[2]
+    M = block_tables.shape[1]
+    T = M * Bs if t_logical is None else int(t_logical)
+    bt_row = block_tables.index_select(0, slot.reshape(1))   # [1, M]
+    lane = torch.arange(C, device=tokens.device)
+    pos_ix = (offset + lane)[None]
+    valid = (lane < length)[None]
+    kv = _row_kv_q(k_pool, v_pool, k_scales, v_scales, bt_row,
+                   *_window_write_ix(pos_ix, valid, Bs, M), valid, T)
+    h = _serve_layers(cfg, params, _chunk_embed(params, tokens, pos_ix[0])
+                      [None], offset.reshape(1), kv)
+    return (k_pool, v_pool, k_scales, v_scales,
+            _last_logits(params, h[0], length))
+
+
+@torch.no_grad()
+def verify_step_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
+                        k_pool: torch.Tensor, v_pool: torch.Tensor,
+                        k_scales: torch.Tensor, v_scales: torch.Tensor,
+                        block_tables: torch.Tensor, toks: torch.Tensor,
+                        pos: torch.Tensor, active: torch.Tensor,
+                        n_valid: torch.Tensor,
+                        t_logical: Optional[int] = None):
+    """:func:`verify_step_paged` over the int8 pools: a window can write
+    several positions of one block, so every slot's whole table row
+    round-trips through fp32. Blocks a slot does not write (shared
+    prefix blocks, scratch padding) get their exact old bytes back, so
+    the cross-slot duplicate writes carry one value. Returns ``(k_pool,
+    v_pool, k_scales, v_scales, out_tok [S, K1])``."""
+    S, K1 = toks.shape
+    Bs = k_pool.shape[2]
+    M = block_tables.shape[1]
+    T = M * Bs if t_logical is None else int(t_logical)
+    pos_ix, valid, _, _ = _window_slots(block_tables, pos, active, n_valid,
+                                        Bs, K1)
+    kv = _row_kv_q(k_pool, v_pool, k_scales, v_scales, block_tables,
+                   *_window_write_ix(pos_ix, valid, Bs, M), valid, T)
+    h = _serve_layers(cfg, params, _chunk_embed(params, toks, pos_ix), pos,
+                      kv)
+    return (k_pool, v_pool, k_scales, v_scales,
+            _window_out(params, h, valid, toks.dtype))
+
+
+def cache_insert_paged_q(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                         k_scales: torch.Tensor, v_scales: torch.Tensor,
+                         block_tables: torch.Tensor, ks: torch.Tensor,
+                         vs: torch.Tensor):
+    """:func:`cache_insert_paged` into the int8 pools: b whole prompts'
+    K/V ``[L, b, P, D]`` quantize through per-row tables ``[b, M]``.
+    Positions write from 0, so every written block resets its scale from
+    the fresh data. Returns ``(k_pool, v_pool, k_scales, v_scales)``."""
+    L, b, P, _ = ks.shape
+    Bs = k_pool.shape[2]
+    M = block_tables.shape[1]
+    p = torch.arange(P, device=block_tables.device)
+    loc = (p // Bs).clamp(0, M - 1)
+    flat_ix = (loc * Bs + p % Bs).expand(b, P)
+    fresh = (p % Bs == 0).float().expand(b, P)
+    valid = torch.ones((b, P), dtype=torch.bool, device=p.device)
+    loc_b = loc.expand(b, P)
+    for i in range(L):
+        _row_write_q(k_pool[i], k_scales[i], block_tables, flat_ix, loc_b,
+                     fresh, valid, ks[i])
+        _row_write_q(v_pool[i], v_scales[i], block_tables, flat_ix, loc_b,
+                     fresh, valid, vs[i])
+    return k_pool, v_pool, k_scales, v_scales
+
+
+@torch.no_grad()
+def admit_insert_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
+                         k_pool: torch.Tensor, v_pool: torch.Tensor,
+                         k_scales: torch.Tensor, v_scales: torch.Tensor,
+                         block_tables: torch.Tensor, tokens: torch.Tensor,
+                         lengths: torch.Tensor):
+    """:func:`admit_insert_paged` into the int8 pools: the fp prefill and
+    the first token are unchanged (computed before quantization); only
+    the insert quantizes. Returns ``(first [b], k_pool, v_pool, k_scales,
+    v_scales)``."""
+    logits, ks, vs = prefill(cfg, params, tokens)
+    first = first_tokens(logits, lengths, tokens.dtype)
+    cache_insert_paged_q(k_pool, v_pool, k_scales, v_scales, block_tables,
+                         ks, vs)
+    return first, k_pool, v_pool, k_scales, v_scales
+
+
+def cow_block_copy_q(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     k_scales: torch.Tensor, v_scales: torch.Tensor,
+                     src: torch.Tensor, dst: torch.Tensor):
+    """:func:`cow_block_copy` of the int8 pools: the copy takes its
+    source's bytes and its scale column."""
+    cow_block_copy(k_pool, v_pool, src, dst)
+    for scales in (k_scales, v_scales):
+        scales.index_copy_(1, dst.reshape(1),
+                           scales.index_select(1, src.reshape(1)))
+    return k_pool, v_pool, k_scales, v_scales
+
+
+# -- serving: int8 decode parameter pins -------------------------------------
+
+
+def _is_quant_leaf(x: Any) -> bool:
+    return isinstance(x, dict) and set(x.keys()) == {"q", "s"}
+
+
+def dequantize_decode_params(qparams: Dict[str, Any],
+                             dtype=torch.float32) -> Dict[str, Any]:
+    """Inverse of :func:`serving.snapshot.quantize_decode_params`: each
+    ``{"q": int8, "s": fp32}`` leaf multiplies out to ``dtype``. XLA folds
+    this into the compiled program; here it runs eagerly at the top of
+    every serving program, so the int8 pin stays resident and each call
+    materializes a ``dtype`` copy."""
+    def deq(leaf):
+        return (leaf["q"].float() * leaf["s"]).to(dtype)
+
+    return {k: (deq(v) if _is_quant_leaf(v)
+                else {n: deq(w) for n, w in v.items()})
+            for k, v in qparams.items()}
 
 
 @torch.no_grad()

@@ -1,12 +1,17 @@
-"""Serving subsystem of the PyTorch port: the continuous-batching decode
-engine behind an in-process :class:`InferenceServer`."""
+"""Serving subsystem of the PyTorch port: micro-batched workloads and the
+continuous-batching decode engine behind an in-process
+:class:`InferenceServer`."""
 
-from .batcher import (DeadlineExceededError, OverloadedError, bucket_for,
-                      shape_buckets)
+from .batcher import (BatcherConfig, DeadlineExceededError, MicroBatcher,
+                      OverloadedError, bucket_for, shape_buckets)
 from .decode_engine import DecodeEngine, DecodeEngineConfig
 from .server import InferenceServer
-from .snapshot import Snapshot, SnapshotManager
+from .snapshot import (DerivedCache, Snapshot, SnapshotManager,
+                       quantize_decode_params)
+from .workloads import EmbeddingNeighbors, LMGreedyDecode
 
-__all__ = ["DeadlineExceededError", "DecodeEngine", "DecodeEngineConfig",
-           "InferenceServer", "OverloadedError", "Snapshot",
-           "SnapshotManager", "bucket_for", "shape_buckets"]
+__all__ = ["BatcherConfig", "DeadlineExceededError", "DecodeEngine",
+           "DecodeEngineConfig", "DerivedCache", "EmbeddingNeighbors",
+           "InferenceServer", "LMGreedyDecode", "MicroBatcher",
+           "OverloadedError", "Snapshot", "SnapshotManager", "bucket_for",
+           "quantize_decode_params", "shape_buckets"]

@@ -52,18 +52,22 @@ def _itemsize(dtype) -> int:
 
 
 def kv_bytes_per_block(n_layers: int, d_model: int, block_size: int,
-                       dtype=np.float32) -> int:
+                       dtype=np.float32, quant: str = "none") -> int:
     """Device bytes one block costs across both pools (K and V);
-    ``dtype`` is a numpy or torch dtype."""
+    ``dtype`` is a numpy or torch dtype. ``quant="int8"`` counts the int8
+    payload plus the fp32 scale each pool keeps per (layer, block)."""
+    if quant == "int8":
+        return 2 * n_layers * (block_size * d_model + 4)
     return 2 * n_layers * block_size * d_model * _itemsize(dtype)
 
 
 def blocks_for_bytes(budget_bytes: int, n_layers: int, d_model: int,
-                     block_size: int, dtype=np.float32) -> int:
+                     block_size: int, dtype=np.float32,
+                     quant: str = "none") -> int:
     """Usable blocks a KV-bytes budget buys (the scratch block's bytes
     ride along but hold no sequence). Raises for a budget too small for
     scratch + one block: 0 would read as the auto-sized pool."""
-    per = kv_bytes_per_block(n_layers, d_model, block_size, dtype)
+    per = kv_bytes_per_block(n_layers, d_model, block_size, dtype, quant)
     n = budget_bytes // per - 1
     if n < 1:
         raise ValueError(

@@ -43,6 +43,27 @@ iteration-level scheduling over a persistent KV cache, with
 * **the flight recorder and the watchdog** (on by default): one record
   per iteration into a ring, and a thread that trips on a stall, a
   queue-age breach or pool drift (``serving/watchdog.py``).
+* **speculative decoding** (``spec_k``, default 0 = off; paged only): a
+  host-side n-gram prompt-lookup drafter (:class:`_PromptLookup`)
+  proposes up to ``spec_k`` tokens per live slot from the sequence's own
+  history, and one :func:`~models.transformer.verify_step_paged` scores
+  the ``[S, spec_k + 1]`` window. Greedy verification accepts the longest
+  drafted prefix that matches the window's argmax chain plus one
+  correction token, so the tokens are plain greedy decode's. Drafts clamp
+  to ``remaining - 1``, so a window never writes past the request's
+  reservation; an iteration without drafts runs the plain step.
+* **int8 KV** (``kv_quant="int8"``; paged only): int8 pools with one fp32
+  scale per (layer, block), the scales ``[L, N]`` tensors passed to every
+  program beside the block tables (the ``_q`` programs of
+  ``models/transformer.py``).
+* **int8 parameter pins** (``decode_param_quant="int8"``): the pin
+  quantizes on the host once per snapshot version
+  (``snapshot.quantize_decode_params``; ``pin_copies`` counts it), the
+  int8 copy stays resident, and every program dequantizes it at its top
+  (``models.transformer.dequantize_decode_params``).
+* **latency SLOs** (``slo_ttft_ms``/``slo_itl_ms`` > 0): windowed p99
+  objectives over ``SERVE_TTFT[name]``/``SERVE_ITL[name]`` in
+  ``Dashboard.snapshot()``.
 
 The JAX engine's one-compiled-trace-per-program invariant has no compiler
 here; its counterpart is :class:`_Program`, which records the distinct
@@ -52,16 +73,17 @@ program keeps one signature per engine config (``step_cache_size()``,
 ``prefill_cache_size()``; a monolithic engine has one per prompt bucket).
 The block tables' device copy is uploaded only on an iteration that
 changed the host mirror. Per iteration the host reads the step's next
-tokens and, on a prompt's final chunk, its first token.
+tokens (a verify window's ``[S, spec_k + 1]`` tokens instead) and, on a
+prompt's final chunk, its first token.
 
 Snapshot pinning as in the JAX engine: an admission pins the current
 params snapshot; the pin only moves while nothing is in flight and no
 preempted request waits to resume.
 
 Not ported yet, each raising :class:`~..log.FatalError` by name:
-``decode_tp``, ``spec_k``, ``kv_quant``, ``decode_param_quant``,
-``prefill_sp``, ``slo_ttft_ms``, ``slo_itl_ms`` and ``cost_ledger``, as
-is the disaggregated serving surface (``submit_prefill``, ``splice``).
+``decode_tp`` and ``prefill_sp`` (the distributed paths) and
+``cost_ledger`` (accounting); the disaggregated serving surface
+(``submit_prefill``, ``splice``) is not here either.
 """
 
 from __future__ import annotations
@@ -85,7 +107,7 @@ from .batcher import (DeadlineExceededError, OverloadedError, bucket_for,
 from .block_pool import SCRATCH_BLOCK, BlockPool, chain_hashes, \
     kv_bytes_per_block
 from .flight_recorder import FlightRecorder
-from .snapshot import SnapshotManager
+from .snapshot import SnapshotManager, quantize_decode_params
 from .watchdog import EngineWatchdog, WatchdogConfig
 
 
@@ -115,15 +137,15 @@ class DecodeEngineConfig:
     watchdog_stall_s: Optional[float] = None
     watchdog_queue_age_s: Optional[float] = None
     debug_dump_dir: Optional[str] = None
+    spec_k: Optional[int] = None                 # 0 = no speculation
+    kv_quant: Optional[str] = None               # "none" or "int8"
+    decode_param_quant: Optional[str] = None     # "none" or "int8"
+    slo_ttft_ms: Optional[float] = None          # <= 0 = no SLO
+    slo_itl_ms: Optional[float] = None
     # the JAX engine's features this port does not have yet; only the
     # values that turn each off are served
     decode_tp: Optional[int] = None
     prefill_sp: Optional[bool] = None
-    spec_k: Optional[int] = None
-    kv_quant: Optional[str] = None
-    decode_param_quant: Optional[str] = None
-    slo_ttft_ms: Optional[float] = None
-    slo_itl_ms: Optional[float] = None
     cost_ledger: Optional[bool] = None
 
     def _resolved(self, field: str):
@@ -158,12 +180,7 @@ class DecodeEngineConfig:
         on = []
         checks = (
             ("decode_tp", lambda v: int(v) != 1),
-            ("spec_k", lambda v: int(v) != 0),
-            ("kv_quant", lambda v: str(v) != "none"),
-            ("decode_param_quant", lambda v: str(v) != "none"),
             ("prefill_sp", bool),
-            ("slo_ttft_ms", lambda v: float(v) > 0),
-            ("slo_itl_ms", lambda v: float(v) > 0),
             ("cost_ledger", bool),
         )
         for field, is_on in checks:
@@ -205,6 +222,57 @@ def _signatures(fn) -> int:
 # process-unique small request ids: the flight recorder's admitted/
 # completed columns join ring records to requests
 _RIDS = itertools.count(1)
+
+# prompt-lookup n-gram width: the drafter keys on the sequence's last
+# _SPEC_NGRAM tokens (the JAX engine's value)
+_SPEC_NGRAM = 2
+
+
+class _PromptLookup:
+    """Per-slot n-gram prompt-lookup index (Saxena, "Prompt Lookup
+    Decoding"): every :data:`_SPEC_NGRAM`-gram of the sequence so far
+    (prompt + emitted tokens) maps to the position right after its most
+    recent earlier occurrence. A proposal reads what followed the last
+    time the current tail was seen. The tail n-gram is indexed only once
+    a later token gives it a continuation, so a proposal never matches
+    itself. Host state only, extended incrementally per emitted token."""
+
+    __slots__ = ("toks", "index")
+
+    def __init__(self) -> None:
+        self.toks: List[int] = []
+        self.index: dict = {}
+
+    def extend(self, tokens) -> None:
+        """Append tokens; each gives the n-gram ending just before it a
+        continuation."""
+        for t in tokens:
+            p = len(self.toks)
+            self.toks.append(int(t))
+            if p >= _SPEC_NGRAM:
+                self.index[tuple(self.toks[p - _SPEC_NGRAM: p])] = p
+
+    def propose(self, limit: int) -> List[int]:
+        """Up to ``limit`` draft tokens continuing the current tail, or
+        ``[]`` when the tail n-gram has no earlier occurrence. When the
+        matched continuation runs out before ``limit`` (a cycle shorter
+        than the window), the tail of sequence + draft is looked up
+        again, so a period-2 loop still fills a window of 4."""
+        if limit <= 0 or len(self.toks) < _SPEC_NGRAM:
+            return []
+        out: List[int] = []
+        key = tuple(self.toks[-_SPEC_NGRAM:])
+        while len(out) < limit:
+            start = self.index.get(key)
+            if start is None:
+                break
+            take = self.toks[start: start + (limit - len(out))]
+            if not take:
+                break
+            out.extend(take)
+            key = tuple((list(key) + take)[-_SPEC_NGRAM:])
+        return out
+
 
 # priority classes 0..7, higher = more important; the stride scheduler
 # weights class p by 2**p, so every non-empty class keeps a positive share
@@ -364,7 +432,8 @@ class _Request:
                  "out", "version", "ctx", "pf_off", "pf_chunks", "t_admit",
                  "blocks", "rid", "hashes", "hash_seed", "n_hit",
                  "full_hit", "saved", "pf_reg", "ttft_pending", "priority",
-                 "deadline", "preempts", "resumed", "skips", "prompt0")
+                 "deadline", "preempts", "resumed", "skips", "prompt0",
+                 "drafter")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
                  ctx: Optional[trace.SpanContext] = None,
@@ -406,6 +475,9 @@ class _Request:
         self.resumed = False
         self.skips = 0
         self.prompt0 = prompt
+        # speculative decoding: the slot's prompt-lookup index (None on
+        # spec_k=0 engines; made at admission)
+        self.drafter: Optional[_PromptLookup] = None
 
 
 class DecodeEngine:
@@ -492,29 +564,72 @@ class DecodeEngine:
             Log.fatal(f"DecodeEngine {name!r}: negative sched_lookahead "
                       f"{self._lookahead}")
 
+        # -- int8 KV pools, int8 parameter pins, speculation -----------------
+        self._kv_quant_mode = str(ec._resolved("kv_quant"))
+        if self._kv_quant_mode not in ("none", "int8"):
+            Log.fatal(f"DecodeEngine {name!r}: kv_quant must be 'none' or "
+                      f"'int8', got {self._kv_quant_mode!r}")
+        self._kv_quant = self._kv_quant_mode == "int8"
+        if self._kv_quant and not self._paged:
+            Log.fatal(f"DecodeEngine {name!r}: kv_quant=int8 needs the "
+                      f"paged KV cache (kv_block_size > 0): the scales are "
+                      f"per block")
+        self._param_quant = str(ec._resolved("decode_param_quant"))
+        if self._param_quant not in ("none", "int8"):
+            Log.fatal(f"DecodeEngine {name!r}: decode_param_quant must be "
+                      f"'none' or 'int8', got {self._param_quant!r}")
+        self._spec = int(ec._resolved("spec_k"))
+        if self._spec < 0:
+            Log.fatal(f"DecodeEngine {name!r}: negative spec_k "
+                      f"{self._spec}")
+        if self._spec and not self._paged:
+            Log.fatal(f"DecodeEngine {name!r}: spec_k={self._spec} needs "
+                      f"the paged KV cache (kv_block_size > 0): the verify "
+                      f"window parks rejected and pad writes in the "
+                      f"scratch block")
+
         # -- programs --------------------------------------------------------
+        # an int8 pin dequantizes at the top of every program
+        if self._param_quant == "int8":
+            def pf(p):
+                return tf.dequantize_decode_params(p, cfg.dtype)
+        else:
+            def pf(p):
+                return p
+        self._verify_fn: Optional[_Program] = None
         if self._paged:
+            # the tensor arguments after the parameters: the pools (and,
+            # int8, their scales, see _pools), the block tables, then the
+            # program's own
+            q = self._kv_quant
+            step = tf.decode_step_paged_q if q else tf.decode_step_paged
+            chunk = tf.prefill_chunk_paged_q if q else tf.prefill_chunk_paged
+            admit = tf.admit_insert_paged_q if q else tf.admit_insert_paged
+            verify = tf.verify_step_paged_q if q else tf.verify_step_paged
             self._step_fn = _Program(
-                lambda p, kc, vc, bt, tok, pos, active:
-                tf.decode_step_paged(cfg, p, kc, vc, bt, tok, pos, active,
-                                     t_logical=T))
+                lambda p, *a: step(cfg, pf(p), *a, t_logical=T))
             self._chunk_fn = _Program(
-                lambda p, kc, vc, bt, slot, toks, off, n:
-                tf.prefill_chunk_paged(cfg, p, kc, vc, bt, slot, toks, off,
-                                       n, t_logical=T))
+                lambda p, *a: chunk(cfg, pf(p), *a, t_logical=T))
             self._admit_fn = _Program(
-                lambda p, kc, vc, bt, toks, lens:
-                tf.admit_insert_paged(cfg, p, kc, vc, bt, toks, lens))
+                lambda p, *a: admit(cfg, pf(p), *a))
+            if self._spec:
+                self._verify_fn = _Program(
+                    lambda p, *a: verify(cfg, pf(p), *a, t_logical=T))
         else:
             self._step_fn = _Program(
                 lambda p, kc, vc, tok, pos, active:
-                tf.decode_step(cfg, p, kc, vc, tok, pos, active))
+                tf.decode_step(cfg, pf(p), kc, vc, tok, pos, active))
             self._chunk_fn = _Program(
                 lambda p, kc, vc, slot, toks, off, n:
-                tf.prefill_chunk(cfg, p, kc, vc, slot, toks, off, n))
-            self._admit_fn = _Program(self._admit_contiguous)
-        self._cow_fn = (_Program(tf.cow_block_copy) if self._prefix
-                        else None)
+                tf.prefill_chunk(cfg, pf(p), kc, vc, slot, toks, off, n))
+            self._admit_fn = _Program(
+                lambda p, kc, vc, slot, toks, lens:
+                self._admit_contiguous(pf(p), kc, vc, slot, toks, lens))
+        self._cow_fn = None
+        if self._prefix:
+            # a copy-on-write copy takes its source's scales with it
+            self._cow_fn = _Program(tf.cow_block_copy_q if self._kv_quant
+                                    else tf.cow_block_copy)
 
         self._manager = SnapshotManager.of(lm, name=name)
         self._snap = None            # pinned while anything is in flight
@@ -527,9 +642,18 @@ class DecodeEngine:
             shape = (L, self._pool.capacity + 1, self._block_size, D)
         else:
             shape = (L, S, T, D)
-        self._k_cache = torch.zeros(shape, dtype=cfg.dtype,
-                                    device=self.device)
+        self._k_cache = torch.zeros(
+            shape, dtype=torch.int8 if self._kv_quant else cfg.dtype,
+            device=self.device)
         self._v_cache = torch.zeros_like(self._k_cache)
+        # int8 pools: one fp32 scale per (layer, block), 0 = never written
+        self._k_scales: Optional[torch.Tensor] = None
+        self._v_scales: Optional[torch.Tensor] = None
+        if self._kv_quant:
+            self._k_scales = torch.zeros((L, self._pool.capacity + 1),
+                                         dtype=torch.float32,
+                                         device=self.device)
+            self._v_scales = torch.zeros_like(self._k_scales)
         # -- host state -------------------------------------------------------
         self._slot_req: List[Optional[_Request]] = [None] * S
         self._free_q: Deque[int] = collections.deque(range(S))
@@ -565,20 +689,39 @@ class DecodeEngine:
             f"PREFILL_TOKENS[{name}]")
         self.decode_tok_counter = Dashboard.get_or_create_counter(
             f"DECODE_TOKENS[{name}]")
+        # speculation's counters exist on spec engines only, so a spec_k=0
+        # engine's dashboard is the plain engine's
+        self.spec_prop_counter = self.spec_acc_counter = None
+        if self._spec:
+            self.spec_prop_counter = Dashboard.get_or_create_counter(
+                f"SPEC_PROPOSED[{name}]")
+            self.spec_acc_counter = Dashboard.get_or_create_counter(
+                f"SPEC_ACCEPTED[{name}]")
         self.iters_counter = Dashboard.get_or_create_counter(
             f"ENGINE_ITERS[{name}]")
         self.iters_total = 0
         self._last_progress = time.monotonic()
+        # windowed latency SLOs (their rows ride Dashboard.snapshot())
+        slo_ttft = float(ec._resolved("slo_ttft_ms"))
+        if slo_ttft > 0:
+            Dashboard.set_slo(f"SERVE_TTFT[{name}]", slo_ttft)
+        slo_itl = float(ec._resolved("slo_itl_ms"))
+        if slo_itl > 0:
+            Dashboard.set_slo(f"SERVE_ITL[{name}]", slo_itl)
         self.recorder: Optional[FlightRecorder] = None
         if bool(ec._resolved("flight_recorder")):
             self.recorder = FlightRecorder(
                 int(ec._resolved("flight_recorder_capacity")), name=name)
             self.recorder.meta.update(decode_tp=1, mesh_devices=1)
+            if self._spec:
+                self.recorder.meta["spec_k"] = self._spec
         # per-iteration scratch the recorder drains
         self._it_admitted: List[int] = []
         self._it_completed: List[int] = []
         self._it_prefill = 0
         self._it_decode = 0
+        self._it_spec_proposed = 0
+        self._it_spec_accepted = 0
         self.completed = 0
         self.shed = 0
         self.tokens = 0
@@ -593,6 +736,14 @@ class DecodeEngine:
         self.preemptions = 0
         self.preempted = 0
         self.deadline_drops = 0
+        # speculation: drafts proposed and accepted, verify dispatches
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_steps = 0
+        # int8 quality: the argmax-match rate against an fp engine, which
+        # only a caller holding both outputs can measure (-1 = not yet)
+        self._argmax_match = -1.0
+        self._evictions_base = 0
         # host-clock seconds in admission (prefill chunks or whole-prompt
         # prefills, with their readbacks) and in fused decode steps
         self.prefill_s = 0.0
@@ -822,6 +973,7 @@ class DecodeEngine:
             self._it_admitted.clear()
             self._it_completed.clear()
             self._it_prefill = self._it_decode = 0
+            self._it_spec_proposed = self._it_spec_accepted = 0
             step_ms = 0.0
             worked = False
             try:
@@ -900,7 +1052,14 @@ class DecodeEngine:
             self._pool.n_live if paged else -1,
             self._pool.n_shared if paged else -1,
             self._snap.version if self._snap is not None else -1,
-            tuple(self._it_admitted), tuple(self._it_completed)))
+            tuple(self._it_admitted), tuple(self._it_completed),
+            self._it_spec_proposed if self._spec else -1,
+            self._it_spec_accepted if self._spec else -1,
+            (1 if self._kv_quant else 0) if paged else -1,
+            # written-block proxy (live + cached): the real count of
+            # nonzero scales would cost a device read per iteration
+            (self._pool.n_live + self._pool.n_cached)
+            if self._kv_quant else -1))
 
     def _maybe_refresh(self, hold: bool = False) -> None:
         """Move the pinned snapshot only while no generation is in flight:
@@ -919,8 +1078,12 @@ class DecodeEngine:
                 with trace.span("snapshot.pin", engine=self.name,
                                 version=snap.version):
                     # the snapshot is already a private copy on the
-                    # model's device: pinning it copies nothing more
-                    self._pinned = snap.value
+                    # model's device: pinning it copies nothing more,
+                    # unless the pin is int8 (quantized on the host once
+                    # per version, the int8 copy kept on the device)
+                    self._pinned = (quantize_decode_params(snap.value)
+                                    if self._param_quant == "int8"
+                                    else snap.value)
                 self._pinned_version = snap.version
                 self.pin_copies += 1
             self._snap = snap
@@ -954,6 +1117,14 @@ class DecodeEngine:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
+    def _pools(self) -> Tuple[torch.Tensor, ...]:
+        """The KV pools, and their scales on an int8 engine: the leading
+        tensor arguments of every program."""
+        if self._kv_quant:
+            return (self._k_cache, self._v_cache, self._k_scales,
+                    self._v_scales)
+        return self._k_cache, self._v_cache
+
     # -- admission ------------------------------------------------------------
     def _reserve_blocks(self, req: _Request, slot: int) -> None:
         """Paged: claim the reservation and install it in the slot's
@@ -978,7 +1149,7 @@ class DecodeEngine:
                 shared_last = matched[-1]
                 dup = self._pool.alloc(1)[0]
                 ids = self._upload(np.array([shared_last, dup], np.int64))
-                self._cow_fn(self._k_cache, self._v_cache, ids[0], ids[1])
+                self._cow_fn(*self._pools(), ids[0], ids[1])
                 self._pool.decref([shared_last])
                 matched[-1] = dup
                 full_hit_cow = True
@@ -1014,6 +1185,11 @@ class DecodeEngine:
         self._reserve_blocks(req, slot)
         req.pf_chunks = 0
         req.t_admit = time.monotonic()
+        if self._spec:
+            # the drafter indexes the prompt now and each emitted token
+            # from here on
+            req.drafter = _PromptLookup()
+            req.drafter.extend(req.prompt)
         self._it_admitted.append(req.rid)
         if self._prefix and req.full_hit:
             # no prefill at all: the slot goes live at P - 1 with the
@@ -1060,9 +1236,9 @@ class DecodeEngine:
         tracing = trace.enabled()
         t0 = time.monotonic() if tracing else 0.0
         if self._paged:
-            _, _, logits = self._chunk_fn(
-                self._pinned, self._k_cache, self._v_cache, self._tables(),
-                slot, toks, off_t, n_t)
+            logits = self._chunk_fn(
+                self._pinned, *self._pools(), self._tables(), slot, toks,
+                off_t, n_t)[-1]
         else:
             _, _, logits = self._chunk_fn(
                 self._pinned, self._k_cache, self._v_cache, slot, toks,
@@ -1110,6 +1286,8 @@ class DecodeEngine:
         self.decode_tok_counter.inc()
         self._it_decode += 1
         req.out.append(tok0)
+        if req.drafter is not None:
+            req.drafter.extend((tok0,))
         if tracing and req.ctx is not None:
             trace.record_span("queue.wait", req.ctx, req.t_enq,
                               req.t_admit, cause="admission")
@@ -1160,6 +1338,9 @@ class DecodeEngine:
             slot = self._free_q.popleft()
             req.slot = slot
             self._reserve_blocks(req, slot)
+            if self._spec:
+                req.drafter = _PromptLookup()
+                req.drafter.extend(req.prompt)
             host = np.zeros(pb + 2 + M, np.int64)
             host[: len(req.prompt)] = req.prompt
             host[pb: pb + 2] = (len(req.prompt), slot)
@@ -1168,9 +1349,9 @@ class DecodeEngine:
             args = self._upload(host)
             toks, lens = args[:pb].view(1, pb), args[pb: pb + 1]
             if self._paged:
-                first, _, _ = self._admit_fn(
-                    self._pinned, self._k_cache, self._v_cache,
-                    args[pb + 2:].view(1, M), toks, lens)
+                first = self._admit_fn(
+                    self._pinned, *self._pools(),
+                    args[pb + 2:].view(1, M), toks, lens)[0]
             else:
                 first, _, _ = self._admit_fn(
                     self._pinned, self._k_cache, self._v_cache,
@@ -1193,6 +1374,8 @@ class DecodeEngine:
             self.decode_tok_counter.inc()
             self._it_decode += 1
             req.out.append(tok0)
+            if req.drafter is not None:
+                req.drafter.extend((tok0,))
             if tracing and req.ctx is not None:
                 trace.record_span("queue.wait", req.ctx, req.t_enq, t_admit,
                                   cause="admission")
@@ -1275,6 +1458,8 @@ class DecodeEngine:
         req.saved = 0
         req.pf_off = req.pf_chunks = req.pf_reg = 0
         req.ttft_pending = False
+        # the drafter is rebuilt at re-admission from the same tokens
+        req.drafter = None
         if trace.enabled() and req.ctx is not None:
             trace.record_span(
                 "decode.preempt", req.ctx, t0, time.monotonic(),
@@ -1283,12 +1468,13 @@ class DecodeEngine:
         with self._cv:
             self._q.appendleft(req)
 
-    def _ensure_growth(self) -> None:
-        """Optimistic admission's decode-time half: before the step, each
-        live reservation must cover the position this iteration writes.
-        On pool exhaustion a victim is preempted; with no admissible
-        victim the grower yields. Growers go highest class, oldest
-        first."""
+    def _ensure_growth(self, n_valid: Optional[np.ndarray] = None) -> None:
+        """Optimistic admission's decode-time half: before the step (or
+        verify window), each live reservation must cover the positions
+        this iteration writes, ``pos .. pos + window - 1`` (the window
+        length is ``n_valid``, 1 without drafts). On pool exhaustion a
+        victim is preempted; with no admissible victim the grower yields.
+        Growers go highest class, oldest first."""
         order = [s for s in range(self.config.slots)
                  if self._slot_req[s] is not None]
         order.sort(key=lambda s: (-self._slot_req[s].priority,
@@ -1297,7 +1483,8 @@ class DecodeEngine:
             req = self._slot_req[s]
             if req is None:          # victimized by an earlier grower
                 continue
-            grow = (self._pool.blocks_needed(int(self._pos[s]) + 1)
+            win = 1 if n_valid is None else max(1, int(n_valid[s]))
+            grow = (self._pool.blocks_needed(int(self._pos[s]) + win)
                     - len(req.blocks))
             if grow <= 0:
                 continue
@@ -1315,29 +1502,104 @@ class DecodeEngine:
                     break
                 self._preempt(victim, why=f"growth for rid {req.rid}")
 
+    # -- speculation ----------------------------------------------------------
+    def _propose_drafts(self):
+        """This iteration's verification window: up to ``spec_k``
+        prompt-lookup drafts per live slot, as ``(toks [S, K + 1],
+        n_valid [S])``, or ``(None, None)`` when no slot drafted (the
+        iteration then runs the plain step). Drafts clamp to the request's
+        remaining budget minus one (the correction token fills the last
+        emission), so a valid window write never passes position
+        ``prompt + max_new - 2``, inside the reservation; under
+        ``preempt`` :meth:`_ensure_growth` grows each slot by its window."""
+        K = self._spec
+        S = self.config.slots
+        toks = n_valid = None
+        for s in range(S):
+            req = self._slot_req[s]
+            if req is None:
+                continue
+            limit = min(K, req.max_new - len(req.out) - 1)
+            if limit <= 0:
+                continue
+            drafts = req.drafter.propose(limit)
+            if not drafts:
+                continue
+            if toks is None:
+                toks = np.zeros((S, K + 1), np.int64)
+                toks[:, 0] = self._tok
+                n_valid = np.ones(S, np.int64)
+            toks[s, 1: 1 + len(drafts)] = drafts
+            n_valid[s] = 1 + len(drafts)
+        return toks, n_valid
+
+    def _accept(self, s: int, spec_toks: np.ndarray, n_valid: np.ndarray,
+                out: np.ndarray) -> Tuple[List[int], int]:
+        """Greedy verification of slot ``s``'s window: drafts are accepted
+        while each matches the window's argmax after its predecessor;
+        entry ``accepted`` of the outputs is the correction token. An eos
+        inside the window truncates it there, and only realized drafts
+        count as accepted. Returns ``(emitted tokens, accepted)``."""
+        nv = int(n_valid[s])
+        accepted = 0
+        while (accepted + 1 < nv
+               and int(spec_toks[s, accepted + 1]) == int(out[s, accepted])):
+            accepted += 1
+        emitted = [int(out[s, j]) for j in range(accepted + 1)]
+        eos = self.config.eos_id
+        if eos is not None and eos in emitted:
+            emitted = emitted[: emitted.index(eos) + 1]
+            accepted = len(emitted) - 1
+        proposed = nv - 1
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        self._it_spec_proposed += proposed
+        self._it_spec_accepted += accepted
+        if proposed:
+            self.spec_prop_counter.inc(proposed)
+        if accepted:
+            self.spec_acc_counter.inc(accepted)
+        return emitted, accepted
+
     # -- the fused step -------------------------------------------------------
     @torch.no_grad()
     def _step(self) -> None:
         tracing = trace.enabled()
         t_it0 = time.monotonic() if tracing else 0.0
+        spec_toks = n_valid = None
+        if self._spec:
+            spec_toks, n_valid = self._propose_drafts()
         if self._preempt_on:
-            self._ensure_growth()
+            self._ensure_growth(n_valid)
             if not self._active.any():
                 return
         S = self.config.slots
-        host = np.empty((3, S), np.int64)
-        host[0], host[1], host[2] = self._tok, self._pos, self._active
-        ctl = self._upload(host)
-        tok, pos, active = ctl[0], ctl[1], ctl[2] != 0
-        if self._paged:
-            _, _, nxt, _ = self._step_fn(
-                self._pinned, self._k_cache, self._v_cache, self._tables(),
-                tok, pos, active)
+        if spec_toks is not None:
+            # one upload: pos, active, n_valid and the window [S, K + 1]
+            K1 = spec_toks.shape[1]
+            host = np.empty((S, K1 + 3), np.int64)
+            host[:, 0], host[:, 1], host[:, 2] = \
+                self._pos, self._active, n_valid
+            host[:, 3:] = spec_toks
+            ctl = self._upload(host)
+            self.spec_steps += 1
+            nxt = self._verify_fn(
+                self._pinned, *self._pools(), self._tables(), ctl[:, 3:],
+                ctl[:, 0], ctl[:, 1] != 0, ctl[:, 2])[-1]
         else:
-            _, _, nxt, _ = self._step_fn(
-                self._pinned, self._k_cache, self._v_cache, tok, pos,
-                active)
-        nxt = nxt.cpu().numpy()       # the host sync point
+            host = np.empty((3, S), np.int64)
+            host[0], host[1], host[2] = self._tok, self._pos, self._active
+            ctl = self._upload(host)
+            tok, pos, active = ctl[0], ctl[1], ctl[2] != 0
+            if self._paged:
+                nxt = self._step_fn(
+                    self._pinned, *self._pools(), self._tables(), tok, pos,
+                    active)[-2]
+            else:
+                _, _, nxt, _ = self._step_fn(
+                    self._pinned, self._k_cache, self._v_cache, tok, pos,
+                    active)
+        nxt = nxt.cpu().numpy()       # the host sync point: [S] or [S, K1]
         now = time.monotonic()
         self.steps_counter.inc()
         n_active = 0
@@ -1346,24 +1608,40 @@ class DecodeEngine:
             if req is None:
                 continue
             n_active += 1
-            tok = int(nxt[s])
-            self._pos[s] += 1
-            self._tok[s] = tok
-            req.out.append(tok)
-            self.tokens += 1
-            self.decode_tok_counter.inc()
-            self._it_decode += 1
-            if req.ttft_pending:
-                # a fully cached admission's first token is TTFT
-                req.ttft_pending = False
-                self.ttft_hist.record((now - req.t_enq) * 1e3)
+            if spec_toks is None:
+                emitted, accepted = [int(nxt[s])], 0
             else:
-                self.itl_hist.record((now - req.t_last) * 1e3)
+                emitted, accepted = self._accept(s, spec_toks, n_valid, nxt)
+            # rejected window positions are never consumed: the next
+            # window starts at the first unverified position and rewrites
+            # them before any mask reaches them
+            self._pos[s] += len(emitted)
+            self._tok[s] = emitted[-1]
+            # ITL per emitted token: the interval divides over the window
+            share = (now - req.t_last) * 1e3 / len(emitted)
+            done = False
+            for tok in emitted:
+                req.out.append(tok)
+                self.tokens += 1
+                self.decode_tok_counter.inc()
+                self._it_decode += 1
+                if req.ttft_pending:
+                    # a fully cached admission's first token is TTFT
+                    req.ttft_pending = False
+                    self.ttft_hist.record((now - req.t_enq) * 1e3)
+                else:
+                    self.itl_hist.record(share)
+                if self._finished(req, tok):
+                    done = True
+                    break
             req.t_last = now
+            if req.drafter is not None and not done:
+                req.drafter.extend(emitted)
             if tracing and req.ctx is not None:
+                extra = {"accepted": accepted} if self._spec else {}
                 trace.record_span("decode.iter", req.ctx, t_it0, now,
-                                  slot=s, token_index=len(req.out))
-            if self._finished(req, tok):
+                                  slot=s, token_index=len(req.out), **extra)
+            if done:
                 self._active[s] = False
                 self._slot_req[s] = None
                 self._release_seq(req)
@@ -1433,6 +1711,14 @@ class DecodeEngine:
             return _signatures(self._chunk_fn)
         return _signatures(self._admit_fn)
 
+    def verify_cache_size(self) -> int:
+        """Distinct signatures of the verify step: 1 on a spec engine once
+        it ran (the ``[S, spec_k + 1]`` window is its only shape), 0 when
+        ``spec_k=0`` (no such program)."""
+        if self._verify_fn is None:
+            return 0
+        return _signatures(self._verify_fn)
+
     @torch.no_grad()
     def warmup(self) -> None:
         """Run every serving program once at its serving signature against
@@ -1446,8 +1732,7 @@ class DecodeEngine:
         zero = torch.zeros((), **i64)
 
         def scratch():
-            return torch.zeros_like(self._k_cache), \
-                torch.zeros_like(self._v_cache)
+            return tuple(torch.zeros_like(t) for t in self._pools())
 
         bt = (torch.full((S, self._blocks_per_seq), SCRATCH_BLOCK, **i64)
               if self._paged else None)
@@ -1468,6 +1753,11 @@ class DecodeEngine:
             self._cow_fn(*scratch(), zero, zero)
         tok = torch.zeros(S, **i64)
         active = torch.zeros(S, dtype=torch.bool, device=dev)
+        if self._verify_fn is not None:
+            # the serving call's layout: columns of one [S, K + 4] upload
+            ctl = torch.zeros((S, self._spec + 4), **i64)
+            self._verify_fn(params, *scratch(), bt, ctl[:, 3:], ctl[:, 0],
+                            ctl[:, 1] != 0, ctl[:, 2] + 1)
         if self._paged:
             self._step_fn(params, *scratch(), bt, tok, tok, active)
         else:
@@ -1490,7 +1780,8 @@ class DecodeEngine:
                 "kv_pool_blocks": self._pool.capacity,
                 "kv_bytes_per_device": (self._pool.capacity + 1)
                 * kv_bytes_per_block(cfg.n_layers, cfg.d_model,
-                                     self._block_size, cfg.dtype),
+                                     self._block_size, cfg.dtype,
+                                     quant=self._kv_quant_mode),
                 "kv_blocks_free": self._pool.n_free,
                 "kv_blocks_live": self._pool.n_live,
                 "kv_blocks_cached": self._pool.n_cached,
@@ -1504,9 +1795,37 @@ class DecodeEngine:
                 "prefix_hit_rate": (self.prefix_hits / lookups
                                     if lookups else 0.0),
                 "prefill_tokens_saved": self.prefill_tokens_saved,
-                "prefix_evictions": self._pool.evictions,
+                "prefix_evictions": self._pool.evictions
+                - self._evictions_base,
                 "cow_copies": self.cow_copies,
             }
+        # the int8 and speculation keys exist on such engines only, so
+        # a plain engine's stats are the plain surface
+        if self._kv_quant:
+            # the device count of written blocks (one read; stats are
+            # not the hot loop)
+            nz = int((torch.maximum(self._k_scales, self._v_scales)
+                      .amax(dim=0) > 0).sum())
+            pool.update({
+                "kv_quant": self._kv_quant_mode,
+                "quant_scale_blocks": nz,
+                "argmax_match_rate": self._argmax_match,
+            })
+        if self._param_quant == "int8":
+            pool["decode_param_quant"] = self._param_quant
+        if self._spec:
+            pool.update({
+                "spec_k": self._spec,
+                "spec_steps": self.spec_steps,
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "acceptance_rate": (self.spec_accepted / self.spec_proposed
+                                    if self.spec_proposed else 0.0),
+                # extra tokens a verify dispatch bought, on average
+                "accepted_per_step": (self.spec_accepted / self.spec_steps
+                                      if self.spec_steps else 0.0),
+                "verify_traces": self.verify_cache_size(),
+            })
         health = self.health()
         return {
             **pool,
@@ -1546,6 +1865,32 @@ class DecodeEngine:
             "decode_s": self.decode_s,
             "prefill_share": self.prefill_s / busy if busy > 0 else 0.0,
         }
+
+    def record_argmax_match(self, rate: float) -> None:
+        """Attach an argmax-match rate measured outside (this engine's
+        outputs against an fp engine's on the same prompts) to
+        ``stats()["argmax_match_rate"]``."""
+        self._argmax_match = float(rate)
+
+    def reset_stats(self) -> None:
+        """Zero the counters, histograms and mirrors (measure past a
+        warmup)."""
+        self.ttft_hist.reset()
+        self.itl_hist.reset()
+        self.completed = self.shed = self.tokens = 0
+        self.peak_live = 0
+        self.prefill_tokens = 0
+        self.prefix_hits = self.prefix_misses = 0
+        self.prefill_tokens_saved = self.cow_copies = 0
+        self.spec_proposed = self.spec_accepted = self.spec_steps = 0
+        self.preemptions = self.preempted = self.deadline_drops = 0
+        self.prefill_s = self.decode_s = 0.0
+        self._argmax_match = -1.0
+        if self._paged:
+            self._evictions_base = self._pool.evictions
+        self.t_first = None
+        self._occ_sum = 0.0
+        self._occ_n = 0
 
     # -- lifecycle ------------------------------------------------------------
     def stop(self) -> None:

@@ -10,7 +10,7 @@ host state only; nothing is serialized until someone asks.
 
 Records carry the JAX recorder's columns (:data:`FIELDS`, positional), so
 one tool reads the dumps of both packages. This engine fills the first
-16, from ``it`` to ``completed``:
+20, from ``it`` to ``quant_scale_blocks``:
 
 ======================  =====================================================
 ``it``                  iteration index (1-based, monotonic per engine)
@@ -29,11 +29,15 @@ one tool reads the dumps of both packages. This engine fills the first
 ``version``             pinned snapshot version (-1 before the first pin)
 ``admitted``            request ids admitted this pass (tuple)
 ``completed``           request ids completed this pass (tuple)
+``spec_proposed``       drafts verified this pass (-1 when ``spec_k=0``)
+``spec_accepted``       drafts accepted this pass (-1 when ``spec_k=0``)
+``kv_quant``            1 for int8 pools, 0 for fp (-1 when contiguous)
+``quant_scale_blocks``  live + cached blocks of an int8 pool (-1 otherwise)
 ======================  =====================================================
 
-The later columns (speculation, int8 KV, tenant accounting, sequence-
-parallel chunks) come with their features; a record without them reads
-everywhere, as the JAX recorder's pre-feature records do. Timestamps are
+The later columns (tenant accounting, sequence-parallel chunks) come
+with their features; a record without them reads everywhere, as the JAX
+recorder's pre-feature records do. Timestamps are
 monotonic; a wall/monotonic anchor taken at construction rebases exports
 to epoch microseconds, the span export's timebase.
 """

@@ -1,22 +1,26 @@
-"""Request router: named models -> continuous-batching decode engines.
+"""Request router: named models -> micro-batchers or decode engines.
 
-Counterpart of ``multiverso_tpu/serving/server.py`` for the decode path:
-``register_decoder`` attaches a :class:`DecodeEngine` under a name,
-``submit`` routes a payload to it and returns a Future, ``stop`` drains
-and retires every engine. A started session registers the server, so
-``shutdown()`` stops serving. The micro-batched ``register`` path is not
-ported yet.
+Counterpart of ``multiverso_tpu/serving/server.py``. ``register``
+attaches a workload (``serving/workloads.py``) behind a
+:class:`MicroBatcher` and a :class:`SnapshotManager`: a flush takes one
+snapshot decision for the whole batch and stamps every reply with the
+snapshot version and its staleness. ``register_decoder`` attaches a
+continuous-batching :class:`DecodeEngine`. ``submit`` routes a payload to
+either and returns a Future; ``stop`` drains and retires everything. A
+started session registers the server, so ``shutdown()`` stops serving.
 """
 
 from __future__ import annotations
 
 import threading
 from concurrent.futures import Future
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 from .. import trace
 from ..log import Log
+from .batcher import BatcherConfig, MicroBatcher
 from .decode_engine import DecodeEngine, DecodeEngineConfig
+from .snapshot import SnapshotManager
 
 # payload keys of the JAX server whose features this port does not have
 _UNPORTED_PAYLOAD_KEYS = ("tenant",)
@@ -46,12 +50,36 @@ class _DecoderEntry:
         return self.engine.submit(payload, ctx=ctx)
 
 
+class _ModelEntry:
+    """A micro-batched workload: one batcher, one snapshot manager."""
+
+    def __init__(self, name: str, workload, manager: SnapshotManager,
+                 batcher_cfg: BatcherConfig, max_staleness_s: float) -> None:
+        self.name = name
+        self.workload = workload
+        self.manager = manager
+        self.max_staleness_s = float(max_staleness_s)
+        self.batcher = MicroBatcher(name, self._run, batcher_cfg)
+
+    def _run(self, payloads: List[Any], bucket: int) -> List[dict]:
+        # one freshness decision per flush: every reply of the batch comes
+        # from the same snapshot, at most max_staleness_s stale
+        snap = self.manager.ensure_fresh(self.max_staleness_s)
+        staleness = self.manager.staleness_s(snap)
+        results = self.workload.run(payloads, bucket, snap)
+        return [{"result": r, "snapshot_version": snap.version,
+                 "staleness_s": staleness} for r in results]
+
+
+_Entry = Union[_ModelEntry, _DecoderEntry]
+
+
 class InferenceServer:
-    """Low-latency inference over live parameter state."""
+    """Batched low-latency inference over live parameter state."""
 
     def __init__(self, name: str = "serving") -> None:
         self.name = name
-        self._models: Dict[str, _DecoderEntry] = {}
+        self._models: Dict[str, _Entry] = {}
         self._lock = threading.Lock()
         self._stopped = False
         from ..runtime import Session
@@ -59,6 +87,31 @@ class InferenceServer:
         sess = Session.get()
         if sess.started:
             sess.register_server(self)
+
+    def register(self, name: str, workload, max_batch: int = 32,
+                 deadline_ms: float = 2.0, max_queue: int = 256,
+                 max_staleness_s: float = 0.05,
+                 buckets: Optional[tuple] = None) -> None:
+        """Attach a workload under ``name``: it exposes ``source`` (a table
+        or model with the snapshot contract, or a ``(read, version_fn)``
+        pair), ``run(payloads, bucket, snap)`` and optionally
+        ``validate(payload)``. ``max_batch``/``deadline_ms`` set the flush
+        triggers, ``max_queue`` the shed threshold, ``max_staleness_s``
+        the snapshot refresh bound; the ``-slo_lat_ms`` flag sets the
+        reply-latency SLO."""
+        cfg = BatcherConfig(max_batch=max_batch, deadline_ms=deadline_ms,
+                            max_queue=max_queue, buckets=buckets)
+        manager = SnapshotManager.of(workload.source, name=name)
+        with self._lock:
+            if self._stopped:
+                Log.fatal(f"serving: register({name!r}) on a stopped "
+                          f"server")
+            if name in self._models:
+                Log.fatal(f"serving: model {name!r} already registered")
+            self._models[name] = _ModelEntry(
+                name, workload, manager, cfg, max_staleness_s)
+        Log.info("serving: model %r up (max_batch %d, deadline %.1f ms, "
+                 "queue cap %d)", name, max_batch, deadline_ms, max_queue)
 
     def register_decoder(self, name: str, lm, *, slots: int = 8,
                          max_prompt: int = 64, max_new: int = 32,
@@ -88,11 +141,14 @@ class InferenceServer:
         arguments are the JAX server's knobs, plus ``flight_recorder``
         (None = the matching flag; the defaults serve chunked, paged,
         prefix-cached and preemptive admission with the recorder and the
-        watchdog on, see :mod:`.decode_engine`). The features this port
-        does not have yet (``decode_tp``, ``prefill_sp``, ``spec_k``,
-        ``kv_quant``, ``decode_param_quant``, the SLOs, ``cost_ledger``)
-        raise :class:`~..log.FatalError` when their resolved value turns
-        them on."""
+        watchdog on, see :mod:`.decode_engine`). ``spec_k`` > 0 turns on
+        speculative decoding, ``kv_quant="int8"`` int8 KV pools and
+        ``decode_param_quant="int8"`` int8 parameter pins (all three need
+        the paged KV cache where JAX does); ``slo_ttft_ms``/``slo_itl_ms``
+        > 0 register the latency SLOs. The features this port does not
+        have yet (``decode_tp``, ``prefill_sp``, ``cost_ledger``) raise
+        :class:`~..log.FatalError` when their resolved value turns them
+        on."""
         cfg = DecodeEngineConfig(
             slots=slots, max_prompt=max_prompt, max_new=max_new,
             eos_id=eos_id, max_queue=max_queue,
@@ -127,7 +183,7 @@ class InferenceServer:
                  "max_new %d)", name, slots, max_prompt, max_new)
         return entry.engine
 
-    def _entry(self, name: str) -> _DecoderEntry:
+    def _entry(self, name: str) -> _Entry:
         with self._lock:
             entry = self._models.get(name)
         if entry is None:
@@ -137,14 +193,21 @@ class InferenceServer:
 
     def submit(self, model: str, payload: Any) -> Future:
         """Enqueue one request; raises :class:`OverloadedError` at the
-        queue-depth cap and ``ValueError`` for a malformed payload. The
-        future resolves to ``{"result", "snapshot_version",
+        queue-depth cap and ``ValueError`` for a malformed payload (a
+        workload's ``validate`` runs here, so a bad request never reaches
+        a batch). The future resolves to ``{"result", "snapshot_version",
         "staleness_s"}``. With tracing on, each request gets a root span
         ``serve.request``."""
         entry = self._entry(model)
         root = trace.start_span("serve.request", root=True, model=model)
         try:
-            fut = entry.submit(payload, ctx=root.context)
+            if isinstance(entry, _DecoderEntry):
+                fut = entry.submit(payload, ctx=root.context)
+            else:
+                validate = getattr(entry.workload, "validate", None)
+                if validate is not None:
+                    validate(payload)
+                fut = entry.batcher.submit(payload, ctx=root.context)
         except Exception as exc:
             root.end(error=type(exc).__name__)
             raise
@@ -158,7 +221,12 @@ class InferenceServer:
         return self.submit(model, payload).result(timeout=timeout_s)
 
     def stats(self, model: str) -> dict:
-        return self._entry(model).engine.stats()
+        entry = self._entry(model)
+        if isinstance(entry, _DecoderEntry):
+            return entry.engine.stats()
+        return {**entry.batcher.stats(),
+                "snapshot_publishes": entry.manager.publishes,
+                "queue_depth": entry.batcher.queue_depth()}
 
     def models(self) -> List[str]:
         with self._lock:
@@ -171,4 +239,7 @@ class InferenceServer:
             self._stopped = True
             entries = list(self._models.values())
         for entry in entries:
-            entry.engine.stop()
+            if isinstance(entry, _DecoderEntry):
+                entry.engine.stop()
+            else:
+                entry.batcher.stop()

@@ -432,18 +432,21 @@ def test_failure_path_returns_shared_blocks(port, jax_params):
 
 # -- preemption, priorities and deadlines (tests/test_overload.py) ----------
 
-@pytest.mark.parametrize("prefix", [True, False])
-def test_preemption_oracle_bit_identical(port, jax_params, prefix):
+@pytest.mark.parametrize("prefix,spec_k", [
+    pytest.param(True, 0, id="True"), pytest.param(False, 0, id="False"),
+    pytest.param(True, 2, id="True-spec_k-2")])
+def test_preemption_oracle_bit_identical(port, jax_params, prefix, spec_k):
     """4 slots x optimistic 2-block prompt reservations fill the 8-block
     pool; every generation crosses block boundaries, so growth must
-    preempt. Outputs are the un-preempted oracle's, the books balance
-    after every preemption, and each program keeps one signature."""
+    preempt (with speculation, growth covers each slot's whole window).
+    Outputs are the un-preempted oracle's, the books balance after every
+    preemption, and each program keeps one signature."""
     lm = _model(jax_params)
     srv = InferenceServer("t")
     eng = srv.register_decoder(
         "lm", lm, slots=4, max_prompt=8, max_new=16, kv_block_size=4,
         kv_pool_blocks=8, prefill_token_budget=4, prefix_cache=prefix,
-        max_queue=64)
+        spec_k=spec_k, max_queue=64)
     drift_after = []
     orig = eng._preempt
 
@@ -470,6 +473,8 @@ def test_preemption_oracle_bit_identical(port, jax_params, prefix):
     assert s["step_traces"] == s["prefill_traces"] == 1
     assert s["completed"] == len(reqs)
     assert s["kv_blocks_live"] == 0
+    if spec_k:
+        assert s["verify_traces"] == 1
     eng._pool.check()
 
 

@@ -5,11 +5,14 @@ contiguous KV strips, every other feature off) serve requests on
 ``-device=cpu``; their outputs must be token-identical to the JAX
 package's ``greedy_decode`` on the same weights. Also: per-request
 ``max_new`` and ``eos_id``, queue-cap shedding, each ported engine
-feature and the JAX flag defaults building and serving, the loud refusal
-of every engine feature not ported yet, the session's refusal to fall
-back to the CPU, and import hygiene (no port module pulls in jax or the
-JAX package). ``tests/test_torch_decode_defaults.py`` holds the ported
-features to the JAX engine's contract.
+feature and the JAX flag defaults building and serving (speculation,
+int8 KV and int8 parameter pins on the paged layout they need, which
+refuses the contiguous one), the loud refusal of every engine feature
+not ported yet, the session's refusal to fall back to the CPU, and
+import hygiene (no port module pulls in jax or the JAX package).
+``tests/test_torch_decode_defaults.py``, ``test_torch_spec_decode.py``
+and ``test_torch_quant_serving.py`` hold the ported features to the JAX
+engine's contract.
 """
 
 import os
@@ -182,9 +185,7 @@ def test_concurrent_submitters(port):
 
 
 UNPORTED = [
-    ("decode_tp", 2), ("spec_k", 2), ("kv_quant", "int8"),
-    ("decode_param_quant", "int8"), ("prefill_sp", True),
-    ("cost_ledger", True), ("slo_ttft_ms", 50.0), ("slo_itl_ms", 5.0),
+    ("decode_tp", 2), ("prefill_sp", True), ("cost_ledger", True),
 ]
 # each ported feature, turned on alone over OFF
 PORTED = [
@@ -224,6 +225,101 @@ def test_ported_feature_builds(port, flag, value):
     assert stats["step_traces"] == 1
     assert (eng.recorder is not None) == (flag == "flight_recorder")
     assert (eng.watchdog is not None) == (flag == "watchdog")
+
+
+# served over OFF with the paged layout in place of OFF's contiguous one
+# (JAX refuses speculation and int8 KV on contiguous strips): the exact
+# features are held to the oracle token for token, the int8 ones to the
+# JAX argmax-match floor
+SERVED = [
+    ("spec_k", 2, "exact"), ("slo_ttft_ms", 50.0, "exact"),
+    ("slo_itl_ms", 5.0, "exact"), ("kv_quant", "int8", "match"),
+    ("decode_param_quant", "int8", "match"),
+]
+
+
+def _argmax_match(a, b) -> float:
+    """Agreement of two generations over the longer length (the JAX
+    quant tests' metric)."""
+    a, b = np.asarray(a), np.asarray(b)
+    n, m = min(a.size, b.size), max(a.size, b.size)
+    return float((a[:n] == b[:n]).sum()) / m if m else 1.0
+
+
+@pytest.mark.parametrize("flag,value,held", SERVED,
+                         ids=[f"{f}-{v}" for f, v, _ in SERVED])
+def test_served_feature(port, flag, value, held):
+    from multiverso_tpu_torch.dashboard import Dashboard
+
+    _, lm = _model()
+    srv = InferenceServer("t")
+    eng = srv.register_decoder("lm", lm, slots=2, max_prompt=16, max_new=4,
+                               prompt_buckets=BUCKETS,
+                               **{**OFF, "kv_block_size": 16, flag: value})
+    prompts = _prompts(4, seed=8)
+    replies = [f.result(timeout=120) for f in
+               [srv.submit("lm", p) for p in prompts]]
+    want = _jax_oracle(prompts, 4)
+    if held == "exact":
+        for i, rep in enumerate(replies):
+            np.testing.assert_array_equal(rep["result"], want[i])
+    else:
+        rate = np.mean([_argmax_match(rep["result"], want[i])
+                        for i, rep in enumerate(replies)])
+        assert rate >= 0.7, rate
+    stats = eng.stats()
+    assert stats["completed"] == 4
+    assert stats["step_traces"] == 1
+    assert (flag == "spec_k") == ("verify_traces" in stats)
+    assert (flag == "kv_quant") == ("quant_scale_blocks" in stats)
+    assert (flag == "decode_param_quant") == (
+        stats.get("decode_param_quant") == "int8")
+    slos = {name for name, row in Dashboard.snapshot().items()
+            if row["type"] == "slo"}
+    want_slo = {"slo_ttft_ms": "SLO_P99[SERVE_TTFT[lm]]",
+                "slo_itl_ms": "SLO_P99[SERVE_ITL[lm]]"}.get(flag)
+    assert slos == ({want_slo} if want_slo else set())
+
+
+def test_all_served_features_together(port):
+    """Speculation, int8 KV, int8 pins and both SLOs on one engine: the
+    JAX argmax-match floor against the oracle, windows verified, one
+    signature per program and both SLO rows."""
+    from multiverso_tpu_torch.dashboard import Dashboard
+
+    _, lm = _model()
+    srv = InferenceServer("t")
+    eng = srv.register_decoder(
+        "lm", lm, slots=2, max_prompt=16, max_new=16, prompt_buckets=BUCKETS,
+        **{**OFF, "kv_block_size": 16, "prefill_token_budget": 16,
+           "spec_k": 2, "kv_quant": "int8", "decode_param_quant": "int8",
+           "slo_ttft_ms": 50.0, "slo_itl_ms": 5.0})
+    rng = np.random.default_rng(9)
+    prompts = [np.tile(rng.integers(0, DIMS["vocab_size"], 3), 4)[:n]
+               for n in (12, 7, 10, 5)]
+    replies = [f.result(timeout=120) for f in
+               [srv.submit("lm", p) for p in prompts]]
+    want = _jax_oracle(prompts, 16)
+    rate = np.mean([_argmax_match(rep["result"], want[i])
+                    for i, rep in enumerate(replies)])
+    assert rate >= 0.7, rate
+    stats = eng.stats()
+    assert stats["spec_steps"] > 0, "no window was verified"
+    assert stats["step_traces"] == stats["prefill_traces"] == 1
+    assert stats["verify_traces"] == 1 and stats["pin_copies"] == 1
+    assert stats["kv_quant"] == stats["decode_param_quant"] == "int8"
+    rows = {n for n, r in Dashboard.snapshot().items() if r["type"] == "slo"}
+    assert rows == {"SLO_P99[SERVE_TTFT[lm]]", "SLO_P99[SERVE_ITL[lm]]"}
+
+
+@pytest.mark.parametrize("flag,value", [("spec_k", 2), ("kv_quant", "int8")])
+def test_paged_only_feature_refuses_contiguous_kv(port, flag, value):
+    _, lm = _model()
+    srv = InferenceServer("t")
+    with pytest.raises(FatalError, match=flag):
+        srv.register_decoder("lm", lm, slots=2, max_prompt=16, max_new=4,
+                             prompt_buckets=BUCKETS,
+                             **{**OFF, flag: value})
 
 
 def test_engine_builds_at_jax_flag_defaults(port):
@@ -295,10 +391,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'multiverso_tpu' "
         "or m.startswith('multiverso_tpu.'))\n"
-        "assert len(names) >= 18, names\n"
+        "assert len(names) >= 21, names\n"
         "for m in ('block_pool', 'flight_recorder', 'watchdog', "
-        "'decode_engine'):\n"
+        "'decode_engine', 'batcher', 'workloads', 'snapshot', 'server'):\n"
         "    assert 'multiverso_tpu_torch.serving.' + m in names, m\n"
+        "assert 'multiverso_tpu_torch.quantization' in names\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
