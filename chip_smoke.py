@@ -67,7 +67,18 @@ Phases, each printed on its own line:
    (alpha -0.025, scales in [1/2, 1], within the tolerance above); each
    with a negative control that must fail (the gather: the rows of the ids
    rolled by one; the fused scatter: the update without alpha and scale,
-   and an unchanged table).
+   and an unchanged table). Phase 12's shapes the same way, f32 out and
+   fused at the path's scale (rule (b)): the Huffman path nodes of 65,536
+   zipf targets (the bench counts' codes, 40 slots each, pads included)
+   and the 10 context slots of 65,536 CBOW examples. Rule (b) allows h x
+   ulp(A') on a row hit h times, more than the row's whole change once h
+   passes ~256, so the long chains there (the root node's 65,536 adds a
+   call) are held bitwise on the exact grid as well: an f32 table whose
+   every update is nonzero at every element (sums exact to 2^24 units in
+   any order), and the fused bf16 route with at most 100 nonzero adds an
+   element (a row hit more often takes all-zero updates between them);
+   the plain update without the adds of the rows hit over 256 times, and
+   without one nonzero add of the hottest row, must fail the same check.
    Each timed case prints its time (ms: calls back to back under CUDA
    events, host included), its device time (device_ms: the CUPTI
    durations of the kernels its calls ran, under torch.profiler), the
@@ -181,11 +192,47 @@ Phase 11 runs right after phase 10:
    of the version it reports, through the one-pass backward kernel; (f)
    the SLO rows of the dashboard. Each prints its numbers with the card.
 
+Phase 12 runs after phase 6:
+
+12. word2vec completion: every single-process option of the JAX config
+   on the bench corpus and width (text8 V 71,291, D 200, the 4M-word zipf
+   corpus, bf16 tables, batch 65,536, G 64, row-mean by the JAX trainer's
+   auto rule, static where JAX allows it): (a) CBOW + NS, (b) HS alone,
+   (c) HS + NS, (d) skip-gram AdaGrad, (e) update_impl "segsum", (f)
+   "split8", (g) CBOW with compact_impl "gather", (h) the host-stream
+   trainer (iter_pair_batches on the loader thread, train_batches),
+   skip-gram and CBOW. Each: one step on the card and on CPU copies of the
+   same tables with the same draws, always at batch 65,536 (the slowest
+   CPU step, HS's, takes ~22 s), the change of every table (and of
+   AdaGrad's accumulators) held by phase 5's rule (segsum and split8,
+   whose f32 sums round once, within one ulp of the table dtype more),
+   each with a change of nothing as the failing control; for (g) the
+   packed batch bitwise equal to the scatter compaction's on the same
+   draws (the next slab's packing as the control). For (a) and (d), a
+   witness: 4 more single steps on the card and on the CPU twin with the
+   same draws, each loss within 1e-2 relative. Then one warm and 5 timed
+   calls of 25 steps (host batches: the stream runs epoch after epoch),
+   every loss finite and moving as the configuration's rule asks: HS,
+   segsum and split8 fall by at least 1e-3 relative from the held step;
+   AdaGrad (whose first updates move every touched element by ~lr, so its
+   loss rises) by 1e-3 from its highest; CBOW and the host stream, under
+   realized row-mean, must not rise 1e-3 over the held step (their loss
+   stays at its init for hundreds of steps in the JAX package too,
+   tools/w2v_loss_witness.py, and (a)'s witness shows the plain route's
+   staying there as well). The row-gather kernel launched, and the
+   scatter-add kernel launched exactly where the configuration's updates
+   use it (not by segsum and split8); one call under
+   torch.cuda.set_sync_debug_mode("error"); a profiled call's busy share
+   and top 5 device ops. Prints pairs/s (examples/s for CBOW) and ms a
+   call.
+
 The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
 library time, and the training run's bf16 launches beside the serving
 run's, and phase 11's beside them as ``launches_surface`` with that
-path's shape's error and times as ``surface_*``); the last
+path's shape's error and times as ``surface_*``; phase 12's launches
+by configuration as ``launches_completion``, and phase 4's HS-node and
+CBOW-window shapes as ``hs_nodes_*`` and ``cbow_ctx_*``); the last
 line is {"ok": true, "device": {...}}. Any failure exits
 nonzero before either line is printed. Without a CUDA device, or without
 the package beside this file, the script fails. To debug one phase, call
@@ -224,6 +271,8 @@ W2V_VOCAB, W2V_DIM, W2V_BATCH, W2V_G = 71291, 200, 65536, 64
 W2V_WORDS, W2V_STEPS, W2V_ITERS = 4_000_000, 25, 20
 W2V_PATH = f"path n={W2V_BATCH} bfloat16"
 W2V_ALPHA = -0.025         # the bench's -lr at the start of training
+W2V_HS = f"hs nodes n={W2V_BATCH}x40"
+W2V_CBOW = f"cbow ctx n={W2V_BATCH}x10"
 W2V_SRC = {"row_gather": "multiverso_tpu_torch/csrc/row_gather.cu",
            "row_scatter_add": "multiverso_tpu_torch/csrc/row_scatter_add.cu"}
 PROBE = "tools/w2v_kernel_probe.py"
@@ -2038,9 +2087,9 @@ def profile_window(fn):
     return profile_kernels(fn)[:3]
 
 
-def profile_kernels(fn):
-    """:func:`profile_window`'s three values and the number of device
-    kernels (and copies) the call ran."""
+def profile_kernels(fn, rows: int = 10):
+    """:func:`profile_window`'s three values (the table's top ``rows``)
+    and the number of device kernels (and copies) the call ran."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2058,7 +2107,8 @@ def profile_kernels(fn):
     dev = [e for e in avg
            if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy_us = sum(getattr(e, key) for e in dev)
-    return (wall * 1e3, busy_us / 1e3, avg.table(sort_by=key, row_limit=10),
+    return (wall * 1e3, busy_us / 1e3,
+            avg.table(sort_by=key, row_limit=rows),
             sum(e.count for e in dev))
 
 
@@ -2242,13 +2292,20 @@ def scatter_tolerance(before, hits, absum, dtype) -> torch.Tensor:
 
 
 def exact_case(V: int, D: int, ids: torch.Tensor, dtype, delta_dtype,
-               seed: int):
+               seed: int, cap: int = 100, sparse: bool = False):
     """A table and deltas on the 2^-16 grid whose every running sum is
-    exact in bf16 and f32, in any order: x0 in [-128, 128] units, and each
-    element of a row takes at most 100 nonzero +-1-unit adds (update k of
-    a row with h hits is nonzero at elements e with (k + e) % ceil(h/100)
-    == 0), so |sum| <= 228 units < 2^8. Every update is nonzero at some
-    element while ceil(h/100) <= D."""
+    exact in the table dtype, in any order: x0 in [-128, 128] units, and
+    each element of a row takes at most ``cap`` nonzero +-1-unit adds
+    (update k of a row with h hits is nonzero at elements e with (k + e) %
+    ceil(h/cap) == 0), so |sum| <= 128 + cap units: under 2^8 in bf16 (cap
+    100), under 2^24 in f32 (a cap of 2^20 makes every update nonzero at
+    every element). Every update is nonzero at some element while
+    ceil(h/cap) <= D; with ``sparse`` a row hit more often may take
+    all-zero updates (only D / ceil(h/cap) of its updates are nonzero)."""
+    limit = 2 ** 8 if dtype == torch.bfloat16 else 2 ** 24
+    if 128 + cap >= limit:
+        fail(f"exact scatter case: a cap of {cap} adds leaves the exact "
+             f"range of {dtype}")
     dev = ids.device
     unit = 2.0 ** -16
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -2260,8 +2317,8 @@ def exact_case(V: int, D: int, ids: torch.Tensor, dtype, delta_dtype,
     rank = torch.empty_like(key)
     rank[order] = torch.arange(n, device=dev) - torch.searchsorted(sk, sk)
     hits = torch.bincount(key, minlength=V + 1)[key]
-    stride = torch.clamp((hits + 99) // 100, min=1)
-    if int(stride.max()) > D:
+    stride = torch.clamp((hits + cap - 1) // cap, min=1)
+    if int(stride.max()) > D and not sparse:
         fail(f"exact scatter case: {int(hits.max())} hits on a row of {D}")
     e = torch.arange(D, device=dev)
     nz = (rank[:, None] + e[None, :]) % stride[:, None] == 0
@@ -2272,6 +2329,8 @@ def exact_case(V: int, D: int, ids: torch.Tensor, dtype, delta_dtype,
 
 
 W2V_EXACT_ALPHA = -0.5
+# phase 4's chain control: rows hit more often than this lose their adds
+W2V_HOT_HITS = 256
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 2):
@@ -2288,17 +2347,20 @@ def device_ms(fn, iters: int = 20, warmup: int = 2):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    avg = prof.key_averages()
-    key = ("self_device_time_total"
-           if hasattr(avg[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    dev = [e for e in avg
-           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    for _ in range(3):      # a window the profiler left empty is retried
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        key = ("self_device_time_total"
+               if hasattr(avg[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        dev = [e for e in avg
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if dev:
+            break
     return (sum(getattr(e, key) / e.count for e in dev) / 1e3,
             sum(e.count for e in dev) / iters)
 
@@ -2392,6 +2454,60 @@ def one_row_view(D: int):
                  f"reversed row passes the same check")
     say(f"kernel row_gather on a [1, {D}] view of a [{D}, 1] tensor: "
         f"bitwise equal, f32 / bf16 / bf16 -> f32")
+
+
+def scatter_chain(tag: str, V: int, D: int, dtype, ids_np: np.ndarray,
+                  fused: bool) -> None:
+    """The long duplicate chains (the Huffman root's 65,536 adds a
+    call) held bitwise on the exact grid: f32 with every update
+    nonzero at every element (cap 2^20, sums exact to 2^24 units), or
+    bf16 with at most 100 nonzero adds an element (a row hit more
+    often takes all-zero updates between them). Two controls must
+    fail the same bitwise check: the plain update with the adds of
+    every row hit over W2V_HOT_HITS times left out, and with one
+    nonzero add of the hottest row left out."""
+    emb = _emb()
+    dev = DEV
+    ids = torch.from_numpy(ids_np).to(dev)
+    cap = 100 if dtype == torch.bfloat16 else 2 ** 20
+    table, deltas = exact_case(V, D, ids, dtype, torch.float32,
+                               seed=19, cap=cap, sparse=True)
+    alpha = scale = None
+    if fused:
+        alpha, scale, deltas = exact_scaled(ids, V, deltas)
+    got = emb._scatter_add_cuda(table.clone(), ids, deltas, alpha, scale)
+    torch.cuda.synchronize()
+    want = emb._scatter_add_plain(table.clone(), ids, deltas, alpha,
+                                  scale)
+    if not torch.equal(bits(got), bits(want)):
+        n_bad = int((bits(got) != bits(want)).sum())
+        fail(f"row_scatter_add chain {tag}: {n_bad} elements differ "
+             f"from the plain version")
+    w, ok, landed = emb._landing_deltas(table, ids, deltas, alpha, scale)
+    wc = torch.where(ok, w, torch.zeros_like(w))
+    hits = torch.bincount(wc[ok], minlength=V)
+    top = int(torch.argmax(hits))
+    hot = ok & (hits[wc] > W2V_HOT_HITS)
+    nonzero = ok & (wc == top) & (landed.reshape(w.shape[0], -1) != 0
+                                  ).any(dim=1)
+    last = int(torch.nonzero(nonzero)[-1])
+    for what, drop in (
+            (f"the adds of the {int((hits > W2V_HOT_HITS).sum())} rows "
+             f"hit over {W2V_HOT_HITS} times", hot),
+            (f"one add of row {top}", torch.arange(
+                w.shape[0], device=dev) == last)):
+        ctl = emb._scatter_add_plain(
+            table.clone(), torch.where(drop, V, ids), deltas, alpha,
+            scale)
+        if torch.equal(bits(got), bits(ctl)):
+            fail(f"row_scatter_add chain {tag}: negative control: the "
+                 f"plain update without {what} gives the same table")
+    say(f"kernel row_scatter_add chain {tag}: bitwise equal on the "
+        f"exact grid (cap {cap} nonzero adds an element); row {top} "
+        f"hit {int(hits[top])} times, {int(nonzero.sum())} of its adds "
+        f"nonzero; the plain update without the rows hit over "
+        f"{W2V_HOT_HITS} times, or without one add of row {top}, "
+        f"differs (controls)")
 
 
 def phase_w2v_kernels():
@@ -2535,9 +2651,12 @@ def phase_w2v_kernels():
         uniq = int((hits > 0).sum())
         line += (f"), max hits {int(hits.max())}, unique rows {uniq}")
         if timed:
+            # every id is read; only an id that lands reads its deltas
             row = D * table.element_size()
-            nbytes = 2 * uniq * row + ids.numel() * (
-                D * deltas.element_size() + 4) + (4 * uniq if fused else 0)
+            n_land = int(emb._wrapped(ids, V)[1].sum())
+            nbytes = (2 * uniq * row + ids.numel() * 4
+                      + n_land * D * deltas.element_size()
+                      + (4 * uniq if fused else 0))
             work = table.clone()
 
             def call():
@@ -2549,9 +2668,15 @@ def phase_w2v_kernels():
                 work, ids, deltas, alpha, scale), iters=5, warmup=1)
             cast = landed
             lib_ms = lib_dev = None
-            if in_range(ids, V):
+            lib_ids = ids
+            if not in_range(ids, V) and bool((ids >= 0).all()):
+                # only dropped ids past the table: the library call takes
+                # the in-range ones, the adds the function makes
+                keep = ids < V
+                lib_ids, cast = ids[keep], landed[keep]
+            if in_range(lib_ids, V):
                 def lib():
-                    return work.index_add_(0, ids, cast)
+                    return work.index_add_(0, lib_ids, cast)
                 lib_ms = time_ms(lib, iters=20)
                 lib_dev = device_ms(lib)[0]
             r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -2613,6 +2738,28 @@ def phase_w2v_kernels():
     scatter_exact(probe, 71296, 256, f32, probe_ids)
     gather_case("k1b V=64 D=256 N=8 float32", 64, 256, f32,
                 rng.integers(0, 64, 8).astype(np.int32))
+    # phase 12's shapes: the Huffman path nodes of 65,536 zipf targets
+    # (the bench counts' codes, pad slots included: node 0, zero deltas on
+    # the path) and the 2W = 10 context slots of 65,536 CBOW examples;
+    # f32 deltas, the fused route, held by rule (b), and the long chains
+    # (the root node's 65,536 adds a call) bitwise on the exact grid
+    huff = w2v_corpus()["huffman"]
+    targets = zipf_ids(rng, V, W2V_BATCH)
+    # the step gathers every slot (pads read node 0) and scatters only the
+    # slots with a gradient: the pads' ids are past the table (dropped)
+    hs_gather = huff.paths[targets].reshape(-1)
+    hs_scatter = np.where(huff.mask[targets] > 0, huff.paths[targets],
+                          V).astype(np.int32).reshape(-1)
+    cbow_ids = zipf_ids(rng, V, W2V_BATCH * 10)
+    for name, g_ids, s_ids in ((W2V_HS, hs_gather, hs_scatter),
+                               (W2V_CBOW, cbow_ids, cbow_ids)):
+        gather_case(name + " bfloat16 -> float32", V, D, torch.bfloat16,
+                    g_ids, out_dtype=f32)
+        scatter_real("fused " + name + " bfloat16", V, D, torch.bfloat16,
+                     s_ids, fused=True)
+        scatter_chain(name + " float32", V, D, f32, s_ids, fused=False)
+        scatter_chain("fused " + name + " bfloat16", V, D, torch.bfloat16,
+                      s_ids, fused=True)
     path_ids = zipf_ids(rng, V, W2V_BATCH)
     graph_replay(V, D, path_ids)
     one_row_view(D)
@@ -2781,6 +2928,480 @@ def phase_w2v_slice(card: str):
             "kernels_per_step": n_dev / W2V_STEPS}
 
 
+# phase 12: word2vec completion, every single-process option of the JAX
+# config on the bench corpus and width (bench.py:148-154)
+W2V_OPT_ITERS = 5
+# how each configuration's loss must move over the held step, the warm
+# call and the timed calls: "falls", the last call at least W2V_FALL
+# (relative) under the held step; "peak", at least W2V_FALL under the
+# highest call (AdaGrad's first updates move every touched element by
+# ~lr, and its loss rises first); "flat", not W2V_FALL over the held step.
+# Realized row-mean, the JAX auto rule's choice for CBOW and the host
+# stream, leaves the loss of the iid bench corpus at its init for hundreds
+# of steps, in the JAX package too (tools/w2v_loss_witness.py)
+W2V_FALL = 1e-3
+W2V_OPT_CONFIGS = (
+    # tag, the Word2VecConfig fields that differ from the bench's, whether
+    # the config's updates go through the scatter kernel (segsum and
+    # split8 apply them with index_add_ into an f32 buffer), the loss rule,
+    # and the steps after the held step that the card and the CPU twin
+    # take with the same draws (the witness of a loss that does not fall)
+    ("a cbow+ns", dict(cbow=True), True, "flat", 4),
+    ("b hs", dict(hs=True, negative=0), True, "falls", 0),
+    ("c hs+ns", dict(hs=True), True, "falls", 0),
+    ("d adagrad", dict(use_adagrad=True), True, "peak", 4),
+    ("e segsum", dict(update_impl="segsum"), False, "falls", 0),
+    ("f split8", dict(update_impl="split8"), False, "falls", 0),
+    ("g cbow gather", dict(cbow=True, compact_impl="gather"), True, "flat",
+     0),
+)
+W2V_HOST_CONFIGS = (("h host skip-gram", dict()),
+                    ("h host cbow", dict(cbow=True)))
+# the witness's loss, card against the CPU twin, relative: the two start
+# from tables that differ within phase 5's rule, and AdaGrad's hot rows
+# then move by ~lr a duplicate, which magnifies each rounding difference
+# (its third step read 7.3772 on an H100 against 7.3861 on the CPU, 1.2e-3
+# apart, on a rise from 4.159); 1e-2 still tells a rise of 77% apart
+W2V_WITNESS_TOL = 1e-2
+_W2V_CORPUS = {}
+
+
+def w2v_corpus():
+    """The bench corpus, its dictionary, encoding, discard law and Huffman
+    codes, built once."""
+    if not _W2V_CORPUS:
+        from multiverso_tpu_torch import bench
+        from multiverso_tpu_torch.apps.wordembedding import (
+            Dictionary, encode_corpus, subsample_probs)
+        from multiverso_tpu_torch.models.word2vec import build_huffman
+
+        path = str(bench.corpus_file(W2V_WORDS, W2V_VOCAB))
+        d = Dictionary.build(path, min_count=1)
+        counts = np.asarray(d.counts, np.float64)
+        ids, sents = encode_corpus(path, d)
+        _W2V_CORPUS.update(
+            path=path, dictionary=d, counts=counts, ids=ids, sents=sents,
+            discard=subsample_probs(counts, 1e-3).astype(np.float32),
+            huffman=build_huffman(counts))
+    return _W2V_CORPUS
+
+
+def w2v_option_model(overrides, device_corpus: bool = True):
+    """A bench-configuration Word2Vec (bf16 tables, batch 65,536, G 64, a
+    2^22 negative pool, oversample 2.5) with ``overrides``; row-mean by the
+    JAX trainer's auto rule, static where JAX allows it (skip-gram SGD on
+    the device corpus)."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.apps.wordembedding import _auto_row_mean
+    from multiverso_tpu_torch.models.word2vec import Word2Vec, Word2VecConfig
+
+    c = w2v_corpus()
+    kw = dict(vocab_size=W2V_VOCAB, embedding_size=W2V_DIM, window=5,
+              negative=5, init_lr=0.025, batch_size=W2V_BATCH,
+              oversample=2.5, neg_pool_size=1 << 22, shared_negatives=W2V_G)
+    kw.update(overrides)
+    cfg = Word2VecConfig(**kw)
+    cfg.row_mean_updates = _auto_row_mean(cfg, c["counts"])
+    cfg.row_mean_static = (cfg.row_mean_updates and device_corpus
+                           and not (cfg.cbow or cfg.hs or cfg.use_adagrad))
+    w_in = mv.create_table("matrix", W2V_VOCAB, W2V_DIM,
+                           init_value="random", dtype=torch.bfloat16)
+    w_out = mv.create_table("matrix", W2V_VOCAB, W2V_DIM,
+                            dtype=torch.bfloat16)
+    model = Word2Vec(cfg, w_in, w_out, counts=c["counts"],
+                     huffman=c["huffman"] if cfg.hs else None)
+    model.total_words = 10 ** 9
+    if device_corpus:
+        model.load_corpus_chunk(c["ids"], c["sents"], c["discard"])
+    return model
+
+
+def w2v_cpu_twin(model):
+    """A Word2Vec on CPU copies of ``model``'s tables, accumulators, corpus
+    buffers, scales and lr progress, for the held step."""
+    import dataclasses
+
+    from multiverso_tpu_torch.models.word2vec import Word2Vec, tables_from_jax
+
+    cfg = dataclasses.replace(model.config)
+    c_in, c_out = tables_from_jax(model.input_table.get(),
+                                  model.output_table.get(), device="cpu",
+                                  dtype=model.input_table._data.dtype)
+    cpu = Word2Vec(cfg, c_in, c_out, counts=model._host_counts,
+                   huffman=w2v_corpus()["huffman"] if cfg.hs else None)
+    cpu.total_words = model.total_words
+    cpu._words_trained = model._words_trained
+    if hasattr(model, "_ext_bufs"):
+        cpu._ext_bufs = tuple(b.cpu() for b in model._ext_bufs)
+        cpu._corpus_len = model._corpus_len
+        cpu._stream_pos = model._stream_pos
+    if model._static_scale_in is not None:
+        cpu._static_scale_in = model._static_scale_in.cpu()
+        cpu._static_scale_out = model._static_scale_out.cpu()
+    if cfg.use_adagrad:
+        cpu._g_in = model._g_in.cpu().clone()
+        cpu._g_out = model._g_out.cpu().clone()
+    return cpu
+
+
+def w2v_state(model):
+    """The tensors one step changes, by name, on the model's device."""
+    out = {"w_in": model.input_table._data, "w_out": model.output_table._data}
+    if model.config.use_adagrad:
+        out.update(g_in=model._g_in, g_out=model._g_out)
+    return out
+
+
+def w2v_recorded_step(cpu, step):
+    """Run ``step()`` on the CPU twin, recording for each state tensor its
+    update statistics (:func:`scatter_stats`: hits, sum |delta| as landed,
+    the sum of each update's largest |delta|): from the plain scatter-add
+    or, for segsum / split8, from the f32 updates summed into the dense
+    buffer. Returns the step's result, the stats and the CPU seconds."""
+    from multiverso_tpu_torch.models.word2vec import _at
+
+    emb = _emb()
+    state = w2v_state(cpu)
+    names = {t.data_ptr(): n for n, t in state.items()}
+    stats = {}
+    plain = emb._scatter_add_plain
+    dense = cpu._apply_dense
+
+    def add(table, as_table, ids, landed):
+        name = names[table.data_ptr()]
+        got = scatter_stats(as_table, ids, landed)
+        seen = stats.get(name)
+        stats[name] = got if seen is None else tuple(
+            a + b for a, b in zip(seen, got))
+
+    def recording(table, ids, deltas, alpha=None, row_scale=None):
+        add(table, table, ids, emb._landing_deltas(table, ids, deltas,
+                                                   alpha, row_scale)[2])
+        return plain(table, ids, deltas, alpha, row_scale)
+
+    def recording_dense(w, rows, grads, lr, scale):
+        # the f32 updates as summed: stats over an f32 view of the table
+        coef = -lr if scale is None else (_at(scale, rows) * -lr)[:, None]
+        add(w, w.float(), rows, coef * grads.float())
+        return dense(w, rows, grads, lr, scale)
+
+    emb._scatter_add_plain = recording
+    cpu._apply_dense = recording_dense
+    try:
+        t0 = time.perf_counter()
+        result = step()
+        secs = time.perf_counter() - t0
+    finally:
+        emb._scatter_add_plain = plain
+        del cpu._apply_dense
+    return result, stats, secs
+
+
+def w2v_hold_change(tag, model, cpu, before, stats, dense: bool):
+    """Phase 5's rule on every state tensor: the card's change (after -
+    before) against the CPU's, each element within h x ulp(A') + 1e-4 x
+    the row's sum of largest |delta| (+ 2^-7 x sum |delta| in bf16, a
+    delta rounding to the other neighbour) for the scatter; for the dense
+    impls, whose f32 sums round once to the table, 1 ulp(A') of the table
+    dtype + the f32 sums' h x ulp(A') + 1e-4 x the row's sum of largest
+    |delta|. A change of nothing must fail it. Returns the share of the
+    tolerance reached by name."""
+    worst = {}
+    card_state, cpu_state = w2v_state(model), w2v_state(cpu)
+    for name, b in before.items():
+        dtype = b.dtype
+        hits, absum, rowscale = stats[name]
+        bf = b.float()
+        V = bf.shape[0]
+        if dense and name in ("w_in", "w_out"):
+            A = bf.abs().reshape(V, -1) + absum
+            tol = (ulp(A + ulp(A, dtype), dtype)
+                   + sum_ulp(bf, hits, absum, torch.float32)
+                   + 1e-4 * rowscale[:, None])
+        else:
+            flip = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+            tol = (sum_ulp(bf, hits, absum, dtype) + flip * absum
+                   + 1e-4 * rowscale[:, None])
+        d_card = card_state[name].float().cpu() - bf
+        d_cpu = cpu_state[name].float() - bf
+        diff = (d_card - d_cpu).abs()
+        worst[name] = excess(diff, tol)
+        control = excess(d_cpu.abs(), tol)
+        if not (worst[name] <= 1.0 and torch.isfinite(d_card).all()):
+            i = int(torch.argmax(torch.where(
+                tol > 0, diff / tol.clamp(min=1e-38), diff * float("inf"))))
+            v, e = divmod(i, W2V_DIM)
+            fail(f"w2v {tag} held step {name}: change {worst[name]} x the "
+                 f"tolerance; worst at row {v} col {e}: before "
+                 f"{bf[v, e].item():.6e} change card "
+                 f"{d_card[v, e].item():.6e} cpu {d_cpu[v, e].item():.6e} "
+                 f"hits {hits[v].item():.0f} tol {tol[v, e].item():.6e}")
+        if not control > 1.0:
+            fail(f"w2v {tag} held step {name}: negative control: no change "
+                 f"is within the tolerance ({control:.3f})")
+        worst[name + "_control"] = control
+    return worst
+
+
+def w2v_check_packing(model, draws):
+    """(g): the gather compaction packs this step's CBOW batch bit for bit
+    as the scatter compaction does on the same draws; the scatter packing
+    of the next slab must differ (the control)."""
+    M = model._candidate_batch(model._corpus_len)
+    start = model._stream_pos % model._corpus_len
+    args = (draws["shrink"][0], draws["u_center"][0], draws["u_ctx"][0])
+    got = model._sample_cbow(start, M, *args)
+    model.config.compact_impl = "scatter"
+    try:
+        want = model._sample_cbow(start, M, *args)
+        other = model._sample_cbow((start + M) % model._corpus_len, M, *args)
+    finally:
+        model.config.compact_impl = "gather"
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            fail("w2v (g): the gather compaction's batch differs from the "
+                 "scatter compaction's on the same draws")
+    if all(torch.equal(g, o) for g, o in zip(got, other)):
+        fail("w2v (g): negative control: the next slab packs the same batch")
+    return int((got[2].sum(dim=1) > 0).sum())
+
+
+def w2v_host_stream(model, cbow: bool):
+    """The host-stream batches of ``apps.wordembedding.train``
+    (``iter_pair_batches`` on the loader thread), epoch after epoch."""
+    from multiverso_tpu_torch.apps.wordembedding import iter_pair_batches
+    from multiverso_tpu_torch.parallel import prefetch_iterator
+
+    c = w2v_corpus()
+    cfg = model.config
+
+    def epochs():
+        epoch = 0
+        while True:
+            yield from iter_pair_batches(
+                c["path"], c["dictionary"], cfg.window, cfg.batch_size,
+                sample=1e-3, cbow=cbow, seed=cfg.seed + epoch)
+            epoch += 1
+
+    return prefetch_iterator(epochs(), depth=2 * W2V_STEPS)
+
+
+def w2v_examples(mask: np.ndarray, cbow: bool) -> float:
+    return float((mask.sum(axis=-1) > 0).sum() if cbow else mask.sum())
+
+
+def w2v_held_step(tag, model, stream):
+    """One step of ``model`` on the card and on its CPU twin with the same
+    draws (for the host stream: the stream's next batch and the same
+    negatives), every state tensor's change held by
+    :func:`w2v_hold_change`; for the gather compaction, the packing too.
+    The output table is first set like the random init (+-0.5/D), as in
+    phase 5, so the step moves the input table too. Returns the card's
+    loss and the CPU twin."""
+    from multiverso_tpu_torch.models.word2vec import sample_negatives
+
+    cfg = model.config
+    dense = cfg.update_impl != "scatter" and not cfg.use_adagrad
+    model.output_table.set_array(torch.from_numpy(
+        ((np.random.default_rng(3).random((W2V_VOCAB, W2V_DIM)) - 0.5)
+         / W2V_DIM).astype(np.float32)))
+    before = {n: t.detach().cpu().clone()
+              for n, t in w2v_state(model).items()}
+    cpu = w2v_cpu_twin(model)
+    packed = ""
+    if stream is None:
+        draws = model.draw(1)
+        if cfg.compact_impl == "gather":
+            n_ex = w2v_check_packing(model, draws)
+            packed = (f"; gather packing bitwise equal to the scatter "
+                      f"packing ({n_ex} examples)")
+        t0 = time.perf_counter()
+        loss, count = model.train_device_steps(1, draws=draws)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        (closs, ccount), stats, cpu_s = w2v_recorded_step(
+            cpu, lambda: cpu.train_device_steps(
+                1, draws={k: v.cpu() for k, v in draws.items()}))
+    else:
+        cen, ctx, msk = next(stream)
+        G = max(cfg.shared_negatives, 1)
+        negs = sample_negatives(model._gen, model._packed_alias,
+                                (cfg.batch_size // G, cfg.negative))
+        lr = float(np.float32(model.current_lr()))
+        tens = [torch.from_numpy(np.asarray(a)) for a in (cen, ctx, msk)]
+
+        def host_step(m, ts, ng):
+            return m._raw_step(m.input_table._data, m.output_table._data,
+                               *ts, lr, ng)
+
+        t0 = time.perf_counter()
+        loss = host_step(model, [t.to(DEV) for t in tens], negs)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        closs, stats, cpu_s = w2v_recorded_step(
+            cpu, lambda: host_step(cpu, tens, negs.cpu()))
+        count = ccount = w2v_examples(msk, cfg.cbow)
+    worst = w2v_hold_change(tag, model, cpu, before, stats, dense)
+    lerr = abs(float(loss) - float(closs))
+    if float(count) != float(ccount) or not lerr <= 1e-4:
+        fail(f"w2v {tag} held step: count {float(count)} vs "
+             f"{float(ccount)}, loss {float(loss)} vs {float(closs)}")
+    shares = " ".join(f"{n} {worst[n]:.3e} (no change "
+                      f"{worst[n + '_control']:.3g})" for n in before)
+    rm = ("static" if cfg.row_mean_static else
+          "realized" if cfg.row_mean_updates else "off")
+    say(f"w2v {tag} held step (batch {cfg.batch_size}, row-mean {rm}): "
+        f"examples {float(count):.0f}, loss {float(loss):.6f} vs cpu "
+        f"{float(closs):.6f}; change, share of the tolerance: {shares}"
+        f"{packed}; host clock card {card_s:.3f} s (first step, cold), "
+        f"cpu {cpu_s:.3f} s")
+    return loss, cpu
+
+
+def w2v_witness(tag, model, cpu, steps: int):
+    """``steps`` single steps on the card and on the CPU twin (the plain
+    route), each from where the held step left it, with the same draws:
+    each step's loss on the card within W2V_WITNESS_TOL (relative) of the
+    CPU's. Shows that a loss which does not fall, or rises, does so on
+    the plain route too. Returns the two series."""
+    card, plain = [], []
+    for _ in range(steps):
+        draws = model.draw(1)
+        card.append(float(model.train_device_steps(1, draws=draws)[0]))
+        plain.append(float(cpu.train_device_steps(
+            1, draws={k: v.cpu() for k, v in draws.items()})[0]))
+    worst = max(abs(a - b) / abs(b) for a, b in zip(card, plain))
+    if not worst <= W2V_WITNESS_TOL:
+        fail(f"w2v {tag} witness: the loss of {steps} steps on the card "
+             f"{card} vs the CPU twin {plain}")
+    say(f"w2v {tag} witness: {steps} more steps from the held step's "
+        f"tables, the same draws: loss card {card} cpu {plain} (worst "
+        f"{worst:.3e} relative, tolerance {W2V_WITNESS_TOL:g})")
+    return card, plain
+
+
+def phase_w2v_options(card: str):
+    """12. word2vec completion: every single-process option of the JAX
+    config at the bench width (module docstring, phase 12). Returns each
+    configuration's launches by kernel."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import bench
+
+    emb = _emb()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    c = w2v_corpus()
+    say(f"w2v options: bench corpus {W2V_WORDS} words, vocab "
+        f"{c['dictionary'].vocab_size}, Huffman depth "
+        f"{int(c['huffman'].mask.sum(1).max())}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    results = {}
+    configs = [(tag, o, k, rule, n, True)
+               for tag, o, k, rule, n in W2V_OPT_CONFIGS]
+    configs += [(tag, o, True, "flat", 0, False)
+                for tag, o in W2V_HOST_CONFIGS]
+    steps = W2V_STEPS
+    for tag, overrides, scatters, rule, n_wit, device_corpus in configs:
+        # host seconds by part: set-up, held step, witness, timed run,
+        # sync check and profile
+        marks = [time.perf_counter()]
+        model = w2v_option_model(overrides, device_corpus)
+        cfg = model.config
+        stream = (None if device_corpus
+                  else w2v_host_stream(model, cfg.cbow))
+        marks.append(time.perf_counter())
+        # 1. one held step, card against the CPU twin, the same draws,
+        # and for a loss that does not fall, the witness steps
+        loss, cpu = w2v_held_step(tag, model, stream)
+        marks.append(time.perf_counter())
+        witness = w2v_witness(tag, model, cpu, n_wit)[0] if n_wit else []
+        del cpu
+        marks.append(time.perf_counter())
+        # 2. the timed run, the kernels' launches counted around it
+        torch.cuda.synchronize()
+        emb.reset_launches()
+        # the loss series starts at the held step, the first from the init
+        losses = [float(loss)]
+        if device_corpus:
+            res = bench.timed_window(model, steps, W2V_OPT_ITERS)
+            losses += [res["warm_loss"]] + res["losses"]
+            n_ex, elapsed = res["pairs"], res["elapsed_s"]
+
+            def one_call():
+                return model.train_device_steps(steps)
+        else:
+            def one_call():
+                group = [next(stream) for _ in range(steps)]
+                loss = model.train_batches(*(np.stack([b[i] for b in group])
+                                             for i in range(3)))
+                return loss, sum(w2v_examples(b[2], cfg.cbow) for b in group)
+
+            losses.append(float(one_call()[0]))
+            n_ex = 0.0
+            t0 = time.perf_counter()
+            pending = []
+            for _ in range(W2V_OPT_ITERS):
+                loss, n = one_call()
+                pending.append(loss)
+                n_ex += n
+            losses += [float(x) for x in pending]
+            elapsed = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(emb.LAUNCHES)
+        unit = "examples" if cfg.cbow else "pairs"
+        say(f"w2v {tag}: {W2V_OPT_ITERS} x {steps}-step calls after one "
+            f"warm call: {n_ex:.0f} {unit} in {elapsed:.3f} s = "
+            f"{n_ex / elapsed:.1f} {unit}/s, "
+            f"{elapsed / W2V_OPT_ITERS * 1e3:.3f} ms per call; loss of the "
+            f"held step and of each call {losses}; "
+            f"launches {json.dumps(launches)}; card {card}")
+        # the loss rule (W2V_OPT_CONFIGS)
+        top = max(losses + witness)
+        moved = {"falls": losses[-1] <= losses[0] * (1 - W2V_FALL),
+                 "peak": losses[-1] <= top * (1 - W2V_FALL),
+                 "flat": losses[-1] <= losses[0] * (1 + W2V_FALL)}[rule]
+        if not (np.isfinite(losses + witness).all() and moved):
+            fail(f"w2v {tag}: loss not finite or not as the rule "
+                 f"{rule!r} asks: {losses}")
+        say(f"w2v {tag}: loss rule {rule!r}: last call {losses[-1]:.6f}, "
+            f"held step {losses[0]:.6f}, highest {top:.6f} (relative fall "
+            f"{1 - losses[-1] / losses[0]:.3e} from the held step, "
+            f"{1 - losses[-1] / top:.3e} from the highest)")
+        if n_ex <= 0:
+            fail(f"w2v {tag}: trained nothing")
+        if launches["row_gather"] <= 0 or (
+                (launches["row_scatter_add"] > 0) != scatters):
+            fail(f"w2v {tag}: kernel launches {launches} (the scatter "
+                 f"kernel {'expected' if scatters else 'not expected'})")
+        # 3. no host sync inside a call
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one_call()
+        except RuntimeError as exc:
+            fail(f"w2v {tag}: a call synchronized with the host: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        wall_ms, busy_ms, table, n_dev = profile_kernels(
+            lambda: float(one_call()[0]), rows=5)
+        say(f"w2v {tag}: sync check passed (one {steps}-step call under "
+            f"set_sync_debug_mode('error')); profile of one call: wall "
+            f"{wall_ms:.3f} ms (profiler on), device busy {busy_ms:.3f} ms "
+            f"({busy_ms / wall_ms:.3f} of wall), {n_dev / steps:.2f} device "
+            f"kernels a step; top 5 by device time:\n{table}")
+        results[tag] = launches
+        marks.append(time.perf_counter())
+        parts = " / ".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:]))
+        say(f"w2v {tag}: {marks[-1] - marks[0]:.1f} s (set-up / held step / "
+            f"witness / timed run / sync check and profile: {parts})")
+        del model
+        mv.session().tables.clear()
+        torch.cuda.empty_cache()
+    say(f"w2v options: phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2794,6 +3415,7 @@ def main() -> None:
     mv.init(["chip_smoke", "-device=cuda"])
     phase_w2v_step()
     w2v = phase_w2v_slice(card)
+    options = phase_w2v_options(card)
     mv.shutdown()
     n_g = w2v["launches"]["row_gather"]
     n_s = w2v["launches"]["row_scatter_add"]
@@ -2815,7 +3437,27 @@ def main() -> None:
             # path runs; the launches are the kernel's, all at the path's
             # shapes
             entry["launches_of"] = name.split("[")[0]
+        # phase 12's configurations, each counted from 0 around its run
+        kernel = name.split("[")[0]
+        entry["launches_completion"] = {
+            tag: launches[kernel] for tag, launches in options.items()}
         kernels_line.append(entry)
+    # phase 12's shapes of the two routes the word2vec step runs
+    for entry in kernels_line:
+        kind, route = {"row_gather[f32 out]": ("gather", " -> float32"),
+                       "row_scatter_add[fused]": ("scatter", "fused ")}.get(
+                           entry["name"], (None, None))
+        if kind is None:
+            continue
+        for key, shape in (("hs_nodes", W2V_HS), ("cbow_ctx", W2V_CBOW)):
+            tag = (shape + " bfloat16" + route if kind == "gather"
+                   else route + shape + " bfloat16")
+            r = wk[(kind, tag)]
+            entry.update({f"{key}_{k}": r[k] for k in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "library_ms", "library_device_ms")})
+            if kind == "gather":
+                entry[f"{key}_two_call_ms"] = r["two_call_ms"]
     # phase 11's own launches (the micro-batcher's flash prefills and row
     # gathers, train-while-serving's one-pass backward), each counted
     # from 0 just before its sub-phase

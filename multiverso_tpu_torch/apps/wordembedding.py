@@ -3,23 +3,26 @@
 Counterpart of ``multiverso_tpu/apps/wordembedding.py`` (the reference
 WordEmbedding app, ``Applications/WordEmbedding/src/
 distributed_wordembedding.cpp``). The dictionary, the corpus encoder, the
-subsampling law and the embedding writer are copies of the JAX package's
-(the same word ids in the same order). :func:`train` runs the
-device-resident corpus path: the encoded corpus lives on the card and every
-call samples and trains ``steps_per_call`` batches there
-(``Word2Vec.load_corpus_chunk`` + ``train_device_steps``); corpora over the
-device budget rotate through equal-length chunks.
+subsampling law, the host-stream example builders and the embedding writer
+are copies of the JAX package's (the same word ids in the same order, and
+the same batches from the same seed). :func:`train` runs either path of the
+JAX trainer:
 
-One process, one device. Not ported yet, and refused: the host-stream path
-(``iter_pair_batches`` with the loader thread; ``device_corpus=False``, or
-``device_corpus=None`` on a corpus under max(batch + 2*window + 2, 65,536)
-tokens, where the JAX trainer's auto rule streams from the host; ``True``
-trains such a corpus on the device path, as it does in JAX),
-multi-process data partition, the
-async delta pusher and SSP (which need the distributed paths). The JAX
-trainer's ``kv`` word-count table only records the epoch's words; the
-``kv`` table is not ported, so :func:`train` keeps the count in
-``TrainResult`` alone.
+* the device-resident corpus: the encoded corpus lives on the card and
+  every call samples and trains ``steps_per_call`` batches there
+  (``Word2Vec.load_corpus_chunk`` + ``train_device_steps``); corpora over
+  the device budget rotate through equal-length chunks;
+* the host stream: :func:`iter_pair_batches` builds fixed-size skip-gram
+  or CBOW batches from the text with numpy, run ahead on a loader thread
+  (``parallel.prefetch_iterator``), and ``train_batch(es)`` trains them;
+  the lr decays over the exact words consumed.
+
+One process, one device, local corpus files. Not ported yet: the
+multi-process data partition (``shard=``), the async delta pusher and SSP
+(the distributed paths, ROADMAP.md Queue 1 item 8), and URI corpora (item
+7). The JAX trainer's ``kv`` word-count table only records the epoch's
+words; the ``kv`` table is not ported (item 6), so :func:`train` keeps the
+count in ``TrainResult`` alone.
 
 CLI: ``python -m multiverso_tpu_torch.apps.wordembedding -train_file
 corpus.txt -output vec.txt -size 100 -window 5 -negative 5 -epoch 1 ...``
@@ -39,7 +42,7 @@ import numpy as np
 
 from ..dashboard import Dashboard
 from ..log import Log
-from ..models.word2vec import Word2Vec, Word2VecConfig
+from ..models.word2vec import Word2Vec, Word2VecConfig, build_huffman
 
 _INFREQUENT_BUCKET = "WE_ARE_THE_INFREQUENT_WORDS"
 
@@ -193,6 +196,156 @@ def subsample_probs(counts: np.ndarray, sample: float) -> np.ndarray:
     return np.clip(1.0 - keep, 0.0, 1.0)
 
 
+def _pairs_from_chunk(ids: np.ndarray, sent_ids: np.ndarray, window: int,
+                      rng) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Vectorised skip-gram pair generation over a word chunk (a copy of
+    the JAX package's). ``sent_ids`` marks sentence membership so windows
+    never cross boundaries; each center's random window shrink is the
+    reference trainer's ``rand % window + 1``. Returns (centers, contexts,
+    mask), shuffled."""
+    n = ids.shape[0]
+    if n < 2:
+        return (np.empty(0, np.int32), np.empty(0, np.int32),
+                np.empty(0, np.float32))
+    shrink = rng.integers(1, window + 1, size=n)
+    centers_parts, contexts_parts = [], []
+    for d in range(1, window + 1):
+        same_sent = sent_ids[:-d] == sent_ids[d:]
+        # forward pairs: center i, context i+d (center's window covers d)
+        fwd = same_sent & (shrink[:-d] >= d)
+        centers_parts.append(ids[:-d][fwd])
+        contexts_parts.append(ids[d:][fwd])
+        # backward pairs: center i+d, context i
+        bwd = same_sent & (shrink[d:] >= d)
+        centers_parts.append(ids[d:][bwd])
+        contexts_parts.append(ids[:-d][bwd])
+    centers = np.concatenate(centers_parts).astype(np.int32)
+    contexts = np.concatenate(contexts_parts).astype(np.int32)
+    perm = rng.permutation(centers.shape[0])
+    return (centers[perm], contexts[perm],
+            np.ones(centers.shape[0], np.float32))
+
+
+def _cbow_from_chunk(ids: np.ndarray, sent_ids: np.ndarray, window: int,
+                     rng) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Vectorised CBOW example generation (a copy of the JAX package's):
+    one example per center word with its (shrunk) window as context slots.
+    Returns (centers [N], contexts [N, 2W], cmask [N, 2W]), shuffled."""
+    n = ids.shape[0]
+    W = window
+    if n < 2:
+        return (np.empty(0, np.int32), np.empty((0, 2 * W), np.int32),
+                np.empty((0, 2 * W), np.float32))
+    shrink = rng.integers(1, W + 1, size=n)
+    offsets = np.concatenate([np.arange(-W, 0), np.arange(1, W + 1)])
+    pos = np.arange(n)
+    ctx = pos[:, None] + offsets[None, :]
+    in_range = (ctx >= 0) & (ctx < n)
+    ctx_c = np.clip(ctx, 0, n - 1)
+    in_window = np.abs(offsets)[None, :] <= shrink[:, None]
+    valid = in_range & in_window & (sent_ids[ctx_c] == sent_ids[pos][:, None])
+    keep_rows = valid.any(axis=1)
+    centers = ids[pos[keep_rows]].astype(np.int32)
+    contexts = ids[ctx_c[keep_rows]].astype(np.int32)
+    cmask = valid[keep_rows].astype(np.float32)
+    perm = rng.permutation(centers.shape[0])
+    return centers[perm], contexts[perm], cmask[perm]
+
+
+def iter_pair_batches(
+    corpus_path: str,
+    dictionary: Dictionary,
+    window: int,
+    batch_size: int,
+    sample: float = 1e-3,
+    seed: int = 11,
+    cbow: bool = False,
+    chunk_words: int = 1 << 20,
+    progress: Optional[dict] = None,
+) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Yield fixed-size (centers, contexts, mask) batches from a local text
+    file (the JAX package's host stream, the same batches from the same
+    seed). Skip-gram: contexts/mask are [B]; CBOW: [B, 2*window] with
+    per-slot validity. Sentences are subsampled, gathered into ~
+    ``chunk_words`` word chunks, turned into examples a chunk at a time by
+    array ops, and sliced into batches; the last batch is zero-padded (mask
+    0). ``progress``, if given, has ``progress["words"]`` updated in place:
+    the corpus words consumed so far, before subsampling (the reference's
+    ``word_count``), for exact lr decay."""
+    rng = np.random.default_rng(seed)
+    discard = subsample_probs(np.asarray(dictionary.counts, np.float64),
+                              sample)
+    vocab_lookup = dictionary.word2id
+    from_chunk = _cbow_from_chunk if cbow else _pairs_from_chunk
+    chunk_ids: List[np.ndarray] = []
+    chunk_sents: List[np.ndarray] = []
+    chunk_len = 0
+    sent_counter = 0
+    leftovers: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    leftover_len = 0
+
+    def flush_chunk():
+        nonlocal chunk_ids, chunk_sents, chunk_len, leftover_len
+        if not chunk_ids:
+            return
+        ids = np.concatenate(chunk_ids)
+        sents = np.concatenate(chunk_sents)
+        chunk_ids, chunk_sents, chunk_len = [], [], 0
+        example = from_chunk(ids, sents, window, rng)
+        leftovers.append(example)
+        leftover_len += example[0].shape[0]
+
+    def drain(final: bool):
+        nonlocal leftovers, leftover_len
+        if leftover_len == 0:
+            return
+        if not final and leftover_len < batch_size:
+            return
+        centers = np.concatenate([e[0] for e in leftovers])
+        contexts = np.concatenate([e[1] for e in leftovers])
+        masks = np.concatenate([e[2] for e in leftovers])
+        full = (centers.shape[0] // batch_size) * batch_size
+        for i in range(0, full, batch_size):
+            yield (centers[i:i + batch_size], contexts[i:i + batch_size],
+                   masks[i:i + batch_size])
+        rest = (centers[full:], contexts[full:], masks[full:])
+        if final and rest[0].shape[0]:
+            pad = batch_size - rest[0].shape[0]
+            yield (
+                np.concatenate([rest[0], np.zeros(pad, np.int32)]),
+                np.concatenate(
+                    [rest[1],
+                     np.zeros((pad,) + rest[1].shape[1:], np.int32)]),
+                np.concatenate(
+                    [rest[2],
+                     np.zeros((pad,) + rest[2].shape[1:], np.float32)]),
+            )
+            leftovers, leftover_len = [], 0
+        else:
+            leftovers = [rest]
+            leftover_len = rest[0].shape[0]
+
+    for line in _read_lines(corpus_path):
+        arr = np.asarray([vocab_lookup[t] for t in line.split()
+                          if t in vocab_lookup], dtype=np.int32)
+        if progress is not None:
+            progress["words"] = progress.get("words", 0) + int(arr.size)
+        if sample > 0 and arr.size:
+            keep = rng.random(arr.shape[0]) >= discard[arr]
+            arr = arr[keep]
+        if arr.size < 2:
+            continue
+        chunk_ids.append(arr)
+        chunk_sents.append(np.full(arr.shape[0], sent_counter, np.int32))
+        sent_counter += 1
+        chunk_len += arr.shape[0]
+        if chunk_len >= chunk_words:
+            flush_chunk()
+            yield from drain(final=False)
+    flush_chunk()
+    yield from drain(final=True)
+
+
 def encode_corpus(corpus_path: str, dictionary: Dictionary
                   ) -> Tuple[np.ndarray, np.ndarray]:
     """Encode a corpus to (word ids, sentence ids) arrays for upload to the
@@ -257,15 +410,15 @@ def train(
     oversample: Optional[float] = None,
     output_path_ctx: Optional[str] = None,
 ) -> TrainResult:
-    """Full training loop (reference ``TrainNeuralNetwork``) on the
-    device-resident corpus path. ``device_corpus`` True selects it, and so
-    does None (the JAX trainer's auto rule) on a corpus of at least
-    max(batch + 2*window + 2, 65,536) tokens; False, and None on a smaller
-    corpus, mean the host-stream path, which is not ported and raises.
-    Left as None,
-    ``steps_per_call`` / ``oversample`` resolve to the device path's tuned
-    values (32 / 2.5) when the cfg holds its defaults. The caller's ``cfg``
-    is never mutated."""
+    """Full training loop (reference ``TrainNeuralNetwork``).
+    ``device_corpus`` True trains on the device-resident corpus path; False
+    streams host-built batches; None (the JAX trainer's auto rule) takes
+    the device path when the encoded corpus holds between max(batch +
+    2*window + 2, 65,536) tokens and the device budget (2^27), else the
+    host stream. Left as None, ``steps_per_call`` / ``oversample`` resolve
+    to the device path's tuned values (32 / 2.5) when the cfg holds its
+    defaults; the host stream keeps the cfg's. The caller's ``cfg`` is never
+    mutated."""
     import multiverso_tpu_torch as mv
 
     cfg = dataclasses.replace(cfg) if cfg is not None else Word2VecConfig()
@@ -273,9 +426,6 @@ def train(
         cfg.steps_per_call = int(steps_per_call)
     if oversample is not None:
         cfg.oversample = float(oversample)
-    if device_corpus is False:
-        Log.fatal("device_corpus=False: the host-stream training path is not "
-                  "ported to multiverso_tpu_torch yet")
     if dictionary is None:
         Log.info("building dictionary from %s ...", corpus_path)
         dictionary = Dictionary.build(corpus_path, min_count=min_count)
@@ -288,26 +438,26 @@ def train(
     if cfg.row_mean_updates is None:
         cfg.row_mean_updates = _auto_row_mean(cfg, counts)
 
-    ids, sent_ids = encode_corpus(corpus_path, dictionary)
-    n_enc = int(ids.shape[0])
-    min_positions = cfg.batch_size + 2 * cfg.window + 2
-    if n_enc < min_positions:
-        Log.fatal(f"the device corpus path needs at least batch_size + "
-                  f"2*window + 2 = {min_positions} positions; the corpus has "
-                  f"{n_enc} (the host-stream path for small corpora is not "
-                  f"ported yet)")
-    auto_min = max(min_positions, _DEVICE_CORPUS_AUTO_MIN_TOKENS)
-    if device_corpus is None and n_enc < auto_min:
-        # the JAX trainer's auto rule streams such a corpus from the host
-        Log.fatal(f"device_corpus=None picks the host-stream path for a "
-                  f"corpus under {auto_min} tokens (this one has {n_enc}), "
-                  f"and the host-stream path is not ported yet; pass "
-                  f"device_corpus=True to train it on the device path")
-    # fast-path defaults, resolved before the model validates them
-    if cfg.steps_per_call <= 1 and steps_per_call is None:
-        cfg.steps_per_call = 32
-    if cfg.oversample <= 1 and oversample is None:
-        cfg.oversample = 2.5
+    ids = sent_ids = None
+    if device_corpus is None or device_corpus:
+        ids, sent_ids = encode_corpus(corpus_path, dictionary)
+        n_enc = int(ids.shape[0])
+        min_positions = cfg.batch_size + 2 * cfg.window + 2
+        if device_corpus is None:
+            device_corpus = (
+                n_enc <= _DEVICE_CORPUS_MAX_TOKENS
+                and n_enc >= max(min_positions,
+                                 _DEVICE_CORPUS_AUTO_MIN_TOKENS))
+        elif n_enc < min_positions:
+            Log.fatal(f"device_corpus needs at least batch_size + 2*window "
+                      f"+ 2 = {min_positions} positions; the corpus has "
+                      f"{n_enc}")
+    if device_corpus:
+        # fast-path defaults, resolved before the model validates them
+        if cfg.steps_per_call <= 1 and steps_per_call is None:
+            cfg.steps_per_call = 32
+        if cfg.oversample <= 1 and oversample is None:
+            cfg.oversample = 2.5
 
     dtype_kw = {} if table_dtype is None else {"dtype": table_dtype}
     input_table = mv.create_table(
@@ -316,9 +466,47 @@ def train(
     output_table = mv.create_table(
         "matrix", vocab, cfg.embedding_size, name="word2vec_output",
         **dtype_kw)
-    model = Word2Vec(cfg, input_table, output_table, counts=counts)
+    huffman = build_huffman(counts, cfg.max_code_length) if cfg.hs else None
+    model = Word2Vec(cfg, input_table, output_table, counts=counts,
+                     huffman=huffman)
     model.total_words = dictionary.train_words * max(epochs, 1)
+    mon = Dashboard.get_or_create("W2V_TRAIN_BATCH")
+    t0 = time.perf_counter()
+    if device_corpus:
+        pairs, loss = _train_device_corpus(model, ids, sent_ids, counts,
+                                           sample, epochs, log_every, mon,
+                                           t0)
+        words = dictionary.train_words * epochs
+        mode = " [device corpus]"
+    else:
+        pairs, loss, words = _train_host_stream(
+            model, corpus_path, dictionary, sample, epochs, log_every, mon,
+            t0)
+        mode = ""
+    final_loss = float(loss)
+    elapsed = time.perf_counter() - t0
 
+    if output_path:
+        save_embeddings(output_path, dictionary, input_table.get())
+    if output_path_ctx:
+        save_embeddings(output_path_ctx, dictionary, output_table.get())
+    result = TrainResult(words_trained=words, pairs_trained=pairs,
+                         elapsed_s=elapsed,
+                         words_per_sec=words / max(elapsed, 1e-9),
+                         pairs_per_sec=pairs / max(elapsed, 1e-9),
+                         final_loss=final_loss)
+    Log.info("trained %d words (%d pairs) in %.1fs: %.0f words/sec, "
+             "%.0f pairs/sec%s", words, pairs, result.elapsed_s,
+             result.words_per_sec, result.pairs_per_sec, mode)
+    return result
+
+
+def _train_device_corpus(model: Word2Vec, ids, sent_ids, counts, sample,
+                         epochs, log_every, mon, t0):
+    """The device-resident corpus path of :func:`train`; returns the
+    examples trained and the last loss."""
+    cfg = model.config
+    n_enc = int(ids.shape[0])
     discard = subsample_probs(counts, sample).astype(np.float32)
     # corpora over the device budget rotate through EQUAL-length chunks;
     # the tail chunk wraps to the front like the in-chunk stream
@@ -340,14 +528,14 @@ def train(
     spc = cfg.steps_per_call
     m_per_step = model._candidate_batch(chunk_len)
     # one pass samples one (center, context) pair per position; the
-    # reference trains ~window+1 pairs per center word, so an epoch takes
-    # window+1 passes' worth of calls
-    calls_per_chunk = max(1, -(-(chunk_len * (cfg.window + 1))
+    # reference trains ~window+1 pairs per center word, so a skip-gram
+    # epoch takes window+1 passes' worth of calls. CBOW is one example per
+    # center.
+    pair_factor = 1 if cfg.cbow else cfg.window + 1
+    calls_per_chunk = max(1, -(-(chunk_len * pair_factor)
                                // (spc * m_per_step)))
     pairs = 0
     loss = float("nan")
-    mon = Dashboard.get_or_create("W2V_TRAIN_BATCH")
-    t0 = time.perf_counter()
     for epoch in range(epochs):
         done = 0.0
         pending = []
@@ -371,23 +559,65 @@ def train(
                              float(loss))
         done += float(sum(float(x) for x in pending))
         pairs += int(done)
-    final_loss = float(loss)
-    elapsed = time.perf_counter() - t0
+    return pairs, loss
 
-    if output_path:
-        save_embeddings(output_path, dictionary, input_table.get())
-    if output_path_ctx:
-        save_embeddings(output_path_ctx, dictionary, output_table.get())
-    words = dictionary.train_words * epochs
-    result = TrainResult(words_trained=words, pairs_trained=pairs,
-                         elapsed_s=elapsed,
-                         words_per_sec=words / max(elapsed, 1e-9),
-                         pairs_per_sec=pairs / max(elapsed, 1e-9),
-                         final_loss=final_loss)
-    Log.info("trained %d words (%d pairs) in %.1fs: %.0f words/sec, "
-             "%.0f pairs/sec [device corpus]", words, pairs,
-             result.elapsed_s, result.words_per_sec, result.pairs_per_sec)
-    return result
+
+def _train_host_stream(model: Word2Vec, corpus_path, dictionary, sample,
+                       epochs, log_every, mon, t0):
+    """The host-stream path of :func:`train`: each epoch's batches come
+    from :func:`iter_pair_batches` (seed ``cfg.seed + epoch``) on the
+    loader thread, ``steps_per_call`` at a time through ``train_batches``
+    and the tail one dispatch each; the lr follows the exact words
+    consumed. Returns the examples trained, the last loss and the words."""
+    from ..parallel import prefetch_iterator
+
+    cfg = model.config
+    group = max(1, cfg.steps_per_call)
+
+    def batch_examples(mask: np.ndarray) -> int:
+        if cfg.cbow:
+            return int((mask.sum(axis=-1) > 0).sum())
+        return int(mask.sum())
+
+    pairs = 0
+    loss = 0.0
+    words_done = 0   # exact words consumed in finished epochs
+    for epoch in range(epochs):
+        progress = {"words": 0}
+        batches = prefetch_iterator(
+            iter_pair_batches(corpus_path, dictionary, cfg.window,
+                              cfg.batch_size, sample=sample, cbow=cfg.cbow,
+                              seed=cfg.seed + epoch, progress=progress),
+            depth=2 * group)
+        pending = []
+        for step_idx, batch in enumerate(batches):
+            pending.append(batch)
+            if len(pending) < group:
+                continue
+            mon.begin()
+            if group == 1:
+                loss = model.train_batch(*pending[0])
+            else:
+                loss = model.train_batches(
+                    np.stack([b[0] for b in pending]),
+                    np.stack([b[1] for b in pending]),
+                    np.stack([b[2] for b in pending]))
+            pairs += sum(batch_examples(b[2]) for b in pending)
+            pending = []
+            mon.end()
+            # exact lr-decay progress in word units (reference word_count);
+            # finished epochs contribute their exact counts
+            model.set_words_trained(words_done + progress["words"])
+            if log_every and (step_idx + 1) % log_every == 0:
+                elapsed = time.perf_counter() - t0
+                Log.info("epoch %d step %d: %.0f pairs/sec, lr %.5f, "
+                         "loss %.4f", epoch, step_idx + 1, pairs / elapsed,
+                         model.current_lr(), float(loss))
+        for centers, contexts, mask in pending:  # tail, one dispatch each
+            loss = model.train_batch(centers, contexts, mask)
+            pairs += batch_examples(mask)
+        words_done += progress["words"]
+    return pairs, loss, words_done
 
 
 def save_embeddings(path: str, dictionary: Dictionary,
@@ -408,8 +638,8 @@ _USAGE = (
     "[-window N] [-negative N] [-epoch N] [-min_count N] [-sample F] "
     "[-lr F] [-batch_size N] [-read_vocab F] [-save_vocab F] "
     "[-steps_per_call N] [-oversample F] [-neg_pool N] [-row_mean -1|0|1] "
-    "[-shared_negatives G] [-bf16 0|1] [-device=cpu]\n"
-    "  -hs, -cbow, -use_adagrad and -device_corpus 0 are not ported yet")
+    "[-shared_negatives G] [-bf16 0|1] [-hs 0|1] [-cbow 0|1] "
+    "[-use_adagrad 0|1] [-device_corpus -1|0|1] [-device=cpu]")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -83,6 +83,18 @@ def _define_flags() -> None:
                    "toy corpus, tables and window (a check that it runs)")
 
 
+def corpus_file(words: int, vocab: int) -> Path:
+    """The synthetic corpus of :func:`make_corpus` under ``build/bench/``,
+    written once."""
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    corpus = _BUILD / f"text8_synth_{words}_{vocab}.txt"
+    if not corpus.exists():
+        tmp = corpus.with_suffix(f".{os.getpid()}.tmp")
+        make_corpus(str(tmp), n_words=words, vocab=vocab)
+        os.replace(tmp, corpus)
+    return corpus
+
+
 def build_model(words: int, vocab: int, dim: int, batch: int,
                 shared_negatives: int, dtype: Any):
     """Corpus file -> dictionary -> encoded corpus -> two tables -> a
@@ -93,12 +105,7 @@ def build_model(words: int, vocab: int, dim: int, batch: int,
                                                          subsample_probs)
     from multiverso_tpu_torch.models.word2vec import Word2Vec, Word2VecConfig
 
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    corpus = _BUILD / f"text8_synth_{words}_{vocab}.txt"
-    if not corpus.exists():
-        tmp = corpus.with_suffix(f".{os.getpid()}.tmp")
-        make_corpus(str(tmp), n_words=words, vocab=vocab)
-        os.replace(tmp, corpus)
+    corpus = corpus_file(words, vocab)
     dictionary = Dictionary.build(str(corpus), min_count=1)
     cfg = Word2VecConfig(vocab_size=dictionary.vocab_size,
                          embedding_size=dim, window=5, negative=5,

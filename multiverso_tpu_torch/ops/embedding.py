@@ -257,8 +257,9 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
 
 def segment_mean_rows(values: torch.Tensor, segment_ids: torch.Tensor,
                       num_segments: int) -> torch.Tensor:
-    """Mean-combine rows per segment (CBOW context averaging). Plain
-    PyTorch: CBOW is not on the ported path yet."""
+    """Mean-combine rows per segment (the JAX module's helper, XLA ops
+    there too). Plain PyTorch: no step calls it; CBOW's mean is an einsum
+    over the row gather's ``[B, 2W, D]`` rows, as in the JAX step."""
     seg = segment_ids.long()
     sums = torch.zeros((num_segments,) + tuple(values.shape[1:]),
                        dtype=values.dtype, device=values.device)

@@ -10,6 +10,9 @@ from multiverso_tpu_torch.log import Log, LogLevel
 def test_port_level_and_sink_leave_the_jax_logger_alone(tmp_path):
     jpath, path = tmp_path / "jax.log", tmp_path / "port.log"
     JLog.reset_log_file(str(jpath))
+    # the JAX logger at INFO whatever an earlier test in the process left
+    # (a JAX session's -log_level=error stays set after it)
+    JLog.reset_log_level(JLevel.INFO)
     Log.reset_log_file(str(path))
     Log.reset_log_level(LogLevel.ERROR)
     try:

@@ -8,8 +8,7 @@ agree. Tolerances: float32 tables 1e-5 absolute on values of order 1e-2
 1e-5; bfloat16 tables per row within (hits + 2) bf16 ulps of the row's
 magnitude (see ``_assert_tables_close``). Also: the numpy helpers
 bit for bit, the dictionary and corpus encoding, the app's training on a
-toy corpus, the refusal of every unported option, and the bench's CPU
-run.
+toy corpus, the options that still raise, and the bench's CPU run.
 """
 
 import json
@@ -46,6 +45,17 @@ def port():
     mv.shutdown()
     Session._instance = None
     mv.set_flag("device", "cuda")
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's CPU steps are many small ops: with the suite's parallel
+    workers each running torch's full thread pool, every parallel region
+    waits for descheduled threads. One thread a test, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture()
@@ -223,26 +233,32 @@ def test_one_step_matches_jax(mv_session, port, name, G, row_mean, static,
 
 
 def _jax_draws(jm, S, M, B):
-    """Replay the JAX corpus step's key splits (word2vec.py:921-943)."""
+    """Replay the JAX corpus step's key splits (word2vec.py:921-943), for
+    skip-gram (``dsel``) and CBOW (``shrink``, ``u_ctx`` per window slot),
+    with ``negs`` only when the model samples negatives."""
     cfg = jm.config
     W, K = cfg.window, cfg.negative
     G = max(int(cfg.shared_negatives), 1)
     key, k1, k2, k3, k4, k5 = jax.random.split(jm._key, 6)
     shrink = jax.random.randint(k1, (S, M), 1, W + 1)
-    dmag = jnp.minimum(jax.random.randint(k2, (S, M), 1, W + 1), shrink)
-    sign = jnp.where(jax.random.bernoulli(k3, 0.5, (S, M)), 1, -1)
-    dsel = jnp.where(sign > 0, W + dmag - 1, W - dmag)
-    u_ctx = jax.random.uniform(k5, (S, M))
-    u_center = jax.random.uniform(k4, (S, M))
-    key, kn = jax.random.split(key)
-    shape = (S, B // G, K)
-    if cfg.neg_pool_size > 0:
-        pool = jm._ensure_neg_pool(S * (B // G) * K)
-        negs = jw2v.pool_negatives(kn, pool, shape)
+    if cfg.cbow:
+        draws = {"shrink": shrink,
+                 "u_ctx": jax.random.uniform(k5, (S, M, 2 * W))}
     else:
-        negs = jw2v.sample_negatives(kn, jm._packed_alias, shape)
-    draws = {"dsel": dsel, "u_center": u_center, "u_ctx": u_ctx,
-             "negs": negs}
+        dmag = jnp.minimum(jax.random.randint(k2, (S, M), 1, W + 1), shrink)
+        sign = jnp.where(jax.random.bernoulli(k3, 0.5, (S, M)), 1, -1)
+        draws = {"dsel": jnp.where(sign > 0, W + dmag - 1, W - dmag),
+                 "u_ctx": jax.random.uniform(k5, (S, M))}
+    draws["u_center"] = jax.random.uniform(k4, (S, M))
+    if K > 0:
+        key, kn = jax.random.split(key)
+        shape = (S, B // G, K)
+        if cfg.neg_pool_size > 0:
+            pool = jm._ensure_neg_pool(S * (B // G) * K)
+            draws["negs"] = jw2v.pool_negatives(kn, pool, shape)
+        else:
+            draws["negs"] = jw2v.sample_negatives(kn, jm._packed_alias,
+                                                  shape)
     return {k: np.asarray(v) for k, v in draws.items()}, key
 
 
@@ -339,8 +355,8 @@ def test_app_train_learns_cooccurrence(port, tmp_path):
     cfg = tw2v.Word2VecConfig(embedding_size=16, window=2, negative=3,
                               init_lr=0.03, batch_size=128, seed=3)
     out = str(tmp_path / "vec.txt")
-    # 1,200 tokens: the auto rule would stream them from the host (not
-    # ported), so this asks for the device path, as JAX can be asked
+    # 1,200 tokens: the auto rule would stream them from the host, so
+    # this asks for the device path, as JAX can be asked
     result = tapp.train(corpus, out, cfg, epochs=3, min_count=1, sample=0,
                         log_every=1, device_corpus=True)
     assert result.words_trained == 3600 and result.pairs_trained > 0
@@ -360,49 +376,77 @@ def test_app_train_learns_cooccurrence(port, tmp_path):
     assert in_cluster > cross
 
 
-UNPORTED = [dict(cbow=True), dict(hs=True), dict(use_adagrad=True),
-            dict(update_impl="segsum"), dict(update_impl="split8"),
-            dict(compact_impl="gather"), dict(update_impl="fused"),
-            dict(negative=0)]
+OPTIONS = [dict(cbow=True), dict(hs=True), dict(use_adagrad=True),
+           dict(update_impl="segsum"), dict(update_impl="split8"),
+           dict(compact_impl="gather"), dict(update_impl="fused"),
+           dict(negative=0)]
+STILL_REFUSED = [dict(update_impl="fused"), dict(negative=0)]
 
 
-@pytest.mark.parametrize("opts", UNPORTED, ids=lambda o: str(o))
+@pytest.mark.parametrize("opts", OPTIONS, ids=lambda o: str(o))
 def test_unported_options_raise(port, opts):
+    """Options the port once refused now build and train one batch; an
+    unknown ``update_impl`` and ``negative=0`` without ``hs`` still
+    raise."""
     import multiverso_tpu_torch as mv
 
-    w_in = mv.create_table("matrix", 8, 4)
+    w_in = mv.create_table("matrix", 8, 4, init_value="random", seed=1)
     w_out = mv.create_table("matrix", 8, 4)
-    with pytest.raises(FatalError):
-        tw2v.Word2Vec(tw2v.Word2VecConfig(vocab_size=8, **opts), w_in, w_out,
-                      counts=np.ones(8))
+    counts = np.arange(1, 9, dtype=np.float64)
+    cfg = tw2v.Word2VecConfig(vocab_size=8, embedding_size=4, window=2,
+                              batch_size=16, **opts)
+    if opts in STILL_REFUSED:
+        with pytest.raises(FatalError):
+            tw2v.Word2Vec(cfg, w_in, w_out, counts=counts)
+        return
+    huffman = tw2v.build_huffman(counts) if cfg.hs else None
+    m = tw2v.Word2Vec(cfg, w_in, w_out, counts=counts, huffman=huffman)
+    rng = np.random.default_rng(0)
+    ctx_shape = (16, 4) if cfg.cbow else (16,)
+    loss = m.train_batch(rng.integers(0, 8, 16),
+                         rng.integers(0, 8, ctx_shape))
+    # the zero output table moves first (the input's grads are 0 there)
+    assert np.isfinite(float(loss)) and w_out.version == 1
+    assert np.abs(w_out.get()).max() > 0
 
 
 def test_auto_rule_refuses_a_small_corpus(port, tmp_path):
     """``device_corpus=None`` on a corpus under max(batch + 2*window + 2,
     65,536) tokens is the JAX trainer's host-stream path
-    (``multiverso_tpu/apps/wordembedding.py:564-566``), which the port does
-    not have: it refuses instead of training it on the device path."""
+    (``multiverso_tpu/apps/wordembedding.py:564-566``). The port refused
+    it until the host stream was ported; now it streams it from the host,
+    as JAX does: the device corpus is never loaded."""
     corpus = _toy_corpus(tmp_path)                 # 1,200 tokens
     cfg = tw2v.Word2VecConfig(embedding_size=16, window=2, negative=3,
                               batch_size=128, seed=3)
-    with pytest.raises(FatalError, match="host-stream"):
-        tapp.train(corpus, None, cfg, min_count=1, sample=0)
+    loaded = []
+    orig = tw2v.Word2Vec.load_corpus_chunk
+    tw2v.Word2Vec.load_corpus_chunk = lambda self, *a: loaded.append(a)
+    try:
+        result = tapp.train(corpus, None, cfg, min_count=1, sample=0,
+                            log_every=0)
+    finally:
+        tw2v.Word2Vec.load_corpus_chunk = orig
+    assert not loaded
+    assert result.words_trained == 1200 and result.pairs_trained > 0
+    assert np.isfinite(result.final_loss)
 
 
 def test_unported_paths_raise(port, tmp_path):
     import multiverso_tpu_torch as mv
 
     corpus = _toy_corpus(tmp_path, repeats=5)
-    cfg = tw2v.Word2VecConfig(embedding_size=8, window=2, batch_size=16)
-    with pytest.raises(FatalError, match="host-stream"):
-        tapp.train(corpus, None, cfg, min_count=1, device_corpus=False)
-    with pytest.raises(FatalError, match="host-stream"):   # too small
+    # the device path still needs a batch's worth of positions
+    with pytest.raises(FatalError, match="device_corpus needs"):
         tapp.train(corpus, None, tw2v.Word2VecConfig(batch_size=1024),
-                   min_count=1)
+                   min_count=1, device_corpus=True)
     w = mv.create_table("matrix", 8, 4)
     with pytest.raises(FatalError, match="hierarchical"):
-        tw2v.Word2Vec(tw2v.Word2VecConfig(vocab_size=8), w, w,
-                      counts=np.ones(8), huffman=object())
+        tw2v.Word2Vec(tw2v.Word2VecConfig(vocab_size=8, hs=True), w, w,
+                      counts=np.ones(8))
+    with pytest.raises(FatalError, match="compact_impl"):
+        tw2v.Word2Vec(tw2v.Word2VecConfig(vocab_size=8, compact_impl="x"),
+                      w, w, counts=np.ones(8))
     for kind in ("kv", "sparse", "ftrl"):
         with pytest.raises(FatalError, match="not ported"):
             mv.create_table(kind)
@@ -463,12 +507,14 @@ def test_app_main_runs_and_refuses_unported_options(tmp_path):
         assert (tmp_path / "v.txt").read_text().count("\n") == 6
         assert tapp.main(dev + ["-bogus", "1"]) == 2
         assert tapp.main([]) == 2
-        with pytest.raises(FatalError, match="cbow"):
-            tapp.main(dev + ["-cbow", "1"])
-        with pytest.raises(FatalError, match="host-stream"):
-            tapp.main(base)
-        with pytest.raises(FatalError, match="host-stream"):
-            tapp.main(base + ["-device_corpus", "0"])
+        # CBOW on the device path, then the host stream: by the auto rule,
+        # asked for, and with the CLI's hierarchical softmax and AdaGrad
+        for argv in (dev + ["-cbow", "1"], base,
+                     base + ["-device_corpus", "0", "-cbow", "1"],
+                     base + ["-hs", "1", "-use_adagrad", "1"]):
+            out.unlink()
+            assert tapp.main(argv) == 0
+            assert out.read_text().splitlines()[0] == "6 8"
     finally:
         Session._instance = None
         mv.set_flag("device", "cuda")
