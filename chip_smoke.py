@@ -192,6 +192,28 @@ Phase 11 runs right after phase 10:
    of the version it reports, through the one-pass backward kernel; (f)
    the SLO rows of the dashboard. Each prints its numbers with the card.
 
+Phase 13 runs right after phase 11:
+
+13. the serving fleet on one card (``phase_fleet``): a FleetRouter over
+   ReplicaServers on the real mvserve TCP wire (loopback, in-process KV),
+   each replica its own copy of the flagship, every engine's cost ledger
+   on, requests tagged t0-t2. (a) 3 unified replicas in phase 3's layout
+   serve 24 requests fault-free and then with replica 1 killed at its
+   3rd request: nothing lost, no output mismatch, exactly one death in
+   the chaos leg and none in the fault-free one, the chaos leg equal to
+   the fault-free leg (a replayed request within phase 10's near-tie
+   rule, whose negative control must fail), the fault-free leg held to
+   phase 3's oracle under that rule; replica 1 restarted, readmitted
+   through the half-open probe, serving again; the flash kernel launched
+   in both regimes. (b) at the JAX defaults, one prefill + one decode
+   replica against two unified ones on phase 10's trace: equal outputs
+   (near-tie rule where the decode side's admission computed other
+   shapes), bytes moved = shipped blocks x block_nbytes, dedup of the
+   shared prefix; again with kv_xfer_drop=2; an int8-KV pair shipping
+   int8 blocks with their scales. (c) every ledger's residual 0 and the
+   heartbeat tenant rows in router.replica_rows(). Prints tokens/s,
+   TTFT and ITL p50 per leg, recovery_time_s and the bytes moved.
+
 Phase 12 runs after phase 6:
 
 12. word2vec completion: every single-process option of the JAX config
@@ -230,7 +252,8 @@ The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
 library time, and the training run's bf16 launches beside the serving
 run's, and phase 11's beside them as ``launches_surface`` with that
-path's shape's error and times as ``surface_*``; phase 12's launches
+path's shape's error and times as ``surface_*``, and phase 13's fleet
+launches, all replicas, as ``launches_fleet``; phase 12's launches
 by configuration as ``launches_completion``, and phase 4's HS-node and
 CBOW-window shapes as ``hs_nodes_*`` and ``cbow_ctx_*``); the last
 line is {"ok": true, "device": {...}}. Any failure exits
@@ -1830,6 +1853,569 @@ def phase_serving_surface(card: str, base_prompts):
     if DEV.type == "cuda":
         torch.cuda.empty_cache()
     return launches
+
+
+# phase 13: the serving fleet on one card
+FLEET_NEW = 32            # max_new of every fleet engine
+FLEET_N, FLEET_SESSIONS = 24, 6
+FLEET_TENANTS = ("t0", "t1", "t2")
+FLEET_KILL = "kill_at_request=3"
+FLEET_DROP = "kv_xfer_drop=2"
+# (a)'s heartbeat interval; a replica is DEAD after two silent beats. At
+# the flag's default, 100 ms, a healthy replica's oldest beat reached
+# 78.9-126.3 ms on an H100 host, where three engines, the router and the
+# wire share one interpreter and the host's load moved the fleet's tokens/s
+# 2.3x between runs; 250 ms keeps a false death out of a slower host's reach
+FLEET_HB_MS = 250
+# (b)'s interval. Each transfer crosses the wire as one JSON record of
+# base64 blocks (the JAX package's format), up to 76 MB for a 1536-token
+# prompt at this width, and json/base64 hold the GIL for the whole
+# record on the replica, the router (decode, re-encode) and the decode
+# replica: at 100 ms a healthy replica's beats went quiet past 200 ms and
+# the router flagged it DEAD in a fault-free leg
+FLEET_HB_MS_XFER = 1000
+# the fleet's contiguous engines: phase 3's layout with the ledger on
+FLEET_MONO = dict(slots=SLOTS, max_prompt=MAX_PROMPT, max_new=FLEET_NEW,
+                  prompt_buckets=BUCKETS, prefill_token_budget=0,
+                  kv_block_size=0, prefix_cache=False, preempt=False,
+                  spec_k=0, kv_quant="none", decode_param_quant="none",
+                  flight_recorder=False, watchdog=False, cost_ledger=True)
+# the disaggregated leg's engines: the JAX defaults with the ledger on
+FLEET_DEF = dict(slots=SLOTS, max_prompt=MAX_PROMPT, max_new=FLEET_NEW,
+                 cost_ledger=True)
+
+
+class FleetKV:
+    """The KV client the mvserve wire uses (the JAX package's duck type:
+    set, blocking get, try get) over an in-process dict."""
+
+    def __init__(self):
+        import threading
+
+        self._d = {}
+        self._cv = threading.Condition()
+
+    def key_value_set(self, key, val, allow_overwrite=False):
+        with self._cv:
+            self._d[key] = val
+            self._cv.notify_all()
+
+    def blocking_key_value_get(self, key, timeout_ms):
+        deadline = time.monotonic() + timeout_ms / 1000.0
+        with self._cv:
+            while key not in self._d:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(f"NOT_FOUND: {key}")
+                self._cv.wait(left)
+            return self._d[key]
+
+    def key_value_try_get(self, key):
+        with self._cv:
+            if key not in self._d:
+                raise KeyError(f"NOT_FOUND: {key}")
+            return self._d[key]
+
+
+def fleet_up(label, kv, engines, roles, hb_ms, chaos=None):
+    """A FleetRouter (rank 0) and one ReplicaServer per engine on the
+    ``label`` wire, every replica UP with its role known to the router;
+    ``chaos`` arms replica 1 with an in-process kill."""
+    from multiverso_tpu_torch.serving import (FaultPlan, FleetConfig,
+                                              FleetRouter, ReplicaServer)
+
+    size = len(engines) + 1
+    router = FleetRouter(size, kv, label=label, name=label,
+                         fleet_config=FleetConfig(heartbeat_ms=hb_ms,
+                                                  deadline_s=600.0))
+    replicas = []
+    try:
+        for r, (eng, role) in enumerate(zip(engines, roles)):
+            replicas.append(ReplicaServer(r + 1, size, kv, eng, label=label,
+                                          heartbeat_ms=hb_ms, role=role))
+        if chaos:
+            replicas[0].chaos = FaultPlan(chaos, kill_fn=replicas[0].die)
+        deadline = time.monotonic() + 60
+        while not (router.stats()["up"] == len(engines) and [
+                r["role"] for r in router.replica_rows()] == list(roles)):
+            if time.monotonic() > deadline:
+                fail(f"fleet {label}: replicas not up: "
+                     f"{router.replica_rows()}")
+            time.sleep(0.01)
+    except BaseException:
+        fleet_down(router, replicas)
+        raise
+    return router, replicas
+
+
+def fleet_down(router, replicas):
+    router.stop()
+    for rep in replicas:
+        rep.stop(stop_engine=False)
+
+
+def merged_p50(hists) -> float:
+    """Nearest-rank p50 over the windows of several engines' histograms."""
+    data = sorted(v for h in hists for v in h._window()[1])
+    return data[min(len(data) - 1, int(round(0.5 * (len(data) - 1))))] \
+        if data else 0.0
+
+
+def fleet_leg(label, kv, engines, roles, prompts, hb_ms, chaos=None,
+              sessions=True, after=None):
+    """Serve ``prompts`` through a fleet of ``engines`` (max_new 32,
+    tenants t0-t2 round-robin, sessions s0-s5 if ``sessions``); every
+    request must resolve with nothing lost and no duplicate mismatch.
+    ``after(router, replicas)`` runs before the fleet comes down. Returns
+    the outputs, the router's stats and rows, the requests the router
+    replayed after a death, wall seconds, tokens, TTFT and ITL p50, and
+    the oldest heartbeat the router saw on a replica it never flagged."""
+    for e in engines:
+        e.reset_stats()
+    router, replicas = fleet_up(label, kv, engines, roles, hb_ms, chaos)
+    replayed = set()
+    requeue, liveness = router._requeue_locked, router._check_liveness_locked
+    hb_max = {}                 # rank -> the oldest beat seen while UP
+
+    def requeue_seen(req, why, resolutions):
+        if req.redispatched:
+            replayed.add(id(req.future))
+        requeue(req, why, resolutions)
+
+    def liveness_seen(now, resolutions, sends):
+        for r, rep in router._replicas.items():
+            if rep.state == 3 and rep.last_hb is not None:   # UP
+                hb_max[r] = max(hb_max.get(r, 0.0), now - rep.last_hb)
+        liveness(now, resolutions, sends)
+
+    router._requeue_locked = requeue_seen
+    router._check_liveness_locked = liveness_seen
+    try:
+        dev_sync()
+        t0 = time.perf_counter()
+        done = {}
+        futs = []
+        for i, p in enumerate(prompts):
+            f = router.submit(
+                p, FLEET_NEW, session=f"s{i % FLEET_SESSIONS}" if sessions
+                else None, tenant=FLEET_TENANTS[i % len(FLEET_TENANTS)])
+            t_sub = time.perf_counter()
+            f.add_done_callback(lambda f, i=i, t=t_sub: done.__setitem__(
+                i, time.perf_counter() - t))
+            futs.append(f)
+        outs = [np.asarray(f.result(timeout=600)["result"]) for f in futs]
+        dev_sync()
+        wall = time.perf_counter() - t0
+        st = router.stats()
+        vocab = FLAGSHIP["vocab_size"]
+        if any(o.shape != (FLEET_NEW,) or o.min() < 0 or o.max() >= vocab
+               for o in outs):
+            fail(f"fleet {label}: an output of the wrong shape or range")
+        if (st["completed"] != len(prompts) or st["requests_lost"]
+                or st["output_mismatches"] or st["failed"]):
+            fail(f"fleet {label}: completed {st['completed']} of "
+                 f"{len(prompts)}, lost {st['requests_lost']}, failed "
+                 f"{st['failed']}, output mismatches "
+                 f"{st['output_mismatches']}")
+        res = {"outs": outs, "stats": st, "wall": wall,
+               "tokens": sum(o.size for o in outs),
+               "replayed": {i for i, f in enumerate(futs)
+                            if id(f) in replayed},
+               "lat_p50": 1e3 * float(np.median(list(done.values()))),
+               # a killed replica ages toward the verdict before it is
+               # flagged: only the replicas never flagged count
+               "hb": (hb_ms, 1e3 * max(
+                   [a for r, a in hb_max.items()
+                    if router._replicas[r].deaths == 0] or [0.0])),
+               "ttft_p50": merged_p50([e.ttft_hist for e in engines]),
+               "itl_p50": merged_p50([e.itl_hist for e in engines])}
+        if after is not None:
+            after(router, replicas, res)
+        res["rows"] = router.replica_rows()
+    finally:
+        fleet_down(router, replicas)
+    return res
+
+
+def fleet_say(label, res, extra=""):
+    st = res["stats"]
+    say(f"fleet {label}: {len(res['outs'])} requests, {res['tokens']} "
+        f"tokens in {res['wall']:.3f} s = {res['tokens'] / res['wall']:.1f} "
+        f"tok/s, request latency p50 {res['lat_p50']:.2f} ms (submit to "
+        f"reply at the router), engine TTFT p50 {res['ttft_p50']:.2f} ms, "
+        f"ITL p50 {res['itl_p50']:.2f} ms, deaths {st['deaths']}, "
+        f"heartbeat every {res['hb'][0]} ms (oldest seen on a replica never "
+        f"flagged {res['hb'][1]:.1f} ms, DEAD past {2 * res['hb'][0]} ms), "
+        f"requests_lost "
+        f"{st['requests_lost']}, output_mismatches "
+        f"{st['output_mismatches']}, recovery_time_s "
+        f"{st['recovery_time_s']}{extra}, card {card_line()}")
+
+
+def fleet_ledgers(label, engines):
+    """(c): each engine's ledger conserves (drift 0: the sums over its
+    tenants equal its own prefill, decode and transfer counters) and
+    bills only t0-t2."""
+    for e in engines:
+        st = e.stats()
+        rows = e.ledger.tenants()
+        if st["accounting_drift"] != 0 or not set(rows) <= set(
+                FLEET_TENANTS):
+            fail(f"fleet {label}: engine {e.name} drift "
+                 f"{st['accounting_drift']}, tenants {sorted(rows)}")
+        sums = {k: sum(r[k] for r in rows.values()) for k in (
+            "prefill_tokens", "decode_tokens", "xfer_bytes", "requests")}
+        say(f"fleet {label} ledger {e.name}: tenants "
+            f"{json.dumps({t: round(r['cost'], 1) for t, r in sorted(rows.items())})}"
+            f", sums {json.dumps(sums)} = engine prefill "
+            f"{st['prefill_tokens']} decode {st['tokens']} transfer "
+            f"{st.get('kv_bytes_moved', 0)}, residual "
+            f"{st['accounting_drift']}")
+
+
+def wait_tenant_rows(label, router, engines):
+    """Heartbeat ``tenants`` rows reach ``replica_rows()``: each row must
+    come to equal its engine's ledger's heartbeat rows."""
+    deadline = time.monotonic() + 10
+    while True:
+        rows = router.replica_rows()
+        want = [e.ledger.heartbeat_rows() for e in engines]
+        if [r["tenants"] for r in rows] == want and all(want):
+            return rows
+        if time.monotonic() > deadline:
+            fail(f"fleet {label}: replica_rows tenants "
+                 f"{[r['tenants'] for r in rows]} != ledgers {want}")
+        time.sleep(0.02)
+
+
+def phase_fleet(card: str, base_prompts, oracle):
+    """13. The serving fleet on one card: a FleetRouter front door over
+    ReplicaServers on the real mvserve TCP wire (loopback, one process,
+    an in-process KV), each replica its own TransformerLM of phase 3's
+    flagship (bf16, seed 0: the same parameters), every engine's cost
+    ledger on and requests tagged t0-t2 round-robin; a replica is DEAD
+    after two silent heartbeat intervals: FLEET_HB_MS in (a),
+    FLEET_HB_MS_XFER in (b), whose transfers hold the GIL for as long as
+    a record takes to encode and decode.
+
+    a. the unified fleet: 3 replicas in phase 3's layout (8 slots,
+       max_prompt 1536, max_new 32, monolithic flash prefill, contiguous
+       KV), 24 requests of phase 3's prompts in six sessions, fault-free
+       and then the same trace with kill_at_request=3 on replica 1 (an
+       in-process death, ReplicaServer.die). Both legs resolve every
+       request with requests_lost 0 and output_mismatches 0; the chaos
+       leg flags exactly one death, the fault-free leg none. The chaos
+       leg equals the fault-free leg token for token, except that a
+       replayed request may differ from a near-tie (phase 10's rule,
+       whose negative control must fail it); every fault-free output is
+       held to phase 3's oracle (its first 32 tokens) under the same
+       rule. Replica 1 is then restarted over its engine: it must be
+       readmitted through the half-open probe and serve a request. The
+       flash kernel must have been launched by the fleet in both regimes.
+    b. disaggregated prefill/decode against unified at the JAX defaults
+       (chunks of 32, blocks of 16): one prefill + one decode replica
+       against two unified ones on phase 10's trace (phase 3's prompts
+       and six sharing a 512-token prefix). Outputs equal the unified
+       leg's, except a request whose decode-side admission was a full
+       hit (its last position recomputed by the step) or prefilled its
+       tail from a spliced prefix off the 32-token chunk grid (other
+       chunk shapes than the unified engine's): those may differ only
+       from a near-tie. The router's kv_bytes_moved equals the shipped
+       blocks x block_nbytes, and the prefill engine's the same; the
+       decode engine dedups the shared prefix (dedup blocks > 0). Then
+       the same with kv_xfer_drop=2 (both engines' caches flushed
+       first): nothing lost, a transfer dropped, outputs under the same
+       rule. Then an int8-KV prefill -> int8-KV decode pair on the
+       shared-prefix prompts: a payload of int8 blocks with their scale
+       columns, bytes = blocks x block_nbytes (scales counted), and the
+       outputs' argmax match against the unified leg at least
+       QUANT_MATCH_FLOOR.
+    c. tenants, on (b)'s engines: each ledger's sums over its tenants
+       equal the engine's counters (residual 0), and the heartbeat
+       tenants rows reach router.replica_rows().
+
+    Returns the fleet's flash launches by regime (all replicas)."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models import transformer as tf
+    from multiverso_tpu_torch.serving import (DecodeEngine,
+                                              DecodeEngineConfig,
+                                              ReplicaServer)
+    from multiverso_tpu_torch.serving import kv_transfer as kt
+
+    import gc
+    import threading
+
+    fa = _fa()
+    _CARD[:] = [card]
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    gc.collect()
+    others = sorted(t.name for t in threading.enumerate()
+                    if t is not threading.main_thread())
+    say(f"fleet: host at the start: {len(gc.get_objects())} objects the "
+        f"collector tracks (a full collection {time.perf_counter() - t0:.3f}"
+        f" s), {len(others)} other threads {others[:8]}")
+    mv.init(["chip_smoke", f"-device={DEV.type}", "-log_level=error"])
+    cfg = tf.TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16,
+                               attention="flash_force")
+    ref_cfg = tf.TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16,
+                                   attention="reference")
+    lms = [tf.TransformerLM(cfg) for _ in range(4)]
+    params, _ = lms[0].snapshot_params()
+    for lm in lms[1:]:
+        other, _ = lm.snapshot_params()
+        if not all(torch.equal(a, b) for a, b in zip(
+                tf._leaves(params), tf._leaves(other))):
+            fail("fleet: the replicas' models hold different parameters")
+
+    def build(name, lm, knobs):
+        eng = DecodeEngine(name, lm, DecodeEngineConfig(**knobs))
+        eng.warmup()
+        return eng
+
+    mono = [build(f"fleet_u{r}", lms[r], FLEET_MONO) for r in range(3)]
+    uni = [build(f"fleet_du{r}", lms[r], FLEET_DEF) for r in range(2)]
+    dis = [build("fleet_pf", lms[2], FLEET_DEF),
+           build("fleet_dec", lms[3], FLEET_DEF)]
+    q8 = [build(f"fleet_{n}8", lms[2 + i], {**FLEET_DEF, "kv_quant": "int8"})
+          for i, n in enumerate(("pf", "dec"))]
+    engines = mono + uni + dis + q8
+    say(f"fleet: 4 models, {len(engines)} engines built and warm in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    kv = FleetKV()
+    dev_sync()
+    fa.reset_launches()
+    try:
+        launches = fleet_unified(kv, mono, base_prompts, oracle, ref_cfg,
+                                 params, fa)
+        fleet_disagg(kv, uni, dis, q8, base_prompts, ref_cfg, params, kt)
+    finally:
+        for e in engines:
+            e.stop()
+        mv.shutdown()
+    say(f"fleet: phase 13 took {time.perf_counter() - t_phase:.1f} s, card "
+        f"{card_line()}")
+    return launches
+
+
+def fleet_unified(kv, mono, base_prompts, oracle, ref_cfg, params, fa):
+    """Phase 13 (a): the fault-free and chaos legs, the restart, and the
+    flash launches of all of it."""
+    from multiverso_tpu_torch.serving import ReplicaServer
+
+    prompts = [base_prompts[i % len(base_prompts)] for i in range(FLEET_N)]
+    roles = ("unified",) * len(mono)
+    clean = fleet_leg("unified", kv, mono, roles, prompts, FLEET_HB_MS)
+    fleet_say("(a) fault-free", clean)
+    if clean["stats"]["deaths"]:
+        fail(f"fleet (a): a healthy replica was flagged DEAD in the "
+             f"fault-free leg: {clean['stats']}")
+    restart = {}
+
+    def restart_replica(router, replicas, res):
+        """Restart replica 1 over its engine; it must come back through
+        the half-open probe and serve a request."""
+        t0 = time.perf_counter()
+        replicas.append(ReplicaServer(1, len(mono) + 1, kv, mono[0],
+                                      label="chaos",
+                                      heartbeat_ms=FLEET_HB_MS))
+        deadline = time.monotonic() + 60
+        while True:
+            row = router.replica_rows()[0]
+            if row["readmissions"] >= 1 and row["state"] == "UP":
+                break
+            if time.monotonic() > deadline:
+                fail(f"fleet (a): replica 1 not readmitted: "
+                     f"{router.replica_rows()}")
+            time.sleep(0.01)
+        restart["readmit_s"] = time.perf_counter() - t0
+        for _ in range(8):
+            rep = router.predict(prompts[0], FLEET_NEW, timeout_s=600,
+                                 tenant=FLEET_TENANTS[0])
+            if rep["replica"] == 1:
+                restart["out"] = np.asarray(rep["result"])
+                break
+        else:
+            fail("fleet (a): the readmitted replica 1 served no request")
+
+    chaos = fleet_leg("chaos", kv, mono, roles, prompts, FLEET_HB_MS,
+                      chaos=FLEET_KILL, after=restart_replica)
+    cs = chaos["stats"]
+    if cs["deaths"] != 1 or cs["recovery_time_s"] is None:
+        fail(f"fleet (a): the chaos leg flagged {cs['deaths']} deaths "
+             f"(recovery {cs['recovery_time_s']})")
+    exact = near = 0
+    for i, (got, ref) in enumerate(zip(chaos["outs"], clean["outs"])):
+        if np.array_equal(got, ref):
+            exact += 1
+            continue
+        if i not in chaos["replayed"]:
+            fail(f"fleet (a): request {i}, not replayed, differs from the "
+                 f"fault-free leg at token {first_mismatch(got, ref)}")
+        ok, (j, gap, bound) = divergence_allowed(ref_cfg, params,
+                                                 prompts[i], got, ref)
+        say(f"fleet (a): replayed request {i} first differs at token {j}: "
+            f"top-2 gap {gap:.5f}, bound {bound:.5f}")
+        if not ok:
+            fail(f"fleet (a): replayed request {i} diverges at token {j} "
+                 f"where the gap {gap:.5f} >= bound {bound:.5f}")
+        near += 1
+    # the rule's negative control: a divergence at the widest margin
+    gap, bound = top2_gaps(ref_cfg, params, prompts[0], clean["outs"][0])
+    j = int(np.argmax(gap / bound))
+    fake = clean["outs"][0].copy()
+    fake[j] = (fake[j] + 1) % FLAGSHIP["vocab_size"]
+    if divergence_allowed(ref_cfg, params, prompts[0], fake,
+                          clean["outs"][0])[0]:
+        fail("fleet (a): negative control: a divergence at a wide gap "
+             "passed")
+    ok, _ = divergence_allowed(ref_cfg, params, prompts[0], restart["out"],
+                               clean["outs"][0])
+    if not ok:
+        fail("fleet (a): the readmitted replica's reply diverges beyond "
+             "the near-tie rule")
+    fleet_say("(a) chaos", chaos, f", replayed {len(chaos['replayed'])} "
+              f"requests ({exact}/{len(prompts)} token-identical to the "
+              f"fault-free leg, {near} within the near-tie rule), negative "
+              f"control fails, replica 1 readmitted through the probe in "
+              f"{restart['readmit_s']:.3f} s and served a request")
+    same = near_tie_check(ref_cfg, params, "fleet (a) vs phase 3's oracle",
+                          prompts, clean["outs"],
+                          [oracle[i % len(oracle)][:FLEET_NEW]
+                           for i in range(FLEET_N)])
+    say(f"fleet (a) vs phase 3's greedy_decode oracle: {same}/{FLEET_N} "
+        f"token-identical, the rest within the near-tie rule")
+    dev_sync()
+    by_len = dict(fa.LAUNCHES_BY_KEY_LEN)
+    launches = {"short": sum(n for sk, n in by_len.items() if sk <= 1024),
+                "long": sum(n for sk, n in by_len.items() if sk > 1024)}
+    say(f"fleet (a) flash launches (both legs and the restart, all "
+        f"replicas): key len <= 1024: {launches['short']}, > 1024: "
+        f"{launches['long']}")
+    if DEV.type == "cuda" and (launches["short"] <= 0
+                               or launches["long"] <= 0):
+        fail(f"fleet (a): the flash kernel was not launched in both "
+             f"regimes: {by_len}")
+    return launches
+
+
+def fleet_disagg(kv, uni, dis, q8, base_prompts, ref_cfg, params, kt):
+    """Phase 13 (b) and (c)."""
+    prompts, _, n_base = default_traffic(base_prompts,
+                                         FLAGSHIP["vocab_size"])
+    shape = (FLAGSHIP["n_layers"], 16, FLAGSHIP["d_model"])
+    per16 = kt.block_nbytes(shape, "bfloat16")
+    per8 = kt.block_nbytes(shape, "int8")
+    unified = fleet_leg("disagg_unified", kv, uni, ("unified", "unified"),
+                        prompts, FLEET_HB_MS_XFER, sessions=False,
+                        after=lambda r, reps, res: res.update(
+                            trows=wait_tenant_rows("(b) unified", r, uni)))
+    fleet_say("(b) unified, 2 replicas", unified)
+    fleet_ledgers("(c) unified", uni)
+    index = {np.asarray(p, np.int64).tobytes(): i
+             for i, p in enumerate(prompts)}
+    pf, dec = dis
+
+    for label, chaos in (("disagg", None), ("disagg_drop", FLEET_DROP)):
+        for e in dis:
+            e._pool.flush_cache()
+        admits = {}
+        begin = dec._begin_prefill
+
+        def begin_seen(req, slot, begin=begin, admits=admits):
+            begin(req, slot)
+            i = index.get(req.prompt0.tobytes())
+            if i is not None and req.slot != -1:
+                admits[i] = (req.full_hit, req.n_hit)
+
+        dec._begin_prefill = begin_seen
+        try:
+            res = fleet_leg(label, kv, dis, ("prefill", "decode"), prompts,
+                            FLEET_HB_MS_XFER, chaos=chaos, sessions=False,
+                            after=lambda r, reps, res: res.update(
+                                trows=wait_tenant_rows(f"(b) {label}", r,
+                                                       dis),
+                                drops=reps[0].chaos.counts[
+                                    "kv_xfer_drops"]))
+        finally:
+            dec._begin_prefill = begin
+        st, pfs, decs = res["stats"], pf.stats(), dec.stats()
+        problems = []
+        if st["kv_xfers"] != len(prompts):
+            problems.append(f"{st['kv_xfers']} transfers")
+        # the prefill engine counts what it fetched, the router what
+        # arrived: they differ by the dropped payload's blocks
+        if st["kv_bytes_moved"] != st["xfer_blocks"] * per16 or (
+                pfs["kv_bytes_moved"] > st["kv_bytes_moved"]) != bool(chaos) \
+                or pfs["kv_bytes_moved"] < st["kv_bytes_moved"]:
+            problems.append(
+                f"bytes: router {st['kv_bytes_moved']}, prefill engine "
+                f"{pfs['kv_bytes_moved']}, shipped {st['xfer_blocks']} x "
+                f"{per16}")
+        if decs["xfer_dedup_blocks"] <= 0:
+            problems.append("no dedup on the shared-prefix requests")
+        if res["drops"] != (1 if chaos else 0):
+            problems.append(f"{res['drops']} transfers dropped")
+        if problems:
+            fail(f"fleet (b) {label}: " + "; ".join(problems))
+        exact = near = 0
+        for i, (got, ref) in enumerate(zip(res["outs"], unified["outs"])):
+            if np.array_equal(got, ref):
+                exact += 1
+                continue
+            hit, n_hit = admits.get(i, (False, 0))
+            if not (hit or (n_hit * 16) % 32):
+                fail(f"fleet (b) {label}: request {i} (decode admission "
+                     f"{n_hit} blocks hit, full hit {hit}) differs from the "
+                     f"unified leg at token {first_mismatch(got, ref)}")
+            ok, (j, gap, bound) = divergence_allowed(
+                ref_cfg, params, prompts[i], got, ref)
+            say(f"fleet (b) {label}: request {i} ({'full hit' if hit else f'{n_hit} blocks spliced'}"
+                f") first differs at token {j}: gap {gap:.5f}, bound "
+                f"{bound:.5f}")
+            if not ok:
+                fail(f"fleet (b) {label}: request {i} diverges at token {j}"
+                     f" where the gap {gap:.5f} >= bound {bound:.5f}")
+            near += 1
+        fleet_say(f"(b) {label}, prefill + decode", res,
+                  f", transfers {st['kv_xfers']}, blocks shipped "
+                  f"{st['xfer_blocks']} x {per16} B = {st['kv_bytes_moved']}"
+                  f" B moved, source dedup {st['xfer_dedup_blocks']}, "
+                  f"decode-side dedup {decs['xfer_dedup_blocks']}, spliced "
+                  f"{decs['xfer_blocks']}, full hits "
+                  f"{sum(1 for h, _ in admits.values() if h)}, dropped "
+                  f"transfers {res['drops']}; vs unified: {exact}/"
+                  f"{len(prompts)} token-identical, {near} within the "
+                  f"near-tie rule")
+        fleet_ledgers(f"(c) {label}", dis)
+
+    # an int8 prefill -> int8 decode pair on the shared-prefix prompts
+    shared = prompts[n_base:]
+    payload = q8[0].submit_prefill(shared[0]).result(timeout=600)["xfer"]
+    n = len(shared[0]) // 16
+    if (payload["dtype"] != "int8" or len(payload["blocks"]) != n
+            or kt.payload_bytes(payload) != n * per8
+            or not all("ks" in r and "vs" in r
+                       for r in payload["blocks"].values())):
+        fail(f"fleet (b) int8: payload dtype {payload['dtype']}, "
+             f"{len(payload['blocks'])} of {n} blocks, "
+             f"{kt.payload_bytes(payload)} B (want {n * per8})")
+    q8[0]._pool.flush_cache()
+    res = fleet_leg("disagg_int8", kv, q8, ("prefill", "decode"), shared,
+                    FLEET_HB_MS_XFER, sessions=False)
+    st = res["stats"]
+    rate = float(np.mean([argmax_match(a, b) for a, b in zip(
+        res["outs"], unified["outs"][n_base:])]))
+    if (st["kv_bytes_moved"] != st["xfer_blocks"] * per8
+            or st["xfer_blocks"] <= 0 or rate < QUANT_MATCH_FLOOR):
+        fail(f"fleet (b) int8: {st['xfer_blocks']} blocks, "
+             f"{st['kv_bytes_moved']} B (want x {per8}), argmax match "
+             f"{rate:.3f}")
+    fleet_ledgers("(c) int8", q8)
+    fleet_say("(b) int8 KV prefill + decode", res,
+              f", blocks shipped {st['xfer_blocks']} x {per8} B (int8 with "
+              f"scales) = {st['kv_bytes_moved']} B, argmax match against "
+              f"the bf16 unified leg {rate:.3f} (floor {QUANT_MATCH_FLOOR})")
 
 
 def _fa():
@@ -3468,6 +4054,12 @@ def main() -> None:
                "row_gather": "row_gather"}.get(entry["name"])
         if key is not None:
             entry["launches_surface"] = surface[key]
+    # phase 13's flash launches, summed over the fleet's replicas
+    for entry in kernels_line:
+        regime = {"flash_fwd[key_len<=1024]": "short",
+                  "flash_fwd[key_len>1024]": "long"}.get(entry["name"])
+        if regime is not None:
+            entry["launches_fleet"] = serve_counts["fleet"][regime]
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3475,14 +4067,15 @@ def main() -> None:
 
 
 def lm_phases(card: str):
-    """Phases 2-3, the crossover, phase 10 and phase 11; the forward's
-    results, the serving run's launches by regime and phase 11's
-    launches by kernel."""
+    """Phases 2-3, the crossover, phase 10, phase 11 and phase 13; the
+    forward's results, the serving run's launches by regime, phase 11's
+    launches by kernel and phase 13's by regime."""
     results = phase_kernels()
     phase_crossover()
     served = phase_slice(card)
     phase_defaults(card, served["prompts"], served["oracle"])
     served["surface"] = phase_serving_surface(card, served["prompts"])
+    served["fleet"] = phase_fleet(card, served["prompts"], served["oracle"])
     return results, served
 
 

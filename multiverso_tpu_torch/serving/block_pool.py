@@ -332,6 +332,15 @@ class BlockPool:
             self.miss_counter.inc(len(hashes) - len(matched))
         return matched
 
+    def indexed_hashes(self, limit: Optional[int] = None) -> List[bytes]:
+        """Chain hashes content-addressed here (live or cached), in
+        insertion order, optionally capped: a decode replica's dedup
+        advertisement. A capped list is weaker, never wrong: an
+        unadvertised block crosses the wire and dedups on arrival."""
+        with self._lock:
+            out = list(self._index)
+        return out if limit is None else out[:int(limit)]
+
     def flush_cache(self) -> int:
         """Drop every content identity and free all cached blocks (the
         pinned snapshot moved: cached K/V of the old params is garbage).

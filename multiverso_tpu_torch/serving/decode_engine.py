@@ -64,6 +64,17 @@ iteration-level scheduling over a persistent KV cache, with
 * **latency SLOs** (``slo_ttft_ms``/``slo_itl_ms`` > 0): windowed p99
   objectives over ``SERVE_TTFT[name]``/``SERVE_ITL[name]`` in
   ``Dashboard.snapshot()``.
+* **disaggregated prefill/decode** (prefix-cache engines only,
+  :attr:`DecodeEngine.supports_transfer`): :meth:`DecodeEngine.submit_prefill`
+  chunk-prefills a prompt and resolves with its full blocks fetched to
+  the host as a :mod:`.kv_transfer` payload; :meth:`DecodeEngine.splice`
+  hands a received payload to the loop, which writes its blocks into
+  the pool between iterations and registers them, so the follow-up
+  admission of the same prompt is a full prefix hit.
+* **per-tenant cost accounting** (``cost_ledger``): each request carries
+  a :class:`.accounting.ResourceUsage` filled at the engine's own
+  instrumentation sites and folded into its tenant's
+  :class:`.accounting.CostLedger` row when it resolves.
 
 The JAX engine's one-compiled-trace-per-program invariant has no compiler
 here; its counterpart is :class:`_Program`, which records the distinct
@@ -81,9 +92,7 @@ params snapshot; the pin only moves while nothing is in flight and no
 preempted request waits to resume.
 
 Not ported yet, each raising :class:`~..log.FatalError` by name:
-``decode_tp`` and ``prefill_sp`` (the distributed paths) and
-``cost_ledger`` (accounting); the disaggregated serving surface
-(``submit_prefill``, ``splice``) is not here either.
+``decode_tp`` and ``prefill_sp`` (the distributed paths).
 """
 
 from __future__ import annotations
@@ -94,13 +103,14 @@ import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import trace
 from ..dashboard import Dashboard
+from . import accounting, kv_transfer
 from ..log import Log
 from .batcher import (DeadlineExceededError, OverloadedError, bucket_for,
                       shape_buckets)
@@ -142,11 +152,11 @@ class DecodeEngineConfig:
     decode_param_quant: Optional[str] = None     # "none" or "int8"
     slo_ttft_ms: Optional[float] = None          # <= 0 = no SLO
     slo_itl_ms: Optional[float] = None
+    cost_ledger: Optional[bool] = None           # per-tenant accounting
     # the JAX engine's features this port does not have yet; only the
     # values that turn each off are served
     decode_tp: Optional[int] = None
     prefill_sp: Optional[bool] = None
-    cost_ledger: Optional[bool] = None
 
     def _resolved(self, field: str):
         value = getattr(self, field)
@@ -181,7 +191,6 @@ class DecodeEngineConfig:
         checks = (
             ("decode_tp", lambda v: int(v) != 1),
             ("prefill_sp", bool),
-            ("cost_ledger", bool),
         )
         for field, is_on in checks:
             value = self._resolved(field)
@@ -226,6 +235,9 @@ _RIDS = itertools.count(1)
 # prompt-lookup n-gram width: the drafter keys on the sequence's last
 # _SPEC_NGRAM tokens (the JAX engine's value)
 _SPEC_NGRAM = 2
+
+# chain hashes a heartbeat advertises at most (the JAX engine's cap)
+_CHAIN_ADVERT_CAP = 256
 
 
 class _PromptLookup:
@@ -433,12 +445,13 @@ class _Request:
                  "blocks", "rid", "hashes", "hash_seed", "n_hit",
                  "full_hit", "saved", "pf_reg", "ttft_pending", "priority",
                  "deadline", "preempts", "resumed", "skips", "prompt0",
-                 "drafter")
+                 "drafter", "pf_only", "known", "xfer", "tenant", "usage")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
                  ctx: Optional[trace.SpanContext] = None,
                  priority: int = DEFAULT_PRIORITY,
-                 deadline: Optional[float] = None) -> None:
+                 deadline: Optional[float] = None,
+                 tenant: Optional[str] = None) -> None:
         self.rid = next(_RIDS)
         self.prompt = prompt
         self.max_new = max_new
@@ -478,6 +491,17 @@ class _Request:
         # speculative decoding: the slot's prompt-lookup index (None on
         # spec_k=0 engines; made at admission)
         self.drafter: Optional[_PromptLookup] = None
+        # disaggregated serving: a prefill-only admission resolves with a
+        # transfer payload instead of tokens; ``known`` are the hex chain
+        # hashes the receiver already holds (shipped as metadata only);
+        # ``xfer`` is the splice accounting that warmed this prompt
+        self.pf_only = False
+        self.known: frozenset = frozenset()
+        self.xfer: Optional[Dict[str, int]] = None
+        # accounting: the tenant id (None = the ledger's default) and the
+        # resource vector (None on ledger-off engines)
+        self.tenant = tenant
+        self.usage: Optional[accounting.ResourceUsage] = None
 
 
 class DecodeEngine:
@@ -666,6 +690,13 @@ class DecodeEngine:
         # any slot goes live (the watchdog's leak check must not fire)
         self._admitting = False
         self._q = _PrioQueue(name, self._lookahead)
+        # chaos/test hook (faultinject pool_squeeze=): block ids held
+        # hostage to force pool pressure, left out of the leak check
+        self._squeezed: List[int] = []
+        # inbound KV transfers awaiting the loop thread, which owns the
+        # pools: splice() parks (payload, done-event, out-dict) triples
+        # here and the loop applies them between iterations
+        self._splice_q: Deque = collections.deque()
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._stop = threading.Event()
@@ -697,6 +728,17 @@ class DecodeEngine:
                 f"SPEC_PROPOSED[{name}]")
             self.spec_acc_counter = Dashboard.get_or_create_counter(
                 f"SPEC_ACCEPTED[{name}]")
+        # the KV transfer plane's counters exist on prefix-cache engines
+        # only (its gate), in raw K/V bytes moved
+        self.xfer_bytes_counter = self.xfer_blocks_counter = None
+        self.xfer_dedup_counter = None
+        if self._prefix:
+            self.xfer_bytes_counter = Dashboard.get_or_create_counter(
+                f"KV_XFER_BYTES[{name}]")
+            self.xfer_blocks_counter = Dashboard.get_or_create_counter(
+                f"KV_XFER_BLOCKS[{name}]")
+            self.xfer_dedup_counter = Dashboard.get_or_create_counter(
+                f"KV_XFER_DEDUP[{name}]")
         self.iters_counter = Dashboard.get_or_create_counter(
             f"ENGINE_ITERS[{name}]")
         self.iters_total = 0
@@ -708,6 +750,15 @@ class DecodeEngine:
         slo_itl = float(ec._resolved("slo_itl_ms"))
         if slo_itl > 0:
             Dashboard.set_slo(f"SERVE_ITL[{name}]", slo_itl)
+        # per-tenant cost attribution: host state on the loop thread only,
+        # so it adds no program signature
+        self.ledger: Optional[accounting.CostLedger] = None
+        if bool(ec._resolved("cost_ledger")):
+            self.ledger = accounting.CostLedger(
+                name,
+                block_bytes=(kv_bytes_per_block(
+                    cfg.n_layers, cfg.d_model, self._block_size, cfg.dtype,
+                    quant=self._kv_quant_mode) if self._paged else 0))
         self.recorder: Optional[FlightRecorder] = None
         if bool(ec._resolved("flight_recorder")):
             self.recorder = FlightRecorder(
@@ -736,6 +787,11 @@ class DecodeEngine:
         self.preemptions = 0
         self.preempted = 0
         self.deadline_drops = 0
+        # the transfer plane: blocks and raw bytes fetched out or spliced
+        # in, and blocks deduped at either end
+        self.xfer_blocks = 0
+        self.xfer_bytes = 0
+        self.xfer_dedup = 0
         # speculation: drafts proposed and accepted, verify dispatches
         self.spec_proposed = 0
         self.spec_accepted = 0
@@ -787,14 +843,19 @@ class DecodeEngine:
     def submit(self, prompt, max_new: Optional[int] = None,
                ctx: Optional[trace.SpanContext] = None,
                priority: Optional[int] = None,
-               deadline_s: Optional[float] = None) -> Future:
+               deadline_s: Optional[float] = None,
+               xfer_info: Optional[Dict[str, int]] = None,
+               tenant: Optional[str] = None) -> Future:
         """Enqueue one prompt. Sheds with :class:`OverloadedError` at the
         queue cap, and (paged) when ``prompt + max_new`` needs more blocks
         than the whole pool (``retriable=False``). ``priority`` is the
         class (0..7, None = 1); ``deadline_s`` (None = none) is seconds
         from now past which the request is dropped at queue pop with
         :class:`DeadlineExceededError`, before any prefill. ``ctx`` is the
-        request's trace handoff token."""
+        request's trace handoff token. ``xfer_info`` is the :meth:`splice`
+        accounting of the transfer that warmed this prompt (it rides the
+        admit span); ``tenant`` (None = ``-default_tenant``) is who pays
+        on a ``cost_ledger`` engine."""
         self.validate(prompt, max_new)
         prio = DEFAULT_PRIORITY if priority is None else int(priority)
         if not 0 <= prio <= MAX_PRIORITY:
@@ -808,20 +869,32 @@ class DecodeEngine:
             deadline = time.monotonic() + float(deadline_s)
         p = np.asarray(prompt, np.int64).ravel()
         req = _Request(p, int(max_new or self.config.max_new), ctx,
-                       priority=prio, deadline=deadline)
+                       priority=prio, deadline=deadline, tenant=tenant)
+        if xfer_info:
+            req.xfer = dict(xfer_info)
+        return self._enqueue(req, p.shape[0] + req.max_new)
+
+    def _enqueue(self, req: _Request, positions: int) -> Future:
+        """Queue ``req`` under the engine lock, shedding (and billing the
+        shed) when ``positions`` can never fit the pool or the queue is
+        full."""
+        if self.ledger is not None:
+            req.usage = self.ledger.usage(req.tenant)
         with self._cv:
             if self._stop.is_set():
                 raise RuntimeError(f"decode engine {self.name!r} is stopped")
             if self._paged:
-                need = self._pool.blocks_needed(p.shape[0] + req.max_new)
+                need = self._pool.blocks_needed(positions)
                 if need > self._pool.capacity:
-                    self._shed(prio)
+                    self._shed(req.priority)
+                    self._finalize_usage(req, "shed")
                     raise OverloadedError(self.name, need,
                                           self._pool.capacity,
                                           what="kv block pool",
                                           retriable=False)
             if len(self._q) >= self.config.max_queue:
-                self._shed(prio)
+                self._shed(req.priority)
+                self._finalize_usage(req, "shed")
                 raise OverloadedError(self.name, len(self._q),
                                       self.config.max_queue)
             if self.t_first is None:
@@ -829,6 +902,67 @@ class DecodeEngine:
             self._q.append(req)
             self._cv.notify()
         return req.future
+
+    # -- disaggregated prefill/decode (kv_transfer) ---------------------------
+    @property
+    def supports_transfer(self) -> bool:
+        """Whether this engine can be a disaggregation endpoint: the
+        transfer plane moves chain-addressed full blocks, so it rides the
+        prefix cache's gate (paged + chunked + prefix_cache)."""
+        return self._prefix
+
+    def submit_prefill(self, prompt, known_hashes: Sequence[str] = (),
+                       ctx: Optional[trace.SpanContext] = None,
+                       tenant: Optional[str] = None) -> Future:
+        """Enqueue a prefill-only admission (a disaggregated fleet's
+        stage 1): the prompt chunk-prefills into paged blocks like any
+        admission, then resolves with ``{"xfer": payload,
+        "snapshot_version", "staleness_s"}``, the prompt's full blocks
+        fetched to the host as a :mod:`.kv_transfer` payload, and
+        releases its reservation (the blocks stay cached, so a repeat
+        full-hits here). ``known_hashes`` (hex) are the receiver's
+        advertised chains: those blocks ride as metadata only. Sheds like
+        :meth:`submit`; raises on an engine without
+        :attr:`supports_transfer`."""
+        if not self.supports_transfer:
+            raise RuntimeError(
+                f"decode engine {self.name!r} cannot serve prefill-only "
+                f"admissions (needs paged KV + chunked prefill + "
+                f"prefix_cache, the transfer plane's gate)")
+        self.validate(prompt, None)
+        p = np.asarray(prompt, np.int64).ravel()
+        # max_new 1 keeps the arithmetic in range; the reservation is the
+        # prompt's blocks only (nothing decodes)
+        req = _Request(p, 1, ctx, tenant=tenant)
+        req.pf_only = True
+        req.known = frozenset(str(h) for h in known_hashes)
+        return self._enqueue(req, p.shape[0])
+
+    def splice(self, payload: dict, timeout_s: float = 30.0) -> Dict:
+        """Splice a :mod:`.kv_transfer` payload into this engine's pool
+        (a disaggregated fleet's arrival side) and return the accounting
+        ``{"xfer_blocks", "xfer_bytes", "dedup_blocks"}`` (plus
+        ``"skipped"`` when nothing could apply). Blocking and thread-safe:
+        the loop thread owns the pools, so the payload waits on
+        ``_splice_q`` until the loop applies it between iterations, and a
+        follow-up :meth:`submit` of the same prompt sees the warm prefix.
+        Degrades, never raises: an unsupported engine, a stopped loop or
+        a timeout returns zero accounting and the prompt re-prefills."""
+        zero = {"xfer_blocks": 0, "xfer_bytes": 0, "dedup_blocks": 0}
+        if not self.supports_transfer:
+            return dict(zero, skipped="unsupported")
+        done = threading.Event()
+        info: Dict = {}
+        with self._cv:
+            if self._stop.is_set():
+                return dict(zero, skipped="stopped")
+            self._splice_q.append((payload, done, info))
+            self._cv.notify()
+        if not done.wait(timeout_s):
+            return dict(zero, skipped="timeout")
+        out = dict(zero)
+        out.update(info)
+        return out
 
     def queue_depth(self) -> int:
         with self._lock:
@@ -842,7 +976,7 @@ class DecodeEngine:
             depth = len(self._q)
             oldest = self._q.oldest_t_enq()
             pinned = self._pinned_version
-        return {
+        out = {
             "iters_total": self.iters_total,
             "last_iter_age_s": now - self._last_progress,
             "snapshot_version": -1 if pinned is None else int(pinned),
@@ -856,6 +990,16 @@ class DecodeEngine:
             "preemptions": self.preemptions,
             "stopped": self._stop.is_set(),
         }
+        if self._prefix:
+            # the dedup advertisement: chains content-addressed here ride
+            # replica heartbeats, so a prefill stage skips shipping them
+            out["cached_chains"] = [
+                h.hex() for h in self._pool.indexed_hashes(
+                    limit=_CHAIN_ADVERT_CAP)]
+        if self.ledger is not None:
+            # top tenants by cost, for replica heartbeats
+            out["tenants"] = self.ledger.heartbeat_rows()
+        return out
 
     def pool_drift(self) -> Optional[str]:
         """Paged-KV books: allocator invariant violations, or live blocks
@@ -866,7 +1010,8 @@ class DecodeEngine:
         msg = self._pool.drift()
         if msg is not None:
             return msg
-        live_blocks = self._pool.n_live
+        # squeezed blocks are held with no sequence by design
+        live_blocks = self._pool.n_live - len(self._squeezed)
         if (live_blocks > 0 and not self._active.any()
                 and self._pf is None and not self._admitting
                 and not self._q):
@@ -898,7 +1043,11 @@ class DecodeEngine:
     def _reservation_blocks(self, req: _Request) -> int:
         """Prompt + remaining generation worth of blocks, or (optimistic,
         ``preempt``) the prompt's blocks only, unless the request spent
-        its preemption budget: then it re-admits pessimistically."""
+        its preemption budget: then it re-admits pessimistically. A
+        prefill-only admission never decodes: its prompt is the whole
+        reservation."""
+        if req.pf_only:
+            return self._pool.blocks_needed(len(req.prompt))
         if self._preempt_on and req.preempts < self._preempt_budget:
             return self._pool.blocks_needed(len(req.prompt))
         return self._pool.blocks_needed(
@@ -921,6 +1070,10 @@ class DecodeEngine:
         for req in dropped:
             self.deadline_drops += 1
             self.deadline_counter.inc()
+            if req.usage is not None:
+                # the whole life was queue wait
+                req.usage.queue_wait_ms += (now - req.usage.t_wait0) * 1e3
+                self._finalize_usage(req, "deadline", now)
             if trace.enabled() and req.ctx is not None:
                 trace.record_span("queue.wait", req.ctx, req.t_enq, now,
                                   cause="deadline")
@@ -934,14 +1087,24 @@ class DecodeEngine:
     def _loop(self) -> None:
         chunked = self._budget > 0
         while True:
+            splices: List[tuple] = []
             with self._cv:
                 while (not self._q and self._pf is None
                        and not self._active.any()
+                       and not self._splice_q
                        and not self._stop.is_set()):
                     self._cv.wait()
                 if (self._stop.is_set() and not self._q
                         and self._pf is None and not self._active.any()):
+                    # release splice waiters: the loop applies no more
+                    while self._splice_q:
+                        _, done, info = self._splice_q.popleft()
+                        info["skipped"] = "stopped"
+                        done.set()
                     return
+                if self._splice_q:
+                    splices = list(self._splice_q)
+                    self._splice_q.clear()
                 now = time.monotonic()
                 arrivals: List[_Request] = []
                 expired: List[_Request] = []
@@ -977,6 +1140,17 @@ class DecodeEngine:
             step_ms = 0.0
             worked = False
             try:
+                # inbound KV transfers apply on this thread, which owns
+                # the pools; a bad payload degrades, and its waiter is
+                # released either way
+                for payload, done, info in splices:
+                    try:
+                        info.update(self._apply_splice(payload))
+                    except Exception as exc:    # pragma: no cover
+                        info["skipped"] = f"splice failed: {exc}"
+                    finally:
+                        done.set()
+                    worked = True
                 if chunked:
                     if arrivals:
                         self._begin_prefill(arrivals[0],
@@ -996,6 +1170,10 @@ class DecodeEngine:
                             break
                         arrivals.append(req)
                         self._begin_prefill(req, self._free_q.popleft())
+                        if req.slot == -1:
+                            # its reservation raced a pool squeeze and it
+                            # was requeued: retry next iteration
+                            break
                     if self._pf is not None:
                         # at most one budget-sized chunk per iteration
                         self._prefill_one_chunk()
@@ -1034,6 +1212,14 @@ class DecodeEngine:
         self.iters_total += 1
         self.iters_counter.inc()
         self._last_progress = now
+        it_block_s = 0.0
+        if self.ledger is not None:
+            # KV residency: every admitted sequence pays its reserved
+            # blocks x this iteration's wall
+            dt = now - t_work0
+            reqs = self._admitted_requests()
+            self.ledger.charge_iteration(reqs, dt)
+            it_block_s = dt * sum(len(r.blocks) for r in reqs)
         recorder = self.recorder
         if recorder is None:
             return
@@ -1059,7 +1245,22 @@ class DecodeEngine:
             # written-block proxy (live + cached): the real count of
             # nonzero scales would cost a device read per iteration
             (self._pool.n_live + self._pool.n_cached)
-            if self._kv_quant else -1))
+            if self._kv_quant else -1,
+            # the ledger's columns (-1 when it is off): this iteration's
+            # KV block-seconds and the live tenant count
+            round(it_block_s, 6) if self.ledger is not None else -1.0,
+            self.ledger.tenant_count() if self.ledger is not None else -1,
+            # sequence-parallel chunks: prefill_sp is not ported
+            -1))
+
+    def _seed_for(self, version: int) -> bytes:
+        """The hash chain's seed for a pinned snapshot version, tagged by
+        the pool's encoding (an int8 block and an fp block of one prefix
+        hold different bytes), as in the JAX engine: a cross-encoding
+        transfer then fails the seed check and re-prefills."""
+        if self._kv_quant:
+            return f"{int(version)}/int8".encode()
+        return str(int(version)).encode()
 
     def _maybe_refresh(self, hold: bool = False) -> None:
         """Move the pinned snapshot only while no generation is in flight:
@@ -1088,7 +1289,7 @@ class DecodeEngine:
                 self.pin_copies += 1
             self._snap = snap
             if self._prefix:
-                seed = str(int(snap.version)).encode()
+                seed = self._seed_for(snap.version)
                 if seed != self._hash_seed:
                     self._hash_seed = seed
                     self._pool.flush_cache()
@@ -1145,7 +1346,9 @@ class DecodeEngine:
             req.full_hit = bool(matched) and (
                 len(matched) * self._block_size == len(req.prompt))
             req.blocks = matched
-            if req.full_hit:
+            # a prefill-only full hit skips the copy: nothing writes this
+            # sequence, so its payload fetches from the shared blocks
+            if req.full_hit and not req.pf_only:
                 shared_last = matched[-1]
                 dup = self._pool.alloc(1)[0]
                 ids = self._upload(np.array([shared_last, dup], np.int64))
@@ -1156,12 +1359,16 @@ class DecodeEngine:
             req.saved = (len(req.prompt) if req.full_hit
                          else req.n_hit * self._block_size)
         req.blocks = matched + self._pool.alloc(total - len(matched))
+        # the stats commit once the whole reservation stands (a raced
+        # allocation requeues the request without them)
         if self._prefix:
             if full_hit_cow:
                 self.cow_copies += 1
             self.prefix_hits += req.n_hit
             self.prefix_misses += len(hashes) - req.n_hit
             self.prefill_tokens_saved += req.saved
+            if req.usage is not None:
+                req.usage.prefill_tokens_saved += req.saved
         self._set_row(slot, req.blocks)
 
     def _release_seq(self, req: _Request) -> None:
@@ -1182,22 +1389,49 @@ class DecodeEngine:
         self._maybe_refresh(hold=req.resumed)
         req.version = self._snap.version
         req.slot = slot
-        self._reserve_blocks(req, slot)
+        try:
+            self._reserve_blocks(req, slot)
+        except RuntimeError:
+            # a concurrent pool claimant (a chaos pool squeeze) raced the
+            # admission gate: requeue, as a preemption before any work
+            if req.blocks:
+                self._pool.decref(reversed(req.blocks))
+                req.blocks = []
+            self._set_row(slot, [])
+            self._free_q.append(slot)
+            req.slot = -1
+            req.hashes = None
+            req.n_hit = 0
+            req.full_hit = False
+            with self._cv:
+                self._q.appendleft(req)
+            return
         req.pf_chunks = 0
         req.t_admit = time.monotonic()
+        if req.usage is not None:
+            req.usage.queue_wait_ms += (req.t_admit
+                                        - req.usage.t_wait0) * 1e3
         if self._spec:
             # the drafter indexes the prompt now and each emitted token
             # from here on
             req.drafter = _PromptLookup()
             req.drafter.extend(req.prompt)
         self._it_admitted.append(req.rid)
+        if self._prefix and req.full_hit and req.pf_only:
+            # a prefill-only admission of a fully cached prompt: every
+            # block is resident, so the payload fetches now
+            self._pf = None
+            self._finish_prefill_only(req, chunks=0)
+            return
         if self._prefix and req.full_hit:
             # no prefill at all: the slot goes live at P - 1 with the
             # prompt's last token; the next step rewrites that position's
             # K/V (into the copied block) and emits the first token
             if trace.enabled() and req.ctx is not None:
                 now = time.monotonic()
-                extra = {"preempted": req.preempts} if req.preempts else {}
+                extra = self._xfer_attrs(req)
+                if req.preempts:
+                    extra["preempted"] = req.preempts
                 trace.record_span("queue.wait", req.ctx, req.t_enq,
                                   req.t_admit, cause="admission")
                 trace.record_span(
@@ -1248,6 +1482,12 @@ class DecodeEngine:
         self.prefill_tokens += n
         self.prefill_tok_counter.inc(n)
         self._it_prefill += n
+        if req.usage is not None:
+            req.usage.prefill_tokens += n
+            if req.resumed:
+                # a preemption's recompute, still counted as prefill: the
+                # identity tracks work done
+                req.usage.recompute_tokens += n
         if self._prefix:
             # every prompt block this chunk completed gains its identity
             # now: a concurrent same-prefix arrival can share it
@@ -1258,7 +1498,7 @@ class DecodeEngine:
                                     hashes[req.pf_reg])
                 req.pf_reg += 1
         final = req.pf_off >= len(req.prompt)
-        if not final:
+        if not final or req.pf_only:
             # retire each chunk in its iteration: chunks queued ahead of
             # the device would all land on the next step's readback
             self._sync()
@@ -1267,6 +1507,11 @@ class DecodeEngine:
                     "decode.prefill_chunk", req.ctx, t0, time.monotonic(),
                     slot=req.slot, offset=off, chunk=req.pf_chunks - 1,
                     tokens=n, budget=C)
+            if final:
+                # prefill-only: the finished blocks are the result, and
+                # the decode side recomputes P - 1 through its full hit
+                self._pf = None
+                self._finish_prefill_only(req, chunks=req.pf_chunks)
             return
         # the final chunk's logits are the first token (the host read)
         tok0 = int(torch.argmax(logits))
@@ -1285,6 +1530,8 @@ class DecodeEngine:
         self.tokens += 1
         self.decode_tok_counter.inc()
         self._it_decode += 1
+        if req.usage is not None:
+            req.usage.decode_tokens += 1
         req.out.append(tok0)
         if req.drafter is not None:
             req.drafter.extend((tok0,))
@@ -1294,6 +1541,7 @@ class DecodeEngine:
             extra = ({"blocks": len(req.blocks),
                       "pool_free": self._pool.n_free}
                      if self._paged else {})
+            extra.update(self._xfer_attrs(req))
             if self._prefix:
                 extra["prefix_hit_blocks"] = req.n_hit
                 extra["prefill_tokens_saved"] = req.saved
@@ -1314,6 +1562,181 @@ class DecodeEngine:
         self._tok[req.slot] = tok0
         self._pos[req.slot] = len(req.prompt)
         self._active[req.slot] = True
+
+    @staticmethod
+    def _xfer_attrs(req: _Request) -> Dict[str, int]:
+        """The admit span's link to the splice that warmed the prompt."""
+        if not req.xfer:
+            return {}
+        return {k: req.xfer.get(k, 0)
+                for k in ("xfer_blocks", "xfer_bytes", "dedup_blocks")}
+
+    def _pool_dtype(self) -> str:
+        """The pools' native dtype name: what a payload's blocks carry."""
+        return ("int8" if self._kv_quant
+                else kv_transfer.dtype_name(self._model_cfg.dtype))
+
+    def _count_xfer(self, blocks: int, nbytes: int, dedup: int) -> None:
+        self.xfer_blocks += blocks
+        self.xfer_bytes += nbytes
+        self.xfer_dedup += dedup
+        if blocks:
+            self.xfer_blocks_counter.inc(blocks)
+            self.xfer_bytes_counter.inc(nbytes)
+        if dedup:
+            self.xfer_dedup_counter.inc(dedup)
+
+    @torch.no_grad()
+    def _finish_prefill_only(self, req: _Request, chunks: int) -> None:
+        """A prefill-only admission is done (its full blocks prefilled or
+        cache-resident): fetch the blocks the receiver did not advertise
+        to the host in one copy, build the payload, release the
+        reservation (the blocks stay cached) and resolve with the payload.
+        Loop thread only: it owns the pools."""
+        hashes = self._req_hashes(req)
+        cfg = self._model_cfg
+        payload = kv_transfer.new_payload(
+            len(req.prompt), self._block_size, req.version,
+            (cfg.n_layers, self._block_size, cfg.d_model),
+            self._pool_dtype())
+        if req.tenant:
+            # the receiver's ledger bills the splice-in to this tenant
+            payload["tenant"] = req.tenant
+        ship = [i for i, h in enumerate(hashes) if h.hex() not in req.known]
+        host = None
+        if ship:
+            ids = self._upload(np.asarray([req.blocks[i] for i in ship],
+                                          np.int64))
+            pools = (self._k_cache, self._v_cache)
+            if self._kv_quant:
+                pools += (self._k_scales, self._v_scales)
+            # [L, n, Bs, D] blocks and [L, n] scales: one host read
+            host = [t.index_select(1, ids).cpu() for t in pools]
+        col = {i: j for j, i in enumerate(ship)}
+        for i, h in enumerate(hashes):
+            j = col.get(i)
+            if j is None:
+                # source-side dedup: the hash rides, the bytes stay home
+                kv_transfer.add_block(payload, h.hex())
+                continue
+            scales = ((host[2][:, j], host[3][:, j]) if self._kv_quant
+                      else (None, None))
+            kv_transfer.add_block(payload, h.hex(), host[0][:, j],
+                                  host[1][:, j], *scales)
+        nbytes = kv_transfer.payload_bytes(payload)
+        dedup = int(payload["dedup_blocks"])
+        self._count_xfer(len(ship), nbytes, dedup)
+        if req.usage is not None:
+            req.usage.xfer_bytes += nbytes
+        now = time.monotonic()
+        if trace.enabled() and req.ctx is not None:
+            trace.record_span("queue.wait", req.ctx, req.t_enq,
+                              req.t_admit, cause="admission")
+            trace.record_span(
+                "decode.admit", req.ctx, req.t_admit, now, slot=req.slot,
+                prompt_len=len(req.prompt), chunks=chunks,
+                budget=self._budget, snapshot_version=req.version,
+                blocks=len(req.blocks), pool_free=self._pool.n_free,
+                prefix_hit_blocks=req.n_hit,
+                prefill_tokens_saved=req.saved, prefill_only=True,
+                xfer_blocks=len(ship), xfer_bytes=nbytes,
+                dedup_blocks=dedup)
+        self._finalize_usage(req, "completed", now)
+        self._release_seq(req)
+        self.completed += 1
+        self._it_completed.append(req.rid)
+        if req.future.set_running_or_notify_cancel():
+            req.future.set_result({
+                "xfer": payload, "snapshot_version": req.version,
+                "staleness_s": self._manager.staleness_s(self._snap)})
+
+    @torch.no_grad()
+    def _apply_splice(self, payload: dict) -> Dict:
+        """Splice one received payload into the pool (loop thread). The
+        hash chain is walked head first: an indexed hash is an arrival
+        dedup; a shipped one takes a fresh block, is registered and
+        decrefs into the cached tier, where the follow-up admission's
+        lookup claims it. The walk stops at the first gap (chain hashes
+        mean prefixes), so a dropped payload or a full pool gives a
+        shorter warm prefix, never a wrong one. A payload of another
+        snapshot version, block size, shape or dtype is skipped whole."""
+        info: Dict = {"xfer_blocks": 0, "xfer_bytes": 0,
+                      "dedup_blocks": 0}
+        why = kv_transfer.validate(payload)
+        if why is not None:
+            info["skipped"] = why
+            return info
+        # pin a snapshot if nothing has yet (a decode replica may see a
+        # transfer before its first request)
+        self._maybe_refresh()
+        if self._seed_for(int(payload["snapshot_version"])) != \
+                self._hash_seed:
+            info["skipped"] = (
+                f"snapshot version {payload['snapshot_version']} != "
+                f"pinned {self._pinned_version}")
+            return info
+        if int(payload["block_size"]) != self._block_size:
+            info["skipped"] = (f"block size {payload['block_size']} != "
+                               f"{self._block_size}")
+            return info
+        cfg = self._model_cfg
+        shape = tuple(int(d) for d in payload["shape"])
+        if shape != (cfg.n_layers, self._block_size, cfg.d_model):
+            info["skipped"] = f"block shape {shape} mismatch"
+            return info
+        try:
+            dtype = kv_transfer.dtype_name(payload["dtype"])
+        except ValueError as exc:
+            info["skipped"] = str(exc)
+            return info
+        if dtype != self._pool_dtype():
+            info["skipped"] = f"dtype {dtype} != {self._pool_dtype()}"
+            return info
+        per_block = kv_transfer.block_nbytes(shape, dtype)
+        blocks = payload.get("blocks") or {}
+        new: List[Tuple[int, bytes, tuple]] = []
+        for hx in payload["hashes"]:
+            h = bytes.fromhex(hx)
+            if self._pool.peek([h]):
+                info["dedup_blocks"] += 1
+                continue
+            rec = blocks.get(hx)
+            if rec is None or not self._pool.can_alloc(1):
+                break
+            try:
+                k, v = kv_transfer.unpack_block(rec, shape, dtype)
+                scales = (kv_transfer.unpack_scales(rec, cfg.n_layers)
+                          if self._kv_quant else None)
+            except ValueError:
+                break
+            if self._kv_quant and scales is None:
+                # int8 bytes without their scales are undecodable
+                break
+            new.append((self._pool.alloc(1)[0], h, (k, v) + (
+                tuple(torch.from_numpy(np.array(x)) for x in scales)
+                if scales is not None else ())))
+        if new:
+            # one upload, one indexed write per pool
+            ids = self._upload(np.asarray([b for b, _, _ in new], np.int64))
+            pools = [self._k_cache, self._v_cache]
+            if self._kv_quant:
+                pools += [self._k_scales, self._v_scales]
+            for i, pool in enumerate(pools):
+                vals = torch.stack([t[i] for _, _, t in new], dim=1)
+                pool.index_copy_(1, ids, vals.to(pool.device, pool.dtype))
+            for blk, h, _ in new:
+                self._pool.register(blk, h)
+                self._pool.decref([blk])
+            info["xfer_blocks"] = len(new)
+            info["xfer_bytes"] = len(new) * per_block
+        self._count_xfer(info["xfer_blocks"], info["xfer_bytes"],
+                         info["dedup_blocks"])
+        if self.ledger is not None and info["xfer_bytes"]:
+            # splice-in bytes bill the payload's tenant at once (no
+            # request carries them yet), the same amount as the mirror
+            self.ledger.charge(payload.get("tenant"),
+                               xfer_bytes=info["xfer_bytes"])
+        return info
 
     def _admit_contiguous(self, params, k_cache, v_cache, slot, toks,
                           lengths):
@@ -1361,6 +1784,10 @@ class DecodeEngine:
             self.prefill_tokens += len(req.prompt)
             self.prefill_tok_counter.inc(len(req.prompt))
             self._it_prefill += len(req.prompt)
+            if req.usage is not None:
+                req.usage.queue_wait_ms += (t_admit
+                                            - req.usage.t_wait0) * 1e3
+                req.usage.prefill_tokens += len(req.prompt)
             self._it_admitted.append(req.rid)
         first = torch.cat(firsts).cpu().numpy()   # one sync per admission
         now = time.monotonic()
@@ -1373,6 +1800,8 @@ class DecodeEngine:
             self.tokens += 1
             self.decode_tok_counter.inc()
             self._it_decode += 1
+            if req.usage is not None:
+                req.usage.decode_tokens += 1
             req.out.append(tok0)
             if req.drafter is not None:
                 req.drafter.extend((tok0,))
@@ -1460,6 +1889,9 @@ class DecodeEngine:
         req.ttft_pending = False
         # the drafter is rebuilt at re-admission from the same tokens
         req.drafter = None
+        if req.usage is not None:
+            # a fresh queue-wait interval opens until re-admission
+            req.usage.t_wait0 = time.monotonic()
         if trace.enabled() and req.ctx is not None:
             trace.record_span(
                 "decode.preempt", req.ctx, t0, time.monotonic(),
@@ -1565,7 +1997,8 @@ class DecodeEngine:
     @torch.no_grad()
     def _step(self) -> None:
         tracing = trace.enabled()
-        t_it0 = time.monotonic() if tracing else 0.0
+        ledger_on = self.ledger is not None
+        t_it0 = time.monotonic() if (tracing or ledger_on) else 0.0
         spec_toks = n_valid = None
         if self._spec:
             spec_toks, n_valid = self._propose_drafts()
@@ -1602,6 +2035,12 @@ class DecodeEngine:
         nxt = nxt.cpu().numpy()       # the host sync point: [S] or [S, K1]
         now = time.monotonic()
         self.steps_counter.inc()
+        if ledger_on:
+            # the step's wall divides over the sequences it served, before
+            # the loop below retires any of them
+            self.ledger.charge_step(
+                [r for r in self._slot_req if r is not None],
+                (now - t_it0) * 1e3)
         n_active = 0
         for s in range(S):
             req = self._slot_req[s]
@@ -1625,6 +2064,8 @@ class DecodeEngine:
                 self.tokens += 1
                 self.decode_tok_counter.inc()
                 self._it_decode += 1
+                if req.usage is not None:
+                    req.usage.decode_tokens += 1
                 if req.ttft_pending:
                     # a fully cached admission's first token is TTFT
                     req.ttft_pending = False
@@ -1657,7 +2098,37 @@ class DecodeEngine:
         eos = self.config.eos_id
         return (eos is not None and tok == eos) or len(req.out) >= req.max_new
 
+    def _finalize_usage(self, req: _Request, outcome: str,
+                        now: Optional[float] = None) -> None:
+        """Fold a finished request's vector into its tenant's row, once
+        (the vector detaches here), and record the ``acct.request``
+        span."""
+        usage = req.usage
+        if usage is None:
+            return
+        req.usage = None
+        if now is None:
+            now = time.monotonic()
+        usage.preemptions = req.preempts
+        lat_ms = ((now - req.t_enq) * 1e3 if outcome == "completed"
+                  else None)
+        cost = self.ledger.finalize(usage, outcome, lat_ms)
+        if trace.enabled() and req.ctx is not None:
+            trace.record_span(
+                "acct.request", req.ctx, req.t_enq, now,
+                tenant=usage.tenant, cost=round(cost, 6), outcome=outcome,
+                prefill_tokens=usage.prefill_tokens,
+                prefill_tokens_saved=usage.prefill_tokens_saved,
+                decode_tokens=usage.decode_tokens,
+                kv_block_s=round(usage.kv_block_s, 6),
+                device_step_ms=round(usage.device_step_ms, 3),
+                queue_wait_ms=round(usage.queue_wait_ms, 3),
+                xfer_bytes=usage.xfer_bytes,
+                recompute_tokens=usage.recompute_tokens,
+                preemptions=usage.preemptions)
+
     def _resolve(self, req: _Request) -> None:
+        self._finalize_usage(req, "completed")
         self.completed += 1
         self._it_completed.append(req.rid)
         if req.future.set_running_or_notify_cancel():
@@ -1672,6 +2143,11 @@ class DecodeEngine:
         with self._cv:
             self._stop.set()
             pending = self._q.drain()
+            # release splice waiters: the loop applies no more
+            while self._splice_q:
+                _, done, info = self._splice_q.popleft()
+                info["skipped"] = "engine failed"
+                done.set()
         live = [r for r in self._slot_req if r is not None]
         if self._pf is not None:
             live.append(self._pf)
@@ -1683,6 +2159,7 @@ class DecodeEngine:
                 if req.blocks:
                     self._pool.decref(req.blocks)
                     req.blocks = []
+            self.unsqueeze_pool()
             self._block_tables[:] = SCRATCH_BLOCK
             self._bt_dirty = True
         self._active[:] = False
@@ -1693,8 +2170,37 @@ class DecodeEngine:
             if id(req) in seen or req.future.done():
                 continue
             seen.add(id(req))
+            # what it consumed before the failure is still billed
+            self._finalize_usage(req, "failed")
             if req.future.set_running_or_notify_cancel():
                 req.future.set_exception(exc)
+
+    # -- chaos hooks ----------------------------------------------------------
+    def squeeze_pool(self, frac: float) -> int:
+        """Chaos hook (``-chaos pool_squeeze=``): hold up to ``frac`` of
+        the paged pool's capacity hostage, so live traffic sees a smaller
+        pool and growth must preempt. Returns the blocks held (capped to
+        what is reclaimable now); :meth:`unsqueeze_pool`, ``stop()`` and
+        the failure path release them."""
+        if not self._paged:
+            return 0
+        want = int(self._pool.capacity * float(frac))
+        take = min(want, self._pool.n_free + self._pool.n_cached)
+        if take <= 0:
+            return 0
+        try:
+            self._squeezed.extend(self._pool.alloc(take))
+        except RuntimeError:             # raced a concurrent admission
+            return 0
+        return take
+
+    def unsqueeze_pool(self) -> int:
+        """Release a staged :meth:`squeeze_pool`; returns blocks freed."""
+        n = len(self._squeezed)
+        if n:
+            self._pool.decref(self._squeezed)
+            self._squeezed = []
+        return n
 
     # -- introspection --------------------------------------------------------
     def step_cache_size(self) -> int:
@@ -1813,6 +2319,26 @@ class DecodeEngine:
             })
         if self._param_quant == "int8":
             pool["decode_param_quant"] = self._param_quant
+        if self.ledger is not None:
+            # the accounting surface exists on ledger engines only;
+            # accounting_drift is |sum over tenants - engine mirror| over
+            # the integer fields, 0 at quiescence
+            pool.update({
+                **self.ledger.stats(),
+                "accounting_drift": self.ledger.drift(
+                    self.prefill_tokens, self.tokens, self.xfer_bytes),
+            })
+        if self._prefix:
+            # the transfer plane (prefix-cache engines): raw K/V bytes
+            # fetched out or spliced in, and the dedup hit rate
+            moved = self.xfer_blocks + self.xfer_dedup
+            pool.update({
+                "kv_bytes_moved": self.xfer_bytes,
+                "xfer_blocks": self.xfer_blocks,
+                "xfer_dedup_blocks": self.xfer_dedup,
+                "xfer_dedup_hit_rate": (self.xfer_dedup / moved
+                                        if moved else 0.0),
+            })
         if self._spec:
             pool.update({
                 "spec_k": self._spec,
@@ -1884,10 +2410,13 @@ class DecodeEngine:
         self.prefill_tokens_saved = self.cow_copies = 0
         self.spec_proposed = self.spec_accepted = self.spec_steps = 0
         self.preemptions = self.preempted = self.deadline_drops = 0
+        self.xfer_blocks = self.xfer_bytes = self.xfer_dedup = 0
         self.prefill_s = self.decode_s = 0.0
         self._argmax_match = -1.0
         if self._paged:
             self._evictions_base = self._pool.evictions
+        if self.ledger is not None:
+            self.ledger.reset()
         self.t_first = None
         self._occ_sum = 0.0
         self._occ_n = 0
@@ -1900,5 +2429,8 @@ class DecodeEngine:
             self._stop.set()
             self._cv.notify_all()
         self._thread.join(timeout=600)
+        if self._paged:
+            # a staged squeeze must not outlive the engine
+            self.unsqueeze_pool()
         if self.watchdog is not None:
             self.watchdog.stop()

@@ -9,8 +9,8 @@ dump after the fact. One tuple and one short-lock append per iteration,
 host state only; nothing is serialized until someone asks.
 
 Records carry the JAX recorder's columns (:data:`FIELDS`, positional), so
-one tool reads the dumps of both packages. This engine fills the first
-20, from ``it`` to ``quant_scale_blocks``:
+one tool reads the dumps of both packages. The engine fills every
+column:
 
 ======================  =====================================================
 ``it``                  iteration index (1-based, monotonic per engine)
@@ -33,11 +33,15 @@ one tool reads the dumps of both packages. This engine fills the first
 ``spec_accepted``       drafts accepted this pass (-1 when ``spec_k=0``)
 ``kv_quant``            1 for int8 pools, 0 for fp (-1 when contiguous)
 ``quant_scale_blocks``  live + cached blocks of an int8 pool (-1 otherwise)
+``kv_block_s``          this pass's KV block-seconds charge (-1 when the
+                        engine's cost ledger is off)
+``tenants_live``        the cost ledger's tenant count (-1 when it is off)
+``sp_chunks``           sequence-parallel chunks: always -1 (``prefill_sp``
+                        is not ported)
 ======================  =====================================================
 
-The later columns (tenant accounting, sequence-parallel chunks) come
-with their features; a record without them reads everywhere, as the JAX
-recorder's pre-feature records do. Timestamps are
+A record without the tail columns reads everywhere, as the JAX
+recorder's older records do. Timestamps are
 monotonic; a wall/monotonic anchor taken at construction rebases exports
 to epoch microseconds, the span export's timebase.
 """

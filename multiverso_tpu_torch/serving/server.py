@@ -22,9 +22,6 @@ from .batcher import BatcherConfig, MicroBatcher
 from .decode_engine import DecodeEngine, DecodeEngineConfig
 from .snapshot import SnapshotManager
 
-# payload keys of the JAX server whose features this port does not have
-_UNPORTED_PAYLOAD_KEYS = ("tenant",)
-
 
 class _DecoderEntry:
     def __init__(self, name: str, engine: DecodeEngine) -> None:
@@ -34,19 +31,17 @@ class _DecoderEntry:
     def submit(self, payload: Any,
                ctx: Optional[trace.SpanContext] = None) -> Future:
         """Payload: a 1-D prompt id array, or a dict with ``prompt`` and
-        the optional per-request ``max_new``, ``priority`` (class 0..7)
-        and ``deadline_s``."""
+        the optional per-request ``max_new``, ``priority`` (class 0..7),
+        ``deadline_s`` and ``tenant`` (the cost ledger's accounting id;
+        absent = the ``-default_tenant`` flag)."""
         if isinstance(payload, dict):
             if "prompt" not in payload:
                 raise ValueError("decoder payload dict needs a 'prompt' key")
-            for key in _UNPORTED_PAYLOAD_KEYS:
-                if payload.get(key) is not None:
-                    Log.fatal(f"serving: payload key {key!r} is not ported "
-                              f"to multiverso_tpu_torch yet")
             return self.engine.submit(
                 payload["prompt"], payload.get("max_new"), ctx=ctx,
                 priority=payload.get("priority"),
-                deadline_s=payload.get("deadline_s"))
+                deadline_s=payload.get("deadline_s"),
+                tenant=payload.get("tenant"))
         return self.engine.submit(payload, ctx=ctx)
 
 
@@ -145,10 +140,12 @@ class InferenceServer:
         speculative decoding, ``kv_quant="int8"`` int8 KV pools and
         ``decode_param_quant="int8"`` int8 parameter pins (all three need
         the paged KV cache where JAX does); ``slo_ttft_ms``/``slo_itl_ms``
-        > 0 register the latency SLOs. The features this port does not
-        have yet (``decode_tp``, ``prefill_sp``, ``cost_ledger``) raise
-        :class:`~..log.FatalError` when their resolved value turns them
-        on."""
+        > 0 register the latency SLOs; ``cost_ledger`` (None = the
+        ``-cost_ledger`` flag) attaches a per-tenant
+        :class:`~.accounting.CostLedger` billing each request to its
+        ``tenant`` payload key. The features this port does not have yet
+        (``decode_tp``, ``prefill_sp``) raise :class:`~..log.FatalError`
+        when their resolved value turns them on."""
         cfg = DecodeEngineConfig(
             slots=slots, max_prompt=max_prompt, max_new=max_new,
             eos_id=eos_id, max_queue=max_queue,

@@ -196,12 +196,13 @@ def test_engine_records_iterations(tmp_path):
         completed = [rid for r in recs for rid in r["completed"]]
         assert len(admitted) == len(completed) == 3
         assert set(admitted) == set(completed)
-        # the engine writes the columns up to quant_scale_blocks; a plain
-        # engine's speculation and int8 columns say "off"
-        assert all(len(r) == 20 for r in recs)
+        # the engine writes every column; a plain engine's speculation,
+        # int8, ledger and sequence-parallel columns say "off"
+        assert all(len(r) == len(FIELDS) == 23 for r in recs)
         assert all(r["spec_proposed"] == r["spec_accepted"] == -1
                    and r["kv_quant"] == 0 and r["quant_scale_blocks"] == -1
-                   for r in recs)
+                   and r["kv_block_s"] == -1.0 and r["tenants_live"] == -1
+                   and r["sp_chunks"] == -1 for r in recs)
         assert all(r["pool_free"] >= 0 and r["version"] >= 0 for r in recs)
         assert sum(r["decode_toks"] for r in recs) == stats["tokens"]
         assert sum(r["prefill_toks"] for r in recs) == 12

@@ -185,13 +185,13 @@ def test_concurrent_submitters(port):
 
 
 UNPORTED = [
-    ("decode_tp", 2), ("prefill_sp", True), ("cost_ledger", True),
+    ("decode_tp", 2), ("prefill_sp", True),
 ]
 # each ported feature, turned on alone over OFF
 PORTED = [
     ("prefill_token_budget", 32), ("kv_block_size", 16),
     ("prefix_cache", True), ("preempt", True), ("flight_recorder", True),
-    ("watchdog", True),
+    ("watchdog", True), ("cost_ledger", True),
 ]
 
 
@@ -225,6 +225,10 @@ def test_ported_feature_builds(port, flag, value):
     assert stats["step_traces"] == 1
     assert (eng.recorder is not None) == (flag == "flight_recorder")
     assert (eng.watchdog is not None) == (flag == "watchdog")
+    assert (eng.ledger is not None) == (flag == "cost_ledger")
+    if flag == "cost_ledger":
+        assert stats["accounting_drift"] == 0
+        assert eng.ledger.tenants()["default"]["completed"] == 3
 
 
 # served over OFF with the paged layout in place of OFF's contiguous one
@@ -342,24 +346,20 @@ def test_engine_builds_at_jax_flag_defaults(port):
         np.testing.assert_array_equal(rep["result"], want[i])
 
 
-@pytest.mark.parametrize("key,value", [("tenant", "acme")])
-def test_unported_payload_keys_raise(port, key, value):
-    _, lm = _model()
-    srv = InferenceServer("t")
-    srv.register_decoder("lm", lm, slots=2, max_prompt=16, max_new=4,
-                         prompt_buckets=BUCKETS, **OFF)
-    with pytest.raises(FatalError, match=key):
-        srv.submit("lm", {"prompt": [1, 2], key: value})
-
-
-@pytest.mark.parametrize("key,value", [("priority", 2), ("deadline_s", 30.0)])
+@pytest.mark.parametrize("key,value", [("priority", 2), ("deadline_s", 30.0),
+                                       ("tenant", "acme")])
 def test_ported_payload_keys_served(port, key, value):
     _, lm = _model()
     srv = InferenceServer("t")
-    srv.register_decoder("lm", lm, slots=2, max_prompt=16, max_new=4)
+    eng = srv.register_decoder("lm", lm, slots=2, max_prompt=16, max_new=4,
+                               cost_ledger=key == "tenant")
     prompt = _prompts(1, seed=7)[0]
     rep = srv.submit("lm", {"prompt": prompt, key: value}).result(timeout=120)
     np.testing.assert_array_equal(rep["result"], _jax_oracle([prompt], 4)[0])
+    if key == "tenant":
+        row = eng.ledger.tenants()[value]
+        assert row["completed"] == 1 and row["decode_tokens"] == 4
+        assert row["prefill_tokens"] == len(prompt)
 
 
 def test_init_without_cpu_flag_refuses_to_fall_back():
@@ -391,11 +391,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'multiverso_tpu' "
         "or m.startswith('multiverso_tpu.'))\n"
-        "assert len(names) >= 21, names\n"
+        "assert len(names) >= 27, names\n"
         "for m in ('block_pool', 'flight_recorder', 'watchdog', "
-        "'decode_engine', 'batcher', 'workloads', 'snapshot', 'server'):\n"
+        "'decode_engine', 'batcher', 'workloads', 'snapshot', 'server', "
+        "'faultinject', 'kv_transfer', 'accounting', 'replica', "
+        "'router'):\n"
         "    assert 'multiverso_tpu_torch.serving.' + m in names, m\n"
         "assert 'multiverso_tpu_torch.quantization' in names\n"
+        "assert 'multiverso_tpu_torch.parallel.p2p' in names\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
