@@ -214,6 +214,39 @@ Phase 13 runs right after phase 11:
    heartbeat tenant rows in router.replica_rows(). Prints tokens/s,
    TTFT and ITL p50 per leg, recovery_time_s and the bytes moved.
 
+Phase 14 runs right after phase 13:
+
+14. the fleet's two planes (``phase_planes``). (a) observability: phase
+   3's flagship and layout serve phase 3's 16 prompts with the plane off
+   and then under -obs_plane (loopback, reports every 250 ms), -trace
+   and -metrics_jsonl (every 0.5 s): outputs equal token for token, the
+   collector's counters equal the Dashboard's exactly, the engine's last
+   shipped stats equal eng.stats()'s counts, the merged TTFT/ITL p50 and
+   p99 within BUCKET_REL_ERROR of the engine's exact percentiles, no
+   dropped report, the Prometheus text parses back with a node label,
+   every JSON line parses (the last one's counters equal the
+   Dashboard's after shutdown), the merged Chrome document validates;
+   then a rank-1 agent ships over the real mvobs TCP wire to a rank-0
+   collector, its reports ingested and its window released by the acks.
+   (b) parameters, at the text8 width ([71291, 200] bf16 tables on the
+   card): a ParamPublisher (epoch 1 by claim_epoch) and two
+   ParamSubscribers over the real mvparam TCP wire; a STATE rebase, 8
+   keyed records (the unique ids of a 65,536-id zipf draw, rows x 1e-3,
+   applied by the trainer through the scatter-add kernel) and 1 dense
+   record, each replica bitwise equal to the trainer (raw bf16 words,
+   read through the row gather kernel) at its version after every
+   record; EmbeddingNeighbors (k 8) on 32 ids through the micro-batcher
+   on every table after delta records 4 and 9, ids and scores equal to
+   the trainer's; a restarted publisher (epoch 2, zombie_epoch=4:1)
+   rebases, each replica switches streams and holds epoch 2 in its table
+   and snapshot; 0.75 s of silence makes every replica stale under
+   -params_stale_after_s=0.5 and a publish clears it; publishes 4 and 5,
+   stamped epoch 1, are rejected by every replica's fence. (c) the
+   engine's staleness health on a train-while-serving flagship engine:
+   after 0.75 s without a train step health() reads params_stale with
+   params_age_s > 0.5 and SERVE_PARAMS_AGE >= 0.5, and one train_batch
+   (the one-pass flash backward) clears it.
+
 Phase 12 runs after phase 6:
 
 12. word2vec completion: every single-process option of the JAX config
@@ -253,7 +286,8 @@ regime (the forward's also with the training shape's time, bound and
 library time, and the training run's bf16 launches beside the serving
 run's, and phase 11's beside them as ``launches_surface`` with that
 path's shape's error and times as ``surface_*``, and phase 13's fleet
-launches, all replicas, as ``launches_fleet``; phase 12's launches
+launches, all replicas, as ``launches_fleet``, and phase 14's as
+``launches_planes``; phase 12's launches
 by configuration as ``launches_completion``, and phase 4's HS-node and
 CBOW-window shapes as ``hs_nodes_*`` and ``cbow_ctx_*``); the last
 line is {"ok": true, "device": {...}}. Any failure exits
@@ -368,6 +402,7 @@ LM_LOSS_DROP = 0.1
 # that into every gradient; 1e-3 leaves a wide margin and is far below
 # the ~1 that a lost attention gradient gives
 GRAD_TOL = 1e-3
+T_START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -2418,6 +2453,504 @@ def fleet_disagg(kv, uni, dis, q8, base_prompts, ref_cfg, params, kt):
               f"the bf16 unified leg {rate:.3f} (floor {QUANT_MATCH_FLOOR})")
 
 
+# phase 14: the fleet's two planes
+PLANE_REPORT_MS = 250     # -obs_report_ms of (a)'s loopback agent
+PLANE_METRICS_S = 0.5     # -metrics_interval_s of (a)'s exporter
+# (b) and (c): the staleness bound and the silence that must trip it
+PLANE_STALE_S, PLANE_SILENCE_S = 0.5, 0.75
+PLANE_KEYED, PLANE_DRAW, PLANE_SCALE = 8, 65536, 1e-3
+PLANE_QUERIES = 32
+PLANE_NEIGHBORS_AFTER = (4, 9)   # delta records (8 keyed, then the dense)
+PLANE_ZOMBIE = "zombie_epoch=4:1"
+PLANE_WAIT_S = 120.0
+
+
+def wait_for(what: str, pred, timeout_s: float = PLANE_WAIT_S) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"planes: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def phase_planes(card: str, base_prompts):
+    """14. The fleet's two planes (see the module docstring): (a) the
+    observability plane at phase 3's width, (b) the parameter plane at
+    the text8 width, (c) the engine's staleness health. Returns phase
+    14's kernel launches by kernel, each counted from 0 just before the
+    path that launches it."""
+    t_phase = time.perf_counter()
+    _CARD[:] = [card]
+    launches = collections.Counter()
+    planes_obs(base_prompts, launches)
+    import multiverso_tpu_torch as mv
+
+    mv.init(["chip_smoke", f"-device={DEV.type}", "-log_level=error",
+             f"-params_stale_after_s={PLANE_STALE_S}"])
+    try:
+        planes_params(launches)
+        planes_health(base_prompts, launches)
+    finally:
+        mv.shutdown()
+        mv.set_flag("params_stale_after_s", 0.0)
+    say(f"planes: launches {json.dumps(dict(launches), sort_keys=True)}; "
+        f"phase 14 took {time.perf_counter() - t_phase:.1f} s, card "
+        f"{card_line()}")
+    if DEV.type == "cuda" and not all(launches[k] > 0 for k in (
+            "flash_fwd_short", "flash_fwd_long", "row_gather",
+            "row_scatter_add", "flash_bwd_fused")):
+        fail(f"planes: a kernel of the path was not launched: "
+             f"{dict(launches)}")
+    return dict(launches)
+
+
+def planes_serve(label, flags, prompts, launches):
+    """Serve ``prompts`` on phase 3's flagship and layout in a session of
+    its own (``flags`` added); returns the outputs, tokens/s, the engine
+    and its server, the session's agent and its report build times. The
+    session stays up: the caller checks, then shuts it down."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models import transformer as tf
+    from multiverso_tpu_torch.runtime import Session
+    from multiverso_tpu_torch.serving import InferenceServer
+
+    fa = _fa()
+    mv.init(["chip_smoke", f"-device={DEV.type}", "-log_level=error"]
+            + flags)
+    lm = tf.TransformerLM(tf.TransformerConfig(
+        **FLAGSHIP, dtype=torch.bfloat16, attention="flash_force"))
+    srv = InferenceServer(f"planes_{label}")
+    eng = srv.register_decoder(
+        f"planes_{label}", lm, slots=SLOTS, max_prompt=MAX_PROMPT,
+        max_new=MAX_NEW, prompt_buckets=BUCKETS, prefill_token_budget=0,
+        kv_block_size=0, prefix_cache=False, spec_k=0, kv_quant="none",
+        decode_param_quant="none", preempt=False, flight_recorder=False,
+        watchdog=False, cost_ledger=False)
+    agent = Session.get().obs_agent
+    build_ms = []
+    if agent is not None:
+        build = agent.build_report
+
+        def timed_build():
+            t0 = time.perf_counter()
+            rep = build()
+            build_ms.append(1e3 * (time.perf_counter() - t0))
+            return rep
+
+        agent.build_report = timed_build
+    dev_sync()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    futs = [srv.submit(f"planes_{label}", {"prompt": p, "max_new": MAX_NEW})
+            for p in prompts]
+    outs = [np.asarray(f.result(timeout=600)["result"]) for f in futs]
+    dev_sync()
+    wall = time.perf_counter() - t0
+    by_len = dict(fa.LAUNCHES_BY_KEY_LEN)
+    launches["flash_fwd_short"] += sum(n for k, n in by_len.items()
+                                       if k <= 1024)
+    launches["flash_fwd_long"] += sum(n for k, n in by_len.items()
+                                      if k > 1024)
+    tokens = sum(o.size for o in outs)
+    return {"outs": outs, "tok_s": tokens / wall, "eng": eng, "srv": srv,
+            "agent": agent, "build_ms": build_ms, "wall": wall}
+
+
+def _counters(snap):
+    return {n: r["value"] for n, r in snap.items() if r["type"] == "counter"}
+
+
+def planes_obs(prompts, launches):
+    """(a) the observability plane at full width."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import trace
+    from multiverso_tpu_torch.dashboard import (BUCKET_REL_ERROR, Dashboard,
+                                                _prom_split,
+                                                parse_prometheus)
+
+    out_dir = os.path.join(HERE, "build", "planes")
+    os.makedirs(out_dir, exist_ok=True)
+    jsonl = os.path.join(out_dir, "m.jsonl")
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    off = planes_serve("off", [], prompts, launches)
+    mv.shutdown()
+    Dashboard.reset()
+    on_flags = ["-obs_plane=true", f"-obs_report_ms={PLANE_REPORT_MS}",
+                "-trace=true", f"-metrics_jsonl={jsonl}",
+                f"-metrics_interval_s={PLANE_METRICS_S}"]
+    try:
+        on = planes_serve("on", on_flags, prompts, launches)
+        eng, agent = on["eng"], on["agent"]
+        name = eng.name
+        if agent is None or agent.collector is None:
+            fail("planes a: -obs_plane started no loopback agent")
+        same = sum(np.array_equal(a, b)
+                   for a, b in zip(off["outs"], on["outs"]))
+        if same != len(prompts):
+            fail(f"planes a: {same}/{len(prompts)} outputs equal with the "
+                 f"plane on and off")
+        # two report intervals after the drain: the last report is of a
+        # quiescent registry
+        n0 = agent.reports
+        wait_for("two reports after the drain", lambda: agent.reports >= n0 + 2)
+        col = agent.collector
+        fl = col.fleet()
+        dash = _counters(Dashboard.snapshot())
+        if fl["counters"] != dash:
+            diff = {k: (fl["counters"].get(k), dash.get(k))
+                    for k in set(fl["counters"]) | set(dash)
+                    if fl["counters"].get(k) != dash.get(k)}
+            fail(f"planes a: collector counters differ from the "
+                 f"Dashboard's: {diff}")
+        shipped = col.node_state(0)["engines"][name]["stats"]
+        live = eng.stats()
+        counts = {k for k, v in live.items()
+                  if isinstance(v, int) and not isinstance(v, bool)}
+        bad = {k: (shipped.get(k), live[k]) for k in counts
+               if shipped.get(k) != live[k]}
+        if bad or not counts:
+            fail(f"planes a: the last shipped stats differ from "
+                 f"eng.stats(): {bad}")
+        worst = 0.0
+        for hist, h in ((f"SERVE_TTFT[{name}]", eng.ttft_hist),
+                        (f"SERVE_ITL[{name}]", eng.itl_hist)):
+            exact = h.percentiles((50, 99))
+            merged = fl["histograms"][hist]
+            for p in (50, 99):
+                got, want = merged[f"p{p}_ms"], exact[p]
+                err = abs(got - want) / want if want else float(got != 0)
+                worst = max(worst, err)
+                if err > BUCKET_REL_ERROR + 1e-9:
+                    fail(f"planes a: merged {hist} p{p} {got} vs exact "
+                         f"{want} (relative {err}, bound "
+                         f"{BUCKET_REL_ERROR})")
+        st = agent.stats()
+        if st["dropped_reports"] != 0:
+            fail(f"planes a: dropped reports {st['dropped_reports']}")
+        text = col.prometheus()
+        parsed = parse_prometheus(text)
+        samples = [ln for ln in text.splitlines()
+                   if ln and not ln.startswith("#")]
+        if not samples or not all('node="0"' in ln for ln in samples):
+            fail("planes a: a Prometheus sample without its node label")
+        for cname, value in fl["counters"].items():
+            metric = f"mv_{_prom_split(cname)[0]}"
+            if parsed.get(cname, {}).get(metric) != float(value):
+                fail(f"planes a: Prometheus gives {cname} as "
+                     f"{parsed.get(cname)}, the collector {value}")
+        doc = col.export_chrome()
+        summary = trace.validate_chrome_events(doc["traceEvents"],
+                                               root_name="serve.request")
+        if summary["roots"] < len(prompts):
+            fail(f"planes a: {summary['roots']} request roots in the merged "
+                 f"trace for {len(prompts)} requests")
+        wire = planes_obs_wire(eng)
+        build_ms = list(on["build_ms"])
+    finally:
+        mv.shutdown()
+        for flag, value in (("obs_plane", False), ("trace", False),
+                            ("metrics_jsonl", ""),
+                            ("obs_report_ms", 1000),
+                            ("metrics_interval_s", 10.0)):
+            mv.set_flag(flag, value)
+        trace.disable()
+        trace.collector().clear()
+    lines = [json.loads(x) for x in open(jsonl).read().splitlines()]
+    after = _counters(Dashboard.snapshot())
+    if not lines or _counters(lines[-1]["snapshot"]) != after:
+        fail("planes a: the last JSON line's counters differ from the "
+             "Dashboard's")
+    say(f"planes a (observability, {len(prompts)} requests of phase 3, "
+        f"reports every {PLANE_REPORT_MS} ms, JSON lines every "
+        f"{PLANE_METRICS_S} s): {off['tok_s']:.1f} tok/s off, "
+        f"{on['tok_s']:.1f} on; {len(prompts)}/{len(prompts)} outputs "
+        f"equal; {st['reports']} reports, dropped 0, report build mean "
+        f"{np.mean(build_ms):.3f} ms max {np.max(build_ms):.3f} ms over "
+        f"{len(build_ms)}; spans shipped {st['spans_shipped']} missed "
+        f"{st['spans_missed']}; {len(fl['counters'])} counters equal the "
+        f"Dashboard's; worst merged-percentile error {worst:.4f} (bound "
+        f"{BUCKET_REL_ERROR:.4f}); {summary['spans']} spans, "
+        f"{summary['roots']} request roots validate; {len(lines)} JSON "
+        f"lines; card {card_line()}")
+    say(f"planes a (mvobs TCP wire, rank 1 -> rank 0): {wire['reports']} "
+        f"reports ingested, {wire['spans']} spans, outstanding "
+        f"{wire['outstanding']}, dropped {wire['dropped']}, the engine's "
+        f"completed {wire['completed']}; card {card_line()}")
+
+
+def planes_obs_wire(eng):
+    """A rank-1 agent shipping ``eng``'s stats over the real mvobs TCP
+    wire to a rank-0 collector; its reports must be ingested and the
+    acks must release its window to 0."""
+    from multiverso_tpu_torch.serving import ObsAgent
+
+    kv = FleetKV()
+    label = "mvobs_planes"
+    col = ObsAgent(rank=0, size=2, client=kv, label=label,
+                   report_ms=PLANE_REPORT_MS, engines=lambda: {},
+                   start=False)
+    a1 = ObsAgent(rank=1, size=2, client=kv, label=label,
+                  report_ms=PLANE_REPORT_MS,
+                  engines=lambda: {eng.name: eng}, start=False)
+    try:
+        def ingested():
+            if a1.reports < 3:
+                a1.tick()
+            col.tick()
+            return col.collector.node_state(1)["reports"] >= 3
+
+        def released():
+            col.tick()
+            a1._release_acked_and_can_ship()
+            return a1.stats()["outstanding"] == 0
+
+        wait_for("the wire's reports", ingested, timeout_s=60)
+        wait_for("the wire's acks", released, timeout_s=60)
+        st1, node = a1.stats(), col.collector.node_state(1)
+        done = node["engines"][eng.name]["stats"]["completed"]
+        if st1["dropped_reports"] or done != eng.stats()["completed"]:
+            fail(f"planes a: the wire agent dropped "
+                 f"{st1['dropped_reports']}, shipped completed {done}")
+        return {"reports": node["reports"], "spans": len(node["spans"]),
+                "outstanding": st1["outstanding"],
+                "dropped": st1["dropped_reports"], "completed": done}
+    finally:
+        a1.stop(final_report=False)
+        col.stop(final_report=False)
+
+
+def planes_params(launches):
+    """(b) the parameter plane at the text8 width."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.serving import (EmbeddingNeighbors, FaultPlan,
+                                              InferenceServer,
+                                              ParamPublisher,
+                                              ParamSubscriber,
+                                              SnapshotManager)
+
+    emb = _emb()
+    V, D = W2V_VOCAB, W2V_DIM
+    trainer = mv.create_table("matrix", V, D, init_value="random",
+                              dtype=torch.bfloat16, seed=0)
+    reps = [mv.create_table("matrix", V, D, dtype=torch.bfloat16)
+            for _ in range(2)]
+    kv = FleetKV()
+    label = "mvparam_planes"
+    all_ids = torch.arange(V, dtype=torch.int32, device=DEV)
+    srv = InferenceServer("planes_w2v")
+    tables = {"trainer": trainer, "r1": reps[0], "r2": reps[1]}
+    for tag, t in tables.items():
+        srv.register(f"w2v_{tag}", EmbeddingNeighbors(t, k=EMB_K),
+                     max_batch=PLANE_QUERIES, deadline_ms=1000.0,
+                     max_staleness_s=0.0)
+    q_rng = np.random.default_rng(44)
+
+    def read_bits(t):
+        return bits(emb.embedding_lookup(t.array, all_ids))
+
+    def hold(what, subs, applied):
+        for r, sub in enumerate(subs):
+            wait_for(f"replica {r + 1} to apply {what}",
+                     lambda: sub.applied == applied)
+        want = read_bits(trainer)
+        for r, t in enumerate(reps):
+            if t.version != trainer.version or not torch.equal(
+                    read_bits(t), want):
+                fail(f"planes b: replica {r + 1} after {what}: version "
+                     f"{t.version} vs the trainer's {trainer.version}, "
+                     f"bitwise equal {torch.equal(read_bits(t), want)}")
+
+    def neighbors(k):
+        ids = q_rng.integers(0, V, PLANE_QUERIES)
+        got = {}
+        for tag in tables:
+            futs = [srv.submit(f"w2v_{tag}", int(i)) for i in ids]
+            got[tag] = [f.result(timeout=600) for f in futs]
+            last = srv._entry(f"w2v_{tag}").batcher.flushes[-1]
+            if last[0] != PLANE_QUERIES:
+                fail(f"planes b: {tag}'s flush of {last}, not one of "
+                     f"{PLANE_QUERIES}")
+        for tag in ("r1", "r2"):
+            for i, (a, b) in enumerate(zip(got["trainer"], got[tag])):
+                if (a["snapshot_version"] != trainer.version
+                        or b["snapshot_version"] != trainer.version
+                        or not np.array_equal(a["result"][0], b["result"][0])
+                        or not np.array_equal(a["result"][1],
+                                              b["result"][1])):
+                    fail(f"planes b: EmbeddingNeighbors of id {ids[i]} on "
+                         f"{tag} differs from the trainer's after delta "
+                         f"record {k}")
+        return float(np.max([r["result"][1][0] for r in got["trainer"]]))
+
+    rng, vals_rng = np.random.default_rng(14), np.random.default_rng(15)
+    pub = ParamPublisher(kv, 3, label=label)
+    subs = [ParamSubscriber(kv, {trainer.table_id: t}, rank=r + 1, size=3,
+                            label=label, poll_s=0.01)
+            for r, t in enumerate(reps)]
+    pub2 = None
+    try:
+        if pub.epoch != 1:
+            fail(f"planes b: the first publisher claimed epoch {pub.epoch}")
+        dev_sync()
+        emb.reset_launches()
+        pub.publish_state(trainer)
+        hold("the STATE rebase", subs, 1)
+        keyed_s, keyed_bytes, n_rows = 0.0, 0, 0
+        for k in range(1, PLANE_KEYED + 2):
+            b0, t0 = pub.publish_bytes, time.perf_counter()
+            if k <= PLANE_KEYED:
+                ids = np.unique(zipf_ids(rng, V, PLANE_DRAW))
+                vals = torch.from_numpy((vals_rng.standard_normal(
+                    (ids.size, D)) * PLANE_SCALE).astype(
+                        np.float32)).to(torch.bfloat16)
+                trainer.add_rows(ids, vals)
+                pub.publish_keyed(trainer, ids, vals)
+                n_rows += ids.size
+            else:
+                ratio_keyed = pub.stats()["wire_compressed_ratio"]
+                d = (np.random.default_rng(16).standard_normal((V, D))
+                     * PLANE_SCALE).astype(np.float32)
+                trainer.add(d)
+                pub.publish_delta(trainer, d)
+            hold(f"delta record {k}", subs, k + 1)
+            if k <= PLANE_KEYED:
+                keyed_s += time.perf_counter() - t0
+                keyed_bytes += pub.publish_bytes - b0
+            if k in PLANE_NEIGHBORS_AFTER:
+                neighbors(k)
+        # the restart: epoch 2 by claim_epoch, a rebase, then the zombie
+        pub.stop()
+        pub2 = ParamPublisher(kv, 3, label=label,
+                              chaos=FaultPlan(PLANE_ZOMBIE))
+        if pub2.epoch != 2:
+            fail(f"planes b: the restarted publisher claimed epoch "
+                 f"{pub2.epoch}")
+        switches = [s.epoch_switches for s in subs]
+        applied = PLANE_KEYED + 2
+        pub2.publish_state(trainer)                         # publish 1
+        applied += 1
+        hold("the epoch-2 rebase", subs, applied)
+        for r, (s, t) in enumerate(zip(subs, reps)):
+            snap = SnapshotManager.of(t).publish()
+            if (s.epoch_switches != switches[r] + 1 or t.epoch != 2
+                    or (snap.epoch, snap.version) != (2, trainer.version)):
+                fail(f"planes b: replica {r + 1} after the restart: "
+                     f"switches {s.epoch_switches}, table epoch {t.epoch}, "
+                     f"snapshot ({snap.epoch}, {snap.version})")
+
+        def keyed_publish():
+            ids = np.unique(zipf_ids(rng, V, PLANE_DRAW))
+            vals = torch.from_numpy((vals_rng.standard_normal(
+                (ids.size, D)) * PLANE_SCALE).astype(
+                    np.float32)).to(torch.bfloat16)
+            trainer.add_rows(ids, vals)
+            pub2.publish_keyed(trainer, ids, vals)
+
+        keyed_publish()                                     # publish 2
+        applied += 1
+        hold("the restarted publisher's keyed record", subs, applied)
+        time.sleep(PLANE_SILENCE_S)
+        stale = [s.params_stale() for s in subs]
+        ages = [s.params_age_s() for s in subs]
+        if not all(stale):
+            fail(f"planes b: after {PLANE_SILENCE_S} s of silence the "
+                 f"replicas read stale {stale} (ages {ages})")
+        keyed_publish()                                     # publish 3
+        applied += 1
+        hold("the publish after the silence", subs, applied)
+        if any(s.params_stale() for s in subs):
+            fail("planes b: a publish did not clear the stale verdict")
+        before = [(read_bits(t).clone(), t.version) for t in reps]
+        keyed_publish()                                     # 4: epoch 1
+        keyed_publish()                                     # 5: epoch 1
+        for r, s in enumerate(subs):
+            wait_for(f"replica {r + 1}'s fence",
+                     lambda: s.stats()["fence_rejections"] == 2)
+        for r, (t, (b, v)) in enumerate(zip(reps, before)):
+            if t.version != v or not torch.equal(read_bits(t), b) \
+                    or subs[r].applied != applied:
+                fail(f"planes b: replica {r + 1} moved on a zombie record")
+        dev_sync()
+        launches["row_gather"] += emb.LAUNCHES["row_gather"]
+        launches["row_scatter_add"] += emb.LAUNCHES["row_scatter_add"]
+        zombies = pub2.stats()["chaos"]["zombie_publishes"]
+        st = [s.stats() for s in subs]
+    finally:
+        for s in subs:
+            s.stop()
+        (pub2 or pub).stop()
+        srv.stop()
+    mb = keyed_bytes / 1e6
+    say(f"planes b (parameters, [{V}, {D}] bf16 tables, 2 replicas over "
+        f"mvparam TCP): {PLANE_KEYED} keyed records of {n_rows} rows in all "
+        f"at {PLANE_KEYED / keyed_s:.2f} records/s, {mb / keyed_s:.1f} MB/s "
+        f"({mb:.1f} MB, publish to both replicas applied), "
+        f"wire_compressed_ratio {ratio_keyed:.6f}; every record bitwise "
+        f"equal on both replicas at the trainer's version "
+        f"{trainer.version}; EmbeddingNeighbors equal after delta records "
+        f"{PLANE_NEIGHBORS_AFTER}; restart: epoch 2, switches "
+        f"{[x['epoch_switches'] for x in st]}, stale after "
+        f"{PLANE_SILENCE_S} s (ages {[round(a, 3) for a in ages]}) and "
+        f"cleared; zombie publishes {zombies}, fence rejections "
+        f"{[x['fence_rejections'] for x in st]}; launches "
+        f"{json.dumps(dict(emb.LAUNCHES), sort_keys=True)}; card "
+        f"{card_line()}")
+
+
+def planes_health(prompts, launches):
+    """(c) the repaired staleness health at full width."""
+    from multiverso_tpu_torch.apps import lm as app
+    from multiverso_tpu_torch.dashboard import Dashboard
+    from multiverso_tpu_torch.models import transformer as tf
+    from multiverso_tpu_torch.serving import InferenceServer
+
+    fa = _fa()
+    cfg = tf.TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16,
+                               attention="flash_force",
+                               learning_rate=LM_LR, momentum=0.9)
+    lm = tf.TransformerLM(cfg)
+    srv = InferenceServer("planes_health")
+    name = "planes_health"
+    eng = srv.register_decoder(name, lm, slots=SLOTS,
+                               max_prompt=MAX_PROMPT, max_new=MAX_NEW,
+                               max_staleness_s=0.0)
+    try:
+        srv.submit(name, {"prompt": prompts[0], "max_new": 8}).result(
+            timeout=600)
+        time.sleep(PLANE_SILENCE_S)
+        h = eng.health()
+        gauge = Dashboard.get_or_create_gauge(
+            f"SERVE_PARAMS_AGE[{name}]").get()
+        if not (h["params_age_s"] > PLANE_STALE_S and h["params_stale"]
+                is True and gauge >= PLANE_STALE_S
+                and "snapshot_epoch" in h):
+            fail(f"planes c: after {PLANE_SILENCE_S} s without a step: "
+                 f"health {h}, gauge {gauge}")
+        data = app.load_bytes(lm_corpus())
+        gen = app.batches(data, TWS_BATCH, TWS_SEQ - 1, seed=0)
+        dev_sync()
+        fa.reset_launches()
+        loss = float(lm.train_batch(next(gen)))
+        dev_sync()
+        fused = fa.BWD_LAUNCHES["fused"]
+        launches["flash_bwd_fused"] += fused
+        h2 = eng.health()
+        if h2["params_stale"] is not False or not np.isfinite(loss) \
+                or h2["params_age_s"] >= PLANE_STALE_S:
+            fail(f"planes c: after a train_batch (loss {loss}): {h2}")
+    finally:
+        srv.stop()
+    say(f"planes c (health, -params_stale_after_s={PLANE_STALE_S}): after "
+        f"{PLANE_SILENCE_S} s params_age_s {h['params_age_s']}, "
+        f"params_stale {h['params_stale']}, SERVE_PARAMS_AGE {gauge:.4f}, "
+        f"snapshot_version {h['snapshot_version']}, snapshot_epoch "
+        f"{h['snapshot_epoch']}; one train_batch ({TWS_BATCH} x {TWS_SEQ}, "
+        f"loss {loss:.4f}, one-pass backward launches {fused}) -> "
+        f"params_age_s {h2['params_age_s']}, params_stale "
+        f"{h2['params_stale']}; card {card_line()}")
+
+
 def _fa():
     return importlib.import_module("multiverso_tpu_torch.ops.flash_attention")
 
@@ -4060,6 +4593,17 @@ def main() -> None:
                   "flash_fwd[key_len>1024]": "long"}.get(entry["name"])
         if regime is not None:
             entry["launches_fleet"] = serve_counts["fleet"][regime]
+    # phase 14's launches: the planes' serving, tables and training step
+    for entry in kernels_line:
+        key = {"flash_fwd[key_len<=1024]": "flash_fwd_short",
+               "flash_fwd[key_len>1024]": "flash_fwd_long",
+               "row_gather": "row_gather",
+               "row_scatter_add": "row_scatter_add",
+               "flash_bwd[fused]": "flash_bwd_fused"}.get(entry["name"])
+        if key is not None:
+            entry["launches_planes"] = serve_counts["planes"].get(key, 0)
+    say(f"chip_smoke: the whole script took "
+        f"{time.perf_counter() - T_START:.1f} s, card {card_line()}")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4067,15 +4611,17 @@ def main() -> None:
 
 
 def lm_phases(card: str):
-    """Phases 2-3, the crossover, phase 10, phase 11 and phase 13; the
-    forward's results, the serving run's launches by regime, phase 11's
-    launches by kernel and phase 13's by regime."""
+    """Phases 2-3, the crossover, phase 10, phase 11, phase 13 and phase
+    14; the forward's results, the serving run's launches by regime,
+    phase 11's launches by kernel, phase 13's by regime and phase 14's by
+    kernel."""
     results = phase_kernels()
     phase_crossover()
     served = phase_slice(card)
     phase_defaults(card, served["prompts"], served["oracle"])
     served["surface"] = phase_serving_surface(card, served["prompts"])
     served["fleet"] = phase_fleet(card, served["prompts"], served["oracle"])
+    served["planes"] = phase_planes(card, served["prompts"])
     return results, served
 
 

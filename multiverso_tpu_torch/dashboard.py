@@ -19,16 +19,39 @@ every ``Dashboard.snapshot()`` as ``SLO_P<p>[<histogram>]`` rows, and
 :meth:`Histogram.buckets` exports a window as log-bucket counts on the
 JAX package's bucket boundaries, so exports of both packages merge
 (:func:`merge_buckets`).
+
+The export surface is the JAX module's (``multiverso_tpu/dashboard.py``
+:708-976): :func:`snapshot_deltas` (the one definition of interval
+rates, shared with the fleet observability plane),
+:func:`render_prometheus` (text byte-identical to JAX's for the same
+snapshot) and its inverse :func:`parse_prometheus`, and the periodic
+JSON-lines :class:`MetricsExporter` behind ``-metrics_jsonl``.
 """
 
 from __future__ import annotations
 
 import bisect
+import json
 import math
+import re
 import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional
+
+
+class Timer:
+    """Wall-clock start/elapse timer (reference ``util/timer.h:8-24``;
+    JAX ``dashboard.py:28``)."""
+
+    def __init__(self) -> None:
+        self.start()
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def elapse_ms(self) -> float:
+        return (time.perf_counter() - self._t0) * 1e3
 
 
 class Monitor:
@@ -541,6 +564,41 @@ def monitor(name: str, sync: bool = False) -> Iterator[Monitor]:
         mon.end()
 
 
+def _wait_for(value: Any) -> None:
+    """Block until every CUDA tensor in ``value`` (a tensor, or a dict,
+    list or tuple nesting them) has been computed: one wait on each
+    tensor's device stream, the counterpart of
+    ``jax.block_until_ready``. CPU tensors are ready already."""
+    import torch
+
+    devices = set()
+
+    def walk(v: Any) -> None:
+        if isinstance(v, torch.Tensor):
+            if v.is_cuda:
+                devices.add(v.device)
+        elif isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+
+    walk(value)
+    for dev in devices:
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def monitored_block_until_ready(name: str, value: Any) -> Any:
+    """Time a device wait on the tensors of ``value`` under monitor
+    ``name`` (JAX ``dashboard.py:663``)."""
+    mon = Dashboard.get_or_create(name)
+    mon.begin()
+    _wait_for(value)
+    mon.end()
+    return value
+
+
 @contextmanager
 def profile_trace(log_dir: str, name: str = "PROFILE") -> Iterator[Monitor]:
     """Capture a ``torch.profiler`` trace (CPU and CUDA activity) for the
@@ -564,3 +622,237 @@ def profile_trace(log_dir: str, name: str = "PROFILE") -> Iterator[Monitor]:
         mon.end()
         os.makedirs(log_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(log_dir, f"{name}.json"))
+
+
+# -- metrics export ----------------------------------------------------------
+
+# The one definition of which snapshot stats are monotonic, shared by the
+# Prometheus renderer (# TYPE counter vs gauge) and the interval deltas of
+# the JSON-lines reporter and the fleet plane's reports.
+_MONOTONE_STATS = frozenset({
+    ("counter", "value"), ("monitor", "count"), ("monitor", "total_ms"),
+    ("histogram", "count"),
+})
+
+
+def snapshot_deltas(prev: Optional[Dict[str, Dict[str, Any]]],
+                    snap: Dict[str, Dict[str, Any]],
+                    dt: Optional[float]) -> Dict[str, Dict[str, float]]:
+    """Interval deltas of the monotonic stats between two snapshots
+    (JAX ``dashboard.py:708``), shared by :class:`MetricsExporter` and
+    ``serving/obs_plane.py``. An instrument whose monotonic stats went
+    backwards (reset mid-interval) reports no delta; one absent from
+    ``prev`` (or whose type changed) is skipped this interval."""
+    if prev is None or not dt or dt <= 0:
+        return {}
+    deltas: Dict[str, Dict[str, float]] = {}
+    for name, row in snap.items():
+        last = prev.get(name)
+        if last is None or last.get("type") != row.get("type"):
+            continue
+        kind = row.get("type")
+        d: Dict[str, float] = {}
+        for field, value in row.items():
+            if (kind, field) not in _MONOTONE_STATS:
+                continue
+            diff = value - last.get(field, 0)
+            if diff < 0:
+                d = {}
+                break               # instrument was reset mid-interval
+            d[field] = diff
+            d[f"{field}_per_s"] = diff / dt
+        if d:
+            deltas[name] = d
+    return deltas
+
+
+def _prom_split(name: str):
+    """``SERVE_TTFT[lm]`` -> (``serve_ttft``, ``lm``); plain names pass
+    through with no instance label."""
+    instance = None
+    base = name
+    if name.endswith("]") and "[" in name:
+        base, _, rest = name.partition("[")
+        instance = rest[:-1]
+    metric = re.sub(r"[^a-zA-Z0-9_]", "_", base.lower()).strip("_")
+    return metric or "unnamed", instance
+
+
+def _prom_escape(value: str) -> str:
+    return value.replace("\\", "\\\\").replace('"', '\\"').replace(
+        "\n", "\\n")
+
+
+def _prom_format(value: Any) -> str:
+    # repr() floats round-trip exactly through float()
+    return repr(float(value)) if isinstance(value, float) else str(value)
+
+
+def render_prometheus(snapshot: Optional[Dict[str, Dict[str, Any]]] = None,
+                      labels: Optional[Dict[str, str]] = None) -> str:
+    """Prometheus text exposition of a :meth:`Dashboard.snapshot` (JAX
+    ``dashboard.py:769``, the same text for the same snapshot).
+
+    One sample per (instrument, stat field), e.g.
+    ``mv_serve_ttft_p50_ms{name="SERVE_TTFT[lm]",instance="lm"} 1.25``;
+    the full instrument name rides the ``name`` label, so the mapping is
+    lossless. Monotonic stats are ``# TYPE counter``, the rest gauges.
+    ``labels`` appends fixed labels to every sample (the fleet plane's
+    ``node``)."""
+    snap = Dashboard.snapshot() if snapshot is None else snapshot
+    extra = "".join(f',{k}="{_prom_escape(str(v))}"'
+                    for k, v in sorted((labels or {}).items()))
+    families: Dict[str, List[str]] = {}
+    family_type: Dict[str, str] = {}
+    for name in sorted(snap):
+        row = dict(snap[name])
+        kind = row.pop("type", "gauge")
+        metric, instance = _prom_split(name)
+        for field in sorted(row):
+            value = row[field]
+            if not isinstance(value, (int, float)) or isinstance(value,
+                                                                 bool):
+                continue            # wire-merged rows may carry strings
+            full = (f"mv_{metric}" if field == "value"
+                    else f"mv_{metric}_{field}")
+            monotone = (kind, field) in _MONOTONE_STATS
+            sample_labels = f'name="{_prom_escape(name)}"'
+            if instance is not None:
+                sample_labels += f',instance="{_prom_escape(instance)}"'
+            sample_labels += extra
+            family_type.setdefault(full,
+                                   "counter" if monotone else "gauge")
+            families.setdefault(full, []).append(
+                f"{full}{{{sample_labels}}} {_prom_format(value)}")
+    lines: List[str] = []
+    for full in sorted(families):
+        lines.append(f"# TYPE {full} {family_type[full]}")
+        lines.extend(families[full])
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+def parse_prometheus(text: str) -> Dict[str, Dict[str, float]]:
+    """Inverse of :func:`render_prometheus` keyed by the ``name`` label:
+    ``{instrument_name: {sample_name: value}}`` (extra labels such as
+    ``node`` are tolerated)."""
+    out: Dict[str, Dict[str, float]] = {}
+    sample = re.compile(r'^(\w+)\{name="((?:[^"\\]|\\.)*)"[^}]*\} (\S+)$')
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = sample.match(line)
+        if not m:
+            continue
+        full, name, value = m.groups()
+        # unescape left to right
+        name = re.sub(r"\\(.)",
+                      lambda g: {"n": "\n"}.get(g.group(1), g.group(1)),
+                      name)
+        out.setdefault(name, {})[full] = float(value)
+    return out
+
+
+class MetricsExporter:
+    """Periodic metrics reporter: snapshot -> JSON-lines sink + deltas
+    (JAX ``dashboard.py:839``).
+
+    Every ``interval_s`` (and on :meth:`stop`) it takes one
+    ``Dashboard.snapshot()`` and appends one JSON line ``{"ts",
+    "interval_s", "snapshot", "deltas"}``; the deltas are
+    :func:`snapshot_deltas` over the monotonic clock. :meth:`prometheus`
+    renders the last reported snapshot, so both sinks see the same
+    values."""
+
+    _MONOTONE = _MONOTONE_STATS
+
+    def __init__(self, interval_s: float = 10.0, sink: Any = None,
+                 emit=None) -> None:
+        self.interval_s = float(interval_s)
+        self._sink_path = sink if isinstance(sink, str) else None
+        self._sink_file = sink if sink is not None and not isinstance(
+            sink, str) else None
+        self._emit = emit
+        self._last: Optional[Dict[str, Dict[str, Any]]] = None
+        self._last_ts: Optional[float] = None
+        self._last_mono: Optional[float] = None
+        # serializes snapshot+commit pairs across concurrent report_once
+        # calls; _lock covers only the last-snapshot state, so scrapes
+        # and stop() never wait behind a registry sweep
+        self._report_lock = threading.Lock()
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.reports = 0
+
+    def _deltas(self, snap: Dict[str, Dict[str, Any]],
+                dt: Optional[float]) -> Dict[str, Dict[str, float]]:
+        return snapshot_deltas(self._last, snap, dt)
+
+    def report_once(self) -> dict:
+        """Take one snapshot, compute interval deltas, write one line (the
+        sink write runs outside both locks)."""
+        with self._report_lock:
+            snap = Dashboard.snapshot()
+            now = time.time()
+            mono = time.monotonic()
+            with self._lock:
+                dt = ((mono - self._last_mono)
+                      if self._last_mono is not None else None)
+                record = {"ts": now, "interval_s": dt, "snapshot": snap,
+                          "deltas": self._deltas(snap, dt)}
+                self._last, self._last_ts = snap, now
+                self._last_mono = mono
+                self.reports += 1
+        line = json.dumps(record)
+        if self._sink_path is not None:
+            with open(self._sink_path, "a") as f:
+                f.write(line + "\n")
+        elif self._sink_file is not None:
+            self._sink_file.write(line + "\n")
+        if self._emit is not None:
+            self._emit(line)
+        return record
+
+    def prometheus(self) -> str:
+        """Text exposition of the last reported snapshot, or a fresh one
+        before any report."""
+        with self._lock:
+            snap = self._last
+        return render_prometheus(snap)
+
+    def start(self) -> "MetricsExporter":
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._loop, name="mv-metrics", daemon=True)
+        self._thread.start()
+        Dashboard.attach_reporter(self)
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.report_once()
+            except Exception as exc:    # pragma: no cover - sink errors
+                from .log import Log
+                Log.error("metrics exporter: report failed: %s", exc)
+
+    def detach(self) -> None:
+        """``Dashboard.reset()`` hook: stop without a final report (the
+        instruments were just cleared)."""
+        self.stop(final_report=False)
+
+    def stop(self, final_report: bool = True) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        Dashboard.detach_reporter(self)
+        if final_report:
+            try:
+                self.report_once()
+            except Exception as exc:
+                # a dead sink at shutdown must not abort the teardown
+                from .log import Log
+                Log.error("metrics exporter: final report failed: %s", exc)

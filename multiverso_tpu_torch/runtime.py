@@ -11,6 +11,12 @@ and 1, there is one worker and one server, the barrier is a no-op and
 The device comes from ``-device`` (default ``cuda``). A CUDA request on a
 host without a CUDA device is a :class:`~.log.FatalError`: the session
 never carries on on the CPU unless the caller asked for the CPU.
+
+``-metrics_jsonl`` starts a :class:`~.dashboard.MetricsExporter` and
+``-obs_plane`` an :class:`~.serving.obs_plane.ObsAgent` (in loopback: one
+process is its own collector), as ``multiverso_tpu/runtime.py:113-121,
+155-171`` does; at ``stop()`` the agent ships its final report before
+the servers stop, and the exporter its final line last.
 """
 
 from __future__ import annotations
@@ -27,9 +33,8 @@ from .log import Log
 
 # session-level flags whose features this port does not have yet: turning
 # one on is an error, never a silent no-op
-_UNPORTED_FLAGS = {"wal": False, "obs_plane": False, "metrics_jsonl": "",
-                   "lockwatch": False, "failure_timeout_s": 0.0,
-                   "mesh_shape": ""}
+_UNPORTED_FLAGS = {"wal": False, "lockwatch": False,
+                   "failure_timeout_s": 0.0, "mesh_shape": ""}
 
 _ROLE_NONE, _ROLE_WORKER, _ROLE_SERVER, _ROLE_ALL = 0, 1, 2, 3
 _ROLES = {"none": _ROLE_NONE, "worker": _ROLE_WORKER,
@@ -61,6 +66,8 @@ class Session:
         self.servers: List[Any] = []  # serving.InferenceServer registry
         self.role: int = _ROLE_ALL
         self.started = False
+        self.metrics_exporter: Optional[Any] = None  # -metrics_jsonl
+        self.obs_agent: Optional[Any] = None  # -obs_plane fleet agent
 
     @classmethod
     def get(cls) -> "Session":
@@ -96,6 +103,22 @@ class Session:
                     trace.enable(int(config.get_flag("trace_buffer")),
                                  tail=tail)
             self.started = True
+            metrics_path = config.get_flag("metrics_jsonl")
+            if metrics_path and self.metrics_exporter is None:
+                from .dashboard import MetricsExporter
+
+                self.metrics_exporter = MetricsExporter(
+                    interval_s=float(config.get_flag("metrics_interval_s")),
+                    sink=metrics_path).start()
+            if config.get_flag("obs_plane") and self.obs_agent is None:
+                # one process: the agent is its own collector (loopback,
+                # no sockets, no coordination client)
+                from .serving.obs_plane import ObsAgent
+
+                self.obs_agent = ObsAgent(
+                    rank=0, size=1, client=None,
+                    report_ms=int(config.get_flag("obs_report_ms")),
+                    sink=config.get_flag("obs_jsonl"))
             Log.info("multiverso_tpu_torch initialised on %s", self.device)
             return rest
 
@@ -109,7 +132,16 @@ class Session:
             self.started = False
             servers, self.servers = self.servers, []
             tables, self.tables = self.tables, []
-        # serving drains first: in-flight replies read tables
+            exporter, self.metrics_exporter = self.metrics_exporter, None
+            obs, self.obs_agent = self.obs_agent, None
+        # the obs agent ships its final report first, while the engines it
+        # summarizes are still alive to be read
+        if obs is not None:
+            try:
+                obs.stop(final_report=True)
+            except Exception as exc:
+                Log.error("obs plane shutdown failed: %s", exc)
+        # serving drains next: in-flight replies read tables
         for srv in servers:
             try:
                 srv.stop()
@@ -117,6 +149,9 @@ class Session:
                 Log.error("serving shutdown failed: %s", exc)
         for table in tables:
             table.flush()
+        if exporter is not None:
+            # the shutdown snapshot lands in the JSON-lines archive
+            exporter.stop(final_report=True)
         Dashboard.display()
 
     def register_table(self, table: Any) -> int:

@@ -707,6 +707,11 @@ class DecodeEngine:
             f"SERVE_ITL[{name}]")
         self.tps_gauge = Dashboard.get_or_create_gauge(f"DECODE_TPS[{name}]")
         self.occ_gauge = Dashboard.get_or_create_gauge(f"SLOT_OCC[{name}]")
+        # seconds since the served source last moved, refreshed on each
+        # health() poll: the signal the obs plane ships and
+        # -params_stale_after_s turns into a STALE verdict
+        self.params_age_gauge = Dashboard.get_or_create_gauge(
+            f"SERVE_PARAMS_AGE[{name}]")
         self.shed_counter = Dashboard.get_or_create_counter(
             f"SERVE_SHED[{name}]")
         self.preempt_counter = Dashboard.get_or_create_counter(
@@ -976,10 +981,24 @@ class DecodeEngine:
             depth = len(self._q)
             oldest = self._q.oldest_t_enq()
             pinned = self._pinned_version
+            snap = self._snap
+        from ..config import get_flag
+
+        # params staleness: how long since the served source last moved.
+        # The verdict is advisory: the engine keeps serving its pinned
+        # snapshot, and the verdict clears when training moves again
+        params_age = self._manager.params_age_s()
+        stale_after = float(get_flag("params_stale_after_s"))
+        self.params_age_gauge.set(params_age)
         out = {
             "iters_total": self.iters_total,
             "last_iter_age_s": now - self._last_progress,
             "snapshot_version": -1 if pinned is None else int(pinned),
+            "snapshot_epoch": (0 if snap is None
+                               else int(getattr(snap, "epoch", 0))),
+            "params_age_s": round(params_age, 4),
+            "params_stale": self._manager.params_stale(
+                stale_after, age_s=params_age),
             # an admission in flight (chunked or monolithic) is live work
             "live_seqs": int(self._active.sum())
             + (1 if self._pf is not None else 0)

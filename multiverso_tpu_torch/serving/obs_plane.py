@@ -1,0 +1,1027 @@
+"""Fleet observability plane: cross-process metrics/trace/health shipping.
+
+Counterpart of ``multiverso_tpu/serving/obs_plane.py`` (``ObsCollector``
+:103, ``ObsAgent`` :673, ``_session_engines`` :1027), copied rather than
+imported, with plain ``threading`` locks where the JAX module takes
+``lockwatch`` ones.
+
+* :class:`ObsAgent` -- one per node (``-obs_plane`` / ``-obs_report_ms``;
+  a daemon thread). Every interval it builds one bounded delta report --
+  changed ``Dashboard.snapshot()`` rows, the shared-helper interval
+  deltas (``dashboard.snapshot_deltas``, the semantics of the JSON-lines
+  ``MetricsExporter``), log-bucketed ``Histogram.buckets()`` exports for
+  every changed histogram, per-engine ``stats()``/``health()``/
+  watchdog-trip/flight-recorder summaries, and the spans recorded since
+  the last report -- and ships it over the ported
+  :class:`~multiverso_tpu_torch.parallel.p2p.P2PTransport` wire (label
+  ``mvobs``) to the collector node (rank 0). A single-process session
+  runs the same agent in loopback: reports ingest into a local
+  collector with no sockets.
+* :class:`ObsCollector` -- keys state per node, sums counters exactly
+  (latest cumulative value per node, summed across nodes), merges
+  bucketed histograms into fleet-wide p50/p95/p99 (within
+  ``dashboard.BUCKET_REL_ERROR``, ~9.05%), computes fleet SLO burn from
+  the merged buckets, flags silent nodes DEGRADED by last-report age
+  (edge-triggered, re-armed when the node reports again), and assembles
+  the per-node spans into one Chrome/Perfetto document with one process
+  track per node.
+
+Wire schema (one JSON object per transport record, ``v`` = 1; the JAX
+module's, so a JAX collector ingests port reports and the reverse)::
+
+    {"v": 1, "node": <rank>, "seq": <per-node counter>,
+     "ts": <epoch s>, "mono": <sender monotonic s>, "interval_s": <dt>,
+     "rows":   {name: snapshot row, ...}      # CHANGED rows only
+     "deltas": {name: {field: d, field_per_s: r}}   # shared helper
+     "buckets": {hist_name: Histogram.buckets()},   # changed hists only
+     "engines": {engine: {"stats", "health", "watchdog", "flight"}},
+     "spans": [Span.to_dict(), ...], "spans_missed": n,
+     "trace_anchor": [epoch_s, mono_s]}
+
+Reports are bounded: only changed rows and buckets ship, spans cap at
+``ObsAgent.MAX_SPANS`` per report (overflow counted), and the publish
+window caps at ``MAX_OUTSTANDING`` un-acked reports, past which the
+agent drops whole reports and counts ``dropped_reports``. The collector
+acks consumed sequence numbers through the coordination KV
+(``mvobs/ack/<rank>``), which lets the agent release retained records.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from .. import config, trace
+from ..dashboard import (BUCKET_REL_ERROR, Dashboard, bucket_breach_frac,
+                         bucket_percentile, merge_buckets,
+                         render_prometheus, snapshot_deltas)
+from ..log import Log
+
+WIRE_VERSION = 1
+
+# the cost ledger's keyed per-tenant instruments
+# (``TENANT_REQUESTS[engine.tenant]`` etc, serving/accounting.py):
+# counter prefix -> tenant_rows() field
+_TENANT_COUNTER_FIELDS = (
+    ("TENANT_REQUESTS[", "requests"),
+    ("TENANT_PREFILL_TOKENS[", "prefill_tokens"),
+    ("TENANT_DECODE_TOKENS[", "decode_tokens"),
+    ("TENANT_XFER_BYTES[", "xfer_bytes"),
+    ("TENANT_KV_BLOCK_S[", "kv_block_s"),
+    ("TENANT_COST[", "cost"),
+)
+
+
+def _slo_source(name: str) -> str:
+    """``SLO_P99[SERVE_TTFT[lm]]`` -> ``SERVE_TTFT[lm]`` (the histogram
+    the objective watches; the bracket convention is load-bearing)."""
+    if "[" in name and name.endswith("]"):
+        return name[name.index("[") + 1:-1]
+    return name
+
+
+class ObsCollector:
+    """Fleet-side aggregation state: per-node registries, exact counter
+    sums, bucket-merged fleet percentiles, SLO burn, degraded flags,
+    and the merged cross-process trace document. Pure host state — no
+    wire of its own (the collector node's :class:`ObsAgent` drains the
+    transport and calls :meth:`ingest`/:meth:`check`; tests and an
+    archive replayer drive it directly)."""
+
+    MAX_SPANS_PER_NODE = 16384
+    MAX_TRIPS_PER_NODE = 256
+    MAX_EVENTS = 256
+
+    def __init__(self, degraded_after_s: float = 0.0,
+                 on_degraded: Optional[Callable[[int, float], None]] = None,
+                 name: str = "obs",
+                 clock: Callable[[], float] = time.monotonic) -> None:
+        self.name = name
+        self._degraded_after_s = float(degraded_after_s)
+        self._on_degraded = on_degraded
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._nodes: Dict[int, Dict[str, Any]] = {}
+        self._armed: Dict[int, bool] = {}
+        self._degraded: set = set()
+        # (node, "degraded"/"recovered", age_s) transitions, oldest first
+        self.events: collections.deque = collections.deque(
+            maxlen=self.MAX_EVENTS)
+        self.reports = 0
+
+    # -- ingest -------------------------------------------------------------
+    def _node_state(self, node: int) -> Dict[str, Any]:
+        st = self._nodes.get(node)
+        if st is None:
+            st = self._nodes[node] = {
+                "rows": {}, "buckets": {}, "engines": {},
+                "trips": collections.deque(maxlen=self.MAX_TRIPS_PER_NODE),
+                "spans": collections.deque(maxlen=self.MAX_SPANS_PER_NODE),
+                "spans_missed": 0, "anchor": None, "reports": 0,
+                "last_seq": -1, "last_ts": 0.0, "last_ingest": 0.0,
+            }
+        return st
+
+    def expect_nodes(self, nodes) -> None:
+        """Seed the fleet roster: every expected rank appears in the
+        table (0 reports) immediately and starts its silence clock at
+        seeding time — a replica that never manages a FIRST report
+        (boot wedge) ages past ``degraded_after_s`` and flags like any
+        other silent node, instead of being invisible."""
+        now = self._clock()
+        with self._lock:
+            for node in nodes:
+                st = self._node_state(int(node))
+                if st["reports"] == 0 and st["last_ingest"] == 0.0:
+                    st["last_ingest"] = now
+
+    def ingest(self, node: int, report: Dict[str, Any]) -> None:
+        """Fold one node report into the per-node state. Counters and
+        every other snapshot row arrive as CURRENT cumulative values
+        (the delta report ships only rows that changed), so fleet sums
+        are exact regardless of lost or coalesced reports — deltas ride
+        along for rate display, they are never integrated."""
+        node = int(node)
+        now = self._clock()
+        rows = report.get("rows") or {}
+        engines = report.get("engines") or {}
+        with self._lock:
+            st = self._node_state(node)
+            st["rows"].update(rows)
+            st["buckets"].update(report.get("buckets") or {})
+            for ename, eng in engines.items():
+                st["engines"][ename] = eng
+                for kind, reason in (eng.get("watchdog") or {}).get(
+                        "new_trips", []):
+                    st["trips"].append((ename, kind, reason,
+                                        report.get("ts", 0.0)))
+            st["spans"].extend(report.get("spans") or [])
+            st["spans_missed"] += int(report.get("spans_missed", 0))
+            if report.get("trace_anchor"):
+                st["anchor"] = report["trace_anchor"]
+            st["reports"] += 1
+            st["last_seq"] = int(report.get("seq", st["last_seq"] + 1))
+            st["last_ts"] = float(report.get("ts", st["last_ts"]))
+            st["last_ingest"] = now
+            self.reports += 1
+
+    # -- degraded/silent detection ------------------------------------------
+    def check(self, now: Optional[float] = None) -> List[Tuple[int, float]]:
+        """One liveness evaluation over every known node (the collector
+        agent runs it once per report interval; tests call it
+        directly). A node whose last report is older than
+        ``degraded_after_s`` is flagged DEGRADED — edge-triggered with
+        the ``EngineWatchdog`` re-arm semantics: one event per episode,
+        re-armed when the node reports again (its age drops below the
+        threshold), a recovery recorded as its own event. Returns the
+        ``(node, age_s)`` pairs that NEWLY tripped this check."""
+        if self._degraded_after_s <= 0:
+            return []
+        now = self._clock() if now is None else now
+        fired: List[Tuple[int, float]] = []
+        with self._lock:
+            for node, st in self._nodes.items():
+                age = now - st["last_ingest"]
+                if age <= self._degraded_after_s:
+                    if not self._armed.get(node, True):
+                        self.events.append((node, "recovered", age))
+                    self._armed[node] = True
+                    self._degraded.discard(node)
+                    continue
+                self._degraded.add(node)
+                if self._armed.get(node, True):
+                    self._armed[node] = False
+                    self.events.append((node, "degraded", age))
+                    fired.append((node, age))
+        # counter + user callback outside the registry lock: a callback
+        # must never run under a plane lock
+        for node, age in fired:
+            Dashboard.get_or_create_counter(f"OBS_DEGRADED[node{node}]"
+                                            ).inc()
+            Log.error("obs plane: node %d silent for %.2fs (threshold "
+                      "%.2fs) — flagged DEGRADED", node, age,
+                      self._degraded_after_s)
+            cb = self._on_degraded
+            if cb is not None:
+                try:
+                    cb(node, age)
+                except Exception as exc:    # pragma: no cover - defensive
+                    Log.error("obs plane: on_degraded callback failed: %s",
+                              exc)
+        return fired
+
+    def degraded(self) -> List[int]:
+        with self._lock:
+            return sorted(self._degraded)
+
+    def nodes(self) -> List[int]:
+        with self._lock:
+            return sorted(self._nodes)
+
+    def node_state(self, node: int) -> Dict[str, Any]:
+        """Shallow copy of one node's latest state (test surface)."""
+        with self._lock:
+            st = self._nodes[int(node)]
+            return {**st, "rows": dict(st["rows"]),
+                    "buckets": dict(st["buckets"]),
+                    "engines": dict(st["engines"]),
+                    "trips": list(st["trips"]),
+                    "spans": list(st["spans"])}
+
+    # -- fleet aggregation ---------------------------------------------------
+    def merged_buckets(self, hist_name: str) -> Dict[str, Any]:
+        """Fleet-wide bucket export for one histogram: per-index counts
+        summed across every node's latest window export."""
+        with self._lock:
+            exports = [st["buckets"].get(hist_name)
+                       for st in self._nodes.values()]
+        return merge_buckets(exports)
+
+    def fleet(self) -> Dict[str, Any]:
+        with self._lock:
+            return self._fleet_locked()
+
+    def _fleet_locked(self) -> Dict[str, Any]:
+        """Fleet rollup: counters/monitors summed exactly from each
+        node's latest cumulative row, histograms merged bucket-wise
+        (percentiles within ``bucket_error`` of the pooled-sample
+        truth), SLO burn recomputed over the merged source buckets,
+        engines summed per name."""
+        counters: Dict[str, float] = {}
+        monitors: Dict[str, Dict[str, float]] = {}
+        hist_names: set = set()
+        slo_rows: Dict[str, Dict[str, Any]] = {}
+        engines: Dict[str, Dict[str, float]] = {}
+        for st in self._nodes.values():
+            for name, row in st["rows"].items():
+                kind = row.get("type")
+                if kind == "counter":
+                    counters[name] = counters.get(name, 0) + row.get(
+                        "value", 0)
+                elif kind == "monitor":
+                    m = monitors.setdefault(name,
+                                            {"count": 0, "total_ms": 0.0})
+                    m["count"] += row.get("count", 0)
+                    m["total_ms"] += row.get("total_ms", 0.0)
+                elif kind == "histogram":
+                    hist_names.add(name)
+                elif kind == "slo":
+                    prev = slo_rows.get(name)
+                    if prev is None or row.get("target_ms", 0.0) > prev.get(
+                            "target_ms", 0.0):
+                        slo_rows[name] = row
+            for ename, eng in st["engines"].items():
+                stats = eng.get("stats") or {}
+                e = engines.setdefault(ename, {
+                    "nodes": 0, "tokens_per_s": 0.0, "live_seqs": 0,
+                    "completed": 0, "shed": 0, "watchdog_trips": 0})
+                e["nodes"] += 1
+                e["tokens_per_s"] += stats.get("tokens_per_s", 0.0)
+                e["live_seqs"] += stats.get("live_seqs", 0)
+                e["completed"] += stats.get("completed", 0)
+                e["shed"] += stats.get("shed", 0)
+                e["watchdog_trips"] += (eng.get("watchdog") or {}).get(
+                    "trips_total", stats.get("watchdog_trips", 0))
+        for m in monitors.values():
+            m["avg_ms"] = m["total_ms"] / m["count"] if m["count"] else 0.0
+        hists: Dict[str, Dict[str, float]] = {}
+        merged_cache: Dict[str, Dict[str, Any]] = {}
+        for name in sorted(hist_names):
+            merged = merge_buckets([st["buckets"].get(name)
+                                    for st in self._nodes.values()])
+            merged_cache[name] = merged
+            lifetime = sum(st["rows"].get(name, {}).get("count", 0)
+                           for st in self._nodes.values())
+            hists[name] = {
+                "count": lifetime,
+                "window_n": merged["zero"] + sum(
+                    merged["counts"].values()),
+                "p50_ms": bucket_percentile(merged, 50),
+                "p95_ms": bucket_percentile(merged, 95),
+                "p99_ms": bucket_percentile(merged, 99),
+                "bucket_error": BUCKET_REL_ERROR,
+            }
+        slos: Dict[str, Dict[str, float]] = {}
+        for name, row in slo_rows.items():
+            source = _slo_source(name)
+            pct = float(row.get("percentile", 99.0))
+            target = float(row.get("target_ms", 0.0))
+            merged = merged_cache.get(source) or merge_buckets(
+                [st["buckets"].get(source) for st in self._nodes.values()])
+            breach = bucket_breach_frac(merged, target)
+            budget = max(1.0 - pct / 100.0, 1e-9)
+            value = bucket_percentile(merged, pct)
+            slos[name] = {
+                "target_ms": target, "percentile": pct,
+                "window": merged["zero"] + sum(merged["counts"].values()),
+                "value_ms": value, "breach_frac": breach,
+                "burn": breach / budget,
+                "ok": 0 if value > target else 1,
+            }
+        return {
+            "nodes": len(self._nodes),
+            "reports": self.reports,
+            "degraded": sorted(self._degraded),
+            "counters": counters,
+            "monitors": monitors,
+            "histograms": hists,
+            "slos": slos,
+            "engines": engines,
+            "tokens_per_s": sum(e["tokens_per_s"]
+                                for e in engines.values()),
+            "watchdog_trips": sum(e["watchdog_trips"]
+                                  for e in engines.values()),
+        }
+
+    # -- exports -------------------------------------------------------------
+    def prometheus(self) -> str:
+        """Every node's latest registry as ONE Prometheus text
+        exposition, each sample carrying a ``node`` label (the
+        ``render_prometheus`` pass-through); family ``# TYPE`` lines are
+        deduped across nodes so the merged document stays valid."""
+        with self._lock:
+            per_node = [(node, dict(st["rows"]))
+                        for node, st in sorted(self._nodes.items())]
+        family_type: Dict[str, str] = {}
+        samples: Dict[str, List[str]] = {}
+        for node, rows in per_node:
+            for line in render_prometheus(rows, labels={
+                    "node": str(node)}).splitlines():
+                if line.startswith("# TYPE "):
+                    _, _, full, kind = line.split(" ")
+                    family_type.setdefault(full, kind)
+                elif line:
+                    full = line.split("{", 1)[0]
+                    samples.setdefault(full, []).append(line)
+        lines: List[str] = []
+        for full in sorted(samples):
+            lines.append(f"# TYPE {full} {family_type.get(full, 'gauge')}")
+            lines.extend(samples[full])
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def export_chrome(self, path: Optional[str] = None) -> dict:
+        """The merged cross-process trace: every node's shipped spans as
+        B/E events with ``pid = node rank`` (one process track per node,
+        named via ``process_name`` metadata), timestamps rebased onto
+        the shared epoch-µs timebase through each node's own clock
+        anchor — so a ``bus.publish`` on node 0 and its ``bus.apply``
+        child on node 2 (same trace id via the wire header) finally
+        render in ONE Perfetto document. Passes
+        ``trace.validate_chrome_events``."""
+        with self._lock:
+            per_node = [(node, st["anchor"], list(st["spans"]),
+                         st["spans_missed"])
+                        for node, st in sorted(self._nodes.items())]
+        events: List[dict] = []
+        missed = 0
+        for node, anchor, spans, node_missed in per_node:
+            missed += node_missed
+            wall, mono = anchor if anchor else (0.0, 0.0)
+            events.append({"name": "process_name", "ph": "M", "pid": node,
+                           "args": {"name": f"node{node}"}})
+            tids: Dict[tuple, int] = {}
+            for sp in spans:
+                t1 = sp.get("t1")
+                if t1 is None:
+                    continue
+                tid = tids.setdefault(
+                    (sp.get("trace_id"), sp.get("thread")), len(tids) + 1)
+                args = {"trace_id": f"{int(sp['trace_id']):x}",
+                        "span_id": f"{int(sp['span_id']):x}",
+                        "thread": sp.get("thread", ""),
+                        "node": node}
+                if sp.get("parent_id") is not None:
+                    args["parent_id"] = f"{int(sp['parent_id']):x}"
+                args.update(sp.get("attrs") or {})
+                ts0 = (wall + (float(sp["t0"]) - mono)) * 1e6
+                ts1 = (wall + (float(t1) - mono)) * 1e6
+                events.append({"name": sp["name"], "ph": "B", "ts": ts0,
+                               "pid": node, "tid": tid, "args": args})
+                events.append({"name": sp["name"], "ph": "E", "ts": ts1,
+                               "pid": node, "tid": tid})
+        # metadata events carry no ts and sort first; the stable sort
+        # keeps B-before-E at identical timestamps within a track
+        events.sort(key=lambda e: e.get("ts", float("-inf")))
+        doc = {"traceEvents": events, "displayTimeUnit": "ms",
+               "otherData": {"clock": "epoch_us", "nodes": len(per_node),
+                             "spans_missed": missed}}
+        if path:
+            with open(path, "w") as f:
+                json.dump(doc, f)
+        return doc
+
+    # -- rendering ----------------------------------------------------------------
+    def table(self, silent_after_s: Optional[float] = None) -> str:
+        """The fleet table: one row per node (liveness, report count,
+        tok/s, live sequences, watchdog trips, worst SLO burn, spans
+        held) under a fleet summary line. ``silent_after_s`` adds the
+        offline silence rule (for replayed archives): a node whose last
+        report wall-timestamp trails the fleet's newest by more than the
+        threshold renders SILENT even though no live clock is running."""
+        now = self._clock()
+        with self._lock:
+            fl = self._fleet_locked()
+            latest_ts = max((st["last_ts"] for st in self._nodes.values()),
+                            default=0.0)
+            rows = []
+            for node, st in sorted(self._nodes.items()):
+                if node in self._degraded:
+                    status = "DEGRADED"
+                elif (silent_after_s and latest_ts
+                        and latest_ts - st["last_ts"] > silent_after_s):
+                    status = "SILENT"
+                else:
+                    status = "ok"
+                tok = sum((e.get("stats") or {}).get("tokens_per_s", 0.0)
+                          for e in st["engines"].values())
+                live = sum((e.get("health") or {}).get("live_seqs", 0)
+                           for e in st["engines"].values())
+                trips = sum((e.get("watchdog") or {}).get("trips_total", 0)
+                            for e in st["engines"].values())
+                burn = max((row.get("burn", 0.0)
+                            for row in st["rows"].values()
+                            if row.get("type") == "slo"), default=0.0)
+                rows.append((node, status, now - st["last_ingest"],
+                             st["reports"], st["last_seq"], tok, live,
+                             trips, burn, len(st["spans"])))
+        lines = [
+            f"fleet [{self.name}]: {fl['nodes']} node(s), "
+            f"{fl['reports']} report(s), {len(fl['engines'])} engine(s); "
+            f"tok/s {fl['tokens_per_s']:.1f}; trips "
+            f"{fl['watchdog_trips']}; degraded: "
+            + (",".join(map(str, fl["degraded"])) or "none"),
+            f"{'node':>6} {'status':<9} {'age_s':>7} {'reports':>8} "
+            f"{'seq':>6} {'tok/s':>9} {'live':>5} {'trips':>6} "
+            f"{'burn':>6} {'spans':>6}",
+        ]
+        for (node, status, age, reports, seq, tok, live, trips, burn,
+                spans) in rows:
+            lines.append(
+                f"{node:>6} {status:<9} {age:>7.2f} {reports:>8} "
+                f"{seq:>6} {tok:>9.1f} {live:>5} {trips:>6} "
+                f"{burn:>6.2f} {spans:>6}")
+        replica_rows = self.replica_rows()
+        if replica_rows:
+            lines.append(
+                f"{'replica':>12} {'state':<11} {'role':<8} "
+                f"{'inflight':>9} {'hb_age_ms':>10} {'snap_v':>7} "
+                f"{'preempts':>9} {'node':>5}")
+            for row in replica_rows:
+                lines.append(
+                    f"{row['replica']:>12} {row['state']:<11} "
+                    f"{row['role']:<8} "
+                    f"{row['inflight']:>9} {row['hb_age_ms']:>10.1f} "
+                    f"{row['snapshot_version']:>7} "
+                    f"{row['preemptions']:>9} {row['node']:>5}")
+        for name, h in sorted(fl["histograms"].items()):
+            lines.append(
+                f"fleet {name}: p50 {h['p50_ms']:.3f} / p95 "
+                f"{h['p95_ms']:.3f} / p99 {h['p99_ms']:.3f} ms over "
+                f"{h['window_n']} sample(s) "
+                f"(bucketed, ±{h['bucket_error']:.1%})")
+        for name, s in sorted(fl["slos"].items()):
+            state = "OK" if s["ok"] else "BURNING"
+            lines.append(
+                f"fleet {name}: p{s['percentile']:g} = "
+                f"{s['value_ms']:.3f} ms vs {s['target_ms']:.3f} ms, "
+                f"burn {s['burn']:.2f} ({state})")
+        return "\n".join(lines)
+
+    def replica_rows(self) -> List[Dict[str, Any]]:
+        """Serving-fleet replica rows assembled from the router's
+        per-replica gauges (``FLEET_REPLICA_STATE[name.rank]`` +
+        ``FLEET_INFLIGHT``/``FLEET_HB_AGE_MS``) wherever a node's
+        shipped registry carries them — the :class:`FleetRouter`'s
+        state machine rendered into the fleet table (state, in-flight,
+        heartbeat age), live or from replayed ``-obs_jsonl`` archives."""
+        from .router import ROLE_CODES, STATE_NAMES
+
+        role_names = {code: role for role, code in ROLE_CODES.items()}
+
+        with self._lock:
+            per_node = [(node, dict(st["rows"]))
+                        for node, st in sorted(self._nodes.items())]
+        out: List[Dict[str, Any]] = []
+        for node, rows in per_node:
+            for name, row in sorted(rows.items()):
+                if not (name.startswith("FLEET_REPLICA_STATE[")
+                        and name.endswith("]")
+                        and row.get("type") == "gauge"):
+                    continue
+                key = name[len("FLEET_REPLICA_STATE["):-1]
+                state = STATE_NAMES.get(int(row.get("value", 0)),
+                                        f"?{row.get('value')}")
+                inflight = int(rows.get(f"FLEET_INFLIGHT[{key}]",
+                                        {}).get("value", 0))
+                hb_age = float(rows.get(f"FLEET_HB_AGE_MS[{key}]",
+                                        {}).get("value", 0.0))
+                # archives from before the snapshot-version and
+                # preemption gauges lack them and render -1
+                snap_v = int(rows.get(f"FLEET_SNAPSHOT_VERSION[{key}]",
+                                      {}).get("value", -1))
+                preempts = int(rows.get(f"FLEET_PREEMPTS[{key}]",
+                                        {}).get("value", -1))
+                # archives from before disaggregation lack the role
+                # gauge and render "-"
+                role_code = int(rows.get(f"FLEET_ROLE[{key}]",
+                                         {}).get("value", -1))
+                role = role_names.get(role_code, "-")
+                out.append({"replica": key, "state": state,
+                            "role": role,
+                            "inflight": inflight, "hb_age_ms": hb_age,
+                            "snapshot_version": snap_v,
+                            "preemptions": preempts, "node": node})
+        return out
+
+    def tenant_rows(self) -> List[Dict[str, Any]]:
+        """Fleet-merged per-tenant accounting rows assembled from the
+        engine cost ledgers' keyed instruments
+        (``TENANT_*[engine.tenant]`` counters +
+        ``TENANT_LAT_MS[engine.tenant]`` latency histograms,
+        serving/accounting.py) wherever a node's shipped registry
+        carries them: latest cumulative value per node summed across
+        nodes (the exact counter contract — deltas never compound
+        error), completion-latency p99 and SLO breach fraction from
+        the bucket-merged fleet windows against the engine's
+        ``TENANT_SLO_MS[engine]`` gauge (``breach_frac`` renders -1.0
+        when no SLO is registered or no window samples exist — the
+        archive-tolerance convention). Rows sort by cost, biggest
+        spender first."""
+        with self._lock:
+            per_node = [(node, dict(st["rows"]), dict(st["buckets"]))
+                        for node, st in sorted(self._nodes.items())]
+        agg: Dict[str, Dict[str, Any]] = {}
+        slo_ms: Dict[str, float] = {}
+        lat_exports: Dict[str, List[Any]] = {}
+
+        def ent_for(key: str) -> Dict[str, Any]:
+            ent = agg.get(key)
+            if ent is None:
+                # bundle keys are "{engine}.{tenant}"; engine names
+                # never contain dots (tenant ids may)
+                eng, _, ten = key.partition(".")
+                ent = agg[key] = {
+                    "tenant": ten or key, "engine": eng,
+                    "requests": 0, "prefill_tokens": 0,
+                    "decode_tokens": 0, "xfer_bytes": 0,
+                    "kv_block_s": 0.0, "cost": 0.0, "nodes": set()}
+            return ent
+
+        for node, rows, buckets in per_node:
+            for name, row in rows.items():
+                if not name.endswith("]"):
+                    continue
+                if (name.startswith("TENANT_SLO_MS[")
+                        and row.get("type") == "gauge"):
+                    eng = name[len("TENANT_SLO_MS["):-1]
+                    slo_ms[eng] = max(slo_ms.get(eng, 0.0),
+                                      float(row.get("value", 0.0)))
+                    continue
+                if (name.startswith("TENANT_LAT_MS[")
+                        and row.get("type") == "histogram"):
+                    key = name[len("TENANT_LAT_MS["):-1]
+                    ent_for(key)["nodes"].add(node)
+                    exp = buckets.get(name)
+                    if exp is not None:
+                        lat_exports.setdefault(key, []).append(exp)
+                    continue
+                if row.get("type") != "counter":
+                    continue
+                for prefix, field in _TENANT_COUNTER_FIELDS:
+                    if name.startswith(prefix):
+                        key = name[len(prefix):-1]
+                        ent = ent_for(key)
+                        ent[field] += row.get("value", 0)
+                        ent["nodes"].add(node)
+                        break
+        out: List[Dict[str, Any]] = []
+        for key, ent in agg.items():
+            merged = merge_buckets(lat_exports.get(key) or [])
+            window_n = merged["zero"] + sum(merged["counts"].values())
+            target = slo_ms.get(ent["engine"], 0.0)
+            ent["lat_p99_ms"] = (bucket_percentile(merged, 99)
+                                 if window_n else 0.0)
+            ent["breach_frac"] = (bucket_breach_frac(merged, target)
+                                  if target > 0 and window_n else -1.0)
+            ent["nodes"] = len(ent["nodes"])
+            for field in ("requests", "prefill_tokens", "decode_tokens",
+                          "xfer_bytes"):
+                ent[field] = int(ent[field])
+            ent["kv_block_s"] = round(float(ent["kv_block_s"]), 6)
+            ent["cost"] = float(ent["cost"])
+            out.append(ent)
+        out.sort(key=lambda r: (-r["cost"], r["engine"], r["tenant"]))
+        return out
+
+    def tenants_table(self) -> str:
+        """The tenants table: a rendering of
+        :meth:`tenant_rows`: one line per (engine, tenant), biggest
+        spender first (empty string when no ledger rows shipped)."""
+        rows = self.tenant_rows()
+        if not rows:
+            return ""
+        lines = [
+            f"{'tenant':<16} {'engine':<10} {'reqs':>7} {'prefill':>9} "
+            f"{'decode':>9} {'kvblk_s':>9} {'xfer_B':>10} {'cost':>11} "
+            f"{'p99_ms':>8} {'breach':>7} {'nodes':>5}"]
+        for r in rows:
+            breach = ("-" if r["breach_frac"] < 0
+                      else f"{r['breach_frac']:.2f}")
+            lines.append(
+                f"{r['tenant']:<16} {r['engine']:<10} {r['requests']:>7} "
+                f"{r['prefill_tokens']:>9} {r['decode_tokens']:>9} "
+                f"{r['kv_block_s']:>9.3f} {r['xfer_bytes']:>10} "
+                f"{r['cost']:>11.3f} {r['lat_p99_ms']:>8.2f} "
+                f"{breach:>7} {r['nodes']:>5}")
+        return "\n".join(lines)
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "nodes": len(self._nodes),
+                "reports": self.reports,
+                "degraded": sorted(self._degraded),
+                "events": len(self.events),
+                "spans": sum(len(st["spans"])
+                             for st in self._nodes.values()),
+                "spans_missed": sum(st["spans_missed"]
+                                    for st in self._nodes.values()),
+            }
+
+
+class ObsAgent:
+    """Per-node shipper: builds the bounded delta report every interval
+    and moves it to the collector — loopback in a single process, the
+    ``mvobs`` :class:`P2PTransport` stream across processes (collector
+    node = rank 0, which also observes itself via loopback and drains +
+    acks every peer's stream)."""
+
+    LABEL = "mvobs"
+    MAX_SPANS = 2048            # spans per report (overflow counted)
+    MAX_OUTSTANDING = 64        # un-acked reports before dropping whole ones
+
+    def __init__(self, rank: int = 0, size: int = 1, client: Any = None,
+                 report_ms: Optional[int] = None, collector_rank: int = 0,
+                 engines: Optional[Callable[[], Dict[str, Any]]] = None,
+                 sink: str = "", degraded_after_s: Optional[float] = None,
+                 label: str = LABEL,
+                 collector: Optional[ObsCollector] = None,
+                 start: bool = True) -> None:
+        self._rank = int(rank)
+        self._size = int(size)
+        self._client = client
+        self._label = label
+        self._interval = max(
+            (int(config.get_flag("obs_report_ms"))
+             if report_ms is None else int(report_ms)), 10) / 1000.0
+        self._collector_rank = int(collector_rank)
+        self._engines_fn = engines or _session_engines
+        self._sink = sink
+        self.collector: Optional[ObsCollector] = None
+        if self._size <= 1 or self._rank == self._collector_rank:
+            self.collector = collector or ObsCollector(
+                degraded_after_s=(2.0 * self._interval
+                                  if degraded_after_s is None
+                                  else float(degraded_after_s)),
+                name=f"{label}@{self._rank}")
+        if self.collector is not None and self._size > 1:
+            # the roster is known at construction: seed every fleet rank
+            # so a replica that dies BEFORE its first report (boot
+            # wedge, crash during warmup) still ages out and flags
+            # DEGRADED instead of being invisible to the table
+            self.collector.expect_nodes(range(self._size))
+        self._transport = None
+        if self._size > 1:
+            from ..parallel.p2p import P2PTransport
+
+            # hub topology: only the collector rank subscribes (to
+            # every publisher); agents publish-only — reports cross the
+            # wire exactly once instead of broadcasting full-mesh
+            self._transport = P2PTransport(
+                self._rank, self._size, client, label=label,
+                subscribe_to=(
+                    [r for r in range(self._size) if r != self._rank]
+                    if self._rank == self._collector_rank else []))
+        # serializes report build+commit pairs (the MetricsExporter
+        # _report_lock pattern) for direct concurrent tick() callers;
+        # the loop-vs-final-report race is excluded STRUCTURALLY —
+        # stop() skips the final report when the loop fails to join,
+        # because seq assignment + send order can't be lock-protected
+        # without blocking I/O under a lock
+        self._tick_lock = threading.Lock()
+        self._last_snap: Optional[Dict[str, Dict[str, Any]]] = None
+        self._last_mono: Optional[float] = None
+        self._span_cursor = 0
+        self._wd_cursor: Dict[str, int] = {}
+        self._engines_seen: Dict[str, Any] = {}
+        self._seq = 0
+        self._released = 0
+        self._next_seq: Dict[int, int] = {
+            r: 0 for r in range(self._size) if r != self._rank}
+        self.reports = 0
+        self.dropped_reports = 0
+        self.spans_shipped = 0
+        self.spans_missed = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        if start:
+            self.start()
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> "ObsAgent":
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._loop, name=f"mv-obs-{self._rank}", daemon=True)
+        self._thread.start()
+        Dashboard.attach_reporter(self)
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self._interval):
+            try:
+                self.tick()
+            except Exception as exc:    # pragma: no cover - defensive
+                Log.error("obs agent[%d]: report failed: %s", self._rank,
+                          exc)
+
+    def detach(self) -> None:
+        """``Dashboard.reset()`` hook: stop WITHOUT a final report (the
+        instruments were just cleared)."""
+        self.stop(final_report=False)
+
+    def stop(self, final_report: bool = True) -> None:
+        self._stop.set()
+        thread = self._thread
+        if thread is not None:
+            thread.join(timeout=10)
+            self._thread = None
+            if thread.is_alive():
+                # a wedged loop may be MID-TICK: running the final
+                # report concurrently could assign the same transport
+                # seq twice (an out-of-order or overwritten record
+                # stalls the collector's in-order pop forever) — skip
+                # it; tick() is single-threaded by exclusion, not by
+                # locking the send path
+                Log.error("obs agent[%d]: loop thread failed to join; "
+                          "skipping the final report", self._rank)
+                final_report = False
+        Dashboard.detach_reporter(self)
+        if final_report:
+            try:
+                self.tick()
+            except Exception as exc:
+                Log.error("obs agent[%d]: final report failed: %s",
+                          self._rank, exc)
+            if self.collector is None and self._transport is not None:
+                # best-effort flush: transport.send only RETAINS the
+                # final report and wakes the async sender — closing the
+                # sockets immediately would usually lose it. The
+                # collector acks after its next drain tick, so wait
+                # (bounded) for the ack frontier to cover our last seq.
+                deadline = time.monotonic() + min(
+                    5.0, max(1.0, 3.0 * self._interval))
+                while time.monotonic() < deadline:
+                    if self._read_ack() >= self._seq:
+                        break
+                    time.sleep(0.05)
+        if self._transport is not None:
+            self._transport.stop()
+
+    # -- one report ---------------------------------------------------------
+    def build_report(self) -> Dict[str, Any]:
+        """Assemble one bounded delta report (see the module docstring
+        for the wire schema). No plane lock is held while the registry
+        fans out — ``Dashboard.snapshot()``, ``engine.stats()`` and the
+        trace drain all take their own locks."""
+        snap = Dashboard.snapshot()
+        now = time.time()
+        mono = time.monotonic()
+        dt = (mono - self._last_mono) if self._last_mono is not None else None
+        deltas = snapshot_deltas(self._last_snap, snap, dt)
+        prev = self._last_snap or {}
+        rows = {name: row for name, row in snap.items()
+                if prev.get(name) != row}
+        buckets: Dict[str, Any] = {}
+        for name, row in rows.items():
+            if row.get("type") != "histogram":
+                continue
+            hist = Dashboard.get_or_create_histogram(name)
+            buckets[name] = hist.buckets()
+        engines: Dict[str, Any] = {}
+        # discovery can go dark before the agent does: Session.stop()
+        # empties the server registry BEFORE the teardown ships our
+        # final report, but the engine objects themselves are still
+        # alive (they stop AFTER the obs agent). Cache the last
+        # non-empty discovery so that final report still carries every
+        # engine's terminal stats — and the last interval's watchdog
+        # trips, whose trips_since cursor is never re-read
+        found = self._engines_fn() or {}
+        if found:
+            self._engines_seen = dict(found)
+        for name, engine in (found or self._engines_seen).items():
+            try:
+                eng: Dict[str, Any] = {"stats": engine.stats(),
+                                       "health": engine.health()}
+                wd = getattr(engine, "watchdog", None)
+                if wd is not None:
+                    cursor, new = wd.trips_since(self._wd_cursor.get(name, 0))
+                    self._wd_cursor[name] = cursor
+                    eng["watchdog"] = {
+                        "trips_total": wd.trip_count,
+                        "new_trips": [[k, r] for k, r, _ in new]}
+                rec = getattr(engine, "recorder", None)
+                if rec is not None:
+                    eng["flight"] = rec.summary()
+                engines[name] = eng
+            except Exception as exc:
+                Log.error("obs agent[%d]: engine %r report failed: %s",
+                          self._rank, name, exc)
+        coll = trace.collector()
+        self._span_cursor, new_spans, missed = coll.drain_since(
+            self._span_cursor)
+        if len(new_spans) > self.MAX_SPANS:
+            missed += len(new_spans) - self.MAX_SPANS
+            new_spans = new_spans[-self.MAX_SPANS:]
+        self.spans_shipped += len(new_spans)
+        self.spans_missed += missed
+        anchor = coll.anchor()
+        report = {
+            "v": WIRE_VERSION,
+            "node": self._rank,
+            "seq": self._seq,
+            "ts": now,
+            "mono": mono,
+            "interval_s": dt,
+            "rows": rows,
+            "deltas": deltas,
+            "buckets": buckets,
+            "engines": engines,
+            "spans": [sp.to_dict() for sp in new_spans],
+            "spans_missed": missed,
+            "trace_anchor": [anchor[0], anchor[1]],
+        }
+        self._last_snap, self._last_mono = snap, mono
+        return report
+
+    def tick(self) -> Optional[Dict[str, Any]]:
+        """Build + ship one report (returns it; ``None`` when the full
+        publish window forced a whole-report drop); on the collector
+        node also drain and ack every peer stream, then run the
+        degraded check. The tests' direct entry point (the loop calls
+        it every interval).
+
+        ``_tick_lock`` covers ONLY the build+commit pair (direct
+        concurrent callers must commit last-snapshot state in build
+        order, the ``MetricsExporter._report_lock`` pattern; the
+        loop-vs-final-report race is excluded structurally — ``stop()``
+        skips the final report on a failed join). Everything else
+        runs OUTSIDE it: the sink write blocks on disk, ingest runs the
+        collector's merges, and the transport takes its own locks."""
+        if self.collector is None and self._transport is not None \
+                and not self._release_acked_and_can_ship():
+            # the collector stopped consuming: drop BEFORE building, so
+            # the delta state (_last_snap, span/trip cursors) is never
+            # consumed by a report that can't ship — when capacity
+            # frees, the next build diffs against the pre-drop snapshot
+            # and every changed row, trip and span still goes out
+            # exactly once (the "a lost report never skews a sum" /
+            # "every trip forwards once" contracts)
+            self.dropped_reports += 1
+            self._drain_peers()
+            return None
+        with self._tick_lock:
+            report = self.build_report()
+        if self.collector is not None:
+            self.collector.ingest(self._rank, report)
+            self._seq += 1
+            self.reports += 1
+        elif self._transport is not None:
+            self._ship(report)
+        if self._sink:
+            # the archive is a convenience sink: it writes AFTER the
+            # report shipped and a failure (full disk, bad path) must
+            # not cost the live plane the delta state the build just
+            # consumed — log and keep reporting
+            try:
+                with open(self._sink, "a") as f:
+                    f.write(json.dumps(report, default=str) + "\n")
+            except OSError as exc:
+                Log.error("obs agent[%d]: report sink failed: %s",
+                          self._rank, exc)
+        if self._transport is not None:
+            self._drain_peers()
+        if self.collector is not None:
+            self.collector.check()
+        return report
+
+    def _release_acked_and_can_ship(self) -> bool:
+        """Advance the release frontier to the collector's ack and say
+        whether the publish window has room — the ship/drop decision
+        ``tick`` makes BEFORE building a report (a report that can't
+        ship must never consume the delta cursors)."""
+        ack = self._read_ack()
+        while self._released < min(ack, self._seq):
+            self._transport.release(self._released)
+            self._released += 1
+        return self._seq - self._released < self.MAX_OUTSTANDING
+
+    def _ship(self, report: Dict[str, Any]) -> None:
+        payload = json.dumps(report, default=str).encode()
+        self._transport.send(self._seq, payload)
+        self._seq += 1
+        self.reports += 1
+
+    def _read_ack(self) -> int:
+        key = f"{self._label}/ack/{self._rank}"
+        client = self._client
+        try:
+            if hasattr(client, "key_value_try_get"):
+                raw = client.key_value_try_get(key)
+            else:
+                # a client without try-get (blocking get and set are
+                # its whole KV surface): a short blocking get does the
+                # job, a missing key (no ack yet) surfacing as an
+                # exception after the timeout instead of wedging the loop
+                raw = client.blocking_key_value_get(key, 200)
+            return int(str(raw))
+        except Exception:
+            return self._released
+
+    def _drain_peers(self) -> None:
+        """Pop every ready record from every peer stream and ack what
+        was consumed. Only the collector rank subscribes (hub
+        topology), so on every other node the inboxes stay empty and
+        this is a cheap no-op pass."""
+        tp = self._transport
+        for r in list(self._next_seq):
+            consumed = False
+            while True:
+                payload = tp.pop_ready(r, self._next_seq[r])
+                if payload is None:
+                    break
+                self._next_seq[r] += 1
+                consumed = True
+                if self.collector is None:
+                    continue
+                try:
+                    rep = json.loads(bytes(payload).decode())
+                except ValueError:
+                    Log.error("obs agent[%d]: undecodable report from "
+                              "node %d (seq %d)", self._rank, r,
+                              self._next_seq[r] - 1)
+                    continue
+                self.collector.ingest(int(rep.get("node", r)), rep)
+            if consumed and self.collector is not None:
+                try:
+                    self._client.key_value_set(
+                        f"{self._label}/ack/{r}", str(self._next_seq[r]),
+                        allow_overwrite=True)
+                except Exception as exc:    # pragma: no cover - kv trouble
+                    Log.error("obs agent[%d]: ack for node %d failed: %s",
+                              self._rank, r, exc)
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "rank": self._rank,
+            "size": self._size,
+            "interval_s": self._interval,
+            "reports": self.reports,
+            "dropped_reports": self.dropped_reports,
+            "spans_shipped": self.spans_shipped,
+            "spans_missed": self.spans_missed,
+            # un-acked wire reports (0 in loopback / on the collector
+            # node — nothing is retained when reports ingest locally)
+            "outstanding": ((self._seq - self._released)
+                            if (self.collector is None
+                                and self._transport is not None) else 0),
+            "collector": self.collector.stats()
+            if self.collector is not None else None,
+        }
+
+
+def _session_engines() -> Dict[str, Any]:
+    """Default engine discovery: every decode engine registered on every
+    live ``InferenceServer`` of the current Session (by engine name —
+    unique per registration)."""
+    from ..runtime import Session
+
+    sess = Session._instance
+    out: Dict[str, Any] = {}
+    if sess is None or not sess.started:
+        return out
+    for srv in list(sess.servers):
+        entries = getattr(srv, "_models", None)
+        if entries is None:
+            continue
+        with srv._lock:
+            values = list(entries.values())
+        for entry in values:
+            engine = getattr(entry, "engine", None)
+            if engine is not None:
+                out[engine.name] = engine
+    return out

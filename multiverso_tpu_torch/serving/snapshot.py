@@ -27,11 +27,14 @@ from ..log import Log
 
 @dataclass(frozen=True)
 class Snapshot:
-    """Immutable published view: a params copy + its source version."""
+    """Immutable published view: a params copy + its source version, and
+    for fenced sources the trainer incarnation epoch the state derives
+    from (a pin carries (epoch, version) together)."""
 
     value: Any
     version: int
     published_at: float
+    epoch: int = 0
 
 
 class DerivedCache:
@@ -82,9 +85,11 @@ class SnapshotManager:
     pair)."""
 
     def __init__(self, read: Callable[[], Tuple[Any, int]],
-                 version_fn: Callable[[], int], name: str = "snapshot"):
+                 version_fn: Callable[[], int], name: str = "snapshot",
+                 epoch_fn: Optional[Callable[[], int]] = None):
         self._read = read
         self._version_fn = version_fn
+        self._epoch_fn = epoch_fn or (lambda: 0)
         self.name = name
         self._lock = threading.Lock()
         self._snap: Optional[Snapshot] = None
@@ -96,10 +101,13 @@ class SnapshotManager:
     @classmethod
     def of(cls, source: Any, name: Optional[str] = None) -> "SnapshotManager":
         label = name or getattr(source, "name", type(source).__name__)
+        epoch_fn = (lambda: int(getattr(source, "epoch", 0)))
         if hasattr(source, "snapshot_array"):
-            return cls(source.snapshot_array, lambda: source.version, label)
+            return cls(source.snapshot_array, lambda: source.version, label,
+                       epoch_fn=epoch_fn)
         if hasattr(source, "snapshot_params"):
-            return cls(source.snapshot_params, lambda: source.version, label)
+            return cls(source.snapshot_params, lambda: source.version,
+                       label, epoch_fn=epoch_fn)
         if isinstance(source, tuple) and len(source) == 2:
             return cls(source[0], source[1], label)
         Log.fatal(f"SnapshotManager: {type(source).__name__} exposes "
@@ -109,7 +117,8 @@ class SnapshotManager:
         """Force a fresh copy (the copy-on-publish event)."""
         with self._lock:
             value, version = self._read()
-            self._snap = Snapshot(value, version, time.monotonic())
+            self._snap = Snapshot(value, version, time.monotonic(),
+                                  epoch=self._epoch_fn())
             self._note_version_locked(version)
             self.publishes += 1
             return self._snap

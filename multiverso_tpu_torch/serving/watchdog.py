@@ -84,6 +84,10 @@ class EngineWatchdog:
         # trip_count keeps the true total
         self.trips: Deque[Tuple[str, str, Optional[str]]] = (
             collections.deque(maxlen=64))
+        # sequence-stamped twin of `trips` for the fleet plane's
+        # exactly-once forwarding (`trips_since`); same bound
+        self._trip_log: Deque[Tuple[int, str, str, Optional[str]]] = (
+            collections.deque(maxlen=64))
         self._trips_total = 0
         self.bundles = 0
         self.checks = 0
@@ -97,6 +101,25 @@ class EngineWatchdog:
     @property
     def trip_count(self) -> int:
         return self._trips_total
+
+    def trips_since(self, cursor: int):
+        """``(new_cursor, trips newer than cursor)``: the obs plane's
+        incremental read (JAX ``watchdog.py:132``), oldest first as
+        ``(kind, reason, bundle_dir)``; pass back the returned cursor
+        (start at 0). Trips are sequence-stamped at append, so none is
+        reported twice; only the newest 64 are kept."""
+        log: List[Tuple[int, str, str, Optional[str]]] = []
+        for _ in range(8):
+            try:
+                log = list(self._trip_log)
+                break
+            except RuntimeError:
+                # the watchdog thread appended mid-copy; retry
+                continue
+        new = [(k, r, b) for seq, k, r, b in log if seq > cursor]
+        if new:
+            cursor = log[-1][0]      # same copy the filter saw
+        return cursor, new
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "EngineWatchdog":
@@ -199,6 +222,7 @@ class EngineWatchdog:
                           self.engine.name, exc)
         self.trip_counter.inc()
         self.trips.append((kind, reason, bundle))
+        self._trip_log.append((self._trips_total, kind, reason, bundle))
         Log.error("watchdog[%s] TRIPPED (%s): %s; bundle: %s",
                   self.engine.name, kind, reason,
                   bundle or "none (-debug_dump_dir unset)")

@@ -17,9 +17,15 @@ one object holding:
   ``Waiter``.
 
 Every mutation happens under the table's ``threading.RLock`` and bumps
-``version``. Not here yet, and refused by the session's flags: the WAL
-journal, the async delta bus, BSP aggregation over processes, and
-``store``/``load`` (the I/O slice).
+``version``. The remote entry points of ``multiverso_tpu/tables/base.py``
+:267-344 are here for the parameter plane: ``_apply_remote_dense`` /
+``_apply_remote_keyed`` (a peer's delta, feeding the optional
+``_remote_accum``), and the STATE protocol (``_state_arrays``,
+``_install_state_arrays``, ``_install_state``: an absolute value at an
+exact (version, epoch)). A bf16 table's state ships as a torch bf16
+tensor, its own 16-bit words. Not here yet, and refused by the session's
+flags: the WAL journal (``_journal_local``), the async delta bus, BSP
+aggregation over processes, and ``store``/``load`` (the I/O slice).
 """
 
 from __future__ import annotations
@@ -68,6 +74,13 @@ def tensor_to_host(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.detach().cpu().numpy()
+
+
+def _host_values(values: Any, dtype) -> np.ndarray:
+    """Host ndarray of ``values`` (numpy or a tensor) in ``dtype``."""
+    if isinstance(values, torch.Tensor):
+        values = tensor_to_host(values)
+    return np.asarray(values, dtype)
 
 
 class AsyncHandle:
@@ -167,6 +180,61 @@ class TableBase:
             sp.end(version=version)
             mon.end()
         return version
+
+    # -- remote entry points (the parameter plane's apply side) ------------
+    def _apply_remote_dense(self, host: Any, option: AddOption) -> None:
+        """A peer's dense delta. Besides applying it, feed the optional
+        remote-delta accumulator (``_remote_accum``, a host array) that
+        separates a trainer's own movement from its peers'."""
+        staged = host_to_tensor(
+            host.reshape(self.shape) if isinstance(host, torch.Tensor)
+            else np.asarray(host).reshape(self.shape), self.dtype,
+            self.device)
+        with self._lock:
+            accum = getattr(self, "_remote_accum", None)
+            if accum is not None:
+                accum += _host_values(host, accum.dtype).reshape(
+                    accum.shape)
+            self._apply_dense(staged, option)
+
+    def _apply_remote_keyed(self, ids: Any, vals: Any,
+                            option: AddOption) -> None:
+        """A peer's keyed (touched-row) delta, feeding ``_remote_accum``
+        atomically with the apply."""
+        with self._lock:
+            accum = getattr(self, "_remote_accum", None)
+            if accum is not None:
+                np.add.at(accum, np.asarray(ids, np.int64).ravel(),
+                          _host_values(vals, accum.dtype))
+            self._dispatch_keyed(ids, vals, option)
+
+    def _install_state(self, host: Any, version: int,
+                       epoch: int = 0) -> None:
+        """Install an absolute state at an exact (version, epoch): the
+        fenced restart's STATE rebase. Unlike :meth:`set_array` the
+        version is assigned, not bumped."""
+        staged = host_to_tensor(
+            host.reshape(self.shape) if isinstance(host, torch.Tensor)
+            else np.asarray(host).reshape(self.shape), self.dtype,
+            self.device)
+        with self._lock:
+            self._data = staged
+            self.version = int(version)
+            if epoch:
+                self.epoch = int(epoch)
+
+    def _state_arrays(self) -> Tuple[list, int]:
+        """The STATE record's arrays and version: one host copy in the
+        table's own dtype (a torch bf16 tensor for a bf16 table)."""
+        with self._lock:
+            snap, version = self._data.clone(), self.version
+        host = snap.cpu()
+        return [host if host.dtype == torch.bfloat16
+                else host.numpy()], version
+
+    def _install_state_arrays(self, arrays, version: int,
+                              epoch: int = 0) -> None:
+        self._install_state(arrays[0], version, epoch)
 
     # -- public ops --------------------------------------------------------
     def _add_handle(self) -> AsyncHandle:

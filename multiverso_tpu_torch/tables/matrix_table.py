@@ -12,7 +12,8 @@ dense and sparse matrix tables, ``src/table/matrix_table.cpp`` and
 * ``add_rows`` keeps ``.at[ids].add`` semantics: duplicates accumulate and
   an id out of range is dropped;
 * the sparse dirty-row protocol (``get_dirty_rows``) is a host-side bitmap,
-  as in the JAX package.
+  as in the JAX package, and a peer's dense delta through
+  ``_apply_remote_dense`` dirties every row (JAX :150-157).
 
 The JAX package buckets row requests to power-of-two sizes
 (``tables/_rowops.py``) so that XLA compiles each size once. PyTorch runs
@@ -133,6 +134,14 @@ class MatrixTable(TableBase):
             wid = option.worker_id if option else max(self._sess.worker_id, 0)
             self._mark_dirty(np.arange(self.num_row), wid)
         return super().add_async(delta, option)
+
+    def _apply_remote_dense(self, host: Any, option: AddOption) -> None:
+        # a peer's whole-table delta dirties every row for local pullers,
+        # as a local whole-table add does (keyed remote applies mark their
+        # rows in _dispatch_keyed)
+        if self._dirty is not None:
+            self._mark_dirty(np.arange(self.num_row), option.worker_id)
+        super()._apply_remote_dense(host, option)
 
     # -- sparse dirty-row protocol ----------------------------------------
     def _mark_dirty(self, rows: np.ndarray, adding_worker: int) -> None:

@@ -391,14 +391,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'multiverso_tpu' "
         "or m.startswith('multiverso_tpu.'))\n"
-        "assert len(names) >= 27, names\n"
+        "assert len(names) >= 32, names\n"
         "for m in ('block_pool', 'flight_recorder', 'watchdog', "
         "'decode_engine', 'batcher', 'workloads', 'snapshot', 'server', "
         "'faultinject', 'kv_transfer', 'accounting', 'replica', "
-        "'router'):\n"
+        "'router', 'obs_plane', 'param_plane'):\n"
         "    assert 'multiverso_tpu_torch.serving.' + m in names, m\n"
-        "assert 'multiverso_tpu_torch.quantization' in names\n"
-        "assert 'multiverso_tpu_torch.parallel.p2p' in names\n"
+        "for m in ('quantization', 'dashboard', 'parallel.p2p', "
+        "'parallel.async_ps', 'io', 'io.stream'):\n"
+        "    assert 'multiverso_tpu_torch.' + m in names, m\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
