@@ -281,6 +281,46 @@ Phase 12 runs after phase 6:
    and top 5 device ops. Prints pairs/s (examples/s for CBOW) and ms a
    call.
 
+Phase 15 runs after phase 12:
+
+15. the LogisticRegression application (``phase_logreg``), on files
+   written from a seed at the real datasets' widths. (a) MNIST's shape
+   (BASELINE.json config 1: 784 inputs, 10 classes, a [10, 785] f32
+   matrix table, sgd, minibatch 64, lr 0.1, coef 1.0; 8,192 / 2,048
+   dense rows of 10 class templates, 10% label noise) through
+   apps.logreg.main for 2 epochs on the card and with -device=cpu: the
+   card's weights within 1e-5 of the CPU run's (the zero table must fail
+   that), the saved model's test accuracy at least 1/10 + 0.3 and its
+   train loss under ln 10 - 0.1, save_model -> load_model predicting
+   bit for bit the same. (b) sparse SGD at Criteo's display-ads layout
+   (39 hashed keys a sample into a SparseTable of 2^24 + 1 f32, zipf ids
+   per field, 16,384 / 4,096 libsvm lines, lr 0.5, coef 1e-3), a plain
+   leg (sync_frequency 1) whose table and minibatch losses equal the
+   port's CPU run bit for bit, and a pipelined leg (AsyncSampleReader +
+   PipelinedGetter, sync_frequency 4) whose adds and pulls are recorded
+   and replayed on a CPU table: each pull equal to the replay at the
+   version it read, the final table bit for bit; the mean loss of the
+   last 16 minibatches 0.02 under the first 16's. (c) FTRL on (b)'s
+   samples through the bsparse reader into an FTRLTable of [2^24 + 1, 2]
+   f32, the table and every sample's loss equal to the CPU run's bit for
+   bit, the loss falling as in (b), the share of exactly-zero weights and
+   the launches a sample. (d) LogRegPredict (64 requests on (a)'s table)
+   and FTRLPredict (16 dense [2^24] payloads, max_batch 4, on (c)'s)
+   behind the micro-batcher, each reply within 1e-5 of predict /
+   predict_sample. (e) the row gather and scatter-add kernels at the
+   logreg tables' 4- and 8-byte f32 rows (the narrow routes): 2,496 ids
+   (64 samples x 39) into [2^24 + 1] and 40 into [2^24 + 1, 2], the
+   gather bitwise (the ids rolled by one as the failing control), the
+   scatter bitwise on phase 4's exact grid (with alpha -1, the sgd
+   route, on the 4-byte rows) and within phase 4's rule (b) at the path's
+   scale (an unchanged table fails both), each with its time, device
+   time, plain time, library call (index_select, index_add_) and bound;
+   the scatter's one-element bf16 route (a [2^24 + 1] bf16 table with
+   bf16 and f32 deltas, a [2^24 + 1, 2] bf16 table at a 2-byte offset)
+   bitwise on the exact grid, and a bf16 SparseTable's sgd adds bitwise
+   equal to the same table on the CPU. The row kernels must have run in
+   (b) and (c).
+
 The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
 library time, and the training run's bf16 launches beside the serving
@@ -289,7 +329,9 @@ path's shape's error and times as ``surface_*``, and phase 13's fleet
 launches, all replicas, as ``launches_fleet``, and phase 14's as
 ``launches_planes``; phase 12's launches
 by configuration as ``launches_completion``, and phase 4's HS-node and
-CBOW-window shapes as ``hs_nodes_*`` and ``cbow_ctx_*``); the last
+CBOW-window shapes as ``hs_nodes_*`` and ``cbow_ctx_*``; phase 15's
+launches by sub-phase as ``launches_logreg`` and its shapes as
+``logreg_x1_*`` (4-byte rows) and ``logreg_x2_*`` (8-byte rows)); the last
 line is {"ok": true, "device": {...}}. Any failure exits
 nonzero before either line is printed. Without a CUDA device, or without
 the package beside this file, the script fails. To debug one phase, call
@@ -4521,6 +4563,669 @@ def phase_w2v_options(card: str):
     return results
 
 
+# phase 15: the LogisticRegression application (apps.logreg), after the
+# word2vec phases. MNIST and Criteo are not in the repository: every file
+# is written from LR_SEED at the real datasets' widths
+LR_SEED = 15
+LR_DIR = os.path.join(HERE, "build", "logreg")
+# (a) BASELINE.json config 1, LogisticRegression on MNIST: 784 inputs, 10
+# classes, a [10, 785] f32 matrix table, sgd, LogRegConfig's defaults
+# otherwise (minibatch 64, lr 0.1, coef 1.0). MNIST's 60,000 / 10,000
+# rows cut to 8,192 / 2,048 of a planted 10-class linear rule
+LR_MNIST_IN, LR_MNIST_OUT = 784, 10
+LR_MNIST_TRAIN, LR_MNIST_TEST = 8192, 2048
+LR_MNIST_EPOCHS = 2
+LR_MNIST_ON = 0.2         # a class template's share of on pixels
+LR_PIXEL_LEVELS = 16      # pixels k/16: exact in f32, one lookup to write
+LR_LABEL_NOISE = 0.1      # share of labels drawn at random
+# test accuracy must beat chance (1/10) by this much; set before the first
+# run from a CPU rehearsal at this width and 2,048 train rows (0.9004)
+LR_ACC_MARGIN = 0.3
+# the card's weights against the port's CPU run on the same file, max
+# |diff|: the two GEMMs sum 64 (gradient) and 785 (scores) terms in other
+# orders, ~1e-7 relative a step on weights of ~1e-2, over 256 steps whose
+# lr decays as 0.1 / (1 + t); the untrained (zero) table, the failing
+# control, is over 1,000 times further off (0.025 in the CPU rehearsal)
+LR_DENSE_TOL = 1e-5
+# (b), (c) Criteo's display-ads layout: 13 integer + 26 categorical
+# fields, one hashed key each (value 1), into 2^24 keys; each field's ids
+# zipf over its own vocabulary; labels from a planted weight per key, 25%
+# positive (Criteo's click share ~0.26)
+LR_CRITEO_BITS = 24
+LR_CRITEO_VOCAB = (64,) * 13 + (10 ** 2, 10 ** 3, 10 ** 4, 10 ** 5,
+                                10 ** 6) * 5 + (10 ** 6,)
+LR_CRITEO_TRAIN, LR_CRITEO_TEST = 16384, 4096
+LR_CTR = 0.25
+LR_SPARSE_LR, LR_SPARSE_COEF = 0.5, 1e-3
+LR_PIPE_SYNC = 4
+# the mean loss of the last 16 minibatches of the epoch must sit this far
+# under the first 16's (nats); set before the first run
+LR_LOSS_DROP = 0.02
+# (d) replies against predict / predict_sample: f32 GEMMs of other shapes
+# (the dense bucket, the [4, 2^24] FTRL batch) against one batched GEMM
+# and the host's float64 closed form
+LR_SERVE_DENSE, LR_SERVE_FTRL, LR_SERVE_FTRL_BATCH = 64, 16, 4
+LR_REPLY_TOL = 1e-5
+
+
+def lr_mnist_files():
+    """(a)'s dense text files: ``label v_1 .. v_784``. Each class has a
+    template of "on" pixels (a planted linear rule: the log-odds of such
+    pixels are linear in them); a sample keeps 80% of its class's
+    template, lights 3% of the other pixels, each at k/16 for k in 8..16,
+    and 10% of labels are drawn at random. Returns the paths and the
+    train/test arrays as the files parse."""
+    rng = np.random.default_rng(LR_SEED)
+    n = LR_MNIST_TRAIN + LR_MNIST_TEST
+    templates = rng.random((LR_MNIST_OUT, LR_MNIST_IN)) < LR_MNIST_ON
+    y = rng.integers(0, LR_MNIST_OUT, n)
+    on = np.where(templates[y], rng.random((n, LR_MNIST_IN)) < 0.8,
+                  rng.random((n, LR_MNIST_IN)) < 0.03)
+    k = np.where(on, rng.integers(LR_PIXEL_LEVELS // 2, LR_PIXEL_LEVELS + 1,
+                                  (n, LR_MNIST_IN)), 0)
+    x = k / LR_PIXEL_LEVELS
+    noisy = rng.random(n) < LR_LABEL_NOISE
+    y[noisy] = rng.integers(0, LR_MNIST_OUT, int(noisy.sum()))
+    lut = np.array([f"{i / LR_PIXEL_LEVELS:g}"
+                    for i in range(LR_PIXEL_LEVELS + 1)], dtype=object)
+    paths = []
+    for name, lo, hi in (("mnist_train.txt", 0, LR_MNIST_TRAIN),
+                         ("mnist_test.txt", LR_MNIST_TRAIN, n)):
+        path = os.path.join(LR_DIR, name)
+        with open(path, "w") as f:
+            f.writelines(f"{y[i]} " + " ".join(lut[k[i]]) + "\n"
+                         for i in range(lo, hi))
+        paths.append(path)
+    return paths, (x[:LR_MNIST_TRAIN], y[:LR_MNIST_TRAIN]), \
+        (x[LR_MNIST_TRAIN:], y[LR_MNIST_TRAIN:])
+
+
+def lr_criteo_samples():
+    """(b)'s samples: ``(label, keys, ones)`` of 39 hashed keys each."""
+    rng = np.random.default_rng(LR_SEED + 1)
+    n = LR_CRITEO_TRAIN + LR_CRITEO_TEST
+    cols = []
+    for f, vocab in enumerate(LR_CRITEO_VOCAB):
+        p = 1.0 / np.arange(1, vocab + 1)
+        ids = rng.choice(vocab, size=n, p=p / p.sum()).astype(np.uint64)
+        # (field, id) -> key: a multiplicative hash into 2^24
+        salt = np.uint64(((f + 1) * 0x9E3779B97F4A7C15) % (1 << 64))
+        h = ids * np.uint64(0xBF58476D1CE4E5B9) + salt
+        cols.append((h >> np.uint64(64 - LR_CRITEO_BITS)).astype(np.int64))
+    keys = np.stack(cols, axis=1)                       # [n, 39]
+    uniq, inv = np.unique(keys, return_inverse=True)
+    planted = rng.standard_normal(uniq.shape[0]) * 0.7
+    score = planted[inv.reshape(keys.shape)].sum(1) \
+        + rng.standard_normal(n) * 0.5
+    labels = (score > np.quantile(score, 1.0 - LR_CTR)).astype(np.float64)
+    ones = np.ones(keys.shape[1], np.float64)
+    return [(float(labels[i]), keys[i], ones) for i in range(n)]
+
+
+def lr_write_sparse(samples):
+    """(b)'s libsvm files and (c)'s bsparse files of the same samples."""
+    from multiverso_tpu_torch.apps.lr_reader import write_bsparse
+
+    train, test = samples[:LR_CRITEO_TRAIN], samples[LR_CRITEO_TRAIN:]
+    out = {}
+    for name, part in (("train", train), ("test", test)):
+        path = os.path.join(LR_DIR, f"criteo_{name}.txt")
+        with open(path, "w") as f:
+            f.writelines(f"{int(lab)} " + " ".join(f"{k}:1" for k in keys)
+                         + "\n" for lab, keys, _ in part)
+        out[name] = path
+        out[name + "_b"] = os.path.join(LR_DIR, f"criteo_{name}.bsparse")
+        write_bsparse(out[name + "_b"], part)
+    return out
+
+
+def lr_session(device: str):
+    """A fresh port session on ``device`` (phase 15 drives sessions of
+    its own, as ``main`` does)."""
+    import multiverso_tpu_torch as mv
+
+    mv.shutdown()
+    mv.init(["chip_smoke", f"-device={device}"])
+    return mv
+
+
+def lr_main(conf_lines, tag: str, device: str):
+    """``apps.logreg.main`` on a written config, on ``device``; returns
+    its wall seconds, the saved model's weights and the model's path."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.apps import logreg as app
+    from multiverso_tpu_torch.io import read_array
+
+    model = os.path.join(LR_DIR, f"{tag}.model")
+    conf = os.path.join(LR_DIR, f"{tag}.config")
+    with open(conf, "w") as f:
+        f.write("\n".join(conf_lines + [f"output_model_file={model}"]))
+    mv.shutdown()
+    t0 = time.perf_counter()
+    try:
+        rc = app.main([conf] + (["-device=cpu"] if device == "cpu" else []))
+    finally:
+        mv.set_flag("device", DEV.type)
+    dev_sync()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"logreg {tag}: apps.logreg.main returned {rc}")
+    with open(model, "rb") as f:
+        weights = read_array(f)
+    return wall, weights, model
+
+
+def lr_dense(card: str, launches: dict):
+    """(a): MNIST's shape through apps.logreg.main, card and CPU."""
+    from multiverso_tpu_torch.apps import logreg as app
+
+    emb = _emb()
+    (train, test), (xtr, ytr), (xte, yte) = lr_mnist_files()
+    conf = [f"input_size={LR_MNIST_IN}", f"output_size={LR_MNIST_OUT}",
+            "objective_type=softmax", f"train_file={train}",
+            f"test_file={test}", f"train_epoch={LR_MNIST_EPOCHS}"]
+    dev_sync()
+    emb.reset_launches()
+    wall, w_card, path = lr_main(conf, "mnist_card", DEV.type)
+    launches["a"] = dict(emb.LAUNCHES)
+    _, w_cpu, _ = lr_main(conf, "mnist_cpu", "cpu")
+    diff = float(np.abs(w_card - w_cpu).max())
+    ctl = float(np.abs(w_cpu).max())
+    if not (np.isfinite(w_card).all() and diff <= LR_DENSE_TOL):
+        fail(f"logreg a: card weights {diff:.3e} from the CPU run's "
+             f"(tolerance {LR_DENSE_TOL})")
+    if not ctl > LR_DENSE_TOL:
+        fail(f"logreg a: negative control: the zero table is within the "
+             f"tolerance ({ctl:.3e})")
+    # the saved model in a fresh model: the same predictions, bit for bit;
+    # the loss over the train rows falls from the zero table's ln 10, and
+    # the test accuracy beats chance
+    lr_session(DEV.type)
+    cfg = app.config_from_dict(app.parse_config(
+        os.path.join(LR_DIR, "mnist_card.config")))
+    model = app.build_model(cfg)
+    app.load_model(model, path)
+    first = next(app.iter_dense_minibatches(train, cfg))[0]
+    if not np.array_equal(first, xtr[:cfg.minibatch_size]):
+        fail("logreg a: the train file does not parse to its rows")
+    pred = model.predict(xte)
+    copy = os.path.join(LR_DIR, "mnist_copy.model")
+    app.save_model(model, copy)
+    fresh = app.build_model(cfg)
+    app.load_model(fresh, copy)
+    if not np.array_equal(fresh.predict(xte), pred):
+        fail("logreg a: save_model -> load_model predicts differently")
+    p_tr = model.predict(xtr)
+    train_loss = float(-np.mean(np.log(p_tr[np.arange(len(ytr)), ytr]
+                                       + 1e-12)))
+    if not train_loss < np.log(LR_MNIST_OUT) - 0.1:
+        fail(f"logreg a: train loss {train_loss} not under ln 10 - 0.1")
+    test_acc = float(np.mean(pred.argmax(1) == yte))
+    if not test_acc >= 1.0 / LR_MNIST_OUT + LR_ACC_MARGIN:
+        fail(f"logreg a: test accuracy {test_acc} under 1/10 + "
+             f"{LR_ACC_MARGIN}")
+    # the device step alone: pre-parsed minibatches, host clock to a sync
+    batches = [(xtr[i:i + 64], np.eye(LR_MNIST_OUT, dtype=np.float32)[
+        ytr[i:i + 64]]) for i in range(0, 64 * 50, 64)]
+    model.train_minibatch(*batches[0])
+    dev_sync()
+    t0 = time.perf_counter()
+    for x, y in batches:
+        model.train_minibatch(x, y)
+    dev_sync()
+    step_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    n_rows = LR_MNIST_EPOCHS * LR_MNIST_TRAIN + LR_MNIST_TEST
+    say(f"logreg a (MNIST shape [10, 785] f32, {LR_MNIST_TRAIN} / "
+        f"{LR_MNIST_TEST} rows, {LR_MNIST_EPOCHS} epochs): main {wall:.3f} "
+        f"s = {n_rows / wall:.1f} samples/s (train + test, parsing "
+        f"included); {step_ms:.4f} ms a minibatch (device step, pre-parsed "
+        f"batches of 64); train loss {train_loss:.4f} from ln 10 = "
+        f"{np.log(LR_MNIST_OUT):.4f}; test accuracy {test_acc:.4f}; weights "
+        f"max |card - CPU| "
+        f"{diff:.3e} (tolerance {LR_DENSE_TOL}, zero table {ctl:.3e}); "
+        f"save/load predictions bitwise; launches "
+        f"{json.dumps(launches['a'])}; card {card}")
+    return model, xte
+
+
+def lr_recorded(table):
+    """Record a table's keyed adds and gets (with the version each read
+    saw, taken under the table lock) on the instance."""
+    adds, gets = [], []
+    add, get = table._dispatch_keyed, table.get_keys
+
+    def dispatch(ids, vals, option=None):
+        adds.append((np.asarray(ids).copy(), np.asarray(vals).copy()))
+        return add(ids, vals, option)
+
+    def get_keys(keys, *a):
+        with table._lock:
+            version = table.version
+            out = get(keys, *a)
+        gets.append((version, np.asarray(keys).copy(), out))
+        return out
+
+    table._dispatch_keyed, table.get_keys = dispatch, get_keys
+    return adds, gets
+
+
+def lr_replay(tag, table, adds, gets):
+    """The card's adds replayed in order on a CPU copy of the table's
+    start: every pull must equal the replay's values at the version it
+    read, and the final table the card's, bit for bit."""
+    from multiverso_tpu_torch.tables import SparseTable
+
+    cpu = SparseTable(table.shape[0], updater=table.updater.name,
+                      device="cpu")
+    v0 = table.version - len(adds)
+    by_version = collections.defaultdict(list)
+    for version, keys, out in gets:
+        by_version[version - v0].append((keys, out))
+    checked = 0
+    for v in range(len(adds) + 1):
+        for keys, out in by_version.pop(v, []):
+            if not np.array_equal(cpu.get_keys(keys).view(np.uint32),
+                                  np.asarray(out, np.float32).view(
+                                      np.uint32)):
+                fail(f"logreg {tag}: a pull at version {v} differs from "
+                     f"the replay's table there")
+            checked += 1
+        if v < len(adds):
+            cpu._dispatch_keyed(*adds[v], None)
+    if by_version:
+        fail(f"logreg {tag}: pulls at versions outside the run: "
+             f"{sorted(by_version)}")
+    return cpu, checked
+
+
+def lr_equal(tag, card_host: np.ndarray, cpu_host: np.ndarray) -> None:
+    if card_host.shape != cpu_host.shape or not np.array_equal(
+            card_host.view(np.uint32), cpu_host.view(np.uint32)):
+        n = int((card_host.view(np.uint32) != cpu_host.view(np.uint32))
+                .sum()) if card_host.shape == cpu_host.shape else -1
+        fail(f"logreg {tag}: the card's table differs from the CPU's in {n} "
+             f"elements")
+
+
+def lr_leg(files, conf, device, record=False):
+    """One sparse or FTRL leg on ``device``: build_model, train_file for
+    one epoch, test_file. Returns the model, the loss of every training
+    step (minibatch or sample), the train seconds, the test accuracy,
+    the launches of the training and, with ``record``, the table's adds
+    and pulls."""
+    from multiverso_tpu_torch.apps import logreg as app
+
+    emb = _emb()
+    lr_session(device)
+    cfg = app.config_from_dict(conf)
+    model = app.build_model(cfg)
+    losses = []
+    name = ("train_sample" if cfg.objective_type == "ftrl"
+            else "train_minibatch")
+    step = getattr(model, name)
+
+    def recorded_step(*args):
+        losses.append(step(*args))
+        return losses[-1]
+
+    setattr(model, name, recorded_step)
+    rec = lr_recorded(model.table) if record else None
+    t0 = time.perf_counter()
+    app.train_file(model, cfg, files["train"], epochs=1, log_every=0)
+    dev_sync()
+    secs = time.perf_counter() - t0
+    trained = dict(emb.LAUNCHES)
+    acc = app.test_file(model, cfg, files["test"])
+    return model, losses, secs, acc, trained, rec
+
+
+def lr_sparse(card: str, files, launches: dict):
+    """(b): sparse SGD at Criteo's layout, plain and pipelined."""
+    emb = _emb()
+    base = {"input_size": str(1 << LR_CRITEO_BITS), "sparse": "true",
+            "learning_rate": str(LR_SPARSE_LR),
+            "learning_rate_coef": str(LR_SPARSE_COEF)}
+    legs = {}
+    for leg, extra in (("b sync 1", {"sync_frequency": "1"}),
+                       ("b pipeline", {"pipeline": "true",
+                                       "sync_frequency": str(LR_PIPE_SYNC)})):
+        conf = dict(base, **extra)
+        dev_sync()
+        emb.reset_launches()
+        model, losses, secs, acc, per, rec = lr_leg(
+            files, conf, DEV.type, record=leg == "b pipeline")
+        dev_sync()
+        launches[leg] = dict(emb.LAUNCHES)
+        card_host = model.table.get()
+        head, tail = np.mean(losses[:16]), np.mean(losses[-16:])
+        if not (np.isfinite(losses).all() and tail <= head - LR_LOSS_DROP):
+            fail(f"logreg {leg}: loss did not fall by {LR_LOSS_DROP}: first "
+                 f"16 minibatches {head:.5f}, last 16 {tail:.5f}")
+        if DEV.type == "cuda" and min(launches[leg].values()) <= 0:
+            fail(f"logreg {leg}: kernel launches {launches[leg]}")
+        if rec is None:
+            cpu_model, cpu_losses, _, cpu_acc, _, _ = lr_leg(
+                files, conf, "cpu")
+            if cpu_losses != losses:
+                fail(f"logreg {leg}: minibatch losses differ from the CPU "
+                     f"run's")
+            lr_equal(leg, card_host, cpu_model.table.get())
+            how = f"equal to the CPU run's bit for bit (CPU accuracy {cpu_acc:.4f})"
+        else:
+            adds, gets = rec
+            cpu, checked = lr_replay(leg, model.table, adds, gets)
+            lr_equal(leg, card_host, cpu.get())
+            how = (f"equal bit for bit to the CPU replay of its {len(adds)} "
+                   f"adds, each of its {checked} pulls equal to the replay "
+                   f"at the version it read")
+        n = LR_CRITEO_TRAIN
+        legs[leg] = secs
+        say(f"logreg {leg} (SparseTable [2^{LR_CRITEO_BITS} + 1] f32, sgd, "
+            f"{n} train / {LR_CRITEO_TEST} test samples of 39 keys): "
+            f"{n / secs:.1f} samples/s ({secs:.3f} s an epoch, minibatch "
+            f"64); loss first 16 minibatches {head:.5f} -> last 16 "
+            f"{tail:.5f}; test accuracy {acc:.4f}; table {how}; training "
+            f"launches {json.dumps(per)} (with the test file's predictions "
+            f"{json.dumps(launches[leg])}); card {card}")
+        del model
+        lr_session(DEV.type)
+    say(f"logreg b: the pipelined leg ran {legs['b sync 1'] / legs['b pipeline']:.3f}"
+        f"x the plain leg's samples/s (sync_frequency {LR_PIPE_SYNC} against "
+        f"1)")
+
+
+def lr_ftrl(card: str, files, samples, launches: dict):
+    """(c): FTRL on (b)'s samples through the bsparse reader."""
+    emb = _emb()
+    conf = {"input_size": str(1 << LR_CRITEO_BITS), "sparse": "true",
+            "objective_type": "ftrl", "reader_type": "bsparse"}
+    bfiles = {"train": files["train_b"], "test": files["test_b"]}
+    dev_sync()
+    emb.reset_launches()
+    model, losses, secs, acc, per, _ = lr_leg(bfiles, conf, DEV.type)
+    dev_sync()
+    launches["c ftrl"] = dict(emb.LAUNCHES)
+    card_host = model.table.get()
+    cpu_model, cpu_losses, _, cpu_acc, _, _ = lr_leg(bfiles, conf, "cpu")
+    if cpu_losses != losses:
+        fail("logreg c: sample losses differ from the CPU run's")
+    lr_equal("c", card_host, cpu_model.table.get())
+    n = LR_CRITEO_TRAIN
+    head, tail = np.mean(losses[:1024]), np.mean(losses[-1024:])
+    if not (np.isfinite(losses).all() and tail <= head - LR_LOSS_DROP):
+        fail(f"logreg c: loss did not fall by {LR_LOSS_DROP}: first 1,024 "
+             f"samples {head:.5f}, last 1,024 {tail:.5f}")
+    if DEV.type == "cuda" and min(launches["c ftrl"].values()) <= 0:
+        fail(f"logreg c: kernel launches {launches['c ftrl']}")
+    z, nn = card_host[:, 0].astype(np.float64), card_host[:, 1].astype(
+        np.float64)
+    touched = nn > 0
+    w = model._weights_from_zn(z[touched], nn[touched])
+    dup = sum(len(k) - len(np.unique(k)) for _, k, _ in samples[:n])
+    say(f"logreg c (FTRLTable [2^{LR_CRITEO_BITS} + 1, 2] f32, bsparse, "
+        f"alpha 0.1 beta 1 l1 0.001 l2 0.001): {n / secs:.1f} samples/s, "
+        f"{secs / n * 1e3:.4f} ms a sample; training launches "
+        f"{json.dumps(per)} = {per['row_gather'] / n:.3f} K1 + "
+        f"{per['row_scatter_add'] / n:.3f} K2 a sample (with the test "
+        f"file's predictions {json.dumps(launches['c ftrl'])}); loss first "
+        f"1,024 samples {head:.5f} -> last 1,024 "
+        f"{tail:.5f}; test accuracy {acc:.4f} (CPU {cpu_acc:.4f}); table "
+        f"equal to the CPU run's bit for bit ({dup} repeated keys in the "
+        f"train samples); {int(touched.sum())} keys touched, "
+        f"{float(np.mean(w == 0)):.4f} of their weights exactly 0 (L1); card "
+        f"{card}")
+    return model
+
+
+def lr_serve(card: str, dense, xte, ftrl, samples, launches: dict):
+    """(d): LogRegPredict and FTRLPredict behind the micro-batcher."""
+    from multiverso_tpu_torch.serving import (FTRLPredict, InferenceServer,
+                                              LogRegPredict)
+
+    emb = _emb()
+    lr_session(DEV.type)
+    dev_sync()
+    emb.reset_launches()
+    srv = InferenceServer("logreg")
+    lrw = LogRegPredict(dense)
+    fw = FTRLPredict(ftrl.table, ftrl.cfg)
+    srv.register("lr", lrw, max_batch=32, deadline_ms=2.0)
+    srv.register("ftrl", fw, max_batch=LR_SERVE_FTRL_BATCH,
+                 deadline_ms=50.0)
+    xs = xte[:LR_SERVE_DENSE].astype(np.float32)
+    want = dense.predict(xs)
+    t0 = time.perf_counter()
+    futs = [srv.submit("lr", x) for x in xs]
+    got = np.stack([f.result(timeout=120)["result"] for f in futs])
+    lr_s = time.perf_counter() - t0
+    err = float(np.abs(got - want).max())
+    if not err <= LR_REPLY_TOL:
+        fail(f"logreg d: LogRegPredict replies {err:.3e} from predict")
+    # dense [2^24] payloads of test samples without a repeated key (a
+    # dense vector holds a repeated key once, predict_sample twice)
+    picks = [s for s in samples[LR_CRITEO_TRAIN:]
+             if len(np.unique(s[1])) == len(s[1])][:LR_SERVE_FTRL]
+    payloads = []
+    for _, keys, _ in picks:
+        x = np.zeros(1 << LR_CRITEO_BITS, np.float32)
+        x[keys] = 1.0
+        payloads.append(x)
+    fwant = np.array([ftrl.predict_sample(k, v) for _, k, v in picks])
+    t0 = time.perf_counter()
+    futs = [srv.submit("ftrl", x) for x in payloads]
+    fgot = np.array([f.result(timeout=300)["result"] for f in futs])
+    f_s = time.perf_counter() - t0
+    ferr = float(np.abs(fgot - fwant).max())
+    if not ferr <= LR_REPLY_TOL:
+        fail(f"logreg d: FTRLPredict replies {ferr:.3e} from predict_sample")
+    flushes = srv._entry("ftrl").batcher.flushes
+    dev_sync()
+    launches["d"] = dict(emb.LAUNCHES)
+    srv.stop()
+    say(f"logreg d: LogRegPredict {LR_SERVE_DENSE} replies in {lr_s:.3f} s "
+        f"= {LR_SERVE_DENSE / lr_s:.1f} replies/s, max |reply - predict| "
+        f"{err:.3e}, {lrw.jit_cache_size()} signatures; FTRLPredict "
+        f"{len(payloads)} dense [2^{LR_CRITEO_BITS}] replies in {f_s:.3f} s "
+        f"= {len(payloads) / f_s:.1f} replies/s (flushes "
+        f"{[n for n, _, _ in flushes]}), max |reply - predict_sample| "
+        f"{ferr:.3e} (tolerance {LR_REPLY_TOL}); card {card}")
+
+
+def lr_kernel_cases(samples):
+    """(e): K1 and K2 at the slice's shapes against their plain versions
+    (module docstring, phase 15)."""
+    emb = _emb()
+    V = (1 << LR_CRITEO_BITS) + 1
+    g = torch.Generator(device=DEV).manual_seed(LR_SEED)
+    keys = np.concatenate([k for _, k, _ in samples[:64]]).astype(np.int32)
+    bias = np.int32(1 << LR_CRITEO_BITS)
+    cases = (("x1", 1, keys, -1.0),                      # sgd: sign -1
+             ("x2", 2, np.append(samples[0][1], bias).astype(np.int32),
+              None))
+    results = {}
+    for tag, D, ids_np, alpha in cases:
+        shape = (V,) if D == 1 else (V, D)
+        ids = torch.from_numpy(ids_np).to(DEV)
+        n, uniq = ids.numel(), int(torch.unique(ids).numel())
+        name = f"[2^{LR_CRITEO_BITS} + 1{'' if D == 1 else ', 2'}] f32, {n} ids"
+        table = torch.randn(shape, generator=g, device=DEV)
+        got = emb.embedding_lookup(table, ids)
+        dev_sync()
+        if not torch.equal(bits(got), bits(emb._gather_plain(table, ids))):
+            fail(f"logreg e: row_gather {name} differs from the plain version")
+        if torch.equal(bits(got), bits(emb._gather_plain(
+                table, torch.roll(ids, 1)))):
+            fail(f"logreg e: row_gather {name}: negative control: the ids "
+                 f"rolled by one give the same rows")
+        # the exact grid: every order of a row's adds gives the same bits
+        x0, deltas = exact_case(V, D, ids, torch.float32, torch.float32,
+                                seed=LR_SEED)
+        x0, deltas = x0.reshape(shape), deltas.reshape((n,) + shape[1:])
+        for a in (None, alpha) if alpha is not None else (None,):
+            out = emb.scatter_add_rows(x0.clone(), ids, deltas, alpha=a)
+            dev_sync()
+            ref = emb._scatter_add_plain(x0.clone(), ids, deltas, alpha=a)
+            if not torch.equal(bits(out), bits(ref)):
+                fail(f"logreg e: row_scatter_add exact {name} alpha {a}: "
+                     f"{int((bits(out) != bits(ref)).sum())} elements differ")
+            if torch.equal(bits(ref), bits(x0)):
+                fail(f"logreg e: row_scatter_add exact {name}: negative "
+                     f"control: the plain version left the table unchanged")
+        # the path's scale, held per hit count (f32: 1e-5 x A on a row hit
+        # more than once, bitwise on the others)
+        start = torch.randn(shape, generator=g, device=DEV) * 1e-2
+        pd = torch.randn((n,) + shape[1:], generator=g, device=DEV) * 1e-3
+        out = emb.scatter_add_rows(start.clone(), ids, pd, alpha=alpha)
+        dev_sync()
+        ref = emb._scatter_add_plain(start.clone(), ids, pd, alpha=alpha)
+        landed = emb._landing_deltas(start, ids, pd, alpha)[2]
+        hits, absum, _ = scatter_stats(start, ids, landed)
+        tol = scatter_tolerance(start, hits, absum, torch.float32)
+        diff = (out - ref).abs().reshape(V, D)
+        ex = excess(diff, tol)
+        control = excess((start - ref).abs().reshape(V, D), tol)
+        if not (ex <= 1.0 and control > 1.0):
+            fail(f"logreg e: row_scatter_add {name}: {ex:.3f} of the "
+                 f"tolerance (unchanged table {control:.3g})")
+        err = float(diff.max())
+        # times: the gather, and the scatter on the route the path runs
+        gbytes = uniq * D * 4 + n * 4 + n * D * 4
+        sbytes = 2 * uniq * D * 4 + n * 4 + n * D * 4
+        work = start.clone()
+        calls = {
+            "row_gather": (lambda: emb.embedding_lookup(table, ids),
+                           lambda: emb._gather_plain(table, ids),
+                           lambda: torch.index_select(table, 0, ids),
+                           gbytes, 0.0),
+            "row_scatter_add": (
+                lambda: emb.scatter_add_rows(work, ids, pd, alpha=alpha),
+                lambda: emb._scatter_add_plain(work, ids, pd, alpha=alpha),
+                lambda: work.index_add_(0, ids, landed), sbytes, err)}
+        for kernel, (call, plain, lib, nbytes, e) in calls.items():
+            r = dict(max_abs_err=e, ms=time_ms(call, iters=20),
+                     device_ms=device_ms(call)[0],
+                     plain_ms=time_ms(plain, iters=5, warmup=1),
+                     bound_ms=nbytes / HBM_BYTES_S * 1e3, bound_by="bytes",
+                     library_ms=time_ms(lib, iters=20),
+                     library_device_ms=device_ms(lib)[0])
+            results[(kernel, tag)] = r
+            say(f"logreg e: {kernel} {name}"
+                + (f" alpha {alpha}" if kernel == "row_scatter_add"
+                   and alpha is not None else "")
+                + f": {'bitwise' if e == 0 else f'max_abs_err {e:.3e}'} "
+                f"(unique rows {uniq}), ms {r['ms']:.4f} device_ms "
+                f"{r['device_ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+                f"library_ms {r['library_ms']:.4f} device "
+                f"{r['library_device_ms']:.4f} bound_ms {r['bound_ms']:.3e} "
+                f"(bytes); card {card_line()}")
+        del table, x0, deltas, start, work
+    # a bf16 table of odd row width takes K2's one-element route (2-byte
+    # atomics), and so does one whose pairs are not 4-byte aligned:
+    # bitwise against the plain version on the exact grid, each delta
+    # dtype, alpha 1 and -1
+    from multiverso_tpu_torch.tables import SparseTable
+
+    bf = torch.bfloat16
+    for name, D, ids_np, delta_dtype, offset in (
+            ("[2^24 + 1] bf16, bf16 deltas", 1, keys, bf, 0),
+            ("[2^24 + 1] bf16, f32 deltas", 1, keys, torch.float32, 0),
+            ("[2^24 + 1, 2] bf16 at a 2-byte offset", 2, cases[1][2], bf, 1)):
+        ids = torch.from_numpy(ids_np).to(DEV)
+        shape = (V,) if D == 1 else (V, D)
+        x0, deltas = exact_case(V, D, ids, bf, delta_dtype, seed=LR_SEED)
+        x0, deltas = x0.reshape(shape), deltas.reshape((-1,) + shape[1:])
+        table = torch.empty(V * D + offset, dtype=bf,
+                            device=DEV)[offset:].view(shape)
+        for a in (None, -1.0):
+            table.copy_(x0)
+            emb.scatter_add_rows(table, ids, deltas, alpha=a)
+            dev_sync()
+            ref = emb._scatter_add_plain(x0.clone(), ids, deltas, alpha=a)
+            if not torch.equal(bits(table), bits(ref)):
+                fail(f"logreg e: row_scatter_add exact {name} alpha {a}: "
+                     f"{int((bits(table) != bits(ref)).sum())} elements "
+                     f"differ")
+            if torch.equal(bits(ref), bits(x0)):
+                fail(f"logreg e: row_scatter_add exact {name}: negative "
+                     f"control: the plain version left the table unchanged")
+        del table, x0, deltas
+    # ... and a bf16 SparseTable trains on the card: sgd adds, bitwise
+    # equal to the same table on the CPU
+    ids = torch.from_numpy(keys).to(DEV)
+    x0, deltas = exact_case(V, 1, ids, bf, bf, seed=LR_SEED + 1)
+    init = x0.float().reshape(V).cpu().numpy()
+    vals = deltas.float().reshape(-1).cpu().numpy()
+    del x0, deltas
+    card_t = SparseTable(V, dtype=bf, updater="sgd", init_value=init)
+    cpu_t = SparseTable(V, dtype=bf, updater="sgd", init_value=init,
+                        device="cpu")
+    before = emb.LAUNCHES["row_scatter_add"]
+    card_t.add_keys(keys, vals)
+    cpu_t.add_keys(keys, vals)
+    adds = emb.LAUNCHES["row_scatter_add"] - before
+    got, want = card_t.get(), cpu_t.get()
+    if not (adds == 1 and np.array_equal(got, want)
+            and np.array_equal(card_t.get_keys(keys), cpu_t.get_keys(keys))):
+        fail(f"logreg e: bf16 SparseTable sgd add_keys: {adds} launch(es), "
+             f"{int((got != want).sum())} keys differ from the CPU table")
+    if np.array_equal(want, init):
+        fail("logreg e: bf16 SparseTable: negative control: the CPU table "
+             "is unchanged")
+    say(f"logreg e: row_scatter_add one-element bf16 route bitwise on the "
+        f"exact grid ([2^{LR_CRITEO_BITS} + 1] bf16 with bf16 and f32 "
+        f"deltas, [2^{LR_CRITEO_BITS} + 1, 2] bf16 at a 2-byte offset, alpha "
+        f"1 and -1); bf16 SparseTable sgd add_keys of {keys.shape[0]} keys "
+        f"bitwise equal to the CPU table; card {card_line()}")
+    del card_t, cpu_t
+    # the stateful updaters keep the JAX table's dense delta: every add
+    # scatters into a zero [2^24 + 1] vector and applies it whole
+
+    vals = np.full(keys.shape[0], 1e-3, np.float32)
+    per_add = {}
+    for name in ("sgd", "momentum_sgd", "adagrad"):
+        t = SparseTable(V, updater=name)
+        t.add_keys(keys, vals)
+        dev_sync()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            t.add_keys(keys, vals)      # waits for the device
+        per_add[name] = (time.perf_counter() - t0) / 10 * 1e3
+        del t
+    say(f"logreg e: SparseTable [2^{LR_CRITEO_BITS} + 1] f32 add_keys of "
+        f"{keys.shape[0]} keys, ms an add (host clock to the sync): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in per_add.items())
+        + f" (the stateful two materialise a dense delta of "
+        f"{V * 4 / 2 ** 20:.0f} MiB each add); card {card_line()}")
+    return results
+
+
+def phase_logreg(card: str):
+    """15. the LogisticRegression application (module docstring)."""
+    t_phase = time.perf_counter()
+    os.makedirs(LR_DIR, exist_ok=True)
+    launches = {}
+    marks = [time.perf_counter()]
+    dense, xte = lr_dense(card, launches)
+    marks.append(time.perf_counter())
+    samples = lr_criteo_samples()
+    files = lr_write_sparse(samples)
+    lr_sparse(card, files, launches)
+    marks.append(time.perf_counter())
+    ftrl = lr_ftrl(card, files, samples, launches)
+    marks.append(time.perf_counter())
+    lr_serve(card, dense, xte, ftrl, samples, launches)
+    marks.append(time.perf_counter())
+    kernels_at = lr_kernel_cases(samples)
+    marks.append(time.perf_counter())
+    import multiverso_tpu_torch as mv
+
+    mv.shutdown()
+    parts = " / ".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:]))
+    say(f"logreg: phase 15 took {time.perf_counter() - t_phase:.1f} s (a / "
+        f"b / c / d / e: {parts}); card {card}")
+    return launches, kernels_at
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4536,6 +5241,7 @@ def main() -> None:
     w2v = phase_w2v_slice(card)
     options = phase_w2v_options(card)
     mv.shutdown()
+    lr_launches, lr_kernels = phase_logreg(card)
     n_g = w2v["launches"]["row_gather"]
     n_s = w2v["launches"]["row_scatter_add"]
     for name, r, line, n in (
@@ -4602,6 +5308,19 @@ def main() -> None:
                "flash_bwd[fused]": "flash_bwd_fused"}.get(entry["name"])
         if key is not None:
             entry["launches_planes"] = serve_counts["planes"].get(key, 0)
+    # phase 15's launches by sub-phase (each counted from 0 around its
+    # card run) and K1/K2 at the logreg tables' 4- and 8-byte f32 rows
+    for entry in kernels_line:
+        if entry["name"] not in ("row_gather", "row_scatter_add"):
+            continue
+        kernel = entry["name"]
+        entry["launches_logreg"] = {
+            leg: counts[kernel] for leg, counts in lr_launches.items()}
+        for tag in ("x1", "x2"):
+            r = lr_kernels[(kernel, tag)]
+            entry.update({f"logreg_{tag}_{k}": r[k] for k in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "library_ms", "library_device_ms")})
     say(f"chip_smoke: the whole script took "
         f"{time.perf_counter() - T_START:.1f} s, card {card_line()}")
     print(json.dumps({"kernels": kernels_line}), flush=True)

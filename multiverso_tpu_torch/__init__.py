@@ -8,7 +8,7 @@ Top-level functions mirror ``multiverso_tpu/__init__.py``: ``init`` /
 ``shutdown`` / ``barrier`` / ``rank`` / ``size`` / ``num_workers`` /
 ``num_servers`` / ``worker_id`` / ``server_id`` / ``is_worker`` /
 ``is_server`` / ``aggregate`` / ``session``, plus ``create_table`` for the
-``array`` and ``matrix`` tables.
+``array``, ``matrix``, ``kv``, ``sparse`` and ``ftrl`` tables.
 """
 
 from __future__ import annotations
@@ -90,20 +90,15 @@ def aggregate(data):
     return Session.get().aggregate(data)
 
 
-# table kinds of the JAX package that this port does not have yet
-_UNPORTED_TABLES = ("kv", "sparse", "ftrl")
-
-
 def create_table(kind: str, *args: Any, **kwargs: Any):
-    """``MV_CreateTable`` factory: ``array`` or ``matrix``. The JAX
-    package's ``kv``, ``sparse`` and ``ftrl`` tables are not ported yet and
-    raise :class:`FatalError`."""
+    """``MV_CreateTable`` factory: ``kind`` is one of ``array`` /
+    ``matrix`` / ``kv`` / ``sparse`` / ``ftrl``, with the JAX package's
+    arguments (and ``device=`` on the device tables)."""
     from . import tables
 
-    factory = {"array": tables.ArrayTable, "matrix": tables.MatrixTable}
-    if kind in _UNPORTED_TABLES:
-        Log.fatal(f"create_table({kind!r}): the {kind} table is not ported "
-                  f"to multiverso_tpu_torch yet")
+    factory = {"array": tables.ArrayTable, "matrix": tables.MatrixTable,
+               "kv": tables.KVTable, "sparse": tables.SparseTable,
+               "ftrl": tables.FTRLTable}
     try:
         cls = factory[kind]
     except KeyError:

@@ -20,9 +20,9 @@ JAX trainer:
 One process, one device, local corpus files. Not ported yet: the
 multi-process data partition (``shard=``), the async delta pusher and SSP
 (the distributed paths, ROADMAP.md Queue 1 item 8), and URI corpora (item
-7). The JAX trainer's ``kv`` word-count table only records the epoch's
-words; the ``kv`` table is not ported (item 6), so :func:`train` keeps the
-count in ``TrainResult`` alone.
+7). As in the JAX trainer, a ``kv`` word-count table
+(``word2vec_wordcount``, the reference's KV wordcount table) takes each
+epoch's words under key 0.
 
 CLI: ``python -m multiverso_tpu_torch.apps.wordembedding -train_file
 corpus.txt -output vec.txt -size 100 -window 5 -negative 5 -epoch 1 ...``
@@ -466,6 +466,8 @@ def train(
     output_table = mv.create_table(
         "matrix", vocab, cfg.embedding_size, name="word2vec_output",
         **dtype_kw)
+    # word-count bookkeeping table (reference KV wordcount table)
+    wordcount_table = mv.create_table("kv", name="word2vec_wordcount")
     huffman = build_huffman(counts, cfg.max_code_length) if cfg.hs else None
     model = Word2Vec(cfg, input_table, output_table, counts=counts,
                      huffman=huffman)
@@ -476,12 +478,14 @@ def train(
         pairs, loss = _train_device_corpus(model, ids, sent_ids, counts,
                                            sample, epochs, log_every, mon,
                                            t0)
+        for _ in range(epochs):
+            wordcount_table.add([0], [dictionary.train_words])
         words = dictionary.train_words * epochs
         mode = " [device corpus]"
     else:
         pairs, loss, words = _train_host_stream(
             model, corpus_path, dictionary, sample, epochs, log_every, mon,
-            t0)
+            t0, wordcount_table)
         mode = ""
     final_loss = float(loss)
     elapsed = time.perf_counter() - t0
@@ -563,12 +567,13 @@ def _train_device_corpus(model: Word2Vec, ids, sent_ids, counts, sample,
 
 
 def _train_host_stream(model: Word2Vec, corpus_path, dictionary, sample,
-                       epochs, log_every, mon, t0):
+                       epochs, log_every, mon, t0, wordcount_table):
     """The host-stream path of :func:`train`: each epoch's batches come
     from :func:`iter_pair_batches` (seed ``cfg.seed + epoch``) on the
     loader thread, ``steps_per_call`` at a time through ``train_batches``
     and the tail one dispatch each; the lr follows the exact words
-    consumed. Returns the examples trained, the last loss and the words."""
+    consumed, and each epoch adds its words to ``wordcount_table``.
+    Returns the examples trained, the last loss and the words."""
     from ..parallel import prefetch_iterator
 
     cfg = model.config
@@ -617,6 +622,7 @@ def _train_host_stream(model: Word2Vec, corpus_path, dictionary, sample,
             loss = model.train_batch(centers, contexts, mask)
             pairs += batch_examples(mask)
         words_done += progress["words"]
+        wordcount_table.add([0], [progress["words"]])
     return pairs, loss, words_done
 
 

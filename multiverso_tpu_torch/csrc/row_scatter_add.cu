@@ -21,7 +21,7 @@
 // __fmul_rn in the order the JAX step takes them, (scale * alpha) first,
 // then times the delta; the result is rounded to the table dtype (round to
 // nearest even) and added. The table is f32 or bf16, the deltas f32, or
-// bf16 into a bf16 table; a bf16 table needs an even D. The order in which
+// bf16 into a bf16 table, at any D. The order in which
 // duplicates land is not fixed, as it is not for the XLA scatter on an
 // accelerator.
 //
@@ -45,7 +45,9 @@
 // Rows that cannot take 16-byte words go one element (f32) or one pair
 // (bf16) a lane, with the scalar atomics: a bf16 table with D not a
 // multiple of 8, an f32 one with D not a multiple of 4, or a table or
-// deltas not 16-byte aligned.
+// deltas not 16-byte aligned. A bf16 table whose D is odd (a [size]
+// vector: 2-byte rows), or whose pairs are not 4-byte aligned, goes one
+// element a lane with the 2-byte bf16 atomic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +102,9 @@ __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[2]) {
   const uint32_t a = __ldcs(reinterpret_cast<const unsigned int*>(p));
   v[0] = bf16_bits(a); v[1] = bf16_hi(a);
 }
+__device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[1]) {
+  v[0] = bf16_bits(__ldcs(reinterpret_cast<const unsigned short*>(p)));
+}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // RNE each
@@ -127,12 +132,15 @@ __device__ __forceinline__ void reduce(__nv_bfloat16* p, const float (&v)[2]) {
   atomicAdd(reinterpret_cast<__nv_bfloat162*>(p),
             __floats2bfloat162_rn(v[0], v[1]));
 }
+__device__ __forceinline__ void reduce(__nv_bfloat16* p, const float (&v)[1]) {
+  atomicAdd(p, __float2bfloat16_rn(v[0]));
+}
 __device__ __forceinline__ void reduce(float* p, const float (&v)[1]) {
   atomicAdd(p, v[0]);
 }
 
 // T: table element, Dt: delta element, E: elements a lane adds at once
-// (16 bytes of the table, or the narrow route's 1 or 2). Index as in
+// (16 bytes of the table, or the narrow routes' 1 or 2). Index as in
 // row_gather.cu: 32-bit below 2^31 units.
 template <typename T, typename Dt, int E, typename Index>
 __global__ void __launch_bounds__(kThreads)
@@ -192,7 +200,8 @@ int launch(void* table, const void* ids, const void* deltas,
   return (int)cudaGetLastError();
 }
 
-// The 16-byte route when D and the pointers allow it, else the narrow one.
+// The 16-byte route when D and the pointers allow it, else the bf16 pair
+// route, else one element a lane.
 template <typename T, typename Dt>
 int dispatch(void* table, const void* ids, const void* deltas,
              const float* row_scale, float alpha, long long n,
@@ -205,11 +214,13 @@ int dispatch(void* table, const void* ids, const void* deltas,
   if (vec)
     return launch<T, Dt, kVec>(table, ids, deltas, row_scale, alpha, n, rows,
                                D / kVec, st);
-  if (D % kNarrow || reinterpret_cast<uintptr_t>(table) % (kNarrow * sizeof(T))
-      || reinterpret_cast<uintptr_t>(deltas) % (kNarrow * sizeof(Dt)))
-    return (int)cudaErrorInvalidValue;
-  return launch<T, Dt, kNarrow>(table, ids, deltas, row_scale, alpha, n, rows,
-                                D / kNarrow, st);
+  if (D % kNarrow == 0
+      && reinterpret_cast<uintptr_t>(table) % (kNarrow * sizeof(T)) == 0
+      && reinterpret_cast<uintptr_t>(deltas) % (kNarrow * sizeof(Dt)) == 0)
+    return launch<T, Dt, kNarrow>(table, ids, deltas, row_scale, alpha, n,
+                                  rows, D / kNarrow, st);
+  return launch<T, Dt, 1>(table, ids, deltas, row_scale, alpha, n, rows, D,
+                          st);
 }
 
 }  // namespace

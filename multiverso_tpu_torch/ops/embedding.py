@@ -189,9 +189,6 @@ def _scatter_add_cuda(table: torch.Tensor, ids: torch.Tensor,
     if deltas.numel() != n * D:
         raise ValueError(f"{op}: deltas {tuple(deltas.shape)} do not match "
                          f"{n} ids of rows of {D}")
-    if table.dtype == torch.bfloat16 and D % 2:
-        raise ValueError(f"{op}: a bfloat16 table needs an even row width "
-                         f"(pairwise atomics), got {D}")
     scale_ptr = None
     if row_scale is not None:
         _check_on(row_scale, dev, "row_scale", op)
@@ -204,11 +201,6 @@ def _scatter_add_cuda(table: torch.Tensor, ids: torch.Tensor,
     if table.dtype == torch.float32:
         deltas = deltas.float()     # exact; the kernel takes f32 deltas here
     ids, deltas = ids.contiguous(), deltas.contiguous()
-    narrow = 2 * deltas.element_size()
-    if (table.dtype == torch.bfloat16
-            and (table.data_ptr() % 4 or deltas.data_ptr() % narrow)):
-        raise ValueError(f"{op}: bfloat16 table or deltas not aligned for "
-                         f"pairwise atomics")
     if n == 0:
         return table
     dtypes = ((_SCATTER_TABLE_BF16 if table.dtype == torch.bfloat16 else 0)

@@ -18,12 +18,14 @@ from .router import FleetConfig, FleetError, FleetRouter, retry_backoff_s
 from .server import InferenceServer
 from .snapshot import (DerivedCache, Snapshot, SnapshotManager,
                        quantize_decode_params)
-from .workloads import EmbeddingNeighbors, LMGreedyDecode
+from .workloads import (EmbeddingNeighbors, FTRLPredict, LMGreedyDecode,
+                        LogRegPredict)
 
 __all__ = ["BatcherConfig", "DeadlineExceededError", "DecodeEngine",
            "DecodeEngineConfig", "DerivedCache", "EmbeddingNeighbors",
-           "FaultPlan", "FleetConfig", "FleetError", "FleetRouter",
-           "InferenceServer", "LMGreedyDecode", "MicroBatcher",
+           "FTRLPredict", "FaultPlan", "FleetConfig", "FleetError",
+           "FleetRouter", "InferenceServer", "LMGreedyDecode",
+           "LogRegPredict", "MicroBatcher",
            "ObsAgent", "ObsCollector", "OverloadedError", "ParamPublisher",
            "ParamSubscriber", "ReplicaServer", "Snapshot",
            "SnapshotManager", "bucket_for", "quantize_decode_params",

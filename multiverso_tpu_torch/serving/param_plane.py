@@ -27,9 +27,8 @@ and the STALE verdict past ``-params_stale_after_s``.
 bf16 tables ship their own 16-bit words (``io/stream``'s ``bfloat16``
 records, torch bf16 tensors on the host side), so no ``ml_dtypes`` is
 needed and a JAX subscriber receives the bytes it would from a JAX
-trainer. ``KV`` records need the ``kv`` table, which comes with
-logreg/FTRL (ROADMAP.md Queue 1 item 6): publishing or applying one is
-an error that says so.
+trainer. ``KV`` records carry a ``kv`` table's adds (int64 keys,
+float64 values) and its STATE rebase the sorted keys and values.
 """
 
 from __future__ import annotations
@@ -53,9 +52,6 @@ from .faultinject import FaultPlan
 
 LABEL = "mvparam"
 TRAINER_RANK = 0
-
-_KV_REFUSED = ("the kv table and its KV records are not ported yet "
-               "(ROADMAP.md Queue 1 item 6, logreg/FTRL)")
 
 # -- wire codec ---------------------------------------------------------------
 #
@@ -240,7 +236,7 @@ class ParamPublisher:
         array, KVTable ships keys+vals)."""
         if not hasattr(table, "_state_arrays"):
             Log.fatal(f"param plane: {type(table).__name__} has no STATE "
-                      f"protocol; {_KV_REFUSED}")
+                      f"protocol (_state_arrays)")
         arrays, version = table._state_arrays()
         self.publish_record(STATE, table.table_id, arrays,
                             version=version)
@@ -275,9 +271,12 @@ class ParamPublisher:
 
     def publish_kv(self, table, keys, vals,
                    version: Optional[int] = None) -> None:
-        """A ``kv`` table's delta record: refused until that table is
-        ported."""
-        Log.fatal(f"param plane: publish_kv: {_KV_REFUSED}")
+        """A ``kv`` table's adds, which the trainer ALREADY applied
+        (``version`` defaults to the table's current one)."""
+        self.publish_record(
+            KV, table.table_id,
+            [np.asarray(keys, np.int64), np.asarray(vals, np.float64)],
+            version=table.version if version is None else int(version))
 
     def publish_record(self, kind: int, table_id: int, arrays,
                        option=None, version: int = 0,
@@ -467,9 +466,8 @@ class ParamSubscriber:
             table._apply_remote_keyed(ids, vals, option)
             self._pin_version(table, version, epoch)
         elif kind == KV:
-            sp.end(error="kv_unported")
-            Log.fatal(f"param plane: subscriber {self.rank} got a KV "
-                      f"record for table {table_id}: {_KV_REFUSED}")
+            table._apply_remote_kv(arrays[0], arrays[1])
+            self._pin_version(table, version, epoch)
         else:
             Log.error("param plane: unknown record kind %d", kind)
             sp.end(error="unknown_kind")

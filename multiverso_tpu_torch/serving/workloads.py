@@ -1,15 +1,13 @@
 """Inference paths behind the micro-batcher.
 
-Counterpart of ``multiverso_tpu/serving/workloads.py``'s word2vec and LM
-workloads. Each binds a live training source (a table or a model) and
+Counterpart of ``multiverso_tpu/serving/workloads.py``: the word2vec,
+logreg, FTRL and LM workloads. Each binds a live training source (a table or a model) and
 exposes ``run(payloads, bucket, snap) -> results``: the batcher pads the
 flushed batch up to ``bucket``, the workload runs one program on the
 snapshot and slices the padding back off. A program records the distinct
 signatures it was called with (the JAX jit cache's counterpart), so
 ``jit_cache_size()`` is one per bucket used. ``validate`` rejects a bad
 payload at submit time, so it never fails its batch-mates.
-
-The logreg and FTRL workloads come with the logreg/FTRL models.
 """
 
 from __future__ import annotations
@@ -77,6 +75,92 @@ class EmbeddingNeighbors:
                                torch.from_numpy(ids).to(normed.device))
         scores, nbr = scores.cpu().numpy(), nbr.cpu().numpy()
         return [(nbr[i], scores[i]) for i in range(len(payloads))]
+
+    def jit_cache_size(self) -> int:
+        return self._fn.cache_size()
+
+
+def _dense_batch(payloads: List[np.ndarray], bucket: int, width: int,
+                 device: torch.device) -> torch.Tensor:
+    """Feature vectors as one zero-padded ``[bucket, width]`` f32 batch on
+    ``device``."""
+    x = np.zeros((bucket, width), np.float32)
+    for i, p in enumerate(payloads):
+        x[i] = np.asarray(p, np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+class _FeatureVector:
+    """Payload check of the logreg workloads: a dense ``[input_size]``
+    feature vector."""
+
+    input_size: int
+
+    def validate(self, payload) -> None:
+        x = np.asarray(payload)
+        if x.shape != (self.input_size,):
+            raise ValueError(f"feature vector shape {x.shape} != "
+                             f"({self.input_size},)")
+
+
+class LogRegPredict(_FeatureVector):
+    """logreg serving: sigmoid/softmax/linear scores for feature vectors.
+
+    Payload: a dense ``[input_size]`` feature vector. Reply: the
+    ``[output_size]`` score vector, the model's forward (bias column
+    included) run on a snapshot instead of the live table, so training
+    minibatches never tear a reply."""
+
+    def __init__(self, model) -> None:
+        from ..models.logreg import LogReg
+
+        if not isinstance(model, LogReg):
+            Log.fatal("LogRegPredict serves a models.logreg.LogReg")
+        self.source = model.table
+        self.input_size = model.cfg.input_size
+        self._fn = _Program(model._forward)
+
+    def run(self, payloads: List[np.ndarray], bucket: int, snap) -> List[Any]:
+        x = _dense_batch(payloads, bucket, self.input_size, snap.value.device)
+        out = self._fn(snap.value, x).cpu().numpy()
+        return [out[i] for i in range(len(payloads))]
+
+    def jit_cache_size(self) -> int:
+        return self._fn.cache_size()
+
+
+class FTRLPredict(_FeatureVector):
+    """FTRL serving: closed-form weights + sigmoid score.
+
+    Payload: a dense ``[input_size]`` feature vector. The ``(z, n)``
+    snapshot is collapsed to weights with the FTRL-proximal closed form
+    (the worker's math of :class:`models.logreg.FTRLLogReg`, here in f32
+    on the snapshot's device, batched, as the JAX workload computes it);
+    the bias key rides as the last weight, the training layout."""
+
+    def __init__(self, table, cfg) -> None:
+        self.source = table
+        self.input_size = int(cfg.input_size)
+        rows = self.input_size + 1   # + bias key
+        alpha, beta = float(cfg.ftrl_alpha), float(cfg.ftrl_beta)
+        l1, l2 = float(cfg.ftrl_lambda1), float(cfg.ftrl_lambda2)
+
+        @torch.no_grad()
+        def predict(zn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+            z = zn[:rows, 0].float()
+            n = zn[:rows, 1].float()
+            w = -(z - torch.sign(z) * l1) / ((beta + torch.sqrt(n)) / alpha
+                                              + l2)
+            w = torch.where(torch.abs(z) <= l1, torch.zeros_like(w), w)
+            scores = x @ w[:-1] + w[-1]
+            return torch.sigmoid(torch.clamp(scores, -35.0, 35.0))
+
+        self._fn = _Program(predict)
+
+    def run(self, payloads: List[np.ndarray], bucket: int, snap) -> List[Any]:
+        x = _dense_batch(payloads, bucket, self.input_size, snap.value.device)
+        out = self._fn(snap.value, x).cpu().numpy()
+        return [float(out[i]) for i in range(len(payloads))]
 
     def jit_cache_size(self) -> int:
         return self._fn.cache_size()

@@ -22,10 +22,16 @@ Every mutation happens under the table's ``threading.RLock`` and bumps
 ``_apply_remote_keyed`` (a peer's delta, feeding the optional
 ``_remote_accum``), and the STATE protocol (``_state_arrays``,
 ``_install_state_arrays``, ``_install_state``: an absolute value at an
-exact (version, epoch)). A bf16 table's state ships as a torch bf16
-tensor, its own 16-bit words. Not here yet, and refused by the session's
-flags: the WAL journal (``_journal_local``), the async delta bus, BSP
-aggregation over processes, and ``store``/``load`` (the I/O slice).
+exact (version, epoch)). The keyed gather and apply shared by the
+matrix, sparse and FTRL tables (JAX ``_build_keyed_gather`` /
+``_build_keyed_apply``) are ``_gather_keys`` and ``_dispatch_keyed``: the
+row gather and the row scatter-add kernels (``ops.embedding``). A bf16
+table's state ships as a torch bf16 tensor, its own 16-bit words.
+``store``/``load`` (JAX :470-500) write and read one ``io/stream``
+``MVTA`` record of the logical array, the JAX package's bytes. Not here
+yet, and refused by the session's flags: the WAL journal
+(``_journal_local``), the async delta bus and BSP aggregation over
+processes.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 from .. import trace
 from ..dashboard import Dashboard
 from ..log import Log
+from ..ops.embedding import embedding_lookup, scatter_add_rows
 from ..runtime import Session
 from ..updaters import AddOption, GetOption, Updater, get_updater
 
@@ -101,7 +108,7 @@ class AsyncHandle:
 
 
 class TableBase:
-    """Shared machinery for the Array and Matrix tables."""
+    """Shared machinery for the array, matrix, sparse and FTRL tables."""
 
     def __init__(
         self,
@@ -180,6 +187,48 @@ class TableBase:
             sp.end(version=version)
             mon.end()
         return version
+
+    # -- keyed gather and apply (shared by Matrix/Sparse/FTRL) -------------
+    def _gather_keys(self, keys: Any) -> np.ndarray:
+        """Rows at ``keys`` -> host array (float32 for a bfloat16 table).
+        ``data[ids]``'s rule on int32 keys: a negative key wraps once,
+        then the key is clamped into the table (the gather kernel gives NaN
+        out of range)."""
+        rows = self.shape[0]
+        ids = np.asarray(keys, dtype=np.int32).ravel().astype(np.int64)
+        ids = np.clip(np.where(ids < 0, ids + rows, ids), 0, rows - 1)
+        ids_t = torch.from_numpy(ids.astype(np.int32)).to(self.device)
+        with self._lock:
+            out = embedding_lookup(self._data, ids_t)
+        return tensor_to_host(out)
+
+    def _dispatch_keyed(self, ids: Any, vals: Any,
+                        option: Optional[AddOption] = None) -> int:
+        """Apply per-key deltas ``vals`` ([n] + row shape) through the
+        updater (``.at[ids].add``'s rule: duplicates accumulate, a key out
+        of range after one wrap is dropped); returns the post-apply
+        version. A stateless updater adds ``sign * vals`` in place, the
+        sign as the kernel's ``alpha``; a stateful one scatters into a
+        zero delta of the whole table and runs its ``apply``."""
+        ids = np.asarray(ids, dtype=np.int32).ravel()
+        shape = (ids.shape[0],) + self.shape[1:]
+        vals_t = host_to_tensor(
+            vals.reshape(shape) if isinstance(vals, torch.Tensor)
+            else np.asarray(vals).reshape(shape), self.dtype, self.device)
+        ids_t = torch.from_numpy(ids).to(self.device)
+        updater = self.updater
+        with self._lock:
+            if updater.stateless:
+                scatter_add_rows(self._data, ids_t, vals_t,
+                                 alpha=None if updater.sign == 1.0
+                                 else updater.sign)
+            else:
+                dense = scatter_add_rows(torch.zeros_like(self._data), ids_t,
+                                         vals_t)
+                self._data, self._ustate = updater.apply(
+                    self._data, self._ustate, dense, option)
+            self.version += 1
+            return self.version
 
     # -- remote entry points (the parameter plane's apply side) ------------
     def _apply_remote_dense(self, host: Any, option: AddOption) -> None:
@@ -297,6 +346,30 @@ class TableBase:
         """Block until every update enqueued on the device has landed."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+
+    # -- checkpoint (``Serializable``, ``table_interface.h:59-66``) --------
+    def store(self, stream) -> int:
+        """Write the table record (the logical array in the table's dtype);
+        returns the stored state's version."""
+        from ..io.stream import write_array
+
+        arrays, version = self._state_arrays()
+        write_array(stream, arrays[0])
+        return version
+
+    def load(self, stream) -> None:
+        """Read a table record of this table's shape onto its device and
+        bump the version."""
+        from ..io.stream import read_array
+
+        host = read_array(stream)
+        if tuple(host.shape) != self.shape:
+            Log.fatal(f"checkpoint shape {tuple(host.shape)} != table shape "
+                      f"{self.shape}")
+        staged = host_to_tensor(host, self.dtype, self.device)
+        with self._lock:
+            self._data = staged
+            self.version += 1
 
     @property
     def size(self) -> int:

@@ -28,9 +28,8 @@ import numpy as np
 import torch
 
 from ..log import Log
-from ..ops.embedding import embedding_lookup, scatter_add_rows
 from ..updaters import AddOption, GetOption
-from .base import AsyncHandle, TableBase, host_to_tensor, tensor_to_host
+from .base import AsyncHandle, TableBase
 
 
 class MatrixTable(TableBase):
@@ -73,44 +72,19 @@ class MatrixTable(TableBase):
                  option: Optional[GetOption] = None) -> np.ndarray:
         """Gather a list of rows -> host ``[len(row_ids), num_col]`` (float32
         for a bfloat16 table)."""
-        ids = np.asarray(row_ids, dtype=np.int64).ravel()
-        ids = np.where(ids < 0, ids + self.num_row, ids)
-        ids = np.clip(ids, 0, self.num_row - 1).astype(np.int32)
-        ids_t = torch.from_numpy(ids).to(self.device)
-        with self._lock:
-            out = embedding_lookup(self._data, ids_t)
-        return tensor_to_host(out)
+        return self._gather_keys(row_ids)
 
     def get_row(self, row_id: int) -> np.ndarray:
         return self.get_rows([row_id])[0]
 
-    def _dispatch_keyed(self, ids: np.ndarray, vals: Any,
-                        option: AddOption) -> int:
-        """Scatter-apply row deltas; returns the post-apply version.
-        Stateless updaters add ``sign * vals`` straight into the table;
-        stateful ones scatter into a zero delta and run their ``apply``."""
-        ids = np.asarray(ids, dtype=np.int32).ravel()
-        n = ids.shape[0]
-        vals_t = host_to_tensor(
-            vals.reshape(n, self.num_col) if isinstance(vals, torch.Tensor)
-            else np.asarray(vals).reshape(n, self.num_col), self.dtype,
-            self.device)
-        ids_t = torch.from_numpy(ids).to(self.device)
+    def _dispatch_keyed(self, ids: Any, vals: Any,
+                        option: Optional[AddOption] = None) -> int:
+        """The keyed apply of :class:`TableBase`, after marking the rows
+        dirty for the other workers."""
         if self._dirty is not None:
-            self._mark_dirty(ids, option.worker_id)
-        updater = self.updater
-        with self._lock:
-            if updater.stateless:
-                contrib = vals_t if updater.sign == 1.0 \
-                    else vals_t * updater.sign
-                scatter_add_rows(self._data, ids_t, contrib)
-            else:
-                dense = scatter_add_rows(torch.zeros_like(self._data), ids_t,
-                                         vals_t)
-                self._data, self._ustate = updater.apply(
-                    self._data, self._ustate, dense, option)
-            self.version += 1
-            return self.version
+            self._mark_dirty(np.asarray(ids, dtype=np.int32).ravel(),
+                             option.worker_id)
+        return super()._dispatch_keyed(ids, vals, option)
 
     def add_rows_async(self, row_ids: Any, values: Any,
                        option: Optional[AddOption] = None) -> AsyncHandle:

@@ -313,6 +313,11 @@ def test_shed_is_billed_and_the_ledger_off_surface_is_unchanged(port):
                     "accounting_drift"):
             assert key not in st
         assert "tenants" not in engine.health()
+        # the reply resolves inside an iteration, its record lands at the
+        # iteration's end: wait for it
+        deadline = time.monotonic() + 30
+        while not engine.recorder.records() and time.monotonic() < deadline:
+            time.sleep(0.01)
         rec = engine.recorder.records()[-1]
         assert rec["tenants_live"] == -1 and rec["kv_block_s"] == -1.0
     finally:

@@ -677,44 +677,56 @@ def test_trainer_kill_point_fires_before_the_send(both):
 
 
 def test_kv_records_and_stateless_tables_are_refused(both):
-    """The ``kv`` table is item 6: publishing or applying a KV record is
-    an error that says so, never a silent skip; so is a STATE publish of
-    a table without the STATE protocol."""
+    """``KV`` records cross the plane both ways: a JAX trainer's ``kv``
+    table (a STATE rebase, then ``publish_kv`` of adds it applied) reaches
+    a port replica, and a port trainer's reaches a JAX replica, each
+    replica equal to its trainer at the trainer's version and epoch. A
+    STATE publish of a table without the STATE protocol, and an unknown
+    wire quantizer, are still errors that say so."""
     jmv, tmv = both
     from multiverso_tpu.serving import ParamPublisher as JPub
+    from multiverso_tpu.serving import ParamSubscriber as JSub
     from multiverso_tpu_torch.log import FatalError
     from multiverso_tpu_torch.serving import ParamPublisher, ParamSubscriber
 
-    t = tmv.create_table("matrix", 4, 2)
-    kv = FakeKV()
-    pub = ParamPublisher(kv, 2, label="pkv", epoch=1)
+    pub = ParamPublisher(FakeKV(), 2, label="pkv", epoch=1)
     try:
-        with pytest.raises(FatalError, match="item 6"):
-            pub.publish_kv(t, [1], [2.0])
-        with pytest.raises(FatalError, match="item 6"):
+        with pytest.raises(FatalError, match="STATE protocol"):
             pub.publish_state(object())
     finally:
         pub.stop()
     with pytest.raises(FatalError, match="int4"):
         ParamPublisher(FakeKV(), 2, label="qbad", epoch=1, wire_quant="int4")
-    # a JAX trainer's KV record reaches a port replica: refused loudly
-    jt = jmv.create_table("kv")
-    jt.add([3], [1.5])
-    kv = FakeKV()
-    jpub = JPub(kv, 2, label="jkv", epoch=1)
-    sub = ParamSubscriber(kv, {jt.table_id: t}, rank=1, size=2,
-                          label="jkv", poll_s=0.01, start=False)
-    try:
-        jpub.publish_kv(jt, [3], [1.5])
-        deadline = time.monotonic() + 30
-        with pytest.raises(FatalError, match="item 6"):
-            while time.monotonic() < deadline:
-                sub.poll_once()
-                time.sleep(0.01)
-        assert sub.applied == 0 and t.version == 0
-    finally:
-        sub.stop()
-        jpub.stop()
+    for direction in ("jax_to_port", "port_to_jax"):
+        src_mod, Pub, dst_mod, Sub = (
+            (jmv, JPub, tmv, ParamSubscriber) if direction == "jax_to_port"
+            else (tmv, ParamPublisher, jmv, JSub))
+        src = src_mod.create_table("kv")
+        dst = dst_mod.create_table("kv")
+        src.add([3, -2], [1.5, 0.25])
+        kv = FakeKV()
+        label = f"kv{direction[0]}"
+        pub = Pub(kv, 2, label=label, epoch=3)
+        sub = Sub(kv, {src.table_id: dst}, rank=1, size=2, label=label,
+                  poll_s=0.01)
+        try:
+            pub.publish_state(src)
+            for keys, vals in (([3, 7], [0.5, 2.0]), ([2**40], [-1.0])):
+                src.add(keys, vals)
+                pub.publish_kv(src, keys, vals)
+            assert _wait(lambda: sub.applied == 3), sub.stats()
+            probe = [3, -2, 7, 2**40, 5]
+            assert dst.get(probe) == src.get(probe) == [2.0, 0.25, 2.0,
+                                                         -1.0, 0]
+            assert (dst.version, dst.epoch) == (src.version, 3)
+            assert sub.states_applied == 1
+            (dk, dv), _ = dst._state_arrays()
+            (sk, sv), _ = src._state_arrays()
+            np.testing.assert_array_equal(dk, sk)
+            np.testing.assert_array_equal(dv, sv)
+        finally:
+            sub.stop()
+            pub.stop()
 
 
 def test_snapshot_manager_params_age_and_epoch(both):

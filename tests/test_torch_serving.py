@@ -391,14 +391,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'multiverso_tpu' "
         "or m.startswith('multiverso_tpu.'))\n"
-        "assert len(names) >= 32, names\n"
+        "assert len(names) >= 36, names\n"
         "for m in ('block_pool', 'flight_recorder', 'watchdog', "
         "'decode_engine', 'batcher', 'workloads', 'snapshot', 'server', "
         "'faultinject', 'kv_transfer', 'accounting', 'replica', "
         "'router', 'obs_plane', 'param_plane'):\n"
         "    assert 'multiverso_tpu_torch.serving.' + m in names, m\n"
         "for m in ('quantization', 'dashboard', 'parallel.p2p', "
-        "'parallel.async_ps', 'io', 'io.stream'):\n"
+        "'parallel.async_ps', 'io', 'io.stream', 'parallel.async_buffer', "
+        "'tables.sparse_table', 'tables.kv_table', 'models.logreg', "
+        "'apps.logreg', 'apps.lr_reader'):\n"
         "    assert 'multiverso_tpu_torch.' + m in names, m\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -183,9 +183,16 @@ def test_session_surface(port):
     assert mv.session().table(1) is m
     with pytest.raises(FatalError, match="unknown table kind"):
         mv.create_table("tensor", 3)
-    for kind in ("kv", "sparse", "ftrl"):
-        with pytest.raises(FatalError, match="not ported"):
-            mv.create_table(kind)
+    # the kv, sparse and ftrl tables, with the JAX package's arguments
+    kv = mv.create_table("kv", name="kv")
+    s = mv.create_table("sparse", 6, updater="sgd", name="s",
+                        init_value=np.arange(6.0))
+    f = mv.create_table("ftrl", 6, name="f")
+    assert (kv.table_id, s.table_id, f.table_id) == (2, 3, 4)
+    assert mv.session().table(3) is s and s.shape == (6,)
+    assert (s.updater.name, f.updater.name, f.shape) == ("sgd", "default",
+                                                         (6, 2))
+    np.testing.assert_array_equal(s.get_keys([5, 0]), [5.0, 0.0])
 
 
 def test_tables_need_a_session():

@@ -447,9 +447,11 @@ def test_unported_paths_raise(port, tmp_path):
     with pytest.raises(FatalError, match="compact_impl"):
         tw2v.Word2Vec(tw2v.Word2VecConfig(vocab_size=8, compact_impl="x"),
                       w, w, counts=np.ones(8))
-    for kind in ("kv", "sparse", "ftrl"):
-        with pytest.raises(FatalError, match="not ported"):
-            mv.create_table(kind)
+    # the tables the logreg slice ported are created, not refused
+    for kind, args in (("kv", ()), ("sparse", (8,)), ("ftrl", (8,))):
+        assert type(mv.create_table(kind, *args)).__name__ == {
+            "kv": "KVTable", "sparse": "SparseTable",
+            "ftrl": "FTRLTable"}[kind]
 
 
 def test_worker_axis_parallelism_refused():
@@ -518,3 +520,30 @@ def test_app_main_runs_and_refuses_unported_options(tmp_path):
     finally:
         Session._instance = None
         mv.set_flag("device", "cuda")
+
+
+@pytest.mark.parametrize("device_corpus", [False, True])
+def test_wordcount_kv_table_matches_jax(mv_session, port, tmp_path,
+                                        device_corpus):
+    """``train()`` keeps the JAX trainer's ``kv`` word-count table: each
+    epoch adds its words under key 0, the same count as JAX's table."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu.runtime import Session as JSession
+
+    corpus = _toy_corpus(tmp_path)
+    kw = dict(embedding_size=8, window=2, negative=2, batch_size=128,
+              seed=3)
+    japp.train(corpus, None, jw2v.Word2VecConfig(**kw), epochs=2,
+               min_count=1, sample=0, log_every=0,
+               device_corpus=device_corpus)
+    tapp.train(corpus, None, tw2v.Word2VecConfig(**kw), epochs=2,
+               min_count=1, sample=0, log_every=0,
+               device_corpus=device_corpus)
+
+    def counts(tables):
+        kv = [t for t in tables if t.name == "word2vec_wordcount"]
+        assert len(kv) == 1
+        return kv[0].get([0]), kv[0].version, tables.index(kv[0])
+
+    jc, tc = counts(JSession.get().tables), counts(mv.session().tables)
+    assert tc == jc and tc[0] == [2400.0] and tc[1:] == (2, 2)
