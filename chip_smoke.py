@@ -321,6 +321,45 @@ Phase 15 runs after phase 12:
    equal to the same table on the CPU. The row kernels must have run in
    (b) and (c).
 
+Phase 16 runs after phase 15:
+
+16. durability (``phase_durability``), each leg in sessions of its own,
+   files under build/durability/ (removed at the end). (a) the
+   write-ahead journal at word2vec's width: a [71291, 200] f32 sgd matrix
+   table and 32 keyed adds of 65,536 zipf ids (K2's fused route) on the
+   exact 2^-16 grid (any summation order gives the same bits), with
+   ``-wal`` off, then on, each with an Autosaver every 8 adds keeping 2;
+   the on run crashes after add 29 (its last record torn, no checkpoint
+   at it) and a fresh session (``-wal`` again: recovery truncates the
+   tail) runs restore_latest + replay to version 28: bitwise equal to the
+   port's CPU run of the same script (in a process of its own, beside the
+   card's work, at the lowest priority) and to the fault-free card table
+   after add 28, the fault-free final table as the failing control; then
+   a run off the grid (N(0, 1e-4) deltas on the random init, 12 adds,
+   every 4, crash after 11) held per row by hit count against the CPU run
+   (phase 4's rule (b); the CPU table one add short must fail it). Prints
+   adds/s off and on, the journal's MB/s (CRC and write of each record),
+   rotations and reaped segments, and ms for saves, the restore and the
+   replay. (b) the trainer-kill recovery leg
+   (``serving/trainer_chaos.trainer_kill_leg``, the JAX serving bench's
+   ``lm_trainer_chaos``) at phase 14's [71291, 200] bf16: a trainer and
+   one subscriber over mvparam TCP, 32 keyed adds (the unique ids of a
+   65,536-id zipf draw, x 1e-3), a checkpoint every 6, fault-free then
+   ``kill_trainer_at_publish=17`` with ``wal_torn_tail``: the subscriber
+   bit-identical to the trainer and to the fault-free leg (read through
+   the row gather), exactly the staged zombie fenced, the one add the
+   torn record cost redone from the input stream; prints
+   trainer_recovery_time_s and the records replayed. (c) the LM app's
+   ``-ckpt`` through ``apps.lm.main`` at the flagship in bf16 on a
+   ``memory://`` copy of phase 9's corpus: seq 1024 x batch 8, 20 steps
+   saving every 10, then a second ``main`` to 30 that resumes at step 20
+   (sampling 8 bytes at its end), and seq 2048 x batch 4, 1 step then a
+   resume to 2 (K4, K6, K7): the resumed parameters bitwise the step's
+   flat f32 table cast to bf16, the kept steps, the loss falling over
+   steps 21-30; prints save and restore ms and MB/s of the 0.34 GB table
+   and the flash launches by kernel. Every kernel of the phase's path
+   must have been launched (K1, K2, K3-K7).
+
 The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
 library time, and the training run's bf16 launches beside the serving
@@ -331,8 +370,9 @@ launches, all replicas, as ``launches_fleet``, and phase 14's as
 by configuration as ``launches_completion``, and phase 4's HS-node and
 CBOW-window shapes as ``hs_nodes_*`` and ``cbow_ctx_*``; phase 15's
 launches by sub-phase as ``launches_logreg`` and its shapes as
-``logreg_x1_*`` (4-byte rows) and ``logreg_x2_*`` (8-byte rows)); the last
-line is {"ok": true, "device": {...}}. Any failure exits
+``logreg_x1_*`` (4-byte rows) and ``logreg_x2_*`` (8-byte rows); phase
+16's launches by leg as ``launches_durability``); the last line is
+{"ok": true, "device": {...}}. Any failure exits
 nonzero before either line is printed. Without a CUDA device, or without
 the package beside this file, the script fails. To debug one phase, call
 it directly, e.g. ``python3 -c "import chip_smoke as c;
@@ -342,10 +382,12 @@ c.phase_device(); c.phase_w2v_kernels()"``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import importlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -5226,6 +5268,577 @@ def phase_logreg(card: str):
     return launches, kernels_at
 
 
+DUR_DIR = os.path.join(HERE, "build", "durability")
+# (a) the journal at word2vec's width: [V, D] f32, sgd, 65,536 zipf ids an
+# add on the exact grid; an Autosaver every 8 adds keeping 2; the crash
+# after add 29 (torn tail), so recovery restores step 24 and replays 25-28
+DUR_ADDS, DUR_EVERY, DUR_KEEP, DUR_CRASH = 32, 8, 2, 29
+DUR_VAL_BLOCKS = 4         # distinct exact-grid value blocks, add i % 4
+# the second run, off the grid: 12 adds, every 4, crash after 11
+DUR_OFF_ADDS, DUR_OFF_EVERY, DUR_OFF_CRASH = 12, 4, 11
+DUR_OFF_SCALE = 1e-4       # N(0, 1e-4) deltas on the random init
+# (b) the trainer-kill leg at phase 14's [V, D] bf16: 32 keyed adds (the
+# unique ids of a 65,536-id zipf draw, x 1e-3), the kill at publish 17
+# (the leg's n // 2 + 1) with a torn journal tail, a checkpoint every 6
+# adds (so the replay past step 12 has records to do)
+DUR_KILL_ADDS, DUR_KILL_EVERY = 32, 6
+DUR_KILL_SCALE = 1e-3
+# (c) the LM app's -ckpt at the flagship: 20 steps saving every 10, then a
+# second main to 30 that resumes at 20; at seq 2048 x 4 one step saving,
+# then a second main to 2 (the dq and dk/dv passes and K4)
+DUR_LM = ((1024, 8, 20, 30, 10), (2048, 4, 1, 2, 1))
+DUR_LM_SAMPLE = 8
+
+
+def dur_launches():
+    """The row and flash kernels' launch counts, as one dict."""
+    emb, fa = _emb(), _fa()
+    by_len = dict(fa.LAUNCHES_BY_KEY_LEN)
+    return {"row_gather": emb.LAUNCHES["row_gather"],
+            "row_scatter_add": emb.LAUNCHES["row_scatter_add"],
+            "flash_fwd_short": sum(n for k, n in by_len.items() if k <= 1024),
+            "flash_fwd_long": sum(n for k, n in by_len.items() if k > 1024),
+            **{f"flash_bwd_{k}": n for k, n in fa.BWD_LAUNCHES.items()}}
+
+
+def dur_reset():
+    dev_sync()
+    _emb().reset_launches()
+    _fa().reset_launches()
+
+
+class _Timed:
+    """Wraps ``obj.name`` for a block, recording each call's seconds (with
+    ``sync``, the card synchronized after the call) and its arguments."""
+
+    def __init__(self, obj, name, sync=True):
+        self.obj, self.name, self.sync, self.calls = obj, name, sync, []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.obj, self.name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if self.sync:
+                dev_sync()
+            self.calls.append((time.perf_counter() - t0, args))
+            return out
+
+        setattr(self.obj, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.fn)
+
+    @property
+    def seconds(self) -> float:
+        return sum(s for s, _ in self.calls)
+
+
+def dur_session(device: str, wal_dir: str = ""):
+    """A fresh port session on ``device``, with ``-wal`` when ``wal_dir``
+    is given."""
+    import multiverso_tpu_torch as mv
+
+    mv.shutdown()
+    flags = ["-wal=true", f"-wal_dir={wal_dir}"] if wal_dir else \
+        ["-wal=false"]
+    mv.init(["chip_smoke", f"-device={device}", "-log_level=error", *flags])
+    return mv
+
+
+def dur_script(device, x0, add, n_adds, every, crash, root, snap_at=0,
+               timed=False):
+    """(a)'s script on ``device``: a [V, D] f32 sgd matrix table from
+    ``x0``, ``add(table, i)`` for each add, an Autosaver every ``every``
+    adds keeping DUR_KEEP. With ``crash``, ``-wal`` is on and the run stops
+    after add ``crash`` with a torn journal tail (no checkpoint at it); a
+    fresh session (a restarted trainer: the same table, the same flags)
+    runs restore_latest + replay. Returns the final table read through
+    get_rows and its version, the table after add ``snap_at`` (when given)
+    and, ``timed``, the timings."""
+    from multiverso_tpu_torch.io import checkpoint
+    from multiverso_tpu_torch.runtime import Session
+
+    V, D = x0.shape
+    every_row = np.arange(V)
+    shutil.rmtree(root, ignore_errors=True)
+    wal_dir = os.path.join(root, "wal") if crash else ""
+    ck_root = os.path.join(root, "ckpt")
+    mv = dur_session(device, wal_dir)
+    table = mv.create_table("matrix", V, D, updater="sgd", init_value=x0)
+    saver = checkpoint.Autosaver(ck_root, every_steps=every, keep=DUR_KEEP)
+    sess = Session.get()
+    wal = sess.wal
+    out = {"adds": crash or n_adds}
+    add_s = 0.0
+    with _Timed(checkpoint, "save") as saves, \
+            (_Timed(wal, "append", sync=False) if wal
+             else contextlib.nullcontext()) as appends:
+        for i in range(crash or n_adds):
+            t0 = time.perf_counter()
+            add(table, i)
+            table.flush()
+            add_s += time.perf_counter() - t0
+            saver.step(i + 1)
+            if i + 1 == snap_at:
+                out["snap"] = table.get_rows(every_row)
+    if crash:
+        stats = wal.stats()
+        # the crash: the last record torn, the journal closed, the
+        # session gone without a checkpoint
+        wal.corrupt_tail("torn_tail")
+        wal.close()
+        sess.wal = None
+        mv = dur_session(device, wal_dir)
+        recovery = dict(Session.get().wal.recovery)
+        table = mv.create_table("matrix", V, D, updater="sgd",
+                                init_value=x0)
+        with _Timed(checkpoint, "restore") as restores:
+            t0 = time.perf_counter()
+            out["step"] = checkpoint.restore_latest(ck_root)
+            dev_sync()
+            latest_s = time.perf_counter() - t0
+        out["replay"] = dict(checkpoint.LAST_WAL_REPLAY)
+    out.update(state=table.get_rows(every_row), version=table.version)
+    if timed:
+        out.update(add_s=add_s, save_ms=[s * 1e3 for s, _ in saves.calls],
+                   table_mb=V * D * 4 / 1e6)
+        if crash:
+            rec = sum(len(a[2]) + 20 for _, a in appends.calls)
+            out.update(journal_s=appends.seconds, journal_mb=rec / 1e6,
+                       wal=stats, recovery=recovery,
+                       restore_ms=restores.seconds * 1e3,
+                       replay_ms=(latest_s - restores.seconds) * 1e3)
+    mv.shutdown()
+    for flag, value in (("wal", False), ("wal_dir", ""),
+                        ("device", DEV.type)):
+        mv.set_flag(flag, value)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def dur_inputs():
+    """(a)'s inputs, the same bits in every process from fixed seeds: the
+    exact-grid init and value blocks, the random init and N(0, 1e-4)
+    value blocks of the off-grid run, and the zipf ids of each add."""
+    V, D, N = W2V_VOCAB, W2V_DIM, W2V_BATCH
+    unit = 2.0 ** -16
+    rng = np.random.default_rng(160)
+    x0 = (rng.integers(-128, 129, (V, D)) * unit).astype(np.float32)
+    blocks = [(rng.integers(-1, 2, (N, D)) * unit).astype(np.float32)
+              for _ in range(DUR_VAL_BLOCKS)]
+    x1 = ((rng.random((V, D)) - 0.5) / D).astype(np.float32)
+    vals = [(rng.standard_normal((N, D)) * DUR_OFF_SCALE).astype(np.float32)
+            for _ in range(DUR_VAL_BLOCKS)]
+    ids = [zipf_ids(np.random.default_rng(1600 + i), V, N)
+           for i in range(DUR_ADDS)]
+    return {"x0": x0, "blocks": blocks, "x1": x1, "vals": vals, "ids": ids}
+
+
+def dur_adders(inp):
+    """The add functions of (a)'s two runs: add ``i`` scatters value block
+    ``i % DUR_VAL_BLOCKS`` at the ids of add ``i``."""
+    def grid_add(table, i):
+        table.add_rows(inp["ids"][i], inp["blocks"][i % DUR_VAL_BLOCKS])
+
+    def off_add(table, i):
+        table.add_rows(inp["ids"][i], inp["vals"][i % DUR_VAL_BLOCKS])
+
+    return grid_add, off_add
+
+
+def dur_cpu_twins(out_dir: str) -> None:
+    """(a)'s two scripts run by the port on the CPU, in a process of their
+    own (``phase_durability`` starts it beside the card's work, at the
+    lowest priority); each
+    run's final table, version and restored step land in
+    ``out_dir/cpu_<run>.npz``."""
+    global DEV
+    DEV = torch.device("cpu")
+    # beside the card's host work: the lowest priority, two threads
+    os.nice(19)
+    torch.set_num_threads(2)
+    inp = dur_inputs()
+    grid_add, off_add = dur_adders(inp)
+    for name, x, add, n, every, crash in (
+            ("grid", inp["x0"], grid_add, DUR_ADDS, DUR_EVERY, DUR_CRASH),
+            ("off_grid", inp["x1"], off_add, DUR_OFF_ADDS, DUR_OFF_EVERY,
+             DUR_OFF_CRASH)):
+        t0 = time.perf_counter()
+        out = dur_script("cpu", x, add, n, every, crash,
+                         os.path.join(out_dir, f"cpu_{name}_run"))
+        np.savez(os.path.join(out_dir, f"cpu_{name}.npz"),
+                 state=out["state"], version=out["version"],
+                 step=out["step"], seconds=time.perf_counter() - t0)
+
+
+def dur_cpu_start():
+    """Start :func:`dur_cpu_twins` in a child process at this process's
+    widths; its log goes to ``DUR_DIR/cpu_twins.log``."""
+    log = open(os.path.join(DUR_DIR, "cpu_twins.log"), "w")
+    child = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.W2V_VOCAB, c.W2V_DIM, c.W2V_BATCH = "
+         f"{W2V_VOCAB}, {W2V_DIM}, {W2V_BATCH}; "
+         f"c.dur_cpu_twins({DUR_DIR!r})"],
+        cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
+    return child, log
+
+
+def dur_cpu_wait(child, log, timeout_s: float = 600.0):
+    """Wait for the CPU twins; their results by run."""
+    try:
+        rc = child.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        rc = "killed at the time limit"
+    log.close()
+    if rc != 0:
+        with open(os.path.join(DUR_DIR, "cpu_twins.log")) as f:
+            tail = f.read()[-4000:]
+        fail(f"durability a: the CPU run of the script failed ({rc}):\n"
+             f"{tail}")
+    out = {}
+    for name in ("grid", "off_grid"):
+        with np.load(os.path.join(DUR_DIR, f"cpu_{name}.npz")) as z:
+            out[name] = {k: z[k] for k in z.files}
+    return out
+
+
+def dur_journal(card: str, launches: dict, inp):
+    """(a) on the card: the journal at the word2vec width, off then on
+    with the crash, and the off-grid run. The holds against the CPU twins
+    come after (:func:`dur_journal_hold`)."""
+    root = os.path.join(DUR_DIR, "a")
+    grid_add, off_add = dur_adders(inp)
+    dur_reset()
+    off = dur_script(DEV.type, inp["x0"], grid_add, DUR_ADDS, DUR_EVERY, 0,
+                     os.path.join(root, "off"), snap_at=DUR_CRASH - 1,
+                     timed=True)
+    on = dur_script(DEV.type, inp["x0"], grid_add, DUR_ADDS, DUR_EVERY,
+                    DUR_CRASH, os.path.join(root, "on"), timed=True)
+    dev_sync()
+    launches["a_grid"] = dur_launches()
+    dur_reset()
+    card = dur_script(DEV.type, inp["x1"], off_add, DUR_OFF_ADDS,
+                      DUR_OFF_EVERY, DUR_OFF_CRASH,
+                      os.path.join(root, "off_grid"), timed=True)
+    dev_sync()
+    launches["a_off_grid"] = dur_launches()
+    return {"off": off, "on": on, "off_grid": card}
+
+
+def dur_off_grid_tolerance(inp, n: int) -> torch.Tensor:
+    """Phase 4's rule (b) per element for a table that took the first
+    ``n`` adds of (a)'s off-grid run: the hits and sum |delta| of all of
+    them."""
+    V, D = W2V_VOCAB, W2V_DIM
+    hits = torch.zeros(V)
+    absum = torch.zeros((V, D))
+    for i in range(n):
+        h, a, _ = scatter_stats(
+            torch.zeros(V, D), torch.from_numpy(inp["ids"][i]),
+            torch.from_numpy(inp["vals"][i % DUR_VAL_BLOCKS]))
+        hits += h
+        absum += a
+    return scatter_tolerance(torch.from_numpy(inp["x1"]), hits, absum,
+                             torch.float32)
+
+
+def dur_journal_hold(runs, cpu, inp, tol, launches):
+    """(a)'s holds: the recovered card tables against the CPU twins
+    (bitwise on the exact grid, within ``tol`` off it), and the
+    launches."""
+    V, D, N = W2V_VOCAB, W2V_DIM, W2V_BATCH
+    off, on = runs["off"], runs["on"]
+    snap_at = DUR_CRASH - 1
+    step = DUR_CRASH - DUR_CRASH % DUR_EVERY
+    grid = cpu["grid"]
+    if (on["step"], on["version"], int(grid["step"]),
+            int(grid["version"])) != (step, snap_at, step, snap_at):
+        fail(f"durability a: recovery reached step {on['step']}, version "
+             f"{on['version']} (CPU {grid['step']}, {grid['version']}), "
+             f"not step {step} and version {snap_at}")
+    if (on["replay"]["replayed"], on["replay"]["gaps"],
+            on["replay"]["dropped"]) != (snap_at - step, 0, 0):
+        fail(f"durability a: replay {on['replay']}")
+    for what, b in (("the CPU run of the same script", grid["state"]),
+                    ("the fault-free run at that version", off["snap"])):
+        if not np.array_equal(on["state"].view(np.int32), b.view(np.int32)):
+            fail(f"durability a: the recovered card table is not bitwise "
+                 f"equal to {what}")
+    if np.array_equal(on["state"], off["state"]):
+        fail("durability a: the control (the fault-free table 4 adds on) "
+             "equals the recovered table")
+    k2 = DUR_ADDS + DUR_CRASH + snap_at - step
+    if DEV.type == "cuda" and (launches["a_grid"]["row_scatter_add"] != k2
+                               or launches["a_grid"]["row_gather"] != 3):
+        fail(f"durability a: launches {launches['a_grid']}, not {k2} K2 "
+             f"(the adds and the replay) and 3 K1 (the reads)")
+    adds_off = off["adds"] / off["add_s"]
+    adds_on = on["adds"] / on["add_s"]
+    say(f"durability a ([{V}, {D}] f32 sgd matrix, {DUR_ADDS} keyed adds of "
+        f"{N} zipf ids on the exact 2^-16 grid, K2's fused route, "
+        f"Autosaver every {DUR_EVERY} keep {DUR_KEEP}): -wal off "
+        f"{adds_off:.2f} adds/s, on {adds_on:.2f} adds/s "
+        f"({adds_on / adds_off:.3f}x); journal {on['journal_mb']:.1f} MB in "
+        f"{on['journal_s'] * 1e3:.1f} ms of appends, "
+        f"{on['journal_mb'] / on['journal_s']:.1f} MB/s; rotations "
+        f"{on['wal']['rotations']}, reaped segments "
+        f"{on['wal']['reaped_segments']}; saves of {off['table_mb']:.1f} MB "
+        f"{' '.join(f'{x:.1f}' for x in off['save_ms'] + on['save_ms'])} ms; "
+        f"crash after add {DUR_CRASH} (torn tail, truncated at byte "
+        f"{on['recovery']['truncated_at']}); restore_latest step "
+        f"{on['step']}: restore {on['restore_ms']:.1f} ms, replay of "
+        f"{on['replay']['replayed']} records {on['replay_ms']:.1f} ms -> "
+        f"version {on['version']}, bitwise equal to the CPU run of the "
+        f"same script (its own process, {float(grid['seconds']):.1f} s) "
+        f"and to the fault-free run at that version; launches "
+        f"{json.dumps(launches['a_grid'], sort_keys=True)}; card "
+        f"{card_line()}")
+    # off the grid: per row by hit count (phase 4's rule (b))
+    card, ref = runs["off_grid"], cpu["off_grid"]
+    n = card["version"]
+    if n != DUR_OFF_CRASH - 1 or int(ref["version"]) != n:
+        fail(f"durability a: the off-grid recovery reached {n} "
+             f"(CPU {ref['version']})")
+    got = torch.from_numpy(card["state"])
+    diff = (got - torch.from_numpy(ref["state"])).abs()
+    err = excess(diff, tol)
+    # the control: the CPU table one add short (sgd subtracted it)
+    short = ref["state"].copy()
+    np.add.at(short, inp["ids"][n - 1], inp["vals"][(n - 1) % DUR_VAL_BLOCKS])
+    ctrl = excess((got - torch.from_numpy(short)).abs(), tol)
+    if not err <= 1.0 or ctrl <= 1.0:
+        fail(f"durability a: off the grid, the recovered card table reads "
+             f"{err:.4f} of its tolerance (the control one add short "
+             f"{ctrl:.4f}, must exceed 1)")
+    say(f"durability a, off the grid (N(0, {DUR_OFF_SCALE}) deltas on the "
+        f"random init, {DUR_OFF_ADDS} adds, every {DUR_OFF_EVERY}, crash "
+        f"after {DUR_OFF_CRASH}): recovered to version {n} (step "
+        f"{card['step']} + {card['replay']['replayed']} replayed), "
+        f"{err:.6f} of phase 4's rule (b) against the CPU run "
+        f"({float(ref['seconds']):.1f} s), max abs diff "
+        f"{diff.max().item():.3e}; the control one add short {ctrl:.1f}; "
+        f"launches {json.dumps(launches['a_off_grid'], sort_keys=True)}")
+    return {"adds_per_s_off": adds_off, "adds_per_s_on": adds_on,
+            "journal_mb_s": on["journal_mb"] / on["journal_s"],
+            "replay_ms": on["replay_ms"], "restore_ms": on["restore_ms"],
+            "save_ms": off["save_ms"] + on["save_ms"]}
+
+
+def dur_kill(card: str, launches: dict):
+    """(b) the trainer-kill recovery leg at the text8 width, bf16."""
+    import functools
+
+    from multiverso_tpu_torch.serving.trainer_chaos import trainer_kill_leg
+
+    V, D = W2V_VOCAB, W2V_DIM
+
+    @functools.lru_cache(maxsize=None)
+    def keyed(i):
+        rng = np.random.default_rng(1700 + i)
+        ids = np.unique(zipf_ids(rng, V, W2V_BATCH))
+        vals = torch.from_numpy((rng.standard_normal((ids.size, D))
+                                 * DUR_KILL_SCALE).astype(
+                                     np.float32)).to(torch.bfloat16)
+        return ids, vals
+
+    dur_session(DEV.type)
+    dur_reset()
+    t0 = time.perf_counter()
+    out = trainer_kill_leg(rows=V, cols=D, dtype=torch.bfloat16,
+                           n_adds=DUR_KILL_ADDS, every_steps=DUR_KILL_EVERY,
+                           wal_fault="wal_torn_tail", delta_fn=keyed,
+                           root=os.path.join(DUR_DIR, "b"))
+    wall = time.perf_counter() - t0
+    dev_sync()
+    launches["b"] = dur_launches()
+    import multiverso_tpu_torch as mv
+
+    mv.shutdown()
+    torn = out["wal_truncated_at"] >= 0
+    on = out["legs"]["on"]
+    if (out["trainer_killed"] != 1 or out["output_mismatches"] != 0
+            or out["epoch_fence_rejections_unexpected"] != 0
+            or on["rejections"] != 1 or on["version"] != DUR_KILL_ADDS
+            or on["dst_version"] != DUR_KILL_ADDS
+            or out["updates_lost"] != int(torn)
+            or out["wal_replay_records"] < 1):
+        fail(f"durability b: " + json.dumps(
+            {k: v for k, v in out.items() if k != "legs"}))
+    if DEV.type == "cuda" and (launches["b"]["row_scatter_add"] <= 0
+                               or launches["b"]["row_gather"] <= 0):
+        fail(f"durability b: launches {launches['b']}")
+    say(f"durability b (trainer-kill leg, [{V}, {D}] bf16, {DUR_KILL_ADDS} "
+        f"keyed adds, kill_trainer_at_publish={out['kill_at_publish']} + "
+        f"wal_torn_tail, "
+        f"a trainer and one subscriber over mvparam TCP): killed after "
+        f"{out['acked_at_kill']} acknowledged adds; stale after "
+        f"{out['staleness_peak_s']:.3f} s; restore_latest step "
+        f"{out['checkpoint_step']} + {out['wal_replay_records']} records "
+        f"replayed in {out['wal_replay_s'] * 1e3:.1f} ms; the torn record "
+        f"cost {out['updates_lost_at_recovery']} acknowledged add (journal "
+        f"truncated at byte {out['wal_truncated_at']}), redone from the "
+        f"input stream; trainer_recovery_time_s "
+        f"{out['trainer_recovery_time_s']:.4f}; the subscriber bit-identical "
+        f"to the trainer and to the fault-free leg at version "
+        f"{on['version']}; fence rejections {on['rejections']} (the staged "
+        f"zombie); {out['publish_bytes'] / 1e6:.1f} MB published fault-free; "
+        f"the leg took {wall:.1f} s; launches "
+        f"{json.dumps(launches['b'], sort_keys=True)}; card {card_line()}")
+    return out
+
+
+def dur_lm(card: str, launches: dict):
+    """(c) the LM app's -ckpt at the flagship, bf16, on a memory://
+    corpus."""
+    from multiverso_tpu_torch.apps import lm as app
+    from multiverso_tpu_torch.io import checkpoint
+    from multiverso_tpu_torch.io.stream import open_stream, read_array
+    from multiverso_tpu_torch.models import transformer as tf
+
+    import multiverso_tpu_torch as mv
+
+    uri = "memory://chip_smoke/lm_corpus.txt"
+    with open(lm_corpus(), "rb") as src, open_stream(uri, "wb") as dst:
+        dst.write(src.read())
+    widths = [f"-{k}" if i == 0 else str(FLAGSHIP[k])
+              for k in ("d_model", "n_layers", "n_heads", "d_ff")
+              for i in range(2)]
+    results = {}
+    for seq, batch, first, total, every in DUR_LM:
+        ck = os.path.join(DUR_DIR, f"c_{seq}")
+        shutil.rmtree(ck, ignore_errors=True)
+        base = ["-train_file", uri, *widths, "-seq", str(seq), "-batch",
+                str(batch), "-lr", str(LM_LR), "-dtype", "bfloat16",
+                "-ckpt", ck, "-ckpt_every", str(every), "-log_every", "0",
+                f"-device={DEV.type}", "-log_level=error"]
+        losses, resumed, runs = [], [], []
+        step = tf.TransformerLM.train_batch
+
+        def recorded(self, tokens):
+            if len(losses) == first and not resumed:
+                resumed.append(torch.cat([
+                    w.detach().float().reshape(-1).cpu()
+                    for w in app.pytree_leaves(self.params)]).numpy())
+            loss = step(self, tokens)
+            losses.append(loss)
+            return loss
+
+        tf.TransformerLM.train_batch = recorded
+        dur_reset()
+        try:
+            for steps, extra in ((first, []),
+                                 (total, ["-sample", str(DUR_LM_SAMPLE)])):
+                mv.shutdown()
+                with _Timed(checkpoint, "save") as saves, \
+                        _Timed(checkpoint, "restore") as restores:
+                    t0 = time.perf_counter()
+                    rc = app.main(base + ["-steps", str(steps)] + extra)
+                    dev_sync()
+                if rc != 0:
+                    fail(f"durability c: apps.lm.main -steps {steps} "
+                         f"returned {rc}")
+                runs.append((time.perf_counter() - t0, saves.calls,
+                             restores.calls))
+        finally:
+            tf.TransformerLM.train_batch = step
+            mv.set_flag("device", DEV.type)
+        dev_sync()
+        launches[f"c_{seq}"] = dur_launches()
+        losses = [float(x) for x in losses]
+        with open(os.path.join(ck, f"step_{first}", "table_0.bin"),
+                  "rb") as f:
+            saved = np.asarray(read_array(f))
+        n_params = saved.size
+        # restore casts the f32 table to the parameters' bf16: the resumed
+        # parameters must be that cast, bit for bit
+        want = torch.from_numpy(saved).to(torch.bfloat16).float().numpy()
+        if not resumed or not np.array_equal(resumed[0].view(np.int32),
+                                             want.view(np.int32)):
+            fail(f"durability c (seq {seq}): the resumed parameters are "
+                 f"not the step-{first} checkpoint")
+        steps_kept = checkpoint.list_steps(ck)
+        want_steps = sorted({s for s in range(every, total + 1, every)}
+                            | {first, total})[-3:]
+        after = losses[first:]
+        if (len(losses) != total or steps_kept != want_steps
+                or not np.all(np.isfinite(losses))
+                or (len(after) >= 3 and not np.mean(after[-3:]) < after[0])):
+            fail(f"durability c (seq {seq}): steps kept {steps_kept} (want "
+                 f"{want_steps}), losses {losses}")
+        save_ms = [s * 1e3 for _, calls, _ in runs for s, _ in calls]
+        restore_ms = [s * 1e3 for _, _, calls in runs for s, _ in calls]
+        mb = n_params * 4 / 1e6
+        off_bf16 = int(np.sum(saved != want))
+        results[seq] = dict(save_ms=save_ms, restore_ms=restore_ms, mb=mb)
+        say(f"durability c (apps.lm.main -ckpt, flagship bf16, seq {seq} x "
+            f"batch {batch}, memory:// corpus): {first} steps then a resume "
+            f"at step {first} to {total}; main ran {runs[0][0]:.1f} s and "
+            f"{runs[1][0]:.1f} s; the flat table {n_params} f32 ({mb:.1f} "
+            f"MB): saves {' '.join(f'{x:.1f}' for x in save_ms)} ms "
+            f"({' '.join(f'{mb / x * 1e3:.1f}' for x in save_ms)} MB/s), "
+            f"restore {' '.join(f'{x:.1f}' for x in restore_ms)} ms "
+            f"({' '.join(f'{mb / x * 1e3:.1f}' for x in restore_ms)} MB/s); "
+            f"resumed parameters bitwise the step-{first} table cast to "
+            f"bf16 ({off_bf16} of its values are not bf16: the JAX rule's "
+            f"(flat - current) add rounds); steps kept {steps_kept}; losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)}; launches "
+            f"{json.dumps(launches[f'c_{seq}'], sort_keys=True)}; card "
+            f"{card_line()}")
+        del resumed[:]
+        if DEV.type == "cuda":
+            torch.cuda.empty_cache()
+    return results
+
+
+def phase_durability(card: str):
+    """16. durability (module docstring)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(DUR_DIR, ignore_errors=True)
+    os.makedirs(DUR_DIR, exist_ok=True)
+    launches = {}
+    # the CPU runs of (a)'s script go beside the card's work, in a process
+    # of their own (a session is one per process)
+    child, log = dur_cpu_start()
+    try:
+        marks = [time.perf_counter()]
+        inp = dur_inputs()
+        runs = dur_journal(card, launches, inp)
+        marks.append(time.perf_counter())
+        dur_kill(card, launches)
+        marks.append(time.perf_counter())
+        dur_lm(card, launches)
+        marks.append(time.perf_counter())
+        tol = dur_off_grid_tolerance(inp, runs["off_grid"]["version"])
+        journal = dur_journal_hold(runs, dur_cpu_wait(child, log), inp, tol,
+                                   launches)
+        marks.append(time.perf_counter())
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    import multiverso_tpu_torch as mv
+
+    mv.shutdown()
+    shutil.rmtree(DUR_DIR, ignore_errors=True)
+    parts = " / ".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:]))
+    for kernel in ("row_gather", "row_scatter_add", "flash_fwd_short",
+                   "flash_fwd_long", "flash_bwd_fused", "flash_bwd_dq",
+                   "flash_bwd_dkv"):
+        if DEV.type == "cuda" and sum(c[kernel]
+                                      for c in launches.values()) <= 0:
+            fail(f"durability: {kernel} was not launched: {launches}")
+    say(f"durability: phase 16 took {time.perf_counter() - t_phase:.1f} s "
+        f"(a on the card / b / c / a's tolerance, the wait for its CPU runs "
+        f"and its holds: "
+        f"{parts}); card {card}")
+    return launches, journal
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5242,6 +5855,7 @@ def main() -> None:
     options = phase_w2v_options(card)
     mv.shutdown()
     lr_launches, lr_kernels = phase_logreg(card)
+    dur_launches_by_leg, _ = phase_durability(card)
     n_g = w2v["launches"]["row_gather"]
     n_s = w2v["launches"]["row_scatter_add"]
     for name, r, line, n in (
@@ -5321,6 +5935,19 @@ def main() -> None:
             entry.update({f"logreg_{tag}_{k}": r[k] for k in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "library_ms", "library_device_ms")})
+    # phase 16's launches by leg (each counted from 0 around its card run)
+    for entry in kernels_line:
+        key = {"flash_fwd[key_len<=1024]": "flash_fwd_short",
+               "flash_fwd[key_len>1024]": "flash_fwd_long",
+               "row_gather": "row_gather",
+               "row_scatter_add": "row_scatter_add",
+               "flash_bwd[fused]": "flash_bwd_fused",
+               "flash_bwd[dq]": "flash_bwd_dq",
+               "flash_bwd[dkv]": "flash_bwd_dkv"}.get(entry["name"])
+        if key is not None:
+            entry["launches_durability"] = {
+                leg: counts[key]
+                for leg, counts in dur_launches_by_leg.items()}
     say(f"chip_smoke: the whole script took "
         f"{time.perf_counter() - T_START:.1f} s, card {card_line()}")
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -2,19 +2,32 @@
 
 Counterpart of ``multiverso_tpu/apps/lm.py``: a byte-level causal LM
 (``models/transformer.py``) trained with momentum SGD on random windows of
-a local text file, then optionally sampled. The flags and their defaults
-are the JAX app's, ``-attention flash`` included. One process on one
-device: the JAX app's mesh (``-mesh_shape``) belongs to the distributed
-paths and the session refuses it. ``-ckpt`` (autosave and resume through
-an array table) needs ``io/checkpoint``, and URIs need ``io/stream``; both
-raise :class:`~..log.FatalError` until the I/O slice is ported.
+a text corpus, with checkpoint autosave and resume, then optionally
+sampled. The flags and their defaults are the JAX app's, ``-attention
+flash`` included; ``-dtype`` (``float32``, the JAX app's, or
+``bfloat16``) is the port's own, to train in the dtype the flagship is
+measured in. One process on one device: the JAX app's mesh
+(``-mesh_shape``) belongs to the distributed paths and the session refuses
+it.
+
+The corpus is read through ``io/stream.open_stream``: a local path, a
+``file://`` or a ``memory://`` URI (``gs://`` and ``hdfs://`` raise, ROADMAP.md
+Queue 1 item 7b). ``-ckpt DIR`` resumes and autosaves as the JAX app does
+(:122-183): every parameter lives, flattened in ``jax.tree_util``'s leaf
+order (dict keys sorted) and in f32, in an ``array`` table ``lm_params``;
+``io/checkpoint.restore_latest`` at start (then replaying the journal past
+the checkpoint under ``-wal``), an ``Autosaver`` every ``-ckpt_every``
+steps, and a final save when the last step is not a multiple of it. As in
+the JAX app, momentum is not checkpointed (it starts again at zero on
+resume) and the batch stream starts again from its seed.
 
 Usage::
 
     python -m multiverso_tpu_torch.apps.lm -train_file corpus.txt \\
         [-d_model 256] [-n_layers 4] [-n_heads 4] [-seq 256] [-batch 32]
         [-steps 1000] [-lr 0.1] [-attention flash|reference|flash_force]
-        [-sample 128] [-device=cpu]
+        [-ckpt DIR] [-ckpt_every 200] [-sample 128] [-dtype bfloat16]
+        [-device=cpu]
 
 It runs on the card unless ``-device=cpu`` is given.
 """
@@ -23,7 +36,7 @@ from __future__ import annotations
 
 import sys
 import time
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -33,11 +46,10 @@ _VOCAB = 256   # byte-level
 
 
 def load_bytes(path: str) -> np.ndarray:
-    """The bytes of a local file as int32 token ids."""
-    if "://" in path:
-        Log.fatal(f"{path}: URIs need io/stream, which is not ported to "
-                  f"multiverso_tpu_torch yet; pass a local path")
-    with open(path, "rb") as f:
+    """The bytes of a corpus (a path or a URI) as int32 token ids."""
+    from ..io.stream import open_stream
+
+    with open_stream(path, "rb") as f:
         data = f.read()
     if len(data) < 2:
         Log.fatal(f"corpus too small: {path}")
@@ -74,7 +86,20 @@ def sample(lm, prompt: np.ndarray, n_tokens: int, temperature: float = 1.0,
     return np.asarray(toks, np.int32)
 
 
+def pytree_leaves(tree: Dict[str, Any]) -> List[Any]:
+    """The leaves of a parameter dict in ``jax.tree_util``'s order (keys
+    sorted, depth first): the layout of the JAX app's flat table."""
+    out: List[Any] = []
+    for key in sorted(tree):
+        value = tree[key]
+        out.extend(pytree_leaves(value) if isinstance(value, dict)
+                   else [value])
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    import torch
+
     import multiverso_tpu_torch as mv
     from ..models.transformer import TransformerConfig, TransformerLM
 
@@ -100,25 +125,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     lr = opt("lr", 0.1, float)
     attention = opt("attention", "flash")
     ckpt = opt("ckpt", "")
-    opt("ckpt_every", 200, int)
+    ckpt_every = opt("ckpt_every", 200, int)
     n_sample = opt("sample", 0, int)
     log_every = opt("log_every", 50, int)
+    dtype = opt("dtype", "float32")
     if not train_file:
         print("usage: lm -train_file FILE [-d_model N] [-n_layers N] "
               "[-n_heads N] [-seq N] [-batch N] [-steps N] [-lr F] "
-              "[-attention flash|reference|flash_force] [-sample N] "
+              "[-attention flash|reference|flash_force] [-ckpt DIR] "
+              "[-ckpt_every N] [-sample N] [-dtype float32|bfloat16] "
               "[-device=cpu]")
         return 2
-    if ckpt:
-        Log.fatal("-ckpt needs io/checkpoint (autosave and resume through "
-                  "an array table), which is not ported to "
-                  "multiverso_tpu_torch yet")
+    if dtype not in ("float32", "bfloat16"):
+        Log.fatal(f"-dtype must be float32 or bfloat16, got {dtype!r}")
 
     mv.init(argv)
     cfg = TransformerConfig(vocab_size=_VOCAB, d_model=d_model,
                             n_heads=n_heads, n_layers=n_layers, d_ff=d_ff,
                             max_seq=seq, learning_rate=lr,
-                            attention=attention)
+                            attention=attention,
+                            dtype=getattr(torch, dtype))
     lm = TransformerLM(cfg)
     data = load_bytes(train_file)
     if data.shape[0] < seq + 2:
@@ -128,16 +154,57 @@ def main(argv: Optional[List[str]] = None) -> int:
              "attention=%s, device %s", data.shape[0], d_model, n_layers,
              n_heads, attention, lm.device)
 
+    # resume + autosave through the table registry: the parameters live in
+    # the model, so a flat array table exposes them to the checkpoint layer
+    saver = None
+    start_step = 0
+    flat_table = None
+    if ckpt:
+        from ..io import checkpoint
+
+        leaves = pytree_leaves(lm.params)
+        total = int(sum(leaf.numel() for leaf in leaves))
+        flat_table = mv.create_table("array", total, name="lm_params")
+        latest = checkpoint.restore_latest(ckpt)
+        if latest is not None:
+            flat = torch.from_numpy(flat_table.get())
+            offset = 0
+            with torch.no_grad():
+                for leaf in leaves:
+                    size = leaf.numel()
+                    leaf.copy_(flat[offset:offset + size].reshape(
+                        leaf.shape))
+                    offset += size
+            start_step = latest
+            Log.info("resumed from step %d", latest)
+        saver = checkpoint.Autosaver(ckpt, every_steps=ckpt_every)
+
+    def snapshot_params():
+        flat = torch.cat([leaf.detach().float().reshape(-1)
+                          for leaf in pytree_leaves(lm.params)]).cpu().numpy()
+        current = flat_table.get()
+        # scale by the add's fan-out: under sync aggregation (a sum over
+        # processes) each replica receives size copies of the delta; this
+        # port has no async bus, and one process adds locally
+        fanout = mv.size() if mv.get_flag("sync") else 1
+        flat_table.add((flat - current) / fanout)
+
     t0 = time.perf_counter()
     gen = batches(data, batch, seq, seed=mv.rank())
     loss = None
-    for step in range(1, steps + 1):
+    for step in range(start_step + 1, steps + 1):
         loss = lm.train_batch(next(gen))
         if log_every and step % log_every == 0:
             elapsed = time.perf_counter() - t0
-            tps = step * batch * seq / elapsed
+            tps = (step - start_step) * batch * seq / elapsed
             Log.info("step %d: loss %.4f, ppl %.1f, %.0f tok/s",
                      step, float(loss), float(np.exp(float(loss))), tps)
+        if saver is not None and step % ckpt_every == 0:
+            snapshot_params()
+            saver.step(step)
+    if saver is not None and steps % ckpt_every != 0 and steps > start_step:
+        snapshot_params()
+        saver.save_now(steps)   # the final state is the app's artifact
     if loss is not None:
         Log.info("final loss %.4f (ppl %.1f)", float(loss),
                  float(np.exp(float(loss))))

@@ -17,12 +17,13 @@ JAX trainer:
   (``parallel.prefetch_iterator``), and ``train_batch(es)`` trains them;
   the lr decays over the exact words consumed.
 
-One process, one device, local corpus files. Not ported yet: the
-multi-process data partition (``shard=``), the async delta pusher and SSP
-(the distributed paths, ROADMAP.md Queue 1 item 8), and URI corpora (item
-7). As in the JAX trainer, a ``kv`` word-count table
-(``word2vec_wordcount``, the reference's KV wordcount table) takes each
-epoch's words under key 0.
+One process, one device. The corpus is read through
+``io/stream.TextReader``: a local path, ``file://`` or ``memory://``
+(``gs://`` and ``hdfs://`` wait for ROADMAP.md Queue 1 item 7b). Not
+ported yet: the multi-process data partition (``shard=``), the async
+delta pusher and SSP (the distributed paths, item 8). As in the JAX
+trainer, a ``kv`` word-count table (``word2vec_wordcount``, the
+reference's KV wordcount table) takes each epoch's words under key 0.
 
 CLI: ``python -m multiverso_tpu_torch.apps.wordembedding -train_file
 corpus.txt -output vec.txt -size 100 -window 5 -negative 5 -epoch 1 ...``
@@ -41,6 +42,7 @@ from typing import Any, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..dashboard import Dashboard
+from ..io.stream import TextReader
 from ..log import Log
 from ..models.word2vec import Word2Vec, Word2VecConfig, build_huffman
 
@@ -48,10 +50,10 @@ _INFREQUENT_BUCKET = "WE_ARE_THE_INFREQUENT_WORDS"
 
 
 def _read_lines(path: str) -> Iterator[str]:
-    """Lines of a local text file, decoded as the JAX ``TextReader`` does."""
-    with open(path, "rb") as f:
-        for raw in f:
-            yield raw.decode("utf-8", errors="replace").rstrip("\r\n")
+    """Lines of a corpus (a path or a ``file://``/``memory://`` URI), read
+    through ``io/stream.TextReader`` as the JAX trainer reads them."""
+    with TextReader(path) as reader:
+        yield from reader
 
 
 class Dictionary:

@@ -1,23 +1,26 @@
-"""Local streams, a buffered text reader and the ``MVTA`` array record.
+"""URI-dispatched binary streams, a buffered text reader and the ``MVTA``
+array record.
 
 Counterpart of ``multiverso_tpu/io/stream.py``:
 
-* :class:`URI`, :func:`open_stream` and :class:`TextReader` (JAX
-  :28-118) for local paths and ``file://`` URIs. Any other scheme raises
-  :class:`~..log.FatalError`: ``register_scheme``, ``memory://``,
-  ``gs://`` and ``hdfs://`` wait for the durability slice (ROADMAP.md
-  Queue 1 item 7), and a remote URI is never opened as a local path.
-* ``write_array``, ``_read_record_header`` and ``read_array`` (JAX
-  :122-218), byte for byte: ``b"MVTA"``, a ``<B`` dtype-tag length, the
-  ASCII tag (numpy's ``dtype.str``, e.g. ``<f4``, or the name of an
-  extension dtype), a ``<B`` ndim, one ``<q`` per dimension, then the raw
-  C-order buffer.
+* :class:`URI`, :func:`register_scheme`, :func:`open_stream`,
+  :func:`is_remote` and :class:`TextReader` (JAX :28-118). ``file://``
+  URIs and bare paths open local files; ``memory://`` registers on first
+  use (``io/remote.py``, an in-process object store). ``gs://`` and
+  ``hdfs://`` raise :class:`~..log.FatalError` before any import is tried:
+  their backends (tensorstore, fsspec over WebHDFS) wait for ROADMAP.md
+  Queue 1 item 7b. A scheme with no handler never opens as a local path.
+* ``write_array``, ``_read_record_header``, ``read_array`` and
+  ``validate_record_stream`` (JAX :122-218), byte for byte: ``b"MVTA"``,
+  a ``<B`` dtype-tag length, the ASCII tag (numpy's ``dtype.str``, e.g.
+  ``<f4``, or the name of an extension dtype), a ``<B`` ndim, one ``<q``
+  per dimension, then the raw C-order buffer.
 
 numpy has no bfloat16 and the port does not need ``ml_dtypes``: a torch
 bf16 tensor is written as its raw 16-bit words tagged ``bfloat16`` (the
 JAX package's bytes for an ``ml_dtypes`` array) and a ``bfloat16``
 record reads back as a torch CPU bf16 tensor. Every other record reads
-back as a numpy array. ``validate_record_stream`` waits for item 7 too.
+back as a numpy array.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from __future__ import annotations
 import io as _io
 import os
 import struct
-from typing import Any, BinaryIO, Iterator, Optional
+from typing import Any, BinaryIO, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -49,22 +52,58 @@ class URI:
             self.scheme, self.host, self.path = "file", "", uri
 
 
-def open_stream(uri: str, mode: str = "rb") -> BinaryIO:
-    """``StreamFactory::GetStream``: a binary stream on a local path or a
-    ``file://`` URI; a write creates the parent directories."""
-    parsed = URI(uri)
-    if parsed.scheme != "file":
-        Log.fatal(f"no stream handler for scheme {parsed.scheme!r} ({uri}): "
-                  f"only local paths and file:// are ported to "
-                  f"multiverso_tpu_torch (remote schemes wait for ROADMAP.md "
-                  f"Queue 1 item 7)")
-    if "b" not in mode:
-        mode += "b"
+_OPENERS: Dict[str, Callable[[URI, str], BinaryIO]] = {}
+
+# schemes whose backends are not ported: refused before any import
+_UNPORTED_SCHEMES = {
+    "gs": "gs:// (GCS objects over tensorstore)",
+    "hdfs": "hdfs:// (WebHDFS over fsspec)",
+}
+
+
+def register_scheme(scheme: str, opener: Callable[[URI, str], BinaryIO]
+                    ) -> None:
+    _OPENERS[scheme] = opener
+
+
+def _open_local(uri: URI, mode: str) -> BinaryIO:
     if "w" in mode or "a" in mode:
-        parent = os.path.dirname(parsed.path)
+        parent = os.path.dirname(uri.path)
         if parent:
             os.makedirs(parent, exist_ok=True)
-    return open(parsed.path, mode)
+    return open(uri.path, mode)
+
+
+register_scheme("file", _open_local)
+
+
+def open_stream(uri: str, mode: str = "rb") -> BinaryIO:
+    """``StreamFactory::GetStream`` (``src/io/io.cpp:8-21``): a binary
+    stream from the scheme's opener; a local write creates the parent
+    directories."""
+    parsed = URI(uri)
+    opener = _OPENERS.get(parsed.scheme)
+    if opener is None and parsed.scheme in _UNPORTED_SCHEMES:
+        Log.fatal(f"no stream handler for {uri}: "
+                  f"{_UNPORTED_SCHEMES[parsed.scheme]} is not ported to "
+                  f"multiverso_tpu_torch yet (ROADMAP.md Queue 1 item 7b)")
+    if opener is None and parsed.scheme == "memory":
+        # the in-process object store registers on first use, as the JAX
+        # package's remote backends do
+        from . import remote
+
+        remote.register()
+        opener = _OPENERS.get(parsed.scheme)
+    if opener is None:
+        Log.fatal(f"no stream handler for scheme {parsed.scheme!r} ({uri})")
+    if "b" not in mode:
+        mode += "b"
+    return opener(parsed, mode)
+
+
+def is_remote(path: str) -> bool:
+    """True when ``path`` is a non-file URI (no local mkdir/exists)."""
+    return URI(path).scheme != "file"
 
 
 class TextReader:
@@ -153,6 +192,34 @@ def _read_record_header(stream: BinaryIO):
     except (TypeError, UnicodeDecodeError):
         raise ValueError(f"unknown dtype tag {tag!r}") from None
     return dtype, shape
+
+
+def validate_record_stream(path: str) -> Optional[str]:
+    """Cheap completeness check of a local record file: walks the record
+    headers (the shared parser) and checks that every payload fits in the
+    file, without loading the arrays; the checkpoint layer's torn-file
+    detector. None when complete, else a short reason."""
+    try:
+        size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            while True:
+                pos = f.tell()
+                try:
+                    header = _read_record_header(f)
+                except ValueError as exc:
+                    return f"{exc} at byte {pos}"
+                if header is None:
+                    return None                   # clean EOF
+                dtype, shape = header
+                count = int(np.prod(shape)) if shape else 1
+                itemsize = 2 if dtype is torch.bfloat16 else dtype.itemsize
+                need = count * itemsize
+                if size - f.tell() < need:
+                    return (f"truncated payload at byte {pos} "
+                            f"(record needs {need} bytes)")
+                f.seek(need, 1)
+    except OSError as exc:
+        return str(exc)
 
 
 def read_array(stream: BinaryIO) -> Any:

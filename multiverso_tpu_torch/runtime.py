@@ -16,7 +16,11 @@ never carries on on the CPU unless the caller asked for the CPU.
 ``-obs_plane`` an :class:`~.serving.obs_plane.ObsAgent` (in loopback: one
 process is its own collector), as ``multiverso_tpu/runtime.py:113-121,
 155-171`` does; at ``stop()`` the agent ships its final report before
-the servers stop, and the exporter its final line last.
+the servers stop, and the exporter its final line last. ``-wal`` opens
+the write-ahead delta journal (``io/wal.DeltaWAL`` under ``-wal_dir``,
+rank 0, segments of ``-wal_segment_mb``, ``-wal_fsync``; its construction
+runs torn-tail recovery) as ``multiverso_tpu/runtime.py:123-136`` does,
+and ``stop()`` closes it after the table flushes (JAX :291-294).
 """
 
 from __future__ import annotations
@@ -33,8 +37,8 @@ from .log import Log
 
 # session-level flags whose features this port does not have yet: turning
 # one on is an error, never a silent no-op
-_UNPORTED_FLAGS = {"wal": False, "lockwatch": False,
-                   "failure_timeout_s": 0.0, "mesh_shape": ""}
+_UNPORTED_FLAGS = {"lockwatch": False, "failure_timeout_s": 0.0,
+                   "mesh_shape": ""}
 
 _ROLE_NONE, _ROLE_WORKER, _ROLE_SERVER, _ROLE_ALL = 0, 1, 2, 3
 _ROLES = {"none": _ROLE_NONE, "worker": _ROLE_WORKER,
@@ -68,6 +72,7 @@ class Session:
         self.started = False
         self.metrics_exporter: Optional[Any] = None  # -metrics_jsonl
         self.obs_agent: Optional[Any] = None  # -obs_plane fleet agent
+        self.wal: Optional[Any] = None  # -wal write-ahead delta journal
 
     @classmethod
     def get(cls) -> "Session":
@@ -102,6 +107,9 @@ class Session:
                             head_n=int(config.get_flag("trace_head_n")))
                     trace.enable(int(config.get_flag("trace_buffer")),
                                  tail=tail)
+            if config.get_flag("wal") and not config.get_flag("wal_dir"):
+                Log.fatal("-wal=true requires -wal_dir=PATH (the journal "
+                          "must land somewhere durable)")
             self.started = True
             metrics_path = config.get_flag("metrics_jsonl")
             if metrics_path and self.metrics_exporter is None:
@@ -110,6 +118,16 @@ class Session:
                 self.metrics_exporter = MetricsExporter(
                     interval_s=float(config.get_flag("metrics_interval_s")),
                     sink=metrics_path).start()
+            if config.get_flag("wal") and self.wal is None:
+                from .io.wal import DeltaWAL
+
+                # construction runs torn-tail recovery and opens a fresh
+                # segment for this incarnation
+                self.wal = DeltaWAL(
+                    config.get_flag("wal_dir"), rank=0,
+                    segment_bytes=int(
+                        config.get_flag("wal_segment_mb")) << 20,
+                    fsync=config.get_flag("wal_fsync"))
             if config.get_flag("obs_plane") and self.obs_agent is None:
                 # one process: the agent is its own collector (loopback,
                 # no sockets, no coordination client)
@@ -134,6 +152,7 @@ class Session:
             tables, self.tables = self.tables, []
             exporter, self.metrics_exporter = self.metrics_exporter, None
             obs, self.obs_agent = self.obs_agent, None
+            wal, self.wal = self.wal, None
         # the obs agent ships its final report first, while the engines it
         # summarizes are still alive to be read
         if obs is not None:
@@ -149,6 +168,10 @@ class Session:
                 Log.error("serving shutdown failed: %s", exc)
         for table in tables:
             table.flush()
+        if wal is not None:
+            # after the table flushes: no apply path can append anymore
+            # (the registry was emptied when the state was claimed)
+            wal.close()
         if exporter is not None:
             # the shutdown snapshot lands in the JSON-lines archive
             exporter.stop(final_report=True)

@@ -2,8 +2,11 @@
 
 Counterpart of ``multiverso_tpu/serving/faultinject.py``: the same
 ``-chaos`` grammar, and the same ``(spec, seed)`` gives the JAX
-package's schedule, decision for decision. The trainer points parse
-here; their hooks (the parameter plane and the WAL) are not ported yet.
+package's schedule, decision for decision. The trainer points fire from
+the parameter plane's publisher (``kill_trainer_at_publish``,
+``zombie_epoch``) and stage their journal faults on the WAL
+(``attach_wal``: ``wal_torn_tail``, ``wal_bad_crc``); the trainer-kill
+leg (``serving/trainer_chaos.py``) drives them end to end.
 
 A fault-tolerance claim that was never exercised is a comment, not a
 property. This module is the exercise plane: a :class:`FaultPlan` is a

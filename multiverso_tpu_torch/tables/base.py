@@ -28,10 +28,18 @@ matrix, sparse and FTRL tables (JAX ``_build_keyed_gather`` /
 row gather and the row scatter-add kernels (``ops.embedding``). A bf16
 table's state ships as a torch bf16 tensor, its own 16-bit words.
 ``store``/``load`` (JAX :470-500) write and read one ``io/stream``
-``MVTA`` record of the logical array, the JAX package's bytes. Not here
-yet, and refused by the session's flags: the WAL journal
-(``_journal_local``), the async delta bus and BSP aggregation over
-processes.
+``MVTA`` record of the logical array, the JAX package's bytes.
+
+With ``-wal`` every LOCAL apply (``add``/``add_async``, and the keyed adds
+of the matrix, sparse, FTRL and kv tables) is journaled
+(``_journal_local``, JAX :345-372) after the apply has released the table
+lock and before the caller's handle exists, in the record the JAX package
+writes: a dense add's host delta, a keyed add's int32 ids and its values
+in the table's dtype, exactly what was applied. A table with a stateful
+updater (momentum, AdaGrad) refuses to journal: replay re-applies deltas
+to the restored data only, and the updater's state is neither
+checkpointed nor journaled. Not here yet, and refused by the session's
+flags: the async delta bus and BSP aggregation over processes.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from .. import trace
 from ..dashboard import Dashboard
 from ..log import Log
 from ..ops.embedding import embedding_lookup, scatter_add_rows
+from ..parallel.async_ps import DENSE, KEYED
 from ..runtime import Session
 from ..updaters import AddOption, GetOption, Updater, get_updater
 
@@ -81,6 +90,12 @@ def tensor_to_host(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.detach().cpu().numpy()
+
+
+def record_array(host: torch.Tensor) -> Any:
+    """A CPU tensor as a record array: numpy, or the bf16 tensor itself
+    (``io/stream`` writes its raw 16-bit words)."""
+    return host if host.dtype == torch.bfloat16 else host.numpy()
 
 
 def _host_values(values: Any, dtype) -> np.ndarray:
@@ -171,6 +186,14 @@ class TableBase:
                 f"widen")
         return option
 
+    def _stage_dense(self, values: Any, device: Any = None) -> torch.Tensor:
+        """Logical-shape values (numpy or a tensor) as a tensor of the
+        table's dtype on ``device`` (default: the table's)."""
+        return host_to_tensor(
+            values.reshape(self.shape) if isinstance(values, torch.Tensor)
+            else np.asarray(values).reshape(self.shape), self.dtype,
+            self.device if device is None else torch.device(device))
+
     # -- delta application -------------------------------------------------
     def _apply_dense(self, delta: torch.Tensor, option: AddOption) -> int:
         """Fold a logical-shape delta (already on the device, table dtype)
@@ -235,10 +258,7 @@ class TableBase:
         """A peer's dense delta. Besides applying it, feed the optional
         remote-delta accumulator (``_remote_accum``, a host array) that
         separates a trainer's own movement from its peers'."""
-        staged = host_to_tensor(
-            host.reshape(self.shape) if isinstance(host, torch.Tensor)
-            else np.asarray(host).reshape(self.shape), self.dtype,
-            self.device)
+        staged = self._stage_dense(host)
         with self._lock:
             accum = getattr(self, "_remote_accum", None)
             if accum is not None:
@@ -262,10 +282,7 @@ class TableBase:
         """Install an absolute state at an exact (version, epoch): the
         fenced restart's STATE rebase. Unlike :meth:`set_array` the
         version is assigned, not bumped."""
-        staged = host_to_tensor(
-            host.reshape(self.shape) if isinstance(host, torch.Tensor)
-            else np.asarray(host).reshape(self.shape), self.dtype,
-            self.device)
+        staged = self._stage_dense(host)
         with self._lock:
             self._data = staged
             self.version = int(version)
@@ -277,13 +294,58 @@ class TableBase:
         table's own dtype (a torch bf16 tensor for a bf16 table)."""
         with self._lock:
             snap, version = self._data.clone(), self.version
-        host = snap.cpu()
-        return [host if host.dtype == torch.bfloat16
-                else host.numpy()], version
+        return [record_array(snap.cpu())], version
 
     def _install_state_arrays(self, arrays, version: int,
                               epoch: int = 0) -> None:
         self._install_state(arrays[0], version, epoch)
+
+    # -- the write-ahead journal hook ---------------------------------------
+    def _journal_local(self, kind: int, option, arrays,
+                       version: int) -> None:
+        """Journal one acknowledged LOCAL apply to the session's WAL
+        (no-op without ``-wal``). Called after the apply released the
+        table lock: the write and fsync never run under it.
+
+        Replay re-applies the journaled deltas to the restored data only:
+        updater state (momentum, AdaGrad's accumulators) is neither
+        checkpointed nor journaled, so a stateful updater's replay would
+        silently diverge from the acknowledged bytes. Refuse loudly
+        instead. The port's updaters keep their state as one tensor
+        (``_ustate``); a stateless one keeps the empty tuple."""
+        stateless = (not isinstance(self._ustate, torch.Tensor)
+                     and len(self._ustate) == 0)
+        if not stateless:
+            Log.fatal(
+                f"-wal journaling on table {self.name!r} with the "
+                f"STATEFUL updater {self.updater.name!r}: replay cannot "
+                f"reproduce updater state, so recovery would silently "
+                f"diverge from the acknowledged pre-crash bytes; use a "
+                f"stateless updater (default/sgd) with -wal, or disable "
+                f"the journal")
+        from ..io.wal import journal_local
+
+        journal_local(self._sess, self.table_id, kind, option, arrays,
+                      version)
+
+    def _add_keyed_local(self, ids: Any, vals: Any,
+                         option: Optional[AddOption]) -> int:
+        """A local caller's keyed add: the apply, then, with ``-wal``, the
+        journal record of exactly what was applied (the int32 ids and the
+        values rounded to the table's dtype on the host; that host copy
+        is what the journal costs on the card)."""
+        if getattr(self._sess, "wal", None) is None:
+            return self._dispatch_keyed(ids, vals, option)
+        ids = np.asarray(ids, dtype=np.int32).ravel()
+        shape = (ids.shape[0],) + self.shape[1:]
+        host = host_to_tensor(
+            vals.reshape(shape) if isinstance(vals, torch.Tensor)
+            else np.asarray(vals).reshape(shape), self.dtype,
+            torch.device("cpu"))
+        version = self._dispatch_keyed(ids, host, option)
+        self._journal_local(KEYED, option, [ids, record_array(host)],
+                            version)
+        return version
 
     # -- public ops --------------------------------------------------------
     def _add_handle(self) -> AsyncHandle:
@@ -296,11 +358,14 @@ class TableBase:
         """Fold a delta into the table; returns once it is enqueued
         (``AddAsync``)."""
         option = self._default_option(option)
-        staged = host_to_tensor(
-            delta.reshape(self.shape) if isinstance(delta, torch.Tensor)
-            else np.asarray(delta).reshape(self.shape), self.dtype,
-            self.device)
-        self._apply_dense(staged, option)
+        if getattr(self._sess, "wal", None) is None:
+            self._apply_dense(self._stage_dense(delta), option)
+            return self._add_handle()
+        host = self._stage_dense(delta, device="cpu")
+        version = self._apply_dense(host.to(self.device), option)
+        # journal BEFORE the caller gets its handle: once add() returns
+        # (the acknowledgment), the update is replayable
+        self._journal_local(DENSE, option, [record_array(host)], version)
         return self._add_handle()
 
     def add(self, delta: Any, option: Optional[AddOption] = None) -> None:

@@ -5,8 +5,10 @@ KVTable, ``include/multiverso/table/kv_table.h``): Add accumulates per
 key, Get pulls values into a worker-local cache (``raw()``). A map of
 scalar counters is control-plane state, so it stays on the host. It
 carries the tables' ``version``/``epoch`` pair, the parameter plane's
-apply entry point (``_apply_remote_kv``) and STATE protocol (the sorted
-keys and their values), and ``store``/``load`` through ``io/stream``.
+apply entry point (``_apply_remote_kv``, which WAL replay also takes) and
+STATE protocol (the sorted keys and their values), ``store``/``load``
+through ``io/stream``, and with ``-wal`` a ``KV`` journal record of every
+local add (keys int64, values float64).
 
 One process holds the authoritative dict: ``sync()`` has nothing to merge
 and returns; across processes it raises, since the cross-process merge
@@ -58,10 +60,20 @@ class KVTable:
 
     # -- worker API (kv_table.h:24-70) ------------------------------------
     def add(self, keys: Iterable, values: Iterable) -> None:
-        """Server-side ``+=`` per key (``KVServerTable::ProcessAdd``)."""
+        """Server-side ``+=`` per key (``KVServerTable::ProcessAdd``); with
+        ``-wal`` the add is journaled once the lock is released."""
+        keys, values = list(keys), list(values)
         with self._lock:
-            self._fold(list(keys), list(values))
+            self._fold(keys, values)
             self.version += 1
+            version = self.version
+        if getattr(self._sess, "wal", None) is not None:
+            from ..io.wal import journal_local
+            from ..parallel.async_ps import KV
+
+            journal_local(self._sess, self.table_id, KV, None,
+                          [np.asarray(keys, np.int64),
+                           np.asarray(values, np.float64)], version)
 
     def _apply_remote_kv(self, keys: np.ndarray, values: np.ndarray) -> None:
         """A peer's adds (the parameter plane's ``KV`` record)."""

@@ -90,7 +90,7 @@ class MatrixTable(TableBase):
                        option: Optional[AddOption] = None) -> AsyncHandle:
         """Scatter-apply deltas into a set of rows (``Add(row_ids, ...)``)."""
         option = self._default_option(option)
-        self._dispatch_keyed(row_ids, values, option)
+        self._add_keyed_local(row_ids, values, option)
         return self._add_handle()
 
     def add_rows(self, row_ids: Any, values: Any,

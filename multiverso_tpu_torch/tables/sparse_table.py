@@ -57,7 +57,7 @@ class SparseTable(TableBase):
     def add_keys_async(self, keys: Any, values: Any,
                        option: Optional[AddOption] = None) -> AsyncHandle:
         option = self._default_option(option)
-        self._dispatch_keyed(keys, values, option)
+        self._add_keyed_local(keys, values, option)
         return self._add_handle()
 
     def add_keys(self, keys: Any, values: Any,
@@ -89,5 +89,5 @@ class FTRLTable(TableBase):
         # float64 holds any delta exactly; the table's cast rounds it
         vals = np.stack([np.asarray(delta_z, np.float64).ravel(),
                          np.asarray(delta_n, np.float64).ravel()], axis=1)
-        self._dispatch_keyed(keys, vals)
+        self._add_keyed_local(keys, vals, None)
         self.flush()

@@ -224,12 +224,23 @@ def test_batches_draw_the_jax_apps_windows():
 
 
 def test_load_bytes_matches_jax_and_refuses_uris(tmp_path):
+    """Local paths, ``file://`` and ``memory://`` corpora read the JAX
+    app's bytes; the schemes not ported (``gs://``, ``hdfs://``) raise."""
+    from multiverso_tpu_torch.io.stream import open_stream
+
     path = tmp_path / "corpus.txt"
     path.write_bytes(bytes(range(256)) * 3)
-    np.testing.assert_array_equal(port_app.load_bytes(str(path)),
-                                  jax_app.load_bytes(str(path)))
-    with pytest.raises(FatalError, match="io/stream"):
-        port_app.load_bytes(f"file://{path}")
+    want = jax_app.load_bytes(str(path))
+    np.testing.assert_array_equal(port_app.load_bytes(str(path)), want)
+    np.testing.assert_array_equal(port_app.load_bytes(f"file://{path}"),
+                                  want)
+    with open_stream("memory://lm_corpora/bytes.txt", "wb") as f:
+        f.write(path.read_bytes())
+    np.testing.assert_array_equal(
+        port_app.load_bytes("memory://lm_corpora/bytes.txt"), want)
+    for uri in ("gs://bucket/corpus.txt", "hdfs://nn/corpus.txt"):
+        with pytest.raises(FatalError, match="item 7b"):
+            port_app.load_bytes(uri)
 
 
 def _app_args(path, *extra):
@@ -257,28 +268,175 @@ def test_app_main_trains_and_samples(tmp_path, capsys):
     assert text.startswith("hello multiverso")
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["-ckpt", "ckpt_dir"], "io/checkpoint"),
-])
-def test_app_main_refuses_checkpoints(tmp_path, extra, match):
-    path = tmp_path / "corpus.txt"
-    path.write_bytes(b"x" * 64)
-    with pytest.raises(FatalError, match=match):
-        port_app.main(_app_args(path, *extra))
-
-
-def test_app_main_refuses_a_uri():
+def _reset_port_session():
     from multiverso_tpu_torch.runtime import Session
 
     Session._instance = None
+    importlib.import_module("multiverso_tpu_torch").set_flag("device",
+                                                             "cuda")
+
+
+@contextlib.contextmanager
+def _recorded_losses(monkeypatch, cls, to_float):
+    """Every loss ``cls.train_batch`` returns, as a float, in order."""
+    losses = []
+    step = cls.train_batch
+
+    def train_batch(self, tokens):
+        loss = step(self, tokens)
+        losses.append(to_float(loss))
+        return loss
+
+    monkeypatch.setattr(cls, "train_batch", train_batch)
+    yield losses
+    monkeypatch.setattr(cls, "train_batch", step)
+
+
+def _flat_table(read_array, ckpt, step):
+    with open(f"{ckpt}/step_{step}/table_0.bin", "rb") as f:
+        return np.asarray(read_array(f))
+
+
+@pytest.mark.parametrize("root,match", [
+    ("local", None), ("gs://bucket/ckpt", "item 7b"),
+    ("hdfs://nn/ckpt", "item 7b")])
+def test_app_main_refuses_checkpoints(tmp_path, monkeypatch, root, match):
+    """``-ckpt`` on a local root is a round trip: a run of 5 steps saves
+    steps 2, 4 and (the final save) 5; a second run of 8 resumes at step 5
+    with every parameter equal to the step-5 table, and its autosaves keep
+    the 3 newest steps. A root on a scheme that is not ported raises."""
+    from multiverso_tpu_torch.io import checkpoint
+    from multiverso_tpu_torch.io.stream import read_array
+
+    path = tmp_path / "corpus.txt"
+    path.write_bytes(b"checkpointed bytes of a small corpus. " * 8)
+    ckpt = str(tmp_path / "ckpt") if root == "local" else root
+    args = ("-ckpt", ckpt, "-ckpt_every", "2")
     try:
-        with pytest.raises(FatalError, match="io/stream"):
+        if match is not None:
+            with pytest.raises(FatalError, match=match):
+                port_app.main(_app_args(path, *args, "-steps", "3"))
+            return
+        assert port_app.main(_app_args(path, *args, "-steps", "5")) == 0
+        assert checkpoint.list_steps(ckpt) == [2, 4, 5]
+        _reset_port_session()
+        resumed = []
+        install = ttf.TransformerLM.train_batch
+
+        def first_step(self, tokens):
+            if not resumed:
+                resumed.append([w.detach().clone() for w in
+                                port_app.pytree_leaves(self.params)])
+            return install(self, tokens)
+
+        monkeypatch.setattr(ttf.TransformerLM, "train_batch", first_step)
+        assert port_app.main(_app_args(path, *args, "-steps", "8")) == 0
+        flat = np.concatenate([w.numpy().ravel() for w in resumed[0]])
+        np.testing.assert_array_equal(
+            flat, _flat_table(read_array, ckpt, 5))
+        assert checkpoint.list_steps(ckpt) == [5, 6, 8]
+        assert checkpoint.LAST_WAL_REPLAY is None
+    finally:
+        _reset_port_session()
+
+
+def test_app_ckpt_resume_matches_jax(tmp_path, monkeypatch):
+    """``-ckpt`` in both apps at 2 layers of d_model 64: 4 steps saving
+    every 2, then a resumed run to 6. Every saved flat table (the JAX
+    app's leaf order) is equal within 1e-6, and the losses before and
+    after the resume within the file's tolerance."""
+    from multiverso_tpu.io.stream import read_array as jread
+    from multiverso_tpu.runtime import Session as JSession
+    from multiverso_tpu_torch.io.stream import read_array as tread
+
+    path = tmp_path / "corpus.txt"
+    path.write_bytes(open(jtf.__file__, "rb").read()[:6000])
+    dims = ["-d_model", "64", "-n_layers", "2", "-n_heads", "4", "-seq",
+            "24", "-batch", "2", "-lr", "0.05", "-attention", "reference",
+            "-ckpt_every", "2", "-log_level=error"]
+    jck, tck = str(tmp_path / "jax"), str(tmp_path / "port")
+    losses = {}
+    for steps in ("4", "6"):
+        JSession._instance = None
+        with _recorded_losses(monkeypatch, jtf.TransformerLM, float) as jl:
+            jax_app.main(["-train_file", str(path), *dims, "-ckpt", jck,
+                          "-steps", steps])
+        JSession._instance = None
+        _reset_port_session()
+        with _recorded_losses(monkeypatch, ttf.TransformerLM,
+                              lambda t: t.item()) as tl:
+            try:
+                port_app.main(["-train_file", str(path), *dims, "-ckpt",
+                               tck, "-steps", steps, "-device=cpu"])
+            finally:
+                _reset_port_session()
+        losses[steps] = (jl, tl)
+        assert len(jl) == len(tl) == (4 if steps == "4" else 2)
+        np.testing.assert_allclose(tl, jl, **TOL, err_msg=steps)
+    for step in (2, 4, 6):
+        np.testing.assert_allclose(_flat_table(tread, tck, step),
+                                   _flat_table(jread, jck, step),
+                                   rtol=0, atol=1e-6, err_msg=str(step))
+
+
+def test_app_main_refuses_a_uri(tmp_path):
+    """A corpus on a scheme that is not ported raises; a ``memory://``
+    corpus trains."""
+    from multiverso_tpu_torch.io.stream import open_stream
+
+    uri = "memory://lm_corpora/main.txt"
+    with open_stream(uri, "wb") as f:
+        f.write(b"hello multiverso, hello torch. " * 20)
+    try:
+        with pytest.raises(FatalError, match="item 7b"):
             port_app.main(_app_args("hdfs://namenode/corpus.txt",
                                     "-steps", "1"))
+        _reset_port_session()
+        assert port_app.main(_app_args(uri, "-steps", "2")) == 0
     finally:
-        Session._instance = None
-        importlib.import_module("multiverso_tpu_torch").set_flag("device",
-                                                                 "cuda")
+        _reset_port_session()
+
+
+def test_trainer_kill_leg_matches_the_jax_legs_outcome(mv_session, port,
+                                                       tmp_path):
+    """The trainer-kill recovery leg at the JAX leg's shape (32 x 16 f32,
+    32 dense adds, the kill at publish 17, a checkpoint every 5 steps):
+    the JAX leg's gates hold (nothing lost, no mismatch, exactly the
+    staged zombie fenced, one record replayed past step 15), every final
+    table equals a JAX table fed the same deltas, and the JAX package
+    recovers the chaos leg's checkpoint and journal to the same bytes."""
+    from multiverso_tpu.io import checkpoint as jck
+    from multiverso_tpu_torch.serving.trainer_chaos import (dense_deltas,
+                                                            trainer_kill_leg)
+
+    out = trainer_kill_leg(root=str(tmp_path))
+    assert (out["trainer_killed"], out["acked_at_kill"], out["updates_lost"],
+            out["output_mismatches"],
+            out["epoch_fence_rejections_unexpected"],
+            out["wal_replay_records"], out["checkpoint_step"]) == (
+                1, 16, 0, 0, 0, 1, 15)
+    assert out["trainer_recovery_time_s"] > 0
+    assert out["staleness_peak_s"] >= 0.2
+    # the JAX package's recovery of the port's chaos leg: its registry
+    # mirrors the port's (src/dst of the fault-free leg, then the chaos
+    # leg's)
+    tables = [mv_session.create_table("matrix", 32, 16) for _ in range(4)]
+    step = jck.restore_latest(str(tmp_path / "on" / "ckpt"),
+                              wal_dir=str(tmp_path / "on" / "wal"),
+                              wal_rank=0)
+    assert step == 15
+    assert jck.LAST_WAL_REPLAY["replayed"] == 17
+    assert tables[2].version == 32
+    delta = dense_deltas(32, 16)
+    oracle = mv_session.create_table("matrix", 32, 16)
+    for i in range(32):
+        oracle.add(delta(i)[1])
+    want = np.asarray(oracle.get())
+    np.testing.assert_array_equal(np.asarray(tables[2].get()), want)
+    for leg in ("off", "on"):
+        for side in ("src", "dst"):
+            np.testing.assert_array_equal(out["legs"][leg][side], want,
+                                          err_msg=f"{leg} {side}")
 
 
 def test_serving_a_trained_model_builds_no_graph(port):

@@ -268,6 +268,11 @@ def test_streams_and_text_reader_match_jax(tmp_path):
         assert f.read(5) == b"alpha"
     u = tstream.URI("hdfs://nn:9000/a/b")
     assert (u.scheme, u.host, u.path) == ("hdfs", "nn:9000", "/a/b")
-    for uri in ("gs://bucket/x", "memory://x", "hdfs://nn/x"):
-        with pytest.raises(FatalError, match="item 7"):
+    for uri in ("gs://bucket/x", "hdfs://nn/x"):
+        with pytest.raises(FatalError, match="item 7b"):
             tstream.open_stream(uri)
+    # memory:// opens: the in-process object store, one object a write
+    with tstream.open_stream("memory://x/lines.txt", "wb") as f:
+        f.write(path.read_bytes())
+    with tstream.TextReader("memory://x/lines.txt", buf_size=4) as r:
+        assert list(r) == ["alpha", "beta �", "", "gamma"]
