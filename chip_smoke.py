@@ -360,6 +360,40 @@ Phase 16 runs after phase 15:
    and the flash launches by kernel. Every kernel of the phase's path
    must have been launched (K1, K2, K3-K7).
 
+Phase 17 runs after phase 16:
+
+17. the parameter server on one card (``phase_ps``): groups of fresh
+   interpreters (subprocesses, never a fork of this process), each worker
+   on ``cuda`` in its own CUDA context, joined through
+   ``MV_COORDINATOR_ADDRESS`` on a free local port (gloo on a TCPStore,
+   the port's ``topology``); files under build/ps/ (removed at the end).
+   (a) 2 processes: sync mode (``aggregate``, a [65536] f32 dense add, 8,192
+   keyed adds a rank into [4096, 200] f32 through K2 read back through K1,
+   ``KVTable.sync``), ``-ma`` (``aggregate`` only, adds local), async mode
+   (the JAX test's scenario: 7 dense adds, the keyed adds, KV and f64
+   adds, the peer's keyed record applied by the drain thread through K2),
+   every table bitwise equal to the sum on the exact 2^-8 grid. (b) K2 at
+   the shape of a keyed record of the bench tables (64k unique rows x 200
+   bf16 into the [71291, 200] bf16 table) bitwise against its plain
+   version, with its times on cold data (copies cycled past the 50 MB
+   L2); then ``apps.wordembedding.train`` at the bench's configuration
+   (bench corpus and width, batch 65,536, G 64, 25 steps a call, 3
+   epochs), alone in this process and in 2 async processes: bf16 tables
+   at ``-sync_frequency`` 1 and 4 and at ``-ssp_staleness=1``, and f32
+   tables at ``-sync_frequency`` 1; each run's loss finite and falling in
+   every process, no bytes in flight at its end, K1 and K2 launched in
+   every process; after the final drain the f32 replicas within the JAX
+   test's rtol 1e-4 / atol 1e-5 and the bf16 ones (each apply rounds to
+   bf16 on its own replica) with a difference at most PS_BF16_AGREE of the
+   training's movement. Prints aggregate and single-process pairs/s, the
+   losses, the bus's records, MB and MB/s, backpressure waits, SSP waits,
+   and the share of the time the pusher's ticks take. (c) 3 processes,
+   ``-failure_timeout_s=3``, each adding to its own rows of a [24, 200] f32
+   table; rank 2 SIGKILLed after its 6th add (rank 0 hosts the store):
+   both survivors' blocks exact, the dead block at most its 6 adds,
+   ``_dead == {2}``, both exit 0; prints how long after the kill each
+   survivor declared the death.
+
 The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
 library time, and the training run's bf16 launches beside the serving
@@ -371,7 +405,9 @@ by configuration as ``launches_completion``, and phase 4's HS-node and
 CBOW-window shapes as ``hs_nodes_*`` and ``cbow_ctx_*``; phase 15's
 launches by sub-phase as ``launches_logreg`` and its shapes as
 ``logreg_x1_*`` (4-byte rows) and ``logreg_x2_*`` (8-byte rows); phase
-16's launches by leg as ``launches_durability``); the last line is
+16's launches by leg as ``launches_durability``; phase 17's by leg and
+by process as ``launches_ps``, and K2 at the shape of a keyed record of
+the bench tables as ``ps_record_*``); the last line is
 {"ok": true, "device": {...}}. Any failure exits
 nonzero before either line is printed. Without a CUDA device, or without
 the package beside this file, the script fails. To debug one phase, call
@@ -5839,6 +5875,553 @@ def phase_durability(card: str):
         f"{parts}); card {card}")
     return launches, journal
 
+# phase 17: the parameter server on one card, each process of the group in
+# its own CUDA context (subprocesses, never a fork of this process)
+PS_DIR = os.path.join(HERE, "build", "ps")
+PS_TIMEOUT_S = {"a": 120.0, "b": 300.0, "c": 120.0}
+PS_UNIT = 2.0 ** -8          # (a)'s exact grid: every sum exact in any order
+PS_W2V_EPOCHS = 3
+# (b)'s runs: tag, table dtype, -sync_frequency, -ssp_staleness
+PS_W2V_RUNS = (("bf16 sf1", "bfloat16", 1, -1),
+               ("bf16 sf4", "bfloat16", 4, -1),
+               ("bf16 ssp1", "bfloat16", 1, 1),
+               ("f32 sf1", "float32", 1, -1))
+# the JAX test's replica tolerance (test_two_process_async_word2vec_learns)
+PS_RTOL, PS_ATOL = 1e-4, 1e-5
+# bf16 replicas: each apply rounds to bf16 on its own replica, one ulp of
+# the init's scale (2^-16 ~ 1.5e-5) is already over PS_ATOL, so they are
+# held on the norm of their difference against the norm of the training's
+# movement; a bus that dropped the peer's deltas leaves each replica only
+# its own half of the movement, a ratio near 1
+PS_BF16_AGREE = 0.25
+PS_SURVIVE = dict(rows=8, dim=200, iters=24, kill_at=5, sleep_s=0.25)
+
+
+@contextlib.contextmanager
+def ps_recorded(owner, name: str, sync: bool):
+    """Wrap ``owner.name`` for a block; yields the list of (seconds,
+    result) of its calls (with ``sync``, the card synchronized first)."""
+    calls = []
+    fn = getattr(owner, name)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if sync:
+            dev_sync()
+        calls.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(owner, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, fn)
+
+
+def ps_expect(ok: bool, what: str) -> None:
+    if not ok:
+        fail(f"ps worker rank {os.environ.get('MV_PROCESS_ID')}: {what}")
+
+
+def ps_grid(rng, shape):
+    return (rng.integers(-4, 5, shape) * PS_UNIT).astype(np.float32)
+
+
+def ps_contracts(rank: int) -> dict:
+    """(a) in one worker: the sync, -ma and async contracts on CUDA tables
+    (the card's kernels for every keyed add and row read), bitwise on the
+    exact grid; both ranks' deltas are drawn from seeds on each rank, so
+    each knows the sum it must hold."""
+    import multiverso_tpu_torch as mv
+
+    emb = _emb()
+    launches = {}
+    rows, dim, n_ids = 4096, 200, 8192
+    both = [np.random.default_rng(170 + r) for r in range(2)]
+    ids = [g.integers(0, rows, n_ids).astype(np.int32) for g in both]
+    vals = [ps_grid(g, (n_ids, dim)) for g in both]
+    keyed = np.zeros((rows, dim), np.float32)
+    for r in range(2):
+        np.add.at(keyed, ids[r], vals[r])
+    # sync (BSP): aggregate, whole-table and keyed adds, KVTable.sync
+    mv.init(["ps_a", "-device=cuda", "-sync=true", "-log_level=error"])
+    ps_expect(mv.size() == 2 and mv.rank() == rank, "group size/rank")
+    dev_sync()
+    emb.reset_launches()
+    agg = mv.aggregate(np.full(256, (rank + 1) * PS_UNIT, np.float32))
+    ps_expect(np.all(agg == 3 * PS_UNIT), f"aggregate {agg[:4]}")
+    t = mv.create_table("array", 1 << 16)
+    t.add(np.full(1 << 16, (rank + 1) * PS_UNIT, np.float32))
+    ps_expect(np.all(t.get() == 3 * PS_UNIT), "sync dense add")
+    m = mv.create_table("matrix", rows, dim)
+    m.add_rows(ids[rank], vals[rank])
+    ps_expect(np.array_equal(m.get_rows(np.arange(rows)), keyed),
+              "sync keyed adds (the union of both ranks' rows)")
+    kv = mv.create_table("kv")
+    kv.add([7, 10 + rank], [1.0, 0.5])
+    kv.sync()
+    ps_expect(kv.get([7, 10, 11]) == [2.0, 0.5, 0.5], "KVTable.sync")
+    dev_sync()
+    launches["sync"] = dict(emb.LAUNCHES)
+    mv.barrier()
+    mv.shutdown()
+    # -ma: aggregate only, no bus, adds stay local
+    mv.init(["ps_a", "-device=cuda", "-sync=false", "-ma=true",
+             "-log_level=error"])
+    ps_expect(mv.session().async_bus is None, "-ma started a bus")
+    agg = mv.aggregate(np.full(256, float(rank), np.float64))
+    ps_expect(np.all(agg == 1.0), "-ma aggregate")
+    t = mv.create_table("array", 1024)
+    t.add(np.full(1024, rank + 1.0, np.float32))
+    ps_expect(np.all(t.get() == rank + 1.0), "-ma add stays local")
+    mv.barrier()
+    mv.shutdown()
+    # async: the JAX test's scenario (tests/test_multiprocess.py:88-150)
+    # at the card's widths, with a keyed table the drain thread applies
+    # through the scatter-add kernel
+    mv.init(["ps_a", "-device=cuda", "-sync=false", "-ma=false",
+             "-log_level=error"])
+    bus = mv.session().async_bus
+    ps_expect(bus is not None and bus._p2p is not None, "async bus (p2p)")
+    dev_sync()
+    emb.reset_launches()
+    t = mv.create_table("array", 1 << 16)
+    for _ in range(7):
+        t.add(np.full(1 << 16, (rank + 1) * PS_UNIT, np.float32))
+    m = mv.create_table("matrix", rows, dim)
+    m.add_rows(ids[rank], vals[rank])
+    kv = mv.create_table("kv")
+    kv.add([7, rank], [1.0, 0.5])
+    d = mv.create_table("array", 4096, dtype=torch.float64)
+    precise = 0.1234567890123456
+    d.add(np.full(4096, precise * (rank + 1), np.float64))
+    mv.barrier()
+    ps_expect(np.all(t.get() == 7 * 3 * PS_UNIT), "async dense adds")
+    ps_expect(np.array_equal(m.get_rows(np.arange(rows)), keyed),
+              "async keyed adds (own through K2, the peer's through the "
+              "drain thread's K2)")
+    ps_expect(kv.get([7, 0, 1]) == [2.0, 0.5, 0.5], "async KV adds")
+    gd = d.get()
+    ps_expect(gd.dtype == np.float64 and np.all(gd == precise * 3),
+              "async f64 adds bit for bit")
+    dev_sync()
+    launches["async"] = dict(emb.LAUNCHES)
+    stats = bus.stats()
+    mv.shutdown()
+    return {"launches": launches, "bus": stats}
+
+
+def ps_w2v_cfg():
+    from multiverso_tpu_torch.models.word2vec import Word2VecConfig
+
+    return Word2VecConfig(embedding_size=W2V_DIM, window=5, negative=5,
+                          init_lr=0.025, batch_size=W2V_BATCH,
+                          oversample=2.5, neg_pool_size=1 << 22,
+                          row_mean_updates=True, row_mean_static=True,
+                          shared_negatives=W2V_G)
+
+
+def ps_w2v_train(mv, dtype: str, corpus: str, dictionary) -> dict:
+    """One ``apps.wordembedding.train`` run at the bench's configuration
+    (PS_W2V_EPOCHS epochs of the device corpus, 25 steps a call) in this
+    session, with the calls, the pusher's ticks and the SSP waits timed;
+    then a barrier (the pusher's last publish lands everywhere)."""
+    from multiverso_tpu_torch.apps import wordembedding as we
+    from multiverso_tpu_torch.models.word2vec import Word2Vec
+    from multiverso_tpu_torch.parallel.ssp import SSPClock
+
+    emb = _emb()
+    dev_sync()
+    emb.reset_launches()
+    with ps_recorded(Word2Vec, "train_device_steps", True) as calls, \
+            ps_recorded(we._AsyncDeltaPusher, "tick", False) as ticks, \
+            ps_recorded(SSPClock, "wait", False) as waits:
+        t0 = time.perf_counter()
+        res = we.train(corpus, None, ps_w2v_cfg(), epochs=PS_W2V_EPOCHS,
+                       min_count=1, dictionary=dictionary,
+                       device_corpus=True, table_dtype=getattr(torch, dtype),
+                       steps_per_call=W2V_STEPS, log_every=0)
+        elapsed = time.perf_counter() - t0
+        mv.barrier()
+    dev_sync()
+    losses = [float(out[0]) for _, out in calls]
+    return {"pairs": res.pairs_trained, "train_s": res.elapsed_s,
+            "elapsed_s": elapsed, "losses": losses,
+            "calls_s": sum(s for s, _ in calls), "calls": len(calls),
+            "tick_s": sum(s for s, _ in ticks), "ticks": len(ticks),
+            "ssp_wait_s": sum(s for s, _ in waits), "ssp_waits": len(waits),
+            "launches": dict(emb.LAUNCHES)}
+
+
+def ps_replicas(mv, rank: int, dtype: str) -> dict:
+    """Both replicas of the two tables, compared on rank 0 (gathered over
+    the group's gloo): the largest difference, the share of elements
+    outside the JAX test's tolerance, and the norm of the difference over
+    the norm of the training's movement from the init."""
+    import torch.distributed as dist
+
+    out = {}
+    for i, name in enumerate(("input", "output")):
+        w = torch.from_numpy(mv.session().tables[i].get())
+        peers = [torch.empty_like(w) for _ in range(2)]
+        dist.all_gather(peers, w)
+        if rank != 0:
+            continue
+        w0, w1 = peers[0].double(), peers[1].double()
+        if i == 0:   # MatrixTable's random init, in the table's dtype
+            g = np.random.default_rng(ps_w2v_cfg().seed)
+            init = ((g.random(tuple(w.shape)) - 0.5) / w.shape[1])
+            init = torch.from_numpy(init.astype(np.float32)).to(
+                getattr(torch, dtype)).double()
+        else:
+            init = torch.zeros_like(w0)
+        diff = (w0 - w1).abs()
+        out[name] = {
+            "max_abs_diff": float(diff.max()),
+            "outside_tol": float((diff > PS_ATOL + PS_RTOL * w1.abs())
+                                 .double().mean()),
+            "diff_over_movement": float(diff.norm()
+                                        / max(float((w0 - init).norm()),
+                                              1e-30))}
+    return out
+
+
+def ps_w2v(rank: int) -> dict:
+    """(b) in one worker: each of PS_W2V_RUNS in a session of its own."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.apps.wordembedding import Dictionary
+
+    corpus = os.environ["PS_CORPUS"]
+    dictionary = Dictionary.load(os.environ["PS_VOCAB"], min_count=1)
+    runs = {}
+    for tag, dtype, sf, ssp in PS_W2V_RUNS:
+        mv.init(["ps_b", "-device=cuda", "-sync=false", "-log_level=error",
+                 f"-sync_frequency={sf}", f"-ssp_staleness={ssp}"])
+        bus = mv.session().async_bus
+        ps_expect(bus is not None, "async bus")
+        r = ps_w2v_train(mv, dtype, corpus, dictionary)
+        r["bus"] = bus.stats()
+        r["replicas"] = ps_replicas(mv, rank, dtype)
+        runs[tag] = r
+        mv.shutdown()
+    return {"runs": runs}
+
+
+def ps_survivors(rank: int) -> dict:
+    """(c) in one worker: survivor mode, rank 2 SIGKILLed mid-training."""
+    import signal
+
+    import multiverso_tpu_torch as mv
+
+    p = PS_SURVIVE
+    n, dim, iters, kill_at = p["rows"], p["dim"], p["iters"], p["kill_at"]
+    mv.init(["ps_c", "-device=cuda", "-sync=false", "-failure_timeout_s=3",
+             "-log_level=error"])
+    sess = mv.session()
+    bus, det = sess.async_bus, sess.failure_detector
+    ps_expect(bus is not None and det is not None, "bus and detector up")
+    declared = []
+    mark_dead = bus.mark_dead
+
+    def timed_mark_dead(ranks):
+        declared.append(time.time())
+        mark_dead(ranks)
+
+    # the watchdog's callback and the KV-declaration path both go here
+    bus.mark_dead = det._watch_cb = timed_mark_dead
+    emb = _emb()
+    dev_sync()
+    emb.reset_launches()
+    t = mv.create_table("matrix", 3 * n, dim)
+    for i in range(iters):
+        delta = np.zeros((3 * n, dim), np.float32)
+        delta[rank * n:(rank + 1) * n] = 1.0
+        t.add(delta)
+        if rank == 2 and i == kill_at:
+            dev_sync()
+            with open(os.path.join(PS_DIR, "c_killed_at"), "w") as f:
+                f.write(repr(time.time()))
+            os.kill(os.getpid(), signal.SIGKILL)
+        time.sleep(p["sleep_s"])
+    mv.barrier()            # the survivors' drain: a live-set rendezvous
+    got = t.get_rows(np.arange(3 * n))
+    for r in (0, 1):
+        ps_expect(np.all(got[r * n:(r + 1) * n] == iters),
+                  f"survivor {r}'s block not exact")
+    dead_max = float(got[2 * n:].max())
+    ps_expect(dead_max <= kill_at + 1, f"dead block {dead_max}")
+    ps_expect(bus._dead == {2}, f"dead set {bus._dead}")
+    dev_sync()
+    launches = dict(emb.LAUNCHES)
+    mv.shutdown()
+    return {"declared_at": min(declared), "dead_rows": dead_max,
+            "launches": launches}
+
+
+def ps_worker() -> None:
+    """A phase-17 worker: the leg named by ``PS_LEG``, as rank
+    ``MV_PROCESS_ID`` of the group in ``MV_*``; writes its results to
+    ``PS_DIR/<leg>_<rank>.json``."""
+    leg = os.environ["PS_LEG"]
+    rank = int(os.environ["MV_PROCESS_ID"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"a": ps_contracts, "b": ps_w2v, "c": ps_survivors}[leg](rank)
+    with open(os.path.join(PS_DIR, f"{leg}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def ps_group(leg: str, n: int, env_extra=None) -> list:
+    """Run leg ``leg`` in ``n`` fresh interpreters joined as one group on a
+    free local port; returns each rank's return code and results (None
+    without a result file). Every process is stopped before it returns."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    try:
+        for rank in range(n):
+            env = dict(os.environ, MV_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       MV_NUM_PROCESSES=str(n), MV_PROCESS_ID=str(rank),
+                       PS_LEG=leg, GLOO_SOCKET_IFNAME="lo",
+                       MV_P2P_HOST="127.0.0.1", **(env_extra or {}))
+            logs.append(open(os.path.join(PS_DIR, f"{leg}_{rank}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke as c; "
+                 "c.ps_worker()"], cwd=HERE, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PS_TIMEOUT_S[leg]
+        for rank, proc in enumerate(procs):
+            try:
+                proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f"ps {leg}: rank {rank} did not finish in "
+                     f"{PS_TIMEOUT_S[leg]:.0f} s:\n{ps_log_tail(leg, rank)}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    out = []
+    for rank, proc in enumerate(procs):
+        path = os.path.join(PS_DIR, f"{leg}_{rank}.json")
+        res = None
+        if os.path.exists(path):
+            with open(path) as f:
+                res = json.load(f)
+        out.append((proc.returncode, res))
+    return out
+
+
+def ps_log_tail(leg: str, rank: int) -> str:
+    with open(os.path.join(PS_DIR, f"{leg}_{rank}.log")) as f:
+        return f.read()[-3000:]
+
+
+def ps_all_ok(leg: str, results, ranks) -> None:
+    for rank in ranks:
+        rc, res = results[rank]
+        if rc != 0 or res is None:
+            fail(f"ps {leg}: rank {rank} exited {rc}:\n"
+                 f"{ps_log_tail(leg, rank)}")
+
+
+def ps_record_kernel(card: str) -> dict:
+    """K2 at the shape of a peer's keyed record of the bench tables, as
+    the drain thread applies it: every row at most once (publish_delta
+    sends the touched rows of a table while at most 90% of them moved;
+    here 90% of the vocabulary) with bf16 deltas into the [71291, 200]
+    bf16 table, bitwise against the plain version (each element rounds
+    once); an unchanged table must fail it. (b)'s calls move more than
+    90% of the rows, so its records go dense; the keyed records K2 applies
+    in this phase are (a)'s and (c)'s."""
+    emb = _emb()
+    g = torch.Generator(device=DEV).manual_seed(1717)
+    rng = np.random.default_rng(1717)
+    rows = np.flatnonzero(rng.random(W2V_VOCAB) < 0.9).astype(np.int32)
+    ids = torch.from_numpy(rows).to(DEV)
+    table = ((torch.rand((W2V_VOCAB, W2V_DIM), generator=g, device=DEV)
+              - 0.5) / W2V_DIM).to(torch.bfloat16)
+    deltas = (torch.randn((rows.size, W2V_DIM), generator=g, device=DEV)
+              * 1e-3).to(torch.bfloat16)
+    got = emb.scatter_add_rows(table.clone(), ids, deltas)
+    dev_sync()
+    want = emb._scatter_add_plain(table.clone(), ids, deltas)
+    if not torch.equal(bits(got), bits(want)):
+        fail(f"ps record: row_scatter_add differs from the plain version "
+             f"at {int((bits(got) != bits(want)).sum())} elements")
+    if torch.equal(bits(table), bits(want)):
+        fail("ps record: negative control: the plain update left the "
+             "table unchanged")
+    n, D = rows.size, W2V_DIM
+    nbytes = 2 * n * D * 2 + n * 4 + n * D * 2
+    # a record arrives cold: the calls cycle through copies whose bytes
+    # (3 x 54 MB) exceed the 50 MB L2, so none finds its rows cached
+    copies = [(table.clone(), deltas.clone()) for _ in range(3)]
+    turn = [0]
+
+    def cold(fn):
+        def call():
+            work, d = copies[turn[0] % len(copies)]
+            turn[0] += 1
+            fn(work, d)
+        return call
+
+    r = dict(max_abs_err=0.0,
+             ms=time_ms(cold(lambda w, d: emb.scatter_add_rows(w, ids, d)),
+                        iters=21),
+             plain_ms=time_ms(cold(lambda w, d: emb._scatter_add_plain(
+                 w, ids, d)), iters=6, warmup=1),
+             bound_ms=nbytes / HBM_BYTES_S * 1e3, bound_by="bytes",
+             library_ms=time_ms(cold(lambda w, d: w.index_add_(0, ids, d)),
+                                iters=21))
+    del copies
+    say(f"ps record: row_scatter_add of a peer's keyed record ({n} unique "
+        f"rows x {D} bf16 into [{W2V_VOCAB}, {D}] bf16): bitwise; cold "
+        f"calls (3 copies cycled, past the L2): ms "
+        f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+        f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} (bytes); card "
+        f"{card}")
+    return r
+
+
+def ps_single(corpus: str, dictionary) -> dict:
+    """(b)'s single-process yardstick: the same training, alone, in this
+    process."""
+    import multiverso_tpu_torch as mv
+
+    mv.init(["ps_single", "-device=cuda", "-log_level=error"])
+    try:
+        return ps_w2v_train(mv, "bfloat16", corpus, dictionary)
+    finally:
+        mv.shutdown()
+
+
+def phase_ps(card: str):
+    """17. the parameter server on one card (module docstring)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(PS_DIR, ignore_errors=True)
+    os.makedirs(PS_DIR, exist_ok=True)
+    marks = [time.perf_counter()]
+    # (a) the contracts
+    a = ps_group("a", 2)
+    ps_all_ok("a", a, (0, 1))
+    say(f"ps a: 2 processes on the card: sync (aggregate, dense, keyed, "
+        f"KVTable.sync), -ma, async (dense x7, keyed through K2, KV, f64) "
+        f"all bitwise on the exact grid; launches "
+        f"{json.dumps([res['launches'] for _, res in a])}; card {card}")
+    marks.append(time.perf_counter())
+    # (b) async word2vec at the bench's width
+    corpus, dictionary = w2v_corpus()["path"], w2v_corpus()["dictionary"]
+    vocab = os.path.join(PS_DIR, "vocab.txt")
+    dictionary.save(vocab)
+    record = ps_record_kernel(card)
+    single = ps_single(corpus, dictionary)
+    b = ps_group("b", 2, {"PS_CORPUS": corpus, "PS_VOCAB": vocab})
+    ps_all_ok("b", b, (0, 1))
+    single_rate = single["pairs"] / single["train_s"]
+    say(f"ps b: single process: {single['pairs']} pairs in "
+        f"{single['train_s']:.3f} s = {single_rate:.1f} pairs/s, loss "
+        f"{single['losses'][0]:.5f} -> {single['losses'][-1]:.5f} over "
+        f"{single['calls']} calls; card {card}")
+    for tag, dtype, sf, ssp in PS_W2V_RUNS:
+        runs = [res["runs"][tag] for _, res in b]
+        pairs = sum(r["pairs"] for r in runs)
+        wall = max(r["train_s"] for r in runs)
+        for rank, r in enumerate(runs):
+            if not (all(np.isfinite(r["losses"]))
+                    and r["losses"][-1] < r["losses"][0]):
+                fail(f"ps b {tag}: rank {rank}'s loss not finite and "
+                     f"falling: {r['losses']}")
+            for k in ("row_gather", "row_scatter_add"):
+                if r["launches"][k] <= 0:
+                    fail(f"ps b {tag}: rank {rank} launched no {k}")
+            if r["bus"]["inflight_bytes"] != 0:
+                fail(f"ps b {tag}: rank {rank} ended with bytes in flight")
+        reps = runs[0]["replicas"]
+        for name, rep in reps.items():
+            if dtype == "float32":
+                ok = rep["outside_tol"] == 0.0
+                rule = f"rtol {PS_RTOL} atol {PS_ATOL}"
+            else:
+                ok = rep["diff_over_movement"] <= PS_BF16_AGREE
+                rule = f"|w0 - w1| <= {PS_BF16_AGREE} |movement|"
+            if not ok:
+                fail(f"ps b {tag}: the {name} replicas disagree ({rule}): "
+                     f"{rep}")
+        bus = [r["bus"] for r in runs]
+        calls_s = sum(r["calls_s"] for r in runs)
+        tick_s = sum(r["tick_s"] for r in runs)
+        say(f"ps b {tag} ({dtype} [{W2V_VOCAB}, {W2V_DIM}] tables, "
+            f"-sync_frequency={sf}, -ssp_staleness={ssp}, "
+            f"{PS_W2V_EPOCHS} epochs): aggregate {pairs} pairs in "
+            f"{wall:.3f} s = {pairs / wall:.1f} pairs/s (single process "
+            f"{single_rate:.1f}, ratio {pairs / wall / single_rate:.3f}); "
+            f"loss by rank "
+            + ", ".join(f"{r['losses'][0]:.5f} -> {r['losses'][-1]:.5f}"
+                        for r in runs)
+            + f"; bus records published {[x['published'] for x in bus]} "
+            f"applied {[x['applied'] for x in bus]}, MB/s published "
+            f"{[round(x['pub_mb_s'], 3) for x in bus]} applied "
+            f"{[round(x['apply_mb_s'], 3) for x in bus]}, MB published "
+            f"{[round(x['pub_bytes'] / 1e6, 3) for x in bus]}, "
+            f"backpressure waits {[x['backpressure_waits'] for x in bus]}, "
+            f"publish->apply latency ms "
+            f"{[round(x['apply_lat_avg_ms'], 3) for x in bus]}; SSP waits "
+            f"{[r['ssp_waits'] for r in runs]} taking "
+            f"{[round(r['ssp_wait_s'], 3) for r in runs]} s; pusher ticks "
+            f"{[r['ticks'] for r in runs]} taking "
+            f"{tick_s / (tick_s + calls_s):.3f} of a call's time (calls "
+            f"{calls_s:.3f} s, ticks {tick_s:.3f} s, both ranks); replicas "
+            f"{json.dumps(reps)}; launches "
+            f"{[r['launches'] for r in runs]}; card {card}")
+    marks.append(time.perf_counter())
+    # (c) survivors
+    c = ps_group("c", 3)
+    ps_all_ok("c", c, (0, 1))
+    if c[2][0] != -9:
+        fail(f"ps c: rank 2 exited {c[2][0]}, not SIGKILLed:\n"
+             f"{ps_log_tail('c', 2)}")
+    with open(os.path.join(PS_DIR, "c_killed_at")) as f:
+        killed_at = float(f.read())
+    declare_s = [res["declared_at"] - killed_at for _, res in c[:2]]
+    say(f"ps c: 3 processes, -failure_timeout_s=3, rank 2 SIGKILLed after "
+        f"add {PS_SURVIVE['kill_at'] + 1}: survivors 0 and 1 exit 0 with "
+        f"their blocks exact, the dead block at "
+        f"{[res['dead_rows'] for _, res in c[:2]]} adds, _dead == {{2}}; "
+        f"declared dead {[round(s, 3) for s in declare_s]} s after the "
+        f"kill; launches {[res['launches'] for _, res in c[:2]]}; card "
+        f"{card}")
+    marks.append(time.perf_counter())
+    launches = {
+        "a": {f"rank{r}": {k: res["launches"]["sync"][k]
+                           + res["launches"]["async"][k]
+                           for k in ("row_gather", "row_scatter_add")}
+              for r, (_, res) in enumerate(a)},
+        "b": {f"rank{r}": {k: sum(run["launches"][k]
+                                  for run in res["runs"].values())
+                           for k in ("row_gather", "row_scatter_add")}
+              for r, (_, res) in enumerate(b)},
+        "c": {f"rank{r}": {k: res["launches"][k]
+                           for k in ("row_gather", "row_scatter_add")}
+              for r, (_, res) in enumerate(c[:2])}}
+    for leg, by_rank in launches.items():
+        for rank, counts in by_rank.items():
+            for k, v in counts.items():
+                if v <= 0:
+                    fail(f"ps {leg}: {rank} launched no {k}: {launches}")
+    shutil.rmtree(PS_DIR, ignore_errors=True)
+    parts = " / ".join(f"{y - x:.1f}" for x, y in zip(marks, marks[1:]))
+    say(f"ps: phase 17 took {time.perf_counter() - t_phase:.1f} s (a / b / "
+        f"c: {parts}); card {card}")
+    return launches, record
+
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5856,6 +6439,7 @@ def main() -> None:
     mv.shutdown()
     lr_launches, lr_kernels = phase_logreg(card)
     dur_launches_by_leg, _ = phase_durability(card)
+    ps_launches, ps_record = phase_ps(card)
     n_g = w2v["launches"]["row_gather"]
     n_s = w2v["launches"]["row_scatter_add"]
     for name, r, line, n in (
@@ -5948,6 +6532,18 @@ def main() -> None:
             entry["launches_durability"] = {
                 leg: counts[key]
                 for leg, counts in dur_launches_by_leg.items()}
+    # phase 17's launches by leg and by process (each worker counted from
+    # 0 around its legs' runs), and K2 at a keyed record's shape
+    for entry in kernels_line:
+        if entry["name"] in ("row_gather", "row_scatter_add"):
+            entry["launches_ps"] = {
+                leg: {rank: counts[entry["name"]]
+                      for rank, counts in by_rank.items()}
+                for leg, by_rank in ps_launches.items()}
+        if entry["name"] == "row_scatter_add":
+            entry.update({f"ps_record_{k}": ps_record[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "library_ms")})
     say(f"chip_smoke: the whole script took "
         f"{time.perf_counter() - T_START:.1f} s, card {card_line()}")
     print(json.dumps({"kernels": kernels_line}), flush=True)

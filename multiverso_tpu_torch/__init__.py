@@ -8,7 +8,10 @@ Top-level functions mirror ``multiverso_tpu/__init__.py``: ``init`` /
 ``shutdown`` / ``barrier`` / ``rank`` / ``size`` / ``num_workers`` /
 ``num_servers`` / ``worker_id`` / ``server_id`` / ``is_worker`` /
 ``is_server`` / ``aggregate`` / ``session``, plus ``create_table`` for the
-``array``, ``matrix``, ``kv``, ``sparse`` and ``ftrl`` tables.
+``array``, ``matrix``, ``kv``, ``sparse`` and ``ftrl`` tables, and
+``net_bind`` / ``net_connect`` (``topology``) to name a process group
+explicitly instead of through ``MV_COORDINATOR_ADDRESS``,
+``MV_NUM_PROCESSES`` and ``MV_PROCESS_ID``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from .dashboard import (Counter, Dashboard, Gauge, Histogram, Monitor,
                         monitor, profile_trace)
 from .log import FatalError, Log, LogLevel, check, check_notnull
 from .runtime import Session
+from .topology import net_bind, net_connect
 
 __version__ = "0.1.0"
 
@@ -86,7 +90,8 @@ def is_server() -> bool:
 
 
 def aggregate(data):
-    """``MV_Aggregate`` of a host buffer (the identity in one process)."""
+    """``MV_Aggregate``: the in-place sum of a host buffer over the group
+    (the identity in one process)."""
     return Session.get().aggregate(data)
 
 

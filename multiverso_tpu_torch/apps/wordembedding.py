@@ -17,13 +17,24 @@ JAX trainer:
   (``parallel.prefetch_iterator``), and ``train_batch(es)`` trains them;
   the lr decays over the exact words consumed.
 
-One process, one device. The corpus is read through
+One device per process. The corpus is read through
 ``io/stream.TextReader``: a local path, ``file://`` or ``memory://``
-(``gs://`` and ``hdfs://`` wait for ROADMAP.md Queue 1 item 7b). Not
-ported yet: the multi-process data partition (``shard=``), the async
-delta pusher and SSP (the distributed paths, item 8). As in the JAX
-trainer, a ``kv`` word-count table (``word2vec_wordcount``, the
+(``gs://`` and ``hdfs://`` wait for ROADMAP.md Queue 1 item 7b). As in
+the JAX trainer, a ``kv`` word-count table (``word2vec_wordcount``, the
 reference's KV wordcount table) takes each epoch's words under key 0.
+
+In a group of processes (JAX :574-700) every process trains different
+data from the same table init: the sampling seed folds in the rank; the
+device corpus rotates its chunks with a per-rank phase and starts each
+rank's stream at its share of the chunk, with the pair budget split over
+the processes; the host stream keeps every n-th line
+(``iter_pair_batches(shard=)``); the lr decays over the process's share
+of the words. In async mode :class:`_AsyncDeltaPusher` publishes each
+table's own training movement on the delta bus every
+``-sync_frequency`` calls (the reference's ``AddDeltaParameter``), and
+``-ssp_staleness`` >= 0 runs a per-epoch ``parallel.SSPClock`` with one
+round a call (each round ends with a publish); every epoch ends with a
+``barrier()`` that drains the bus. Rank 0 writes the embeddings.
 
 CLI: ``python -m multiverso_tpu_torch.apps.wordembedding -train_file
 corpus.txt -output vec.txt -size 100 -window 5 -negative 5 -epoch 1 ...``
@@ -264,6 +275,7 @@ def iter_pair_batches(
     cbow: bool = False,
     chunk_words: int = 1 << 20,
     progress: Optional[dict] = None,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Yield fixed-size (centers, contexts, mask) batches from a local text
     file (the JAX package's host stream, the same batches from the same
@@ -273,7 +285,10 @@ def iter_pair_batches(
     array ops, and sliced into batches; the last batch is zero-padded (mask
     0). ``progress``, if given, has ``progress["words"]`` updated in place:
     the corpus words consumed so far, before subsampling (the reference's
-    ``word_count``), for exact lr decay."""
+    ``word_count``), for exact lr decay. ``shard=(i, n)`` keeps every
+    n-th line from line i (by raw line number, before subsampling: the
+    multi-process partition)."""
+    shard_i, shard_n = shard
     rng = np.random.default_rng(seed)
     discard = subsample_probs(np.asarray(dictionary.counts, np.float64),
                               sample)
@@ -327,7 +342,9 @@ def iter_pair_batches(
             leftovers = [rest]
             leftover_len = rest[0].shape[0]
 
-    for line in _read_lines(corpus_path):
+    for line_no, line in enumerate(_read_lines(corpus_path)):
+        if shard_n > 1 and line_no % shard_n != shard_i:
+            continue
         arr = np.asarray([vocab_lookup[t] for t in line.split()
                           if t in vocab_lookup], dtype=np.int32)
         if progress is not None:
@@ -395,6 +412,105 @@ def _auto_row_mean(cfg: Word2VecConfig, counts: np.ndarray) -> bool:
     p_neg = float(w75.max() / max(w75.sum(), 1e-12))
     est_hot = cfg.batch_size * (2 * p_center + cfg.negative * p_neg)
     return est_hot > 512
+
+
+class _AsyncDeltaPusher:
+    """``AddDeltaParameter`` over the async bus (JAX :411-467,
+    ``WE/src/communicator.cpp:194``).
+
+    The training steps update the local replica in place, so nothing would
+    cross processes; every ``every_calls`` calls this publishes each
+    table's own training movement: (now - snapshot) less the peer deltas
+    the drain thread folded in meanwhile (``TableBase._remote_accum``).
+    Inactive without a bus (one process, sync, ma)."""
+
+    def __init__(self, tables, every_calls: int = 1) -> None:
+        import multiverso_tpu_torch as mv
+        from ..updaters import AddOption
+
+        self.bus = mv.session().async_bus
+        self.active = self.bus is not None
+        if not self.active:
+            return
+        self._option = AddOption(worker_id=max(mv.worker_id(), 0))
+        self.every = max(1, int(every_calls))
+        self.calls = 0
+        self.tables = list(tables)
+        self._snaps = []
+        for t in self.tables:
+            if t.updater.name != "default":
+                Log.fatal("async delta pusher requires the default "
+                          "(accumulate) updater on its tables; "
+                          f"{t.name!r} has {t.updater.name!r}")
+            with t._lock:
+                self._snaps.append(t.get())
+                t._remote_accum = np.zeros(t.shape, np.float32)
+
+    def tick(self, force: bool = False) -> None:
+        if not self.active:
+            return
+        self.calls += 1
+        if not force and self.calls % self.every:
+            return
+        for i, t in enumerate(self.tables):
+            with t._lock:   # atomic against the drain thread's applies
+                cur = t.get()
+                own = cur - self._snaps[i] - t._remote_accum
+                t._remote_accum[...] = 0.0
+                self._snaps[i] = cur
+            # the bus publishes the touched rows when the movement is
+            # sparse, else the dense delta, in the table's dtype
+            self.bus.publish_delta(t, own, self._option)
+
+    def close(self) -> None:
+        if not self.active:
+            return
+        self.tick(force=True)
+        for t in self.tables:
+            with t._lock:
+                t._remote_accum = None
+
+
+class _Partition:
+    """This process's part of a multi-process run (JAX :574-650): its
+    rank and the process count, the delta pusher, and the per-epoch SSP
+    clock (``-ssp_staleness`` >= 0 with the pusher active). The clock is
+    made anew each epoch and finished at its end, so a process whose
+    shard ends first releases its laggards instead of deadlocking them
+    against the epoch's barrier."""
+
+    def __init__(self, mv, tables) -> None:
+        self.i, self.n = mv.rank(), max(mv.size(), 1)
+        self.pusher = _AsyncDeltaPusher(
+            tables, every_calls=max(1, int(mv.get_flag("sync_frequency"))))
+        self._staleness = int(mv.get_flag("ssp_staleness"))
+        self.clock = None
+
+    def start_epoch(self) -> None:
+        if self._staleness >= 0 and self.pusher.active:
+            from ..parallel import SSPClock
+
+            self.clock = SSPClock(staleness=self._staleness)
+
+    def end_round(self) -> None:
+        """After a call: with SSP a round ends with its deltas visible
+        (else the bound widens by the publish cadence), else the pusher
+        publishes at its cadence."""
+        if self.clock is not None:
+            self.pusher.tick(force=True)
+            self.clock.tick()
+        else:
+            self.pusher.tick()
+
+    def end_epoch(self, barrier) -> None:
+        self.finish_clock()
+        self.pusher.tick(force=True)
+        barrier()   # drains the bus: every epoch's delta lands
+
+    def finish_clock(self) -> None:
+        if self.clock is not None:
+            self.clock.finish()
+            self.clock = None
 
 
 def train(
@@ -471,30 +587,47 @@ def train(
     # word-count bookkeeping table (reference KV wordcount table)
     wordcount_table = mv.create_table("kv", name="word2vec_wordcount")
     huffman = build_huffman(counts, cfg.max_code_length) if cfg.hs else None
-    model = Word2Vec(cfg, input_table, output_table, counts=counts,
+    # every process trains different data from the same table init: the
+    # tables above took the shared seed, the model's sampling seed folds
+    # in the rank
+    part = _Partition(mv, [input_table, output_table])
+    model_cfg = (cfg if part.n == 1
+                 else dataclasses.replace(cfg, seed=cfg.seed + 100003 * part.i))
+    model = Word2Vec(model_cfg, input_table, output_table, counts=counts,
                      huffman=huffman)
-    model.total_words = dictionary.train_words * max(epochs, 1)
+    # the lr decays over this process's share of the words
+    words_share = -(-dictionary.train_words // part.n)   # per epoch
+    model.total_words = words_share * max(epochs, 1)
     mon = Dashboard.get_or_create("W2V_TRAIN_BATCH")
+
+    def end_device_epoch():
+        # each process adds its share of the epoch's words
+        wordcount_table.add([0], [words_share])
+        part.end_epoch(mv.barrier)
+
     t0 = time.perf_counter()
-    if device_corpus:
-        pairs, loss = _train_device_corpus(model, ids, sent_ids, counts,
-                                           sample, epochs, log_every, mon,
-                                           t0)
-        for _ in range(epochs):
-            wordcount_table.add([0], [dictionary.train_words])
-        words = dictionary.train_words * epochs
-        mode = " [device corpus]"
-    else:
-        pairs, loss, words = _train_host_stream(
-            model, corpus_path, dictionary, sample, epochs, log_every, mon,
-            t0, wordcount_table)
-        mode = ""
+    try:
+        if device_corpus:
+            pairs, loss = _train_device_corpus(
+                model, ids, sent_ids, counts, sample, epochs, log_every,
+                mon, t0, part, end_device_epoch)
+            words = words_share * epochs
+            mode = " [device corpus]"
+        else:
+            pairs, loss, words = _train_host_stream(
+                model, corpus_path, dictionary, sample, epochs, log_every,
+                mon, t0, wordcount_table, part, mv.barrier)
+            mode = ""
+    finally:
+        # the remote accumulators never outlive the run
+        part.finish_clock()
+        part.pusher.close()
     final_loss = float(loss)
     elapsed = time.perf_counter() - t0
 
-    if output_path:
+    if output_path and part.i == 0:
         save_embeddings(output_path, dictionary, input_table.get())
-    if output_path_ctx:
+    if output_path_ctx and part.i == 0:
         save_embeddings(output_path_ctx, dictionary, output_table.get())
     result = TrainResult(words_trained=words, pairs_trained=pairs,
                          elapsed_s=elapsed,
@@ -508,9 +641,10 @@ def train(
 
 
 def _train_device_corpus(model: Word2Vec, ids, sent_ids, counts, sample,
-                         epochs, log_every, mon, t0):
+                         epochs, log_every, mon, t0, part, end_epoch):
     """The device-resident corpus path of :func:`train`; returns the
-    examples trained and the last loss."""
+    examples trained and the last loss. ``part`` is the process's
+    partition; ``end_epoch()`` runs after each epoch."""
     cfg = model.config
     n_enc = int(ids.shape[0])
     discard = subsample_probs(counts, sample).astype(np.float32)
@@ -523,7 +657,8 @@ def _train_device_corpus(model: Word2Vec, ids, sent_ids, counts, sample,
                  n_chunks, chunk_len)
 
     def chunk_arrays(c):
-        lo = c * chunk_len
+        # a per-rank phase: concurrent processes hold different chunks
+        lo = ((c + part.i) % n_chunks) * chunk_len
         if lo + chunk_len <= n_enc:
             return ids[lo:lo + chunk_len], sent_ids[lo:lo + chunk_len]
         wrap = lo + chunk_len - n_enc
@@ -531,18 +666,21 @@ def _train_device_corpus(model: Word2Vec, ids, sent_ids, counts, sample,
                 np.concatenate([sent_ids[lo:], sent_ids[:wrap]]))
 
     model.load_corpus_chunk(*chunk_arrays(0), discard)
+    # each process streams its own arc of the (cyclic) chunk
+    model.set_stream_pos((part.i * chunk_len) // part.n)
     spc = cfg.steps_per_call
     m_per_step = model._candidate_batch(chunk_len)
     # one pass samples one (center, context) pair per position; the
     # reference trains ~window+1 pairs per center word, so a skip-gram
     # epoch takes window+1 passes' worth of calls. CBOW is one example per
-    # center.
+    # center. The processes split the epoch's pairs.
     pair_factor = 1 if cfg.cbow else cfg.window + 1
     calls_per_chunk = max(1, -(-(chunk_len * pair_factor)
-                               // (spc * m_per_step)))
+                               // (spc * m_per_step * part.n)))
     pairs = 0
     loss = float("nan")
     for epoch in range(epochs):
+        part.start_epoch()
         done = 0.0
         pending = []
         call_no = 0
@@ -551,9 +689,12 @@ def _train_device_corpus(model: Word2Vec, ids, sent_ids, counts, sample,
                 model.load_corpus_chunk(*chunk_arrays(c), discard)
             for _ in range(calls_per_chunk):
                 call_no += 1
+                if part.clock is not None:
+                    part.clock.wait()
                 mon.begin()
                 loss, count = model.train_device_steps(spc)
                 mon.end()
+                part.end_round()
                 pending.append(count)
                 if log_every and call_no % log_every == 0:
                     done += float(sum(float(x) for x in pending))
@@ -565,17 +706,21 @@ def _train_device_corpus(model: Word2Vec, ids, sent_ids, counts, sample,
                              float(loss))
         done += float(sum(float(x) for x in pending))
         pairs += int(done)
+        end_epoch()
     return pairs, loss
 
 
 def _train_host_stream(model: Word2Vec, corpus_path, dictionary, sample,
-                       epochs, log_every, mon, t0, wordcount_table):
+                       epochs, log_every, mon, t0, wordcount_table, part,
+                       barrier):
     """The host-stream path of :func:`train`: each epoch's batches come
-    from :func:`iter_pair_batches` (seed ``cfg.seed + epoch``) on the
-    loader thread, ``steps_per_call`` at a time through ``train_batches``
-    and the tail one dispatch each; the lr follows the exact words
-    consumed, and each epoch adds its words to ``wordcount_table``.
-    Returns the examples trained, the last loss and the words."""
+    from :func:`iter_pair_batches` (seed ``cfg.seed + epoch``, this
+    process's shard of the lines) on the loader thread,
+    ``steps_per_call`` at a time through ``train_batches`` and the tail
+    one dispatch each; the lr follows the exact words consumed, and each
+    epoch adds its words to ``wordcount_table``, then ends the
+    partition's epoch (SSP clock, final publish, ``barrier()``). Returns
+    the examples trained, the last loss and the words."""
     from ..parallel import prefetch_iterator
 
     cfg = model.config
@@ -590,11 +735,13 @@ def _train_host_stream(model: Word2Vec, corpus_path, dictionary, sample,
     loss = 0.0
     words_done = 0   # exact words consumed in finished epochs
     for epoch in range(epochs):
+        part.start_epoch()
         progress = {"words": 0}
         batches = prefetch_iterator(
             iter_pair_batches(corpus_path, dictionary, cfg.window,
                               cfg.batch_size, sample=sample, cbow=cfg.cbow,
-                              seed=cfg.seed + epoch, progress=progress),
+                              seed=cfg.seed + epoch, progress=progress,
+                              shard=(part.i, part.n)),
             depth=2 * group)
         pending = []
         for step_idx, batch in enumerate(batches):
@@ -612,6 +759,9 @@ def _train_host_stream(model: Word2Vec, corpus_path, dictionary, sample,
             pairs += sum(batch_examples(b[2]) for b in pending)
             pending = []
             mon.end()
+            part.end_round()
+            if part.clock is not None:
+                part.clock.wait()
             # exact lr-decay progress in word units (reference word_count);
             # finished epochs contribute their exact counts
             model.set_words_trained(words_done + progress["words"])
@@ -625,6 +775,7 @@ def _train_host_stream(model: Word2Vec, corpus_path, dictionary, sample,
             pairs += batch_examples(mask)
         words_done += progress["words"]
         wordcount_table.add([0], [progress["words"]])
+        part.end_epoch(barrier)
     return pairs, loss, words_done
 
 

@@ -1,12 +1,17 @@
-"""Host-side pipelining and the record wire (counterpart of
+"""Host-side pipelining and the parameter-server planes (counterpart of
 ``multiverso_tpu/parallel``): the double buffer, the loader thread, the
-pipelined table getter, the peer-to-peer transport, and the async-PS
-record framing with its epoch fence (``async_ps``). The distributed training paths of the JAX package, the
-delta bus among them, wait for the distributed slice (ROADMAP.md Queue 1
-item 8)."""
+pipelined table getter, the peer-to-peer transport, the async-PS record
+framing with its epoch fence and the delta bus (``async_ps``), the SSP
+clock (``ssp``) and the heartbeat failure detector (``health``). The
+device-mesh collectives of the JAX package (``collectives``,
+``allreduce_engine``, ``sync_step``, ``pipeline``) are not here."""
 
 from .async_buffer import ASyncBuffer, PipelinedGetter, prefetch_iterator
+from .async_ps import AsyncDeltaBus
+from .health import FailureDetector
 from .p2p import P2PTransport, reconnect_backoff_s
+from .ssp import SSPClock
 
-__all__ = ["ASyncBuffer", "P2PTransport", "PipelinedGetter",
+__all__ = ["ASyncBuffer", "AsyncDeltaBus", "FailureDetector",
+           "P2PTransport", "PipelinedGetter", "SSPClock",
            "prefetch_iterator", "reconnect_backoff_s"]

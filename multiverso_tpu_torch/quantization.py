@@ -60,6 +60,34 @@ def _widen(words: np.ndarray) -> np.ndarray:
     return (words.astype(np.uint32) << 16).view(np.float32)
 
 
+def wire_dtype(dtype: Any) -> Any:
+    """A table or array dtype as the wire sees it: ``torch.bfloat16``,
+    else a numpy dtype (from a torch dtype, a numpy dtype or a name)."""
+    if is_bf16(dtype):
+        return torch.bfloat16
+    if isinstance(dtype, torch.dtype):
+        return torch.empty((), dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
+def cast_host(values: Any, dtype: Any) -> Any:
+    """Host ``values`` (numpy or a tensor) in wire dtype ``dtype``: a
+    torch CPU tensor for bf16 (rounded through float32, as the JAX
+    package's ``ml_dtypes`` cast of float32 rounds), else numpy."""
+    dtype = wire_dtype(dtype)
+    if dtype is torch.bfloat16:
+        if isinstance(values, torch.Tensor):
+            return values.detach().cpu().to(torch.bfloat16)
+        return torch.from_numpy(np.array(values, np.float32)).to(
+            torch.bfloat16)
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu()
+        if values.dtype == torch.bfloat16:
+            values = values.float()
+        values = values.numpy()
+    return np.asarray(values, dtype)
+
+
 def nbytes(blob: Any) -> int:
     if isinstance(blob, torch.Tensor):
         return blob.numel() * blob.element_size()

@@ -46,8 +46,9 @@ from ..log import Log
 from ..parallel.async_ps import (DENSE, KEYED, KV, STATE, EpochFence,
                                  _deserialize, _kv_get_int, _serialize,
                                  claim_epoch)
-from ..quantization import (SparseFilter, dequantize_int8, is_bf16,
-                            nbytes, quantize_int8)
+from ..quantization import (SparseFilter, cast_host as _cast,
+                            dequantize_int8, nbytes, quantize_int8,
+                            wire_dtype)
 from .faultinject import FaultPlan
 
 LABEL = "mvparam"
@@ -69,34 +70,6 @@ TRAINER_RANK = 0
 
 _SIZE_INFO_DTYPE = np.dtype(np.int64)
 _WIRE_FILTERS: Dict[Any, SparseFilter] = {}
-
-
-def wire_dtype(dtype: Any) -> Any:
-    """A table or array dtype as the wire sees it: ``torch.bfloat16``,
-    else a numpy dtype (from a torch dtype, a numpy dtype or a name)."""
-    if is_bf16(dtype):
-        return torch.bfloat16
-    if isinstance(dtype, torch.dtype):
-        return torch.empty((), dtype=dtype).numpy().dtype
-    return np.dtype(dtype)
-
-
-def _cast(values: Any, dtype: Any) -> Any:
-    """Host ``values`` (numpy or a tensor) in wire dtype ``dtype``: a
-    torch CPU tensor for bf16 (rounded through float32, as the JAX
-    package's ``ml_dtypes`` cast of float32 rounds), else numpy."""
-    dtype = wire_dtype(dtype)
-    if dtype is torch.bfloat16:
-        if isinstance(values, torch.Tensor):
-            return values.detach().cpu().to(torch.bfloat16)
-        return torch.from_numpy(np.array(values, np.float32)).to(
-            torch.bfloat16)
-    if isinstance(values, torch.Tensor):
-        values = values.detach().cpu()
-        if values.dtype == torch.bfloat16:
-            values = values.float()
-        values = values.numpy()
-    return np.asarray(values, dtype)
 
 
 def _is_size_info(a: Any) -> bool:

@@ -38,8 +38,19 @@ writes: a dense add's host delta, a keyed add's int32 ids and its values
 in the table's dtype, exactly what was applied. A table with a stateful
 updater (momentum, AdaGrad) refuses to journal: replay re-applies deltas
 to the restored data only, and the updater's state is neither
-checkpointed nor journaled. Not here yet, and refused by the session's
-flags: the async delta bus and BSP aggregation over processes.
+checkpointed nor journaled.
+
+Across processes (JAX :23-27, :243-264, :386-393): in sync mode (BSP,
+``-sync=true``) a dense add folds the sum of every process's delta
+(``Session.aggregate``: numpy in rank order; a bf16 table's words summed
+in rank order with a rounding after each add, as ``ml_dtypes`` sums), and
+a keyed add folds the union of every process's (ids, values) in rank
+order (``_aggregate_keyed``); in async mode the add applies locally and
+is published on the session's delta bus (``publish_delta`` picks the
+touched rows or the dense form; keyed adds publish their rows), whose
+drain thread folds it into every peer's replica through the remote entry
+points. With ``-wal`` the journal takes exactly what this replica
+applied, after aggregation.
 """
 
 from __future__ import annotations
@@ -50,7 +61,7 @@ from typing import Any, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import trace
+from .. import config, trace
 from ..dashboard import Dashboard
 from ..log import Log
 from ..ops.embedding import embedding_lookup, scatter_add_rows
@@ -300,6 +311,42 @@ class TableBase:
                               epoch: int = 0) -> None:
         self._install_state(arrays[0], version, epoch)
 
+    # -- across processes ----------------------------------------------------
+    def _bsp(self) -> bool:
+        """Sync mode in a group: every add folds every process's delta."""
+        return config.get_flag("sync") and self._sess.size > 1
+
+    def _aggregate_dense(self, host: torch.Tensor) -> torch.Tensor:
+        """The sum over processes of a CPU delta in the table's dtype."""
+        if host.dtype != torch.bfloat16:
+            arr = host.numpy().copy()
+            return torch.from_numpy(self._sess.aggregate(arr))
+        words = self._sess.group.allgather(host.view(torch.int16).numpy())
+        parts = [torch.from_numpy(w).view(torch.bfloat16) for w in words]
+        total = parts[0]
+        for part in parts[1:]:
+            total = (total.float() + part.float()).to(torch.bfloat16)
+        return total
+
+    def _aggregate_keyed(self, ids: np.ndarray, vals: torch.Tensor
+                         ) -> Tuple[np.ndarray, torch.Tensor]:
+        """Every process's (ids, values) in rank order (the SyncServer
+        contract for keyed adds); the scatter-add sums duplicates."""
+        group = self._sess.group
+        counts = group.allgather(np.array([ids.shape[0]], np.int64))[:, 0]
+        width = int(counts.max())
+        bf16 = vals.dtype == torch.bfloat16
+        host = vals.view(torch.int16).numpy() if bf16 else vals.numpy()
+        pad_i = np.zeros((width,), np.int32)
+        pad_v = np.zeros((width,) + host.shape[1:], host.dtype)
+        pad_i[: ids.shape[0]] = ids
+        pad_v[: ids.shape[0]] = host
+        all_i, all_v = group.allgather(pad_i), group.allgather(pad_v)
+        out_i = np.concatenate([all_i[r, :n] for r, n in enumerate(counts)])
+        out_v = torch.from_numpy(np.concatenate(
+            [all_v[r, :n] for r, n in enumerate(counts)]))
+        return out_i, out_v.view(torch.bfloat16) if bf16 else out_v
+
     # -- the write-ahead journal hook ---------------------------------------
     def _journal_local(self, kind: int, option, arrays,
                        version: int) -> None:
@@ -330,11 +377,14 @@ class TableBase:
 
     def _add_keyed_local(self, ids: Any, vals: Any,
                          option: Optional[AddOption]) -> int:
-        """A local caller's keyed add: the apply, then, with ``-wal``, the
-        journal record of exactly what was applied (the int32 ids and the
-        values rounded to the table's dtype on the host; that host copy
-        is what the journal costs on the card)."""
-        if getattr(self._sess, "wal", None) is None:
+        """A local caller's keyed add: published on the bus (async mode)
+        or joined with every process's (sync mode), applied, and with
+        ``-wal`` journaled as applied (the int32 ids and the values
+        rounded to the table's dtype on the host; that host copy is what
+        the journal and the group cost on the card)."""
+        bus = self._sess.async_bus
+        if (getattr(self._sess, "wal", None) is None and bus is None
+                and not self._bsp()):
             return self._dispatch_keyed(ids, vals, option)
         ids = np.asarray(ids, dtype=np.int32).ravel()
         shape = (ids.shape[0],) + self.shape[1:]
@@ -342,9 +392,14 @@ class TableBase:
             vals.reshape(shape) if isinstance(vals, torch.Tensor)
             else np.asarray(vals).reshape(shape), self.dtype,
             torch.device("cpu"))
+        if bus is not None:
+            bus.publish_keyed(self.table_id, ids, record_array(host), option)
+        elif self._bsp():
+            ids, host = self._aggregate_keyed(ids, host)
         version = self._dispatch_keyed(ids, host, option)
-        self._journal_local(KEYED, option, [ids, record_array(host)],
-                            version)
+        if getattr(self._sess, "wal", None) is not None:
+            self._journal_local(KEYED, option, [ids, record_array(host)],
+                                version)
         return version
 
     # -- public ops --------------------------------------------------------
@@ -356,16 +411,27 @@ class TableBase:
     def add_async(self, delta: Any,
                   option: Optional[AddOption] = None) -> AsyncHandle:
         """Fold a delta into the table; returns once it is enqueued
-        (``AddAsync``)."""
+        (``AddAsync``). In sync mode the delta folded is the sum over
+        processes; in async mode it is also published on the bus."""
         option = self._default_option(option)
-        if getattr(self._sess, "wal", None) is None:
+        bus = self._sess.async_bus
+        if (getattr(self._sess, "wal", None) is None and bus is None
+                and not self._bsp()):
             self._apply_dense(self._stage_dense(delta), option)
             return self._add_handle()
         host = self._stage_dense(delta, device="cpu")
+        if self._bsp():
+            host = self._aggregate_dense(host)
+        elif bus is not None:
+            # peers fold it through their drain threads; the bus picks
+            # the touched-row or the dense form
+            bus.publish_delta(self, record_array(host), option)
         version = self._apply_dense(host.to(self.device), option)
-        # journal BEFORE the caller gets its handle: once add() returns
-        # (the acknowledgment), the update is replayable
-        self._journal_local(DENSE, option, [record_array(host)], version)
+        if getattr(self._sess, "wal", None) is not None:
+            # journal BEFORE the caller gets its handle: once add()
+            # returns (the acknowledgment), the update is replayable
+            self._journal_local(DENSE, option, [record_array(host)],
+                                version)
         return self._add_handle()
 
     def add(self, delta: Any, option: Optional[AddOption] = None) -> None:

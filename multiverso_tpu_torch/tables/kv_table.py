@@ -10,11 +10,14 @@ STATE protocol (the sorted keys and their values), ``store``/``load``
 through ``io/stream``, and with ``-wal`` a ``KV`` journal record of every
 local add (keys int64, values float64).
 
-One process holds the authoritative dict: ``sync()`` has nothing to merge
-and returns; across processes it raises, since the cross-process merge
-belongs to the distributed slice (ROADMAP.md Queue 1 item 8). The lock is
-a plain ``threading.RLock`` (the JAX table's lock-order witness,
-``analysis.lockwatch``, is item 9).
+Each process holds its own authoritative dict (JAX :50-135). In async
+mode (the session's delta bus up) every add is also published as a
+``KV`` record that the peers' drain threads fold in. Otherwise adds
+collect as pending, and ``sync()``, a collective, merges every
+process's pending adds into every replica (gathered as int64 keys and
+float64 values with a per-rank count, so any key is legal); alone it
+has nothing to merge. The lock is a plain ``threading.RLock`` (the JAX
+table's lock-order witness, ``analysis.lockwatch``, is item 9).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ class KVTable:
         self.value_dtype = np.dtype(value_dtype)
         self._store: Dict[Any, Any] = {}
         self._cache: Dict[Any, Any] = {}
+        self._pending: Dict[Any, Any] = {}  # adds not yet merged by sync()
         self._lock = threading.RLock()
         # mutation counter and trainer incarnation, as on the array tables
         self.version = 0
@@ -60,11 +64,21 @@ class KVTable:
 
     # -- worker API (kv_table.h:24-70) ------------------------------------
     def add(self, keys: Iterable, values: Iterable) -> None:
-        """Server-side ``+=`` per key (``KVServerTable::ProcessAdd``); with
-        ``-wal`` the add is journaled once the lock is released."""
+        """Server-side ``+=`` per key (``KVServerTable::ProcessAdd``),
+        published on the bus in async mode; with ``-wal`` the add is
+        journaled once the lock is released."""
         keys, values = list(keys), list(values)
+        bus = self._sess.async_bus
+        if bus is not None:   # async PS: the peers fold it via their drain
+            bus.publish_kv(self.table_id, np.asarray(keys, np.int64),
+                           np.asarray(values, np.float64))
         with self._lock:
             self._fold(keys, values)
+            if bus is None:
+                for k, v in zip(keys, values):
+                    k = self._key(k)
+                    self._pending[k] = self._pending.get(k, 0) + \
+                        self.value_dtype.type(v).item()
             self.version += 1
             version = self.version
         if getattr(self._sess, "wal", None) is not None:
@@ -96,10 +110,30 @@ class KVTable:
             return dict(self._cache)
 
     def sync(self) -> None:
-        """Merge every process's adds: nothing to merge in one process."""
-        if self._sess.size > 1:
-            Log.fatal("KVTable.sync across processes is not ported to "
-                      "multiverso_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+        """Merge every process's pending adds into every replica (a
+        collective: every process calls it)."""
+        with self._lock:
+            pending = dict(self._pending)
+            self._pending.clear()
+        if self._sess.size == 1:
+            return
+        group = self._sess.group
+        order = sorted(pending)
+        keys = np.array(order, dtype=np.int64)
+        vals = np.array([pending[k] for k in order], dtype=np.float64)
+        # fixed-size exchange: each rank's count bounds its valid prefix
+        counts = group.allgather(np.array([keys.size], np.int64))[:, 0]
+        width = max(int(counts.max()), 1)
+        pad_k = np.zeros((width,), np.int64)
+        pad_v = np.zeros((width,), np.float64)
+        pad_k[: keys.size] = keys
+        pad_v[: keys.size] = vals
+        all_k, all_v = group.allgather(pad_k), group.allgather(pad_v)
+        with self._lock:
+            for rank, count in enumerate(counts):
+                if rank != self._sess.rank:
+                    self._fold(all_k[rank, :count], all_v[rank, :count])
+            self.version += 1
 
     # -- STATE-record wire protocol (fenced-restart rebase) ----------------
     def _state_arrays(self):

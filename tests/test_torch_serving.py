@@ -390,7 +390,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'multiverso_tpu', 'tensorstore', 'fsspec', 'orbax'))\n"
-        "assert len(names) >= 40, names\n"
+        "assert len(names) >= 43, names\n"
         "for m in ('block_pool', 'flight_recorder', 'watchdog', "
         "'decode_engine', 'batcher', 'workloads', 'snapshot', 'server', "
         "'faultinject', 'kv_transfer', 'accounting', 'replica', "
@@ -400,7 +400,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'parallel.async_ps', 'io', 'io.stream', 'parallel.async_buffer', "
         "'tables.sparse_table', 'tables.kv_table', 'models.logreg', "
         "'apps.logreg', 'apps.lr_reader', 'io.wal', 'io.checkpoint', "
-        "'io.remote'):\n"
+        "'io.remote', 'topology', 'parallel.ssp', 'parallel.health'):\n"
         "    assert 'multiverso_tpu_torch.' + m in names, m\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -180,11 +180,20 @@ def test_kv_table_matches_jax(mv_session, port):
 
 
 def test_kv_sync_across_processes_raises(port, monkeypatch):
+    """Across processes sync() merges through the group's exchange (the
+    two-process merge itself: tests/test_torch_multiprocess.py); an
+    exchange that fails raises, never returning with nothing merged."""
     from multiverso_tpu_torch.runtime import Session
 
+    class _BrokenGroup:
+        def allgather(self, arr):
+            raise RuntimeError("gloo: connection to rank 1 closed")
+
     t = port.create_table("kv")
+    t.add([3], [1.0])
     monkeypatch.setattr(Session, "size", 2, raising=False)
-    with pytest.raises(FatalError, match="item 8"):
+    monkeypatch.setattr(Session.get(), "group", _BrokenGroup())
+    with pytest.raises(RuntimeError, match="rank 1 closed"):
         t.sync()
 
 
