@@ -394,6 +394,36 @@ Phase 17 runs after phase 16:
    ``_dead == {2}``, both exit 0; prints how long after the kill each
    survivor declared the death.
 
+Phase 18 runs after phase 17:
+
+18. sequence-parallel attention on one card (``phase_seqpar``): first
+   causal blocks wholly after their rows at 1,024 and 2,048 rows (K3/K4
+   must give m = -1e30, l = 0, acc = 0, the backward zero partials);
+   then groups of 2 and 4 fresh interpreters, each worker on ``cuda:0``
+   as phase 17's are (files under build/seqpar/, removed at the end),
+   each holding its rows of one global q, k, v and output gradient
+   ([4096, 12, 64] bf16, seed 18: the flagship's attention width). Legs:
+   ``ring_attention(impl="pallas")`` (K3 + K5 at 1,024 rows a rank, K4 +
+   K6 + K7 at 2,048) and ``ulysses_attention(impl="flash")`` (K4 + K6 +
+   K7 over the whole sequence), causal, forward and backward, at n = 2
+   and 4. Each leg's gathered output and grads are held against the
+   kernels' plain versions over the whole sequence in their precision
+   and against single-process ``flash_attention`` on the card (phases 2
+   and 7's bf16 limits: each row of the output within 2e-2 of the row's
+   largest magnitude, each gradient within 2e-3 of its own, beyond 1
+   bf16 ulp of the element), and against ``reference_attention`` in f32
+   (fixed limits of 2e-2 and 1e-2, set from the plain version's
+   distance, ``SP_TOLS``); single-process ``flash_attention`` is held to
+   the plain version as the legs are. A ring that skips the last
+   rotation of its forward (the last rank never sees block 0), and one
+   that skips its backward's (dk/dv never come home), must each fail the
+   check against the plain version at n = 2 and 4. Prints per leg the
+   forward and backward
+   ms (the slowest rank, 3 runs), the bytes staged through the host, the
+   share of each rank's time in the exchanges and each kernel's launches
+   (each worker's counts set to 0 just before the leg's first run, read
+   just after); every kernel of the leg's path must have been launched.
+
 The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
 library time, and the training run's bf16 launches beside the serving
@@ -407,7 +437,8 @@ launches by sub-phase as ``launches_logreg`` and its shapes as
 ``logreg_x1_*`` (4-byte rows) and ``logreg_x2_*`` (8-byte rows); phase
 16's launches by leg as ``launches_durability``; phase 17's by leg and
 by process as ``launches_ps``, and K2 at the shape of a keyed record of
-the bench tables as ``ps_record_*``); the last line is
+the bench tables as ``ps_record_*``; phase 18's by leg and by process as
+``launches_seqpar`` on K3-K7); the last line is
 {"ok": true, "device": {...}}. Any failure exits
 nonzero before either line is printed. Without a CUDA device, or without
 the package beside this file, the script fails. To debug one phase, call
@@ -6171,10 +6202,13 @@ def ps_worker() -> None:
         json.dump(out, f)
 
 
-def ps_group(leg: str, n: int, env_extra=None) -> list:
-    """Run leg ``leg`` in ``n`` fresh interpreters joined as one group on a
-    free local port; returns each rank's return code and results (None
-    without a result file). Every process is stopped before it returns."""
+def worker_group(work_dir: str, leg: str, n: int, entry: str,
+                 timeout_s: float, env_extra=None) -> list:
+    """Run ``chip_smoke.<entry>()`` in ``n`` fresh interpreters joined as
+    one group on a free local port, each logging to
+    ``work_dir/<leg>_<rank>.log``; returns each rank's return code and
+    results (``work_dir/<leg>_<rank>.json``, None without one). Every
+    process is stopped before it returns."""
     import socket
 
     with socket.socket() as s:
@@ -6185,20 +6219,22 @@ def ps_group(leg: str, n: int, env_extra=None) -> list:
         for rank in range(n):
             env = dict(os.environ, MV_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                        MV_NUM_PROCESSES=str(n), MV_PROCESS_ID=str(rank),
-                       PS_LEG=leg, GLOO_SOCKET_IFNAME="lo",
-                       MV_P2P_HOST="127.0.0.1", **(env_extra or {}))
-            logs.append(open(os.path.join(PS_DIR, f"{leg}_{rank}.log"), "w"))
+                       GLOO_SOCKET_IFNAME="lo", MV_P2P_HOST="127.0.0.1",
+                       **(env_extra or {}))
+            logs.append(open(os.path.join(work_dir, f"{leg}_{rank}.log"),
+                             "w"))
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", "import chip_smoke as c; "
-                 "c.ps_worker()"], cwd=HERE, env=env, stdout=logs[-1],
+                [sys.executable, "-c", f"import chip_smoke as c; "
+                 f"c.{entry}()"], cwd=HERE, env=env, stdout=logs[-1],
                 stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + PS_TIMEOUT_S[leg]
+        deadline = time.monotonic() + timeout_s
         for rank, proc in enumerate(procs):
             try:
                 proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
             except subprocess.TimeoutExpired:
-                fail(f"ps {leg}: rank {rank} did not finish in "
-                     f"{PS_TIMEOUT_S[leg]:.0f} s:\n{ps_log_tail(leg, rank)}")
+                fail(f"{entry} {leg}: rank {rank} did not finish in "
+                     f"{timeout_s:.0f} s:\n"
+                     f"{log_tail(work_dir, leg, rank)}")
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -6208,7 +6244,7 @@ def ps_group(leg: str, n: int, env_extra=None) -> list:
             log.close()
     out = []
     for rank, proc in enumerate(procs):
-        path = os.path.join(PS_DIR, f"{leg}_{rank}.json")
+        path = os.path.join(work_dir, f"{leg}_{rank}.json")
         res = None
         if os.path.exists(path):
             with open(path) as f:
@@ -6217,9 +6253,15 @@ def ps_group(leg: str, n: int, env_extra=None) -> list:
     return out
 
 
-def ps_log_tail(leg: str, rank: int) -> str:
-    with open(os.path.join(PS_DIR, f"{leg}_{rank}.log")) as f:
+def log_tail(work_dir: str, leg: str, rank: int) -> str:
+    with open(os.path.join(work_dir, f"{leg}_{rank}.log")) as f:
         return f.read()[-3000:]
+
+
+def ps_group(leg: str, n: int, env_extra=None) -> list:
+    """Phase 17's leg ``leg`` in ``n`` worker processes."""
+    return worker_group(PS_DIR, leg, n, "ps_worker", PS_TIMEOUT_S[leg],
+                        dict(PS_LEG=leg, **(env_extra or {})))
 
 
 def ps_all_ok(leg: str, results, ranks) -> None:
@@ -6227,7 +6269,7 @@ def ps_all_ok(leg: str, results, ranks) -> None:
         rc, res = results[rank]
         if rc != 0 or res is None:
             fail(f"ps {leg}: rank {rank} exited {rc}:\n"
-                 f"{ps_log_tail(leg, rank)}")
+                 f"{log_tail(PS_DIR, leg, rank)}")
 
 
 def ps_record_kernel(card: str) -> dict:
@@ -6385,7 +6427,7 @@ def phase_ps(card: str):
     ps_all_ok("c", c, (0, 1))
     if c[2][0] != -9:
         fail(f"ps c: rank 2 exited {c[2][0]}, not SIGKILLed:\n"
-             f"{ps_log_tail('c', 2)}")
+             f"{log_tail(PS_DIR, 'c', 2)}")
     with open(os.path.join(PS_DIR, "c_killed_at")) as f:
         killed_at = float(f.read())
     declare_s = [res["declared_at"] - killed_at for _, res in c[:2]]
@@ -6422,6 +6464,344 @@ def phase_ps(card: str):
 
 
 
+# phase 18: sequence-parallel attention over a group of processes sharing
+# the card, at the flagship's attention width
+SP_DIR = os.path.join(HERE, "build", "seqpar")
+SP_SEQ = 4096
+SP_SIZES = (2, 4)
+SP_DEV = torch.device("cuda", 0)   # each worker's card, by its index
+SP_TIMEOUT_S = 300.0
+SP_REPS = 3                # timed runs of each leg after the counted one
+# Each leg's gathered output and grads are held against three references
+# on the same bf16 inputs: "plain", the kernels' plain versions over the
+# whole sequence (_fa_plain, then _bwd_plain on its statistics: p and ds
+# rounded where the kernels round them, the grads cast to bf16 as
+# flash_attention casts them); "flash", single-process flash_attention on
+# the card; "f32", reference_attention in f32. An element's error is
+# |got - ref| less SP_ULPS bf16 ulps of ref (0 where under): one where got
+# and ref are each rounded to bf16, none against f32. A gradient's error
+# is its largest over its largest |ref|; the output's, each row's (one
+# position, one head) largest over that row's largest |ref|, so that every
+# row is held to its own size (past the first few hundred rows a row's
+# values are ~0.02-0.04, and an absolute limit would pass any of them).
+# Against "plain" and "flash", phases 2 and 7's bf16 limits: 2e-2 for the
+# output (phase 2's, there absolute on rows whose largest values are ~1,
+# here of each row) and FB_TOL (phase 7's) for each gradient. Against f32
+# the bf16 roundings alone put the plain version 5.8e-3 (output, of the
+# row) and 3.7e-3 (grads) away (seqpar_tolerance.py: seq 4096, the first
+# 2 and 4 heads, on the CPU; this phase prints it at 12 heads), so it is
+# held at fixed limits of 2e-2 and 1e-2
+SP_TOLS = {"plain": (FA_ATOL[torch.bfloat16], FB_TOL[torch.bfloat16]),
+           "flash": (FA_ATOL[torch.bfloat16], FB_TOL[torch.bfloat16]),
+           "f32": (FA_ATOL[torch.bfloat16], 1e-2)}
+SP_ULPS = {"plain": 1.0, "flash": 1.0, "f32": 0.0}
+# each leg's kernels by name in the kernels line, and those its main path
+# must launch: K3 + K5 at 1,024 rows a rank, K4 + K6 + K7 at 2,048 and in
+# Ulysses (the whole 4,096-row sequence for a slice of the heads)
+SP_KERNELS = ("flash_fwd[key_len<=1024]", "flash_fwd[key_len>1024]",
+              "flash_bwd[fused]", "flash_bwd[dq]", "flash_bwd[dkv]")
+SP_EXPECT = {"ring n=2": ("flash_fwd[key_len>1024]", "flash_bwd[dq]",
+                          "flash_bwd[dkv]"),
+             "ring n=4": ("flash_fwd[key_len<=1024]", "flash_bwd[fused]"),
+             "ulysses n=2": ("flash_fwd[key_len>1024]", "flash_bwd[dq]",
+                             "flash_bwd[dkv]"),
+             "ulysses n=4": ("flash_fwd[key_len>1024]", "flash_bwd[dq]",
+                             "flash_bwd[dkv]")}
+
+
+def sp_inputs():
+    """The global q, k, v and output gradient [4096, 12, 64] bf16 on the
+    host, from seed 18 (every process makes the same)."""
+    heads = FLAGSHIP["n_heads"]
+    gen = torch.Generator().manual_seed(18)
+    return [torch.randn((SP_SEQ, heads, FLAGSHIP["d_model"] // heads),
+                        generator=gen).to(torch.bfloat16) for _ in range(4)]
+
+
+def sp_counts(fa) -> dict:
+    """The flash kernels' launches since the last reset, by kernel."""
+    by_len = fa.LAUNCHES_BY_KEY_LEN
+    return {"flash_fwd[key_len<=1024]": sum(c for kl, c in by_len.items()
+                                            if kl <= fa.FUSED_MAX_KEY_LEN),
+            "flash_fwd[key_len>1024]": sum(c for kl, c in by_len.items()
+                                           if kl > fa.FUSED_MAX_KEY_LEN),
+            **{f"flash_bwd[{k}]": v for k, v in fa.BWD_LAUNCHES.items()}}
+
+
+def sp_run(fn, shards, kw):
+    """One forward and backward of this rank's shard: the output, the
+    grads, and the forward's and backward's seconds (host clock, each
+    ended by a synchronize)."""
+    q, k, v = (t.detach().clone().requires_grad_() for t in shards[:3])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(q, k, v, causal=True, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out.backward(shards[3])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return [out.detach(), q.grad, k.grad, v.grad], t1 - t0, t2 - t1
+
+
+def sp_worker() -> None:
+    """A phase-18 worker: rank ``MV_PROCESS_ID`` of a group of
+    ``MV_NUM_PROCESSES`` on ``SP_DEV``, this rank's rows of the sequence.
+    Each leg runs once with the launch counts and exchange counters set
+    to 0 just before it (its results saved for the parent's checks), then
+    ``SP_REPS`` times for its times; then the two controls, the ring with
+    the last rotation of its forward, then of its backward, skipped."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.ops import ring_attention, ulysses_attention
+    from multiverso_tpu_torch.parallel import collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(SP_DEV)
+    mv.init(["seqpar", f"-device={SP_DEV.type}", "-sync=true",
+             "-log_level=error"])
+    rank, n = mv.rank(), mv.size()
+    fa = _fa()
+    ring = importlib.import_module("multiverso_tpu_torch.ops.ring_attention")
+    block = SP_SEQ // n
+    shards = [t[rank * block:(rank + 1) * block].to(SP_DEV).contiguous()
+              for t in sp_inputs()]
+    legs = [("ring", ring_attention, dict(impl="pallas")),
+            ("ulysses", ulysses_attention, dict(impl="flash"))]
+    out = {}
+    for name, fn, kw in legs:
+        mv.barrier()
+        fa.reset_launches()
+        collectives.reset_stats()
+        got, fwd_s, bwd_s = sp_run(fn, shards, kw)
+        counts = sp_counts(fa)
+        staged = collectives.STATS["staged_bytes"]
+        torch.save([t.cpu() for t in got],
+                   os.path.join(SP_DIR, f"{name}{n}_{rank}.pt"))
+        reps = []
+        for _ in range(SP_REPS):
+            mv.barrier()
+            collectives.reset_stats()
+            _, fwd_s, bwd_s = sp_run(fn, shards, kw)
+            reps.append(dict(fwd_ms=fwd_s * 1e3, bwd_ms=bwd_s * 1e3,
+                             exchange_share=collectives.STATS["exchange_s"]
+                             / (fwd_s + bwd_s),
+                             exchanges=collectives.STATS["exchanges"]))
+        out[f"{name} n={n}"] = dict(launches=counts, staged_bytes=staged,
+                                    reps=reps)
+    # the controls: the forward's last rotation skipped (the rank keeps
+    # the K/V block it holds), and the backward's (dk/dv never come home)
+    rotate, send_home, rotations = ring._rotate, ring._send_home, []
+
+    def skip_last(tensors, group):
+        rotations.append(None)
+        return (tensors if len(rotations) == n - 1
+                else rotate(tensors, group))
+
+    ring._rotate = skip_last
+    try:
+        mv.barrier()
+        with torch.no_grad():
+            got = ring_attention(*shards[:3], causal=True, impl="pallas")
+    finally:
+        ring._rotate = rotate
+    torch.save([got.cpu()], os.path.join(SP_DIR, f"fwdctl{n}_{rank}.pt"))
+    ring._send_home = lambda dk, dv, group: (dk, dv)
+    try:
+        mv.barrier()
+        got, _, _ = sp_run(ring_attention, shards, dict(impl="pallas"))
+    finally:
+        ring._send_home = send_home
+    torch.save([t.cpu() for t in got],
+               os.path.join(SP_DIR, f"bwdctl{n}_{rank}.pt"))
+    mv.shutdown()
+    with open(os.path.join(SP_DIR, f"n{n}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def sp_gathered(tag: str, n: int) -> list:
+    """A leg's output and grads over the whole sequence, on the card."""
+    parts = [torch.load(os.path.join(SP_DIR, f"{tag}{n}_{r}.pt"))
+             for r in range(n)]
+    return [torch.cat(ts).to(DEV) for ts in zip(*parts)]
+
+
+def sp_errors(got, ref, ulps: float) -> list:
+    """The errors of ``got`` (the output, then any grads) against ``ref``
+    (SP_TOLS' comment): the output's largest of a row over that row's
+    largest |ref|, each gradient's largest over its largest |ref|."""
+    errs = []
+    for i, (a, b) in enumerate(zip(got, ref)):
+        a, b = a.float(), b.float()
+        excess = ((a - b).abs() - ulps * ulp(b, torch.bfloat16)).clamp(
+            min=0)
+        if i == 0:
+            size = b.abs().amax(-1).clamp(min=torch.finfo(torch.float32).tiny)
+            errs.append((excess.amax(-1) / size).max().item())
+        else:
+            errs.append((excess.max() / b.abs().max()).item())
+    return errs
+
+
+def sp_passes(got, errs, key: str) -> bool:
+    out_tol, grad_tol = SP_TOLS[key]
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+    return finite and errs[0] <= out_tol and all(
+        e <= grad_tol for e in errs[1:])
+
+
+def sp_fmt(errs) -> str:
+    return (f"output {errs[0]:.3e}"
+            + (f", dq/dk/dv {[f'{x:.3e}' for x in errs[1:]]}"
+               if len(errs) > 1 else ""))
+
+
+def sp_references():
+    """The references on the global inputs (SP_TOLS' comment): ``{"plain":
+    [out, dq, dk, dv], "flash": [...], "f32": [...]}``, on the card."""
+    from multiverso_tpu_torch.ops import flash_attention, reference_attention
+
+    fa = _fa()
+    *qkv, dout = [t.to(DEV) for t in sp_inputs()]
+    q, k, v, g = (t[None] for t in (*qkv, dout))
+    scale = 1.0 / q.shape[-1] ** 0.5
+    out, m, l = fa._fa_plain(q, k, v, 0, 0, causal=True, scale=scale,
+                             normalize=True)
+    lse = m + torch.log(torch.clamp(l, min=1e-20))
+    delta = torch.einsum("bshd,bshd->bhs", g.float(), out.float())
+    grads = fa._bwd_plain(q, k, v, g, lse, delta, 0, 0, causal=True,
+                          scale=scale)
+    refs = {"plain": [out[0]] + [x[0].to(torch.bfloat16) for x in grads]}
+    del q, k, v, g, out, m, l, lse, delta, grads
+    torch.cuda.empty_cache()
+    for key, fn, dtype in (("flash", flash_attention, torch.bfloat16),
+                           ("f32", reference_attention, torch.float32)):
+        q, k, v = (t.detach().to(dtype).requires_grad_() for t in qkv)
+        out = fn(q, k, v, causal=True)
+        out.backward(dout.to(dtype))
+        refs[key] = [out.detach(), q.grad, k.grad, v.grad]
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return refs
+
+
+def sp_masked_blocks() -> str:
+    """Causal blocks wholly after their rows (a ring step whose source
+    rank comes after this one), at both ring sizes' block lengths: the
+    forward must give m <= -1e30, l = 0, acc = 0, and the backward zero
+    partials, all finite."""
+    fa = _fa()
+    *qkv, dout = [t.to(DEV) for t in sp_inputs()]
+    for block in (SP_SEQ // n for n in SP_SIZES):
+        q, g = qkv[0][:block], dout[:block]
+        k, v = (t[block:2 * block] for t in qkv[1:])
+        acc, m, l = fa.flash_attention_partial(q, k, v, 0, block,
+                                               causal=True)
+        # the rows' own statistics, from their diagonal block
+        acc_d, m_d, l_d = fa.flash_attention_partial(
+            q, qkv[1][:block], qkv[2][:block], 0, 0, causal=True)
+        lse = m_d + torch.log(torch.clamp(l_d, min=1e-20))
+        out = acc_d / torch.clamp(l_d, min=1e-20).transpose(-1, -2)[..., None]
+        delta = torch.einsum("shd,shd->hs", g.float(), out)
+        parts = fa.flash_attention_partial_bwd(q, k, v, g, lse, delta, 0,
+                                               block, causal=True)
+        torch.cuda.synchronize()
+        ok = (bool((m <= -1e30).all()) and bool((l == 0).all())
+              and bool((acc == 0).all())
+              and all(bool((p == 0).all()) for p in parts))
+        if not ok:
+            fail(f"seqpar: a fully masked block of {block} rows: m max "
+                 f"{m.max().item()}, l max {l.abs().max().item()}, acc max "
+                 f"{acc.abs().max().item()}, partials max "
+                 f"{[p.abs().max().item() for p in parts]}")
+    return (f"fully masked blocks of {SP_SEQ // SP_SIZES[-1]} and "
+            f"{SP_SEQ // SP_SIZES[0]} rows: m = -1e30, l = 0, acc = 0 and "
+            f"zero backward partials")
+
+
+def phase_seqpar(card: str) -> dict:
+    """18. sequence-parallel attention over groups of processes sharing the
+    card (module docstring); returns each leg's launches by rank and
+    kernel."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    os.makedirs(SP_DIR, exist_ok=True)
+    say(f"seqpar: {sp_masked_blocks()}; card {card}")
+    results = {}
+    for n in SP_SIZES:
+        group = worker_group(SP_DIR, f"n{n}", n, "sp_worker", SP_TIMEOUT_S)
+        for rank, (rc, res) in enumerate(group):
+            if rc != 0 or res is None:
+                fail(f"seqpar n={n}: rank {rank} exited {rc}:\n"
+                     f"{log_tail(SP_DIR, f'n{n}', rank)}")
+        for leg in group[0][1]:
+            results[leg] = [res[leg] for _, res in group]
+    refs = sp_references()
+    tols = ", ".join(f"{key} output {o} of the row, grads {g_} of max|ref|, "
+                     f"beyond {SP_ULPS[key]} ulp" for key, (o, g_)
+                     in SP_TOLS.items())
+    say(f"seqpar: tolerances: {tols}")
+    # the single-process kernels at the path's length against their plain
+    # version, held as the legs are; and, for the record, the plain
+    # version's own distance from f32
+    e = sp_errors(refs["flash"], refs["plain"], SP_ULPS["plain"])
+    if not sp_passes(refs["flash"], e, "plain"):
+        fail(f"seqpar: single-process flash_attention vs plain: "
+             f"{sp_fmt(e)} (tolerances: {tols})")
+    say(f"seqpar: single-process flash_attention vs plain: {sp_fmt(e)}; "
+        f"the plain version vs f32: "
+        f"{sp_fmt(sp_errors(refs['plain'], refs['f32'], SP_ULPS['f32']))}; "
+        f"card {card}")
+    launches = {}
+    for leg, by_rank in results.items():
+        kind, n = leg.split(" n=")
+        got = sp_gathered(kind, int(n))
+        errs = {key: sp_errors(got, refs[key], SP_ULPS[key])
+                for key in refs}
+        for key, e in errs.items():
+            if not sp_passes(got, e, key):
+                fail(f"seqpar {leg} vs {key}: {sp_fmt(e)} (tolerances: "
+                     f"{tols})")
+        launches[leg] = {f"rank{r}": res["launches"]
+                         for r, res in enumerate(by_rank)}
+        for r, res in enumerate(by_rank):
+            missing = [k for k in SP_EXPECT[leg] if res["launches"][k] <= 0]
+            if missing:
+                fail(f"seqpar {leg}: rank {r} launched no {missing}: "
+                     f"{res['launches']}")
+        reps = [rep for res in by_rank for rep in res["reps"]]
+        fwd = [max(res["reps"][i]["fwd_ms"] for res in by_rank)
+               for i in range(SP_REPS)]
+        bwd = [max(res["reps"][i]["bwd_ms"] for res in by_rank)
+               for i in range(SP_REPS)]
+        staged = [res["staged_bytes"] for res in by_rank]
+        say(f"seqpar {leg} (causal, seq {SP_SEQ}, 12 heads x 64, bf16, "
+            f"{SP_SEQ // int(n)} rows a rank): forward ms {fwd} backward ms "
+            f"{bwd} (the slowest rank of each of {SP_REPS} runs); bytes "
+            f"staged through the host a rank {staged}; "
+            f"exchange share of a rank's time "
+            f"{[round(x['exchange_share'], 4) for x in reps]}, exchanges "
+            f"a run {reps[0]['exchanges']}; "
+            + "; ".join(f"vs {key}: {sp_fmt(e)}" for key, e in errs.items())
+            + f"; launches {json.dumps(launches[leg])}; card {card}")
+    # the controls: a ring that skips its last rotation, forward or
+    # backward, fails the check against the plain version
+    for n in SP_SIZES:
+        for ctl, what in (("fwdctl", "forward"), ("bwdctl", "backward")):
+            got = sp_gathered(ctl, n)
+            e = sp_errors(got, refs["plain"], SP_ULPS["plain"])
+            if sp_passes(got, e, "plain"):
+                fail(f"seqpar control: a ring of {n} without its "
+                     f"{what}'s last rotation passes the check: "
+                     f"{sp_fmt(e)}")
+            say(f"seqpar control (ring n={n}, the {what}'s last rotation "
+                f"skipped): vs plain {sp_fmt(e)} fails the check, as it "
+                f"must")
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    say(f"seqpar: phase 18 took {time.perf_counter() - t_phase:.1f} s; "
+        f"card {card}")
+    return launches
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6440,6 +6820,7 @@ def main() -> None:
     lr_launches, lr_kernels = phase_logreg(card)
     dur_launches_by_leg, _ = phase_durability(card)
     ps_launches, ps_record = phase_ps(card)
+    sp_launches = phase_seqpar(card)
     n_g = w2v["launches"]["row_gather"]
     n_s = w2v["launches"]["row_scatter_add"]
     for name, r, line, n in (
@@ -6544,6 +6925,14 @@ def main() -> None:
             entry.update({f"ps_record_{k}": ps_record[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "library_ms")})
+    # phase 18's launches by leg and by process (each worker counted from
+    # 0 around its leg's first run)
+    for entry in kernels_line:
+        if entry["name"] in SP_KERNELS:
+            entry["launches_seqpar"] = {
+                leg: {rank: counts[entry["name"]]
+                      for rank, counts in by_rank.items()}
+                for leg, by_rank in sp_launches.items()}
     say(f"chip_smoke: the whole script took "
         f"{time.perf_counter() - T_START:.1f} s, card {card_line()}")
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -312,6 +312,16 @@ def _bwd_call(q, k, v, g, lse, delta, q_base, k_base, *, causal: bool,
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
+def kernel_layout(g: torch.Tensor) -> torch.Tensor:
+    """Autograd's gradient tensor as the backward kernels take it: a
+    fresh contiguous copy where its layout is not theirs (an expanded
+    gradient, a misaligned bf16 view)."""
+    if g.stride(-1) != 1 or (g.dtype == torch.bfloat16
+                             and not _async_copy_ok(g)):
+        return g.clone(memory_format=torch.contiguous_format)
+    return g
+
+
 class _FlashAttention(torch.autograd.Function):
     """Exact attention with the flash backward (JAX's ``_flash_fwd`` /
     ``_flash_bwd`` pair): the forward saves ``(q, k, v, out, m, l)``; the
@@ -329,11 +339,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, m, l = ctx.saved_tensors
-        if g.stride(-1) != 1 or (g.dtype == torch.bfloat16
-                                 and not _async_copy_ok(g)):
-            # autograd's own gradient tensor: a fresh copy meets the
-            # kernels' layout
-            g = g.clone(memory_format=torch.contiguous_format)
+        g = kernel_layout(g)
         lse = m + torch.log(torch.clamp(l, min=1e-20))
         delta = torch.einsum("bshd,bshd->bhs", g.float(), out.float())
         dq, dk, dv = _bwd_call(q, k, v, g, lse, delta, 0, 0,

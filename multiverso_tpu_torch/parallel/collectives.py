@@ -1,0 +1,296 @@
+"""Collectives over the process group, on each process's local shard.
+
+Counterpart of ``multiverso_tpu/parallel/collectives.py:36-131``. The JAX
+functions take a global array sharded over a mesh axis and compile to
+ICI collectives (``psum``, ``all_gather``, ``psum_scatter``,
+``ppermute``); here each process holds one shard and calls the function
+with it, and the mesh axis becomes the process group (by default the
+session's, ``topology.ProcessGroup``). A process alone is a group of
+one: every function then returns its input's value.
+
+The group is gloo (``topology.py``: NCCL refuses two ranks on one card),
+and gloo moves host tensors. So a CUDA tensor is staged through host
+memory explicitly: its bytes are copied to the host, exchanged as
+``uint8`` buffers, and copied back to the caller's device, where every
+sum is taken. The results lie on the caller's device; only bytes go
+through the host. :data:`STATS` counts what the exchanges cost:
+
+* ``staged_bytes``: bytes copied between a CUDA device and the host
+  (each way counted), 0 for CPU tensors;
+* ``exchanges``: gloo exchanges made;
+* ``exchange_s``: host seconds inside them, staging included, from the
+  moment the device's queued work has finished.
+
+* :func:`allreduce` / :func:`allreduce_replicated` — the sum (or mean)
+  of every process's tensor, summed on the device in rank order;
+* :func:`all_gather` — every process's shard concatenated along dim 0
+  in rank order (JAX's ``tiled=True``);
+* :func:`reduce_scatter` — this rank's ``k/n`` slice of the sum of every
+  process's ``[k, ...]`` contribution;
+* :func:`ring_shift` — rank ``r`` receives rank ``r - shift``'s tensor,
+  every send paired with a receive (``batch_isend_irecv``), so a ring of
+  any size cannot deadlock;
+* :func:`all_to_all` — JAX's tiled ``lax.all_to_all`` (used by
+  ``ops/ulysses.py``): split along ``split_dim``, piece ``j`` to rank
+  ``j``, the pieces received concatenated along ``concat_dim`` in rank
+  order, over gloo's ``all_to_all_single``.
+
+:func:`ring_shift` and :func:`all_to_all` are differentiable (the
+backward of a shift is the reverse shift, of an all-to-all the reverse
+all-to-all), as JAX differentiates through ``ppermute`` and
+``all_to_all``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..runtime import Session
+
+STATS: Dict[str, float] = {"staged_bytes": 0, "exchanges": 0,
+                           "exchange_s": 0.0}
+
+
+def reset_stats() -> None:
+    STATS.update(staged_bytes=0, exchanges=0, exchange_s=0.0)
+
+
+def _group(group=None):
+    """``(group, rank, size)``: the given group, else the session's; a
+    process alone is rank 0 of 1 with no group."""
+    if group is None:
+        group = Session.get().group
+    if group is None:
+        return None, 0, 1
+    return group, group.rank, group.size
+
+
+def group_rank_size(group=None) -> Tuple[int, int]:
+    """This process's rank and the group's size (0 and 1 alone)."""
+    _, rank, size = _group(group)
+    return rank, size
+
+
+def check_equal_shards(length: int, group=None, what: str = "shards"
+                       ) -> None:
+    """Raise ``ValueError`` on every rank unless every rank's shard has
+    ``length`` rows: the sequence must divide over the group (one small
+    exchange of the lengths on the host, counted in :data:`STATS`)."""
+    g, _, size = _group(group)
+    if size == 1:
+        return
+    t0 = time.perf_counter()
+    lengths = g.allgather(np.array([length], np.int64))[:, 0]
+    STATS["exchanges"] += 1
+    STATS["exchange_s"] += time.perf_counter() - t0
+    if (lengths != length).any():
+        raise ValueError(f"seq shards of {lengths.tolist()} rows: the "
+                         f"sequence must divide over {size} {what}")
+
+
+def _padded(nbytes: int) -> int:
+    """Each tensor starts on 16 bytes in a packed buffer, so the views
+    unpacked from it meet the flash kernels' 16-byte loads."""
+    return -(-nbytes // 16) * 16
+
+
+class _Exchange:
+    """One exchange's staging: tensors packed into one host ``uint8``
+    buffer, and a received host buffer unpacked onto the device as
+    views, one a tensor."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        if device.type == "cuda":
+            # the copies below wait for the work queued on the stream;
+            # the clock starts once it is done
+            torch.cuda.current_stream(device).synchronize()
+        self.t0 = time.perf_counter()
+
+    def pack(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        flat = [t.detach().contiguous().reshape(-1).view(torch.uint8)
+                for t in tensors]
+        buf = torch.empty(sum(_padded(f.numel()) for f in flat),
+                          dtype=torch.uint8, device=self.device)
+        at = 0
+        for f in flat:
+            buf[at:at + f.numel()].copy_(f)
+            at += _padded(f.numel())
+        if self.device.type != "cpu":
+            STATS["staged_bytes"] += buf.numel()
+            buf = buf.cpu()
+        return buf
+
+    def unpack(self, buf: torch.Tensor, metas) -> List[torch.Tensor]:
+        """``metas``: the ``(shape, dtype)`` of each tensor in ``buf``."""
+        if self.device.type != "cpu":
+            STATS["staged_bytes"] += buf.numel()
+            buf = buf.to(self.device)
+        out, at = [], 0
+        for shape, dtype in metas:
+            n = torch.Size(shape).numel() * dtype.itemsize
+            out.append(buf[at:at + n].view(dtype).reshape(shape))
+            at += _padded(n)
+        return out
+
+    def done(self) -> None:
+        STATS["exchanges"] += 1
+        STATS["exchange_s"] += time.perf_counter() - self.t0
+
+
+def _metas(tensors):
+    return [(t.shape, t.dtype) for t in tensors]
+
+
+def _permute(tensors: Sequence[torch.Tensor], dst: int, src: int,
+             group=None) -> List[torch.Tensor]:
+    """Send ``tensors`` to rank ``dst`` and receive the same shapes from
+    rank ``src`` (one paired ``isend``/``irecv`` of one packed buffer):
+    JAX's ``ppermute`` seen from one rank. Not differentiable."""
+    _, rank, size = _group(group)
+    if size == 1 or (dst == rank and src == rank):
+        return [t.detach().clone() for t in tensors]
+    ex = _Exchange(tensors[0].device)
+    send = ex.pack(tensors)
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, dst), dist.P2POp(dist.irecv, recv,
+                                                         src)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    out = ex.unpack(recv, _metas(tensors))
+    ex.done()
+    return out
+
+
+def _gather_stacked(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``[size, *x.shape]``: every rank's ``x`` in rank order, on x's
+    device."""
+    _, _, size = _group(group)
+    if size == 1:
+        return x.detach()[None].clone()
+    ex = _Exchange(x.device)
+    send = ex.pack([x])
+    bufs = [torch.empty_like(send) for _ in range(size)]
+    dist.all_gather(bufs, send)
+    out = torch.stack(ex.unpack(torch.cat(bufs), _metas([x]) * size))
+    ex.done()
+    return out
+
+
+def _sum_in_order(stacked: torch.Tensor) -> torch.Tensor:
+    """``stacked[0] + stacked[1] + ...``, added in that order."""
+    total = stacked[0].clone()
+    for part in stacked[1:]:
+        total += part
+    return total
+
+
+def allreduce(x: torch.Tensor, group=None, mean: bool = False
+              ) -> torch.Tensor:
+    """The sum (or mean) of every process's ``x``, added in rank order on
+    x's device (``MV_Aggregate``'s form, JAX's ``psum``)."""
+    _, _, size = _group(group)
+    total = _sum_in_order(_gather_stacked(x, group))
+    return total / size if mean else total
+
+
+def allreduce_replicated(x: torch.Tensor, group=None, mean: bool = False
+                         ) -> torch.Tensor:
+    """Allreduce of a value each process holds whole. JAX tells it from
+    :func:`allreduce` by layout (a replicated array against one sharded
+    on axis 0); each process here passes its own value either way, so
+    the two compute the same sum."""
+    return allreduce(x, group=group, mean=mean)
+
+
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every process's shard concatenated along dim 0 in rank order."""
+    stacked = _gather_stacked(x, group)
+    return stacked.reshape((-1,) + tuple(x.shape[1:]))
+
+
+def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's slice of the elementwise sum: ``x`` is this process's
+    full-size contribution ``[k, ...]`` with ``k`` divisible by the group
+    size ``n``; rank ``r`` gets rows ``[r k/n, (r+1) k/n)`` of the sum
+    (one all-to-all of the chunks, then their sum on the device)."""
+    _, _, size = _group(group)
+    if x.dim() == 0 or x.shape[0] % size != 0:
+        raise ValueError(f"reduce_scatter expects [k, ...] with k divisible "
+                         f"by n={size}, got {tuple(x.shape)}")
+    mine = all_to_all(x, 0, 0, group)        # every rank's chunk r
+    return _sum_in_order(mine.reshape((size, -1) + tuple(x.shape[1:])))
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dst, src, group, *tensors):
+        ctx.route = (src, dst, group)
+        return tuple(_permute(tensors, dst, src, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # each gradient goes back the way its tensor came
+        return (None, None, None) + tuple(_permute(grads, *ctx.route))
+
+
+def permute(tensors: Sequence[torch.Tensor], dst: int, src: int,
+            group=None) -> List[torch.Tensor]:
+    """:func:`_permute` that autograd follows: the backward sends each
+    gradient to ``src`` and receives from ``dst``, one packed exchange
+    either way."""
+    return list(_Permute.apply(dst, src, group, *tensors))
+
+
+def ring_shift(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """Rotate shards around the ring: rank ``r`` sends ``x`` to rank
+    ``r + shift`` and returns rank ``r - shift``'s (mod the size), the
+    building block of ring attention and the allreduce engine."""
+    _, rank, size = _group(group)
+    return permute([x], (rank + shift) % size, (rank - shift) % size,
+                   group)[0]
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+                group) -> torch.Tensor:
+    _, _, size = _group(group)
+    if x.shape[split_dim] % size != 0:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not divide over {size} ranks")
+    if size == 1:
+        return x.detach().clone()
+    pieces = torch.stack(x.detach().chunk(size, dim=split_dim))
+    ex = _Exchange(x.device)
+    # one packed piece a rank: [size * padded piece bytes], split evenly
+    send = ex.pack(pieces.unbind(0))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send)
+    got = ex.unpack(recv, _metas(pieces.unbind(0)))
+    ex.done()
+    return torch.cat(got, dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(g, concat_dim, split_dim, ctx.group), None,
+                None, None)
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+               group=None) -> torch.Tensor:
+    """JAX's tiled ``lax.all_to_all``: ``x`` splits into ``n`` equal pieces
+    along ``split_dim``, piece ``j`` goes to rank ``j``, and the ``n``
+    pieces received concatenate along ``concat_dim`` in rank order."""
+    return _AllToAll.apply(x, split_dim, concat_dim, group)

@@ -15,8 +15,9 @@ mode (the session's delta bus up) every add is also published as a
 ``KV`` record that the peers' drain threads fold in. Otherwise adds
 collect as pending, and ``sync()``, a collective, merges every
 process's pending adds into every replica (gathered as int64 keys and
-float64 values with a per-rank count, so any key is legal); alone it
-has nothing to merge. The lock is a plain ``threading.RLock`` (the JAX
+float64 values with a per-rank count, so any key is legal; a peer's
+float64 value is added as it is, uncast, as in JAX); alone it has
+nothing to merge. The lock is a plain ``threading.RLock`` (the JAX
 table's lock-order witness, ``analysis.lockwatch``, is item 9).
 """
 
@@ -131,8 +132,13 @@ class KVTable:
         all_k, all_v = group.allgather(pad_k), group.allgather(pad_v)
         with self._lock:
             for rank, count in enumerate(counts):
-                if rank != self._sess.rank:
-                    self._fold(all_k[rank, :count], all_v[rank, :count])
+                if rank == self._sess.rank:
+                    continue
+                # JAX's sync (kv_table.py:129-134) adds the gathered
+                # float64 values as they are; only add() casts
+                for k, v in zip(all_k[rank, :count], all_v[rank, :count]):
+                    k = int(k)
+                    self._store[k] = self._store.get(k, 0) + v
             self.version += 1
 
     # -- STATE-record wire protocol (fenced-restart rebase) ----------------
