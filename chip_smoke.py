@@ -424,6 +424,30 @@ Phase 18 runs after phase 17:
    (each worker's counts set to 0 just before the leg's first run, read
    just after); every kernel of the leg's path must have been launched.
 
+Phase 19 runs after phase 18:
+
+19. the LM trainer over a process mesh on one card (``phase_mesh``): 4
+   fresh interpreters on ``cuda:0`` as phase 18's, ``-mesh_shape=2,2``
+   (dp 2 x tp 2; files under build/mesh/, removed at the end), each
+   training the flagship at full width and depth (bf16,
+   ``attention="flash_force"``, lr 0.003, momentum 0.9, from
+   init_params(seed=0), 6 heads a rank) on phase 9's corpus, global
+   batches 8 x 1024 (K3 + K5 at B 4 a rank) and 4 x 2048 (K4 + K6 + K7
+   at B 2), one warm-up and 3 timed steps each; then one process on a
+   (1, 1) mesh on the same card with the same batches. (a) every rank's
+   losses and each worker row's momentum after the first step and
+   parameters and momentum after the last held against the one process
+   at the limits ``MESH_TOLS`` (set from mesh_tolerance.py's CPU
+   readings), dp replicas bitwise equal; two controls that must fail
+   them (layer 0's first ``reduce_from_tp`` skipped: the first loss; the
+   gradients left out of the dp average: the momentum after one step). (b) K3-K7 at the per-rank shapes (B 4 x
+   S 1024, B 2 x S 2048, 6 heads) against their plain versions at
+   phases 2 and 7's limits. (c) each rank's launches by kernel (counted
+   from 0 just before its run), every kernel of the run's path launched.
+   Prints per rank and run ms a step, the aggregate tokens/s and its
+   ratio to the one process's, the bytes staged, the exchanges and the
+   exchange share.
+
 The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
 library time, and the training run's bf16 launches beside the serving
@@ -438,7 +462,9 @@ launches by sub-phase as ``launches_logreg`` and its shapes as
 16's launches by leg as ``launches_durability``; phase 17's by leg and
 by process as ``launches_ps``, and K2 at the shape of a keyed record of
 the bench tables as ``ps_record_*``; phase 18's by leg and by process as
-``launches_seqpar`` on K3-K7); the last line is
+``launches_seqpar`` on K3-K7, phase 19's by run and by process as
+``launches_mesh`` and those kernels at its per-rank shapes as
+``mesh_*``); the last line is
 {"ok": true, "device": {...}}. Any failure exits
 nonzero before either line is printed. Without a CUDA device, or without
 the package beside this file, the script fails. To debug one phase, call
@@ -6802,6 +6828,404 @@ def phase_seqpar(card: str) -> dict:
     return launches
 
 
+MESH_DIR = os.path.join(HERE, "build", "mesh")
+MESH_SHAPE = (2, 2)        # (worker, server): dp 2 x tp 2, 6 heads a rank
+MESH_RUNS = ((1024, 8), (2048, 4))   # (seq, global batch)
+MESH_WARM, MESH_TIMED = 1, 3
+MESH_TIMEOUT_S = 300.0
+# (2, 2) against one process on the same card, same weights and batches,
+# bf16. "loss1": the first step's |loss difference| (the forward at the
+# same weights); "momentum1": after the first step (the gradient at the
+# same weights), each momentum leaf's largest difference over its
+# largest |value|, the embedding's apart as "momentum1_embed" (its
+# gradient is a scatter-add of every token's row gradient, summed in
+# bf16, so two splits of the batch part by that sum's rounding);
+# "loss": the later steps' largest |loss difference|; "params": after
+# the last step, each parameter's largest difference beyond one bf16 ulp
+# of the single process's element over the leaf's largest |value|;
+# "momentum": after the last step, as "momentum1", every leaf. After the
+# first step the two trajectories part (each bf16 rounding that flips
+# moves the next step's loss), so the later limits are loose and the
+# first step's tight. mesh_tolerance.py on the CPU (the flagship's width,
+# 2 layers at seq 1024 x 8 and 2048 x 4, 12 layers at 128 x 8 and 256 x
+# 4, 1 layer at 32 x 8 and 64 x 4) reads at most loss1 4.1e-4,
+# momentum1 8.9e-3, momentum1_embed 1.3e-1, loss 2.3e-2, params 8.6e-3,
+# momentum 1.5e-1: the limits sit 2.2-12x over them.
+# The controls must fail: layer 0's first reduce_from_tp skipped, loss1
+# (0.15 - 0.23 on the CPU); the gradients left out of the dp average,
+# momentum1 (0.26 - 0.42)
+MESH_TOLS = {"loss1": 5e-3, "momentum1": 4e-2, "momentum1_embed": 0.4,
+             "loss": 5e-2, "params": 2.5e-2, "momentum": 0.4}
+MESH_KERNELS = {1024: ("flash_fwd[key_len<=1024]", "flash_bwd[fused]"),
+                2048: ("flash_fwd[key_len>1024]", "flash_bwd[dq]",
+                       "flash_bwd[dkv]")}
+
+
+def mesh_setup():
+    """Phase 19's device, depth and runs; ``MESH_DEVICE``, ``MESH_LAYERS``
+    and ``MESH_RUNS`` (``"128x8,256x4"``) override them for
+    mesh_tolerance.py's CPU reading."""
+    device = os.environ.get("MESH_DEVICE", "cuda")
+    layers = int(os.environ.get("MESH_LAYERS", FLAGSHIP["n_layers"]))
+    runs = MESH_RUNS
+    if os.environ.get("MESH_RUNS"):
+        runs = tuple(tuple(int(x) for x in r.split("x"))
+                     for r in os.environ["MESH_RUNS"].split(","))
+    return device, layers, runs
+
+
+def mesh_cfg(seq: int, layers: int):
+    from multiverso_tpu_torch.models import transformer as tf
+
+    return tf.TransformerConfig(**dict(FLAGSHIP, max_seq=seq,
+                                       n_layers=layers),
+                                dtype=torch.bfloat16,
+                                attention="flash_force",
+                                learning_rate=LM_LR, momentum=0.9)
+
+
+def mesh_batches(seq: int, batch: int) -> list:
+    """The global [batch, seq + 1] windows of phase 9's corpus, seed 0:
+    every process draws the same."""
+    from multiverso_tpu_torch.apps import lm as app
+
+    data = app.load_bytes(os.path.join(HERE, "build", "lm_corpus.txt"))
+    gen = app.batches(data, batch, seq, seed=0)
+    return [next(gen) for _ in range(MESH_WARM + MESH_TIMED)]
+
+
+def mesh_train(lm, batches, device: str):
+    """Train on ``batches``; the losses and each step's seconds (host
+    clock, each step ended by a synchronize)."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    losses, secs = [], []
+    for toks in batches:
+        sync()
+        t0 = time.perf_counter()
+        losses.append(lm.train_batch(toks))
+        sync()
+        secs.append(time.perf_counter() - t0)
+    return [float(x) for x in losses], secs
+
+
+def mesh_worker() -> None:
+    """A phase-19 worker: rank ``MV_PROCESS_ID`` of 4 on a (2, 2) mesh.
+    Each run trains the flagship from init_params(seed=0) on the global
+    batches, its launch counts and exchange counters set to 0 just
+    before and read just after, and saves its parameter and momentum
+    shards; then the two controls, one step each at the first run's
+    shape: layer 0's first reduce_from_tp skipped, and the gradients
+    left out of the dp average."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models import transformer as tf
+    from multiverso_tpu_torch.parallel import collectives
+
+    device, layers, runs = mesh_setup()
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(SP_DEV)
+    mv.init(["mesh", f"-device={device}", "-sync=true", "-log_level=error",
+             "-mesh_shape=" + ",".join(map(str, MESH_SHAPE))])
+    rank = mv.rank()
+    fa = _fa()
+    out = {"coords": mv.session().mesh.coords()}
+    for seq, batch in runs:
+        lm = tf.TransformerLM(mesh_cfg(seq, layers))
+        batches = mesh_batches(seq, batch)
+        mv.barrier()
+        fa.reset_launches()
+        collectives.reset_stats()
+        losses, secs = mesh_train(lm, batches[:MESH_WARM], device)
+        momentum1 = tf._map(torch.clone, lm._momentum)
+        more, timed = mesh_train(lm, batches[MESH_WARM:], device)
+        out[str(seq)] = dict(
+            losses=losses + more, step_ms=[x * 1e3 for x in timed],
+            launches=sp_counts(fa), stats=dict(collectives.STATS),
+            exchange_share=collectives.STATS["exchange_s"]
+            / sum(secs + timed))
+        torch.save({"params": lm.snapshot_params()[0],
+                    "momentum": lm._momentum, "momentum1": momentum1},
+                   os.path.join(MESH_DIR, f"run{seq}_{rank}.pt"))
+        del momentum1
+        del lm
+    seq, batch = runs[0]
+    first = mesh_batches(seq, batch)[:1]
+    reduce = collectives.reduce_from_tp
+    skipped = []
+
+    def skip_first(x, group=None):
+        skipped.append(None)
+        return x if len(skipped) == 1 else reduce(x, group)
+
+    collectives.reduce_from_tp = skip_first
+    try:
+        lm = tf.TransformerLM(mesh_cfg(seq, layers))
+        mv.barrier()
+        out["ctl_reduce_loss"] = mesh_train(lm, first, device)[0][0]
+    finally:
+        collectives.reduce_from_tp = reduce
+    lm = tf.TransformerLM(mesh_cfg(seq, layers))
+    average = lm._average_dp
+    # the loss is still averaged: only the gradients stay local
+    lm._average_dp = lambda ts: list(ts[:-1]) + average(ts[-1:])
+    mv.barrier()
+    mesh_train(lm, first, device)
+    torch.save({"momentum": lm._momentum},
+               os.path.join(MESH_DIR, f"ctl_{rank}.pt"))
+    mv.shutdown()
+    with open(os.path.join(MESH_DIR, f"mesh_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_single(runs, layers: int, device: str) -> dict:
+    """The same runs in this process on a (1, 1) mesh: losses, step ms,
+    and the whole momentum after the first step and the parameters and
+    momentum after the last."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models import transformer as tf
+
+    mv.init(["mesh_single", f"-device={device}", "-sync=true",
+             "-log_level=error", "-mesh_shape=1,1"])
+    res = {}
+    try:
+        for seq, batch in runs:
+            lm = tf.TransformerLM(mesh_cfg(seq, layers))
+            batches = mesh_batches(seq, batch)
+            losses, _ = mesh_train(lm, batches[:MESH_WARM], device)
+            momentum1 = tf._map(torch.clone, lm._momentum)
+            more, secs = mesh_train(lm, batches[MESH_WARM:], device)
+            res[seq] = dict(losses=losses + more,
+                            step_ms=[x * 1e3 for x in secs],
+                            params=lm.snapshot_params()[0],
+                            momentum=lm._momentum, momentum1=momentum1)
+            del lm
+    finally:
+        mv.shutdown()
+        mv.set_flag("mesh_shape", "")
+    return res
+
+
+def mesh_named(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from mesh_named(tree[k], f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def mesh_whole(parts, key: str, row: int, device) -> dict:
+    """Worker row ``row``'s whole ``key`` tree (leaf name -> tensor):
+    its two tp ranks' shards joined along each leaf's split dim (the
+    layout of param_shardings), the replicated leaves from its rank 0."""
+    from multiverso_tpu_torch.models import transformer as tf
+    from multiverso_tpu_torch.topology import make_mesh
+
+    cfg = tf.TransformerConfig(**FLAGSHIP)
+    specs = dict(mesh_named(tf.param_shardings(cfg, make_mesh((1, 1)))))
+    ranks = [row * MESH_SHAPE[1] + s for s in range(MESH_SHAPE[1])]
+    trees = [dict(mesh_named(parts[r][key])) for r in ranks]
+    out = {}
+    for name, spec in specs.items():
+        dims = [d for d, a in enumerate(spec) if a is not None]
+        pieces = [t[name].to(device) for t in trees]
+        out[name] = (torch.cat(pieces, dim=dims[0]) if dims else pieces[0])
+    return out
+
+
+def mesh_errors(got: dict, ref: dict, beyond_ulp: bool) -> dict:
+    """Per leaf: the largest |got - ref| (less one ulp of ref in its
+    dtype where ``beyond_ulp``) over the leaf's largest |ref|."""
+    out = {}
+    for name, b in ref.items():
+        a = got[name].float()
+        diff = (a - b.float()).abs()
+        if beyond_ulp:
+            diff = (diff - ulp(b, b.dtype)).clamp(min=0)
+        top = b.float().abs().max().clamp(min=torch.finfo(torch.float32).tiny)
+        out[name] = (diff.max() / top).item()
+    return out
+
+
+def mesh_hold(parts, single, runs, device, ctl_loss=None, ctl_parts=None):
+    """The (2, 2) runs against the single process (MESH_TOLS' comment):
+    every rank's losses, and each worker row's momentum and parameters.
+    Returns ``{seq: {"loss1": err, "loss": err, "momentum1": (err, leaf),
+    "momentum1_embed": (err, "embed"), "params": (err, leaf), "momentum":
+    (err, leaf), "dp_equal": bool}}``, the controls' errors under
+    ``"controls"`` when given."""
+    res = {}
+    for seq, _ in runs:
+        ref = single[seq]
+        diffs = [[abs(a - b) for a, b in zip(r["json"][str(seq)]["losses"],
+                                              ref["losses"])]
+                 for r in parts]
+        errs = {"loss1": max(d[0] for d in diffs),
+                "loss": max(x for d in diffs for x in d[1:])}
+        for key, ulp_ok in (("momentum1", False), ("params", True),
+                            ("momentum", False)):
+            want = dict(mesh_named(ref[key]))
+            errs.update(mesh_worst(
+                key, [mesh_errors(mesh_whole([p[f"run{seq}"] for p in parts],
+                                             key, row, device), want, ulp_ok)
+                      for row in range(MESH_SHAPE[0])]))
+        # dp replicas (ranks with one server coordinate) bitwise equal
+        errs["dp_equal"] = all(
+            torch.equal(a, b) for key in ("params", "momentum")
+            for s in range(MESH_SHAPE[1])
+            for (_, a), (_, b) in zip(
+                mesh_named(parts[s][f"run{seq}"][key]),
+                mesh_named(parts[MESH_SHAPE[1] + s][f"run{seq}"][key])))
+        res[seq] = errs
+    if ctl_loss is not None:
+        seq = runs[0][0]
+        want = dict(mesh_named(single[seq]["momentum1"]))
+        e = mesh_worst("momentum1", [
+            mesh_errors(mesh_whole(ctl_parts, "momentum", row, device),
+                        want, False) for row in range(MESH_SHAPE[0])])
+        res["controls"] = {
+            "reduce_from_tp skipped: loss1": max(
+                abs(x - single[seq]["losses"][0]) for x in ctl_loss),
+            "dp average left out: momentum1": e["momentum1"][0]}
+    return res
+
+
+def mesh_worst(key: str, rows) -> dict:
+    """The largest of each worker row's per-leaf errors, with its leaf;
+    for "momentum1", the embedding's apart (MESH_TOLS' comment)."""
+    merged = {}
+    for e in rows:
+        for name, err in e.items():
+            merged[name] = max(merged.get(name, 0.0), err)
+    apart = {}
+    if key == "momentum1":
+        apart["momentum1_embed"] = (merged.pop("embed"), "embed")
+    name = max(merged, key=merged.get)
+    return {key: (merged[name], name), **apart}
+
+
+def mesh_passes(errs: dict) -> bool:
+    return (all(np.isfinite(errs[k]) and errs[k] <= MESH_TOLS[k]
+                for k in ("loss1", "loss"))
+            and all(errs[k][0] <= MESH_TOLS[k]
+                    for k in ("momentum1", "momentum1_embed", "params",
+                              "momentum"))
+            and errs["dp_equal"])
+
+
+def mesh_fmt(e: dict) -> str:
+    return (f"loss1 {e['loss1']:.3e}, momentum1 {e['momentum1'][0]:.3e} "
+            f"({e['momentum1'][1]}), momentum1_embed "
+            f"{e['momentum1_embed'][0]:.3e}, loss {e['loss']:.3e}, params "
+            f"{e['params'][0]:.3e} ({e['params'][1]}), momentum "
+            f"{e['momentum'][0]:.3e} ({e['momentum'][1]}), dp replicas "
+            f"bitwise equal {e['dp_equal']}")
+
+
+def mesh_load(n: int, runs) -> list:
+    parts = []
+    for r in range(n):
+        part = {f"run{seq}": torch.load(os.path.join(
+            MESH_DIR, f"run{seq}_{r}.pt")) for seq, _ in runs}
+        part["ctl"] = torch.load(os.path.join(MESH_DIR, f"ctl_{r}.pt"))
+        with open(os.path.join(MESH_DIR, f"mesh_{r}.json")) as f:
+            part["json"] = json.load(f)
+        parts.append(part)
+    return parts
+
+
+def mesh_kernels() -> dict:
+    """(b): K3-K7 at the mesh path's per-rank shapes (B 4 x S 1024 and
+    B 2 x S 2048, 6 heads of 64, bf16, causal) against their plain
+    versions at phases 2 and 7's limits."""
+    fa = _fa()
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    heads = FLAGSHIP["n_heads"] // MESH_SHAPE[1]
+    d = FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    out = {}
+    for seq, batch in MESH_RUNS:
+        b = batch // MESH_SHAPE[0]
+        fwd = fa_case_run(fa, fa_case(b, seq, seq, _BF, H=heads, D=d), gen)
+        _, bwd, _, _ = bwd_case(b, heads, d, seq, seq, _BF, True, 0, 0)
+        shape = f"B {b} x S {seq} x {heads} heads"
+        for name in MESH_KERNELS[seq]:
+            r = fwd if name.startswith("flash_fwd") else bwd
+            out[name] = {"mesh_shape": shape, **{
+                f"mesh_{k}": r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "library_ms")}}
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(card: str) -> tuple:
+    """19. the LM trainer over a (2, 2) process mesh on the card (module
+    docstring); returns the launches by run and rank, and the kernels'
+    results at the per-rank shapes."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR, exist_ok=True)
+    lm_corpus()
+    n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    group = worker_group(MESH_DIR, "mesh", n, "mesh_worker", MESH_TIMEOUT_S)
+    for rank, (rc, res) in enumerate(group):
+        if rc != 0 or res is None:
+            fail(f"mesh: rank {rank} exited {rc}:\n"
+                 f"{log_tail(MESH_DIR, 'mesh', rank)}")
+    _, layers, runs = mesh_setup()
+    single = mesh_single(runs, layers, "cuda")
+    parts = mesh_load(n, runs)
+    errs = mesh_hold(parts, single, runs, DEV,
+                     [p["json"]["ctl_reduce_loss"] for p in parts],
+                     [p["ctl"] for p in parts])
+    tols = ", ".join(f"{k} {v}" for k, v in MESH_TOLS.items())
+    launches = {}
+    for seq, batch in runs:
+        e = errs[seq]
+        if not mesh_passes(e):
+            fail(f"mesh (2, 2) seq {seq} vs one process: {mesh_fmt(e)} "
+                 f"(limits: {tols}; dp replicas must be bitwise equal)")
+        by_rank = [p["json"][str(seq)] for p in parts]
+        launches[f"seq {seq}"] = {f"rank{r}": x["launches"]
+                                  for r, x in enumerate(by_rank)}
+        for r, x in enumerate(by_rank):
+            missing = [k for k in MESH_KERNELS[seq] if x["launches"][k] <= 0]
+            if missing:
+                fail(f"mesh seq {seq}: rank {r} launched no {missing}: "
+                     f"{x['launches']}")
+        step_ms = [float(np.mean(x["step_ms"])) for x in by_rank]
+        single_ms = float(np.mean(single[seq]["step_ms"]))
+        tok_s = batch * seq / (max(step_ms) / 1e3)
+        single_tok_s = batch * seq / (single_ms / 1e3)
+        say(f"mesh (2, 2) seq {seq} x global batch {batch} (B "
+            f"{batch // MESH_SHAPE[0]} x {FLAGSHIP['n_heads'] // MESH_SHAPE[1]}"
+            f" heads a rank), flagship bf16 flash_force lr {LM_LR} momentum "
+            f"0.9: ms a step by rank {[round(x, 3) for x in step_ms]} (mean "
+            f"of {MESH_TIMED} after {MESH_WARM} warm-up); aggregate "
+            f"{tok_s:.1f} tok/s, one process {single_ms:.3f} ms a step, "
+            f"{single_tok_s:.1f} tok/s, ratio {tok_s / single_tok_s:.4f}; "
+            f"staged MB by rank "
+            f"{[round(x['stats']['staged_bytes'] / 1e6, 1) for x in by_rank]}"
+            f", exchanges by rank "
+            f"{[x['stats']['exchanges'] for x in by_rank]}, exchange share "
+            f"by rank {[round(x['exchange_share'], 4) for x in by_rank]} "
+            f"(the {MESH_WARM + MESH_TIMED} steps); losses rank 0 "
+            f"{[round(x, 4) for x in by_rank[0]['losses']]}, one process "
+            f"{[round(x, 4) for x in single[seq]['losses']]}; vs one process:"
+            f" {mesh_fmt(e)} (limits: {tols}); launches "
+            f"{json.dumps(launches[f'seq {seq}'])}; card {card}")
+    for name, value in errs["controls"].items():
+        key = name.split(": ")[1]
+        if value <= MESH_TOLS[key]:
+            fail(f"mesh control: {name} {value:.3e} passes the limit "
+                 f"{MESH_TOLS[key]}")
+        say(f"mesh control ({name}): {value:.3e} over the limit "
+            f"{MESH_TOLS[key]}, fails as it must")
+    kernels = mesh_kernels()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    say(f"mesh: phase 19 took {time.perf_counter() - t_phase:.1f} s; card "
+        f"{card}")
+    return launches, kernels
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6821,6 +7245,7 @@ def main() -> None:
     dur_launches_by_leg, _ = phase_durability(card)
     ps_launches, ps_record = phase_ps(card)
     sp_launches = phase_seqpar(card)
+    mesh_launches, mesh_kernel_results = phase_mesh(card)
     n_g = w2v["launches"]["row_gather"]
     n_s = w2v["launches"]["row_scatter_add"]
     for name, r, line, n in (
@@ -6933,6 +7358,15 @@ def main() -> None:
                 leg: {rank: counts[entry["name"]]
                       for rank, counts in by_rank.items()}
                 for leg, by_rank in sp_launches.items()}
+    # phase 19's launches by run and by process (each worker counted from
+    # 0 around its run), and K3-K7 at the mesh path's per-rank shapes
+    for entry in kernels_line:
+        if entry["name"] in SP_KERNELS:
+            entry["launches_mesh"] = {
+                run: {rank: counts[entry["name"]]
+                      for rank, counts in by_rank.items()}
+                for run, by_rank in mesh_launches.items()}
+            entry.update(mesh_kernel_results.get(entry["name"], {}))
     say(f"chip_smoke: the whole script took "
         f"{time.perf_counter() - T_START:.1f} s, card {card_line()}")
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -11,7 +11,9 @@ Top-level functions mirror ``multiverso_tpu/__init__.py``: ``init`` /
 ``array``, ``matrix``, ``kv``, ``sparse`` and ``ftrl`` tables, and
 ``net_bind`` / ``net_connect`` (``topology``) to name a process group
 explicitly instead of through ``MV_COORDINATOR_ADDRESS``,
-``MV_NUM_PROCESSES`` and ``MV_PROCESS_ID``.
+``MV_NUM_PROCESSES`` and ``MV_PROCESS_ID``, and the mesh helpers
+``make_mesh`` / ``sharding_for`` with the axis names ``WORKER_AXIS`` /
+``SERVER_AXIS`` / ``SEQ_AXIS``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from .dashboard import (Counter, Dashboard, Gauge, Histogram, Monitor,
                         monitor, profile_trace)
 from .log import FatalError, Log, LogLevel, check, check_notnull
 from .runtime import Session
-from .topology import net_bind, net_connect
+from .topology import (SEQ_AXIS, SERVER_AXIS, WORKER_AXIS, make_mesh,
+                       net_bind, net_connect, sharding_for)
 
 __version__ = "0.1.0"
 

@@ -6,9 +6,10 @@ a text corpus, with checkpoint autosave and resume, then optionally
 sampled. The flags and their defaults are the JAX app's, ``-attention
 flash`` included; ``-dtype`` (``float32``, the JAX app's, or
 ``bfloat16``) is the port's own, to train in the dtype the flagship is
-measured in. One process on one device: the JAX app's mesh
-(``-mesh_shape``) belongs to the distributed paths and the session refuses
-it.
+measured in. The model trains on the session's mesh, data parallel over
+the ``worker`` axis and tensor parallel over ``server`` (``-mesh_shape``;
+by default one worker per process); every rank draws the same global
+batches from one seed and trains on its rows of them.
 
 The corpus is read through ``io/stream.open_stream``: a local path, a
 ``file://`` or a ``memory://`` URI (``gs://`` and ``hdfs://`` raise, ROADMAP.md
@@ -19,7 +20,10 @@ order (dict keys sorted) and in f32, in an ``array`` table ``lm_params``;
 the checkpoint under ``-wal``), an ``Autosaver`` every ``-ckpt_every``
 steps, and a final save when the last step is not a multiple of it. As in
 the JAX app, momentum is not checkpointed (it starts again at zero on
-resume) and the batch stream starts again from its seed.
+resume) and the batch stream starts again from its seed. A mesh whose
+``server`` axis spans several processes holds no whole parameter in any
+process; ``-ckpt`` there is refused until sharded checkpoints are ported
+(ROADMAP.md Queue 1 item 8f).
 
 Usage::
 
@@ -102,6 +106,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     import multiverso_tpu_torch as mv
     from ..models.transformer import TransformerConfig, TransformerLM
+    from ..topology import SERVER_AXIS
 
     argv = list(sys.argv[1:] if argv is None else argv)
 
@@ -151,8 +156,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         Log.fatal(f"corpus has {data.shape[0]} bytes; needs >= seq+2 "
                   f"({seq + 2}) for [batch, seq+1] windows")
     Log.info("LM: %d bytes corpus, d_model %d, %d layers, %d heads, "
-             "attention=%s, device %s", data.shape[0], d_model, n_layers,
-             n_heads, attention, lm.device)
+             "attention=%s, mesh %s, device %s", data.shape[0], d_model,
+             n_layers, n_heads, attention, dict(mv.session().mesh.shape),
+             lm.device)
+    if ckpt and lm.mesh.shape[SERVER_AXIS] > 1:
+        Log.fatal(f"-ckpt with the server axis over "
+                  f"{lm.mesh.shape[SERVER_AXIS]} processes: no process "
+                  f"holds a whole parameter; sharded checkpoints are "
+                  f"ROADMAP.md Queue 1 item 8f")
 
     # resume + autosave through the table registry: the parameters live in
     # the model, so a flat array table exposes them to the checkpoint layer
@@ -184,13 +195,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                           for leaf in pytree_leaves(lm.params)]).cpu().numpy()
         current = flat_table.get()
         # scale by the add's fan-out: under sync aggregation (a sum over
-        # processes) each replica receives size copies of the delta; this
-        # port has no async bus, and one process adds locally
-        fanout = mv.size() if mv.get_flag("sync") else 1
+        # processes) and the async bus (every peer applies every add)
+        # each replica receives size copies of the delta; in ma mode or
+        # alone the add stays local
+        fanout = (mv.size() if (mv.get_flag("sync")
+                                or mv.session().async_bus is not None)
+                  else 1)
         flat_table.add((flat - current) / fanout)
 
     t0 = time.perf_counter()
-    gen = batches(data, batch, seq, seed=mv.rank())
+    # one seed on every rank: the global batch is the same everywhere
+    gen = batches(data, batch, seq, seed=0)
     loss = None
     for step in range(start_step + 1, steps + 1):
         loss = lm.train_batch(next(gen))
@@ -210,10 +225,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                  float(np.exp(float(loss))))
 
     if n_sample > 0:
+        # over tp shards the forward is collective: every rank samples,
+        # rank 0 prints
         out = sample(lm, data[:16], n_sample)
-        text = bytes(out.astype(np.uint8)).decode("utf-8", errors="replace")
-        print("--- sample ---")
-        print(text)
+        if mv.rank() == 0:
+            text = bytes(out.astype(np.uint8)).decode("utf-8",
+                                                      errors="replace")
+            print("--- sample ---")
+            print(text)
 
     mv.shutdown()
     return 0

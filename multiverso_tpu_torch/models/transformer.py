@@ -7,9 +7,23 @@ the training ``forward`` and ``loss_fn``, the causal prefill, the
 one-token decode step over a slotted KV cache, the cache insert, the
 chunked prefill and the paged KV programs (decode step, chunk, insert,
 monolithic admission, copy-on-write), the greedy decode oracle, and
-:class:`TransformerLM` (one-device momentum-SGD trainer and serving
-surface). The JAX trainer's mesh (dp batches, tp
-weights) belongs to the distributed paths.
+:class:`TransformerLM` (the momentum-SGD trainer over a (worker, server)
+mesh of processes, and the serving surface).
+
+The trainer's layout is the JAX one (:func:`param_shardings`): data
+parallelism over ``worker`` (each rank trains on its rows of the global
+batch; gradients and loss averaged over its dp group) and Megatron tensor
+parallelism over ``server``, which XLA derives from the shardings and
+which here is written out (:func:`forward` with a tp group): ``w_q``,
+``w_k``, ``w_v`` and ``w_ff1`` split by columns, so a rank holds whole
+heads (``n_heads / tp`` of them) and runs attention on those alone;
+``w_o`` and ``w_ff2`` split by rows, their partial products summed over
+the group (``collectives.reduce_from_tp``); each column-parallel pair's
+input gradient summed (``copy_to_tp``); ``embed`` split by rows and
+gathered once a forward for the lookup and the tied logits
+(``collectives.gather_from_tp``); ``pos`` and the norms whole, their
+gradients alike on every rank of the group. A (1, 1) mesh runs the
+one-device code.
 
 Pre-LN, learned positions, tied input/output embeddings. Parameters are a
 plain dict of tensors with per-layer weights stacked on dim 0, the JAX
@@ -31,6 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from ..log import Log
+from ..parallel import collectives
+from ..topology import (SERVER_AXIS, WORKER_AXIS, Mesh, make_mesh, shard,
+                        sharding_for, unshard)
 
 _NEG_INF = -1e30
 _LAYER_KEYS = ("ln1_g", "ln2_g", "w_q", "w_k", "w_v", "w_o", "w_ff1",
@@ -127,10 +144,53 @@ def params_from_jax(params: Dict[str, Any], device: Any = None,
             "ln_f_g": conv(params["ln_f_g"])}
 
 
-def _map(fn: Callable, tree: Dict[str, Any]) -> Dict[str, Any]:
-    """``fn`` over every tensor of a parameter dict, keeping its layout."""
-    return {k: ({n: fn(w) for n, w in v.items()} if isinstance(v, dict)
-                else fn(v)) for k, v in tree.items()}
+def _map(fn: Callable, tree: Dict[str, Any], *rest: Dict[str, Any]
+         ) -> Dict[str, Any]:
+    """``fn`` over every leaf of a parameter dict (and the same leaf of
+    each of ``rest``), keeping its layout."""
+    return {k: (_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+                else fn(v, *(r[k] for r in rest))) for k, v in tree.items()}
+
+
+def param_shardings(cfg: TransformerConfig, mesh: Mesh,
+                    tp_axis: str = SERVER_AXIS) -> Dict[str, Any]:
+    """The tensor-parallel layout over ``tp_axis`` (JAX :99-123), as a
+    partition spec per parameter: column-parallel ``w_q``/``w_k``/
+    ``w_v``/``w_ff1`` (output dim split), row-parallel ``w_o``/``w_ff2``
+    (input dim split), ``embed`` split by rows, ``pos`` and the norms
+    whole."""
+    ns = lambda *spec: sharding_for(mesh, *spec)  # noqa: E731
+    return {
+        "embed": ns(tp_axis, None),
+        "pos": ns(),
+        "layers": {
+            "ln1_g": ns(),
+            "ln2_g": ns(),
+            "w_q": ns(None, None, tp_axis),
+            "w_k": ns(None, None, tp_axis),
+            "w_v": ns(None, None, tp_axis),
+            "w_o": ns(None, tp_axis, None),
+            "w_ff1": ns(None, None, tp_axis),
+            "w_ff2": ns(None, tp_axis, None),
+        },
+        "ln_f_g": ns(),
+    }
+
+
+def shard_params(params: Dict[str, Any], specs: Dict[str, Any],
+                 mesh: Mesh) -> Dict[str, Any]:
+    """This rank's shards of a whole parameter tree (each a tensor of its
+    own) under ``specs`` (:func:`param_shardings`)."""
+    return _map(lambda w, spec: shard(w, spec, mesh).clone(
+        memory_format=torch.contiguous_format), params, specs)
+
+
+def gather_params(shards: Dict[str, Any], specs: Dict[str, Any],
+                  mesh: Mesh) -> Dict[str, Any]:
+    """The whole tree from every rank's shards (a parameter or momentum
+    tree): collective over the split axes' sub-groups."""
+    return _map(lambda w, spec: unshard(w.detach(), spec, mesh), shards,
+                specs)
 
 
 def _leaves(tree: Dict[str, Any]) -> List[torch.Tensor]:
@@ -191,36 +251,50 @@ def _attention(q, k, v, n_heads: int, impl: str = "reference"):
 
 
 def _block(cfg: TransformerConfig, layer: Dict[str, torch.Tensor],
-           h: torch.Tensor
+           h: torch.Tensor, tp=None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One pre-LN layer over ``h`` [B, T, D]; returns ``(h, k, v)``."""
-    x = _rmsnorm(h, layer["ln1_g"])
+    """One pre-LN layer over ``h`` [B, T, D]; returns ``(h, k, v)``. With
+    a tp group, ``layer`` holds this rank's shards (module docstring) and
+    ``k``, ``v`` its heads."""
+    if tp is None:
+        heads, into, out = cfg.n_heads, (lambda x: x), (lambda x: x)
+    else:
+        heads = cfg.n_heads // tp.size
+        into = lambda x: collectives.copy_to_tp(x, tp)  # noqa: E731
+        out = lambda x: collectives.reduce_from_tp(x, tp)  # noqa: E731
+    x = into(_rmsnorm(h, layer["ln1_g"]))
     q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
-    h = h + _attention(q, k, v, cfg.n_heads, cfg.attention) @ layer["w_o"]
-    x = _rmsnorm(h, layer["ln2_g"])
-    h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
+    h = h + out(_attention(q, k, v, heads, cfg.attention) @ layer["w_o"])
+    x = into(_rmsnorm(h, layer["ln2_g"]))
+    h = h + out(_gelu(x @ layer["w_ff1"]) @ layer["w_ff2"])
     return h, k, v
 
 
 def forward(cfg: TransformerConfig, params: Dict[str, Any],
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Logits [B, T, V] f32 for token ids [B, T] (causal LM)."""
-    h = params["embed"][tokens] + params["pos"][:tokens.shape[1]]
+            tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Logits [B, T, V] f32 for token ids [B, T] (causal LM). ``tp``: the
+    tensor-parallel group whose shards ``params`` holds (every rank of it
+    calls with the same tokens), None for whole parameters."""
+    embed = params["embed"]
+    if tp is not None:
+        embed = collectives.gather_from_tp(embed, tp)
+    h = embed[tokens] + params["pos"][:tokens.shape[1]]
     for layer in _layers(params):
-        h, _, _ = _block(cfg, layer, h)
-    return _logits(_rmsnorm(h, params["ln_f_g"]), params["embed"])
+        h, _, _ = _block(cfg, layer, h, tp)
+    return _logits(_rmsnorm(h, params["ln_f_g"]), embed)
 
 
 def loss_fn(cfg: TransformerConfig, params: Dict[str, Any],
-            tokens: torch.Tensor) -> torch.Tensor:
+            tokens: torch.Tensor, tp=None) -> torch.Tensor:
     """Mean next-token cross-entropy over [B, T] token ids, with the JAX
     function's two branches: up to ``max_seq`` tokens the forward runs at
     full length and the logits are sliced; longer windows (the LM app's
-    ``seq + 1``) run the forward on ``tokens[:, :-1]``."""
+    ``seq + 1``) run the forward on ``tokens[:, :-1]``. ``tp`` as in
+    :func:`forward`."""
     if tokens.shape[1] <= cfg.max_seq:
-        logits = forward(cfg, params, tokens)[:, :-1]
+        logits = forward(cfg, params, tokens, tp)[:, :-1]
     else:
-        logits = forward(cfg, params, tokens[:, :-1])
+        logits = forward(cfg, params, tokens[:, :-1], tp)
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, tokens[:, 1:, None]).mean()
 
@@ -982,28 +1056,50 @@ def greedy_decode(cfg: TransformerConfig, params: Dict[str, Any],
 
 
 class TransformerLM:
-    """The JAX ``TransformerLM`` on one device: a momentum-SGD trainer
-    (:meth:`train_batch`) and the serving surface (``version`` and
-    :meth:`snapshot_params`). The parameters require grad; the momentum
-    buffers, in the parameter dtype, do not."""
+    """The JAX ``TransformerLM``: a momentum-SGD trainer over a (worker,
+    server) mesh of processes, data parallel over ``dp_axis`` and tensor
+    parallel over ``tp_axis`` (module docstring), and the serving surface
+    (``version`` and :meth:`snapshot_params`). ``mesh`` defaults to the
+    session's; on a (1, 1) mesh it trains on one device. The parameters
+    (this rank's shards) require grad; the momentum buffers, shards in
+    the parameter dtype, do not."""
 
-    def __init__(self, config: TransformerConfig, device: Any = None) -> None:
+    def __init__(self, config: TransformerConfig, mesh: Optional[Mesh] = None,
+                 dp_axis: str = WORKER_AXIS, tp_axis: str = SERVER_AXIS,
+                 device: Any = None) -> None:
+        from ..runtime import Session
+
         if config.d_model % config.n_heads != 0:
             Log.fatal("d_model must divide by n_heads")
+        sess = Session.get()
         if device is None:
-            from ..runtime import Session
-
-            sess = Session.get()
             sess._require_started()
             device = sess.device
+        if mesh is None:
+            mesh = sess.mesh if sess.started else make_mesh((1, 1))
+        coords = mesh.coords()
+        if coords is None:
+            Log.fatal(f"TransformerLM: rank {mesh.rank} is not in mesh "
+                      f"{mesh.shape}")
+        tp_n = mesh.shape[tp_axis]
+        for name in ("n_heads", "d_ff", "vocab_size"):
+            if getattr(config, name) % tp_n != 0:
+                Log.fatal(f"TransformerLM: {name} {getattr(config, name)} "
+                          f"does not divide over {tp_axis}={tp_n}; uneven "
+                          f"tensor-parallel splits are not supported")
         self.config = config
         self.device = torch.device(device)
+        self.mesh = mesh
+        self._dp_n, self._dp_i = mesh.shape[dp_axis], coords[dp_axis]
+        self._dp = mesh.group(dp_axis) if self._dp_n > 1 else None
+        self._tp = mesh.group(tp_axis) if tp_n > 1 else None
+        self.specs = param_shardings(config, mesh, tp_axis)
         # serving contract: ``version`` counts train steps, and
         # snapshot_params copies under the lock that a train step holds
         self._lock = threading.Lock()
         self.version = 0
-        self.params = _map(lambda w: w.requires_grad_(),
-                           init_params(config, device=self.device))
+        self.params = _map(lambda w: w.requires_grad_(), shard_params(
+            init_params(config, device=self.device), self.specs, mesh))
         self._momentum = _map(torch.zeros_like, self.params)
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -1016,11 +1112,30 @@ class TransformerLM:
             return host.pin_memory().to(self.device, non_blocking=True)
         return host
 
+    def _local_rows(self, tokens):
+        """This rank's rows of the global batch: its dp coordinate's
+        ``B / dp``."""
+        B = tokens.shape[0]
+        if B % self._dp_n != 0:
+            Log.fatal(f"TransformerLM: batch {B} does not divide over "
+                      f"{self._dp_n} data-parallel ranks")
+        b = B // self._dp_n
+        return tokens[self._dp_i * b:(self._dp_i + 1) * b]
+
+    def _average_dp(self, tensors: List[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+        """The mean over the dp group of each of ``tensors`` (gradients,
+        then the loss), in one exchange."""
+        return collectives.allreduce_many(tensors, self._dp, mean=True)
+
     def _step(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         params = _leaves(self.params)
-        loss = loss_fn(cfg, self.params, tokens)
+        loss = loss_fn(cfg, self.params, tokens, self._tp)
         grads = torch.autograd.grad(loss, params)
+        if self._dp is not None:
+            # the mean of equal shards' mean losses is the global batch's
+            *grads, loss = self._average_dp(list(grads) + [loss.detach()])
         # m = mu * m + g, p = p - lr * m, in place: JAX donates the old
         # buffers and returns new ones, here the buffers are updated
         with torch.no_grad():
@@ -1030,22 +1145,27 @@ class TransformerLM:
         return loss.detach()
 
     def train_batch(self, tokens) -> torch.Tensor:
-        """One step on [B, T] token ids; returns the loss before the step
-        as a device scalar, without a host sync."""
-        tokens = self._tokens(tokens)
+        """One step on the global [B, T] token ids (the same on every
+        rank; each trains on its dp rows); returns the global batch's
+        loss before the step as a device scalar, without a host sync."""
+        tokens = self._tokens(self._local_rows(tokens))
         with self._lock:
             loss = self._step(tokens)
             self.version += 1
         return loss
 
     def snapshot_params(self) -> Tuple[Dict[str, Any], int]:
-        """``(params copy, version)`` taken under the lock; the copies are
-        detached, so serving them builds no autograd graph."""
+        """``(params copy, version)`` taken under the lock: this rank's
+        shards (the whole tree on a mesh without tp), detached, so serving
+        them builds no autograd graph. ``gather_params(params,
+        self.specs, self.mesh)`` is the whole tree."""
         with self._lock:
             return _map(lambda w: w.detach().clone(), self.params), \
                 self.version
 
     def logits(self, tokens) -> torch.Tensor:
-        """Logits [B, T, V] f32 of the current parameters (no grad)."""
+        """Logits [B, T, V] f32 of the current parameters (no grad); with
+        tp, every rank of the group calls it with the same tokens."""
         with torch.no_grad():
-            return forward(self.config, self.params, self._tokens(tokens))
+            return forward(self.config, self.params, self._tokens(tokens),
+                           self._tp)

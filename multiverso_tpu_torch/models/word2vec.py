@@ -39,9 +39,10 @@ corpus path and the host-batch entry points (``train_batch``,
 ``train_batches``). Refused with :class:`~..log.FatalError`: an unknown
 ``update_impl`` (the JAX step takes any other value for ``scatter``) or
 ``compact_impl``. Worker-axis data parallelism (``dp_sync``,
-``dp_exchange``) needs a mesh, which the session refuses
-(``-mesh_shape``); here the worker axis is 1, where the JAX package
-ignores both options too.
+``dp_exchange`` over the table mesh's worker axis) is not ported yet
+(ROADMAP.md Queue 1 item 8h): the model trains as on a worker axis of 1
+whatever the table's mesh, where the JAX package ignores both options
+too.
 """
 
 from __future__ import annotations

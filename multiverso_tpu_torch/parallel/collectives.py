@@ -4,9 +4,10 @@ Counterpart of ``multiverso_tpu/parallel/collectives.py:36-131``. The JAX
 functions take a global array sharded over a mesh axis and compile to
 ICI collectives (``psum``, ``all_gather``, ``psum_scatter``,
 ``ppermute``); here each process holds one shard and calls the function
-with it, and the mesh axis becomes the process group (by default the
-session's, ``topology.ProcessGroup``). A process alone is a group of
-one: every function then returns its input's value.
+with it, and the mesh axis becomes a process group: by default the
+session's (``topology.ProcessGroup``), or a mesh axis's sub-group,
+``group=mesh.group(axis)`` (``topology.SubGroup``). A process alone is a
+group of one: every function then returns its input's value.
 
 The group is gloo (``topology.py``: NCCL refuses two ranks on one card),
 and gloo moves host tensors. So a CUDA tensor is staged through host
@@ -39,6 +40,23 @@ through the host. :data:`STATS` counts what the exchanges cost:
 backward of a shift is the reverse shift, of an all-to-all the reverse
 all-to-all), as JAX differentiates through ``ppermute`` and
 ``all_to_all``.
+
+Megatron tensor parallelism over a tp group (what XLA inserts for the
+JAX trainer's column/row-parallel shardings), differentiable:
+
+* :func:`copy_to_tp` — the identity forward; backward, the sum of the
+  gradient over the group;
+* :func:`reduce_from_tp` — the sum over the group forward; the identity
+  backward;
+* :func:`gather_from_tp` — the row shards gathered forward; backward,
+  this rank's rows of the gradient (everything after the gather is
+  computed alike on every rank of the group, so each holds the whole
+  gradient already).
+
+Their sums, and :func:`allreduce_many`'s, add in rank order on the
+device and, for 16-bit floats, in f32 with one rounding at the end (a
+row-parallel product's partials summed in bf16 would round once per
+rank).
 """
 
 from __future__ import annotations
@@ -152,14 +170,15 @@ def _permute(tensors: Sequence[torch.Tensor], dst: int, src: int,
     """Send ``tensors`` to rank ``dst`` and receive the same shapes from
     rank ``src`` (one paired ``isend``/``irecv`` of one packed buffer):
     JAX's ``ppermute`` seen from one rank. Not differentiable."""
-    _, rank, size = _group(group)
+    g, rank, size = _group(group)
     if size == 1 or (dst == rank and src == rank):
         return [t.detach().clone() for t in tensors]
     ex = _Exchange(tensors[0].device)
     send = ex.pack(tensors)
     recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send, dst), dist.P2POp(dist.irecv, recv,
-                                                         src)]
+    # peers are named by their rank in the whole group
+    ops = [dist.P2POp(dist.isend, send, g.ranks[dst], g.handle),
+           dist.P2POp(dist.irecv, recv, g.ranks[src], g.handle)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     out = ex.unpack(recv, _metas(tensors))
@@ -170,24 +189,40 @@ def _permute(tensors: Sequence[torch.Tensor], dst: int, src: int,
 def _gather_stacked(x: torch.Tensor, group=None) -> torch.Tensor:
     """``[size, *x.shape]``: every rank's ``x`` in rank order, on x's
     device."""
-    _, _, size = _group(group)
+    return torch.stack(_gather_packed([x], group)[0])
+
+
+def _gather_packed(tensors: Sequence[torch.Tensor], group=None
+                   ) -> List[List[torch.Tensor]]:
+    """``out[i][r]``: rank ``r``'s ``tensors[i]`` (same shapes and dtypes
+    on every rank), all of them moved in one exchange."""
+    g, _, size = _group(group)
     if size == 1:
-        return x.detach()[None].clone()
-    ex = _Exchange(x.device)
-    send = ex.pack([x])
+        return [[t.detach().clone()] for t in tensors]
+    ex = _Exchange(tensors[0].device)
+    send = ex.pack(tensors)
     bufs = [torch.empty_like(send) for _ in range(size)]
-    dist.all_gather(bufs, send)
-    out = torch.stack(ex.unpack(torch.cat(bufs), _metas([x]) * size))
+    dist.all_gather(bufs, send, group=g.handle)
+    views = ex.unpack(torch.cat(bufs), _metas(tensors) * size)
     ex.done()
-    return out
+    return [views[i::len(tensors)] for i in range(len(tensors))]
 
 
-def _sum_in_order(stacked: torch.Tensor) -> torch.Tensor:
+def _sum_in_order(stacked) -> torch.Tensor:
     """``stacked[0] + stacked[1] + ...``, added in that order."""
     total = stacked[0].clone()
     for part in stacked[1:]:
         total += part
     return total
+
+
+def _sum_wide(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """:func:`_sum_in_order`, in f32 for 16-bit floats and rounded once
+    to their dtype at the end."""
+    dtype = parts[0].dtype
+    if dtype.is_floating_point and dtype.itemsize < 4:
+        return _sum_in_order([p.float() for p in parts]).to(dtype)
+    return _sum_in_order(parts)
 
 
 def allreduce(x: torch.Tensor, group=None, mean: bool = False
@@ -269,7 +304,7 @@ def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
     # one packed piece a rank: [size * padded piece bytes], split evenly
     send = ex.pack(pieces.unbind(0))
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send)
+    dist.all_to_all_single(recv, send, group=_group(group)[0].handle)
     got = ex.unpack(recv, _metas(pieces.unbind(0)))
     ex.done()
     return torch.cat(got, dim=concat_dim)
@@ -294,3 +329,68 @@ def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
     along ``split_dim``, piece ``j`` goes to rank ``j``, and the ``n``
     pieces received concatenate along ``concat_dim`` in rank order."""
     return _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
+def allreduce_many(tensors: Sequence[torch.Tensor], group=None,
+                   mean: bool = False) -> List[torch.Tensor]:
+    """:func:`allreduce` of each of ``tensors`` (any shapes and dtypes),
+    all moved in one exchange; each sum is :func:`_sum_wide`'s."""
+    _, _, size = _group(group)
+    out = [_sum_wide(parts) for parts in _gather_packed(tensors, group)]
+    return [t / size for t in out] if mean else out
+
+
+def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    return _sum_wide(_gather_packed([x], group)[0])
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.rows, ctx.rank = x.shape[0], _group(group)[1]
+        return all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(0, ctx.rank * ctx.rows, ctx.rows), None
+
+
+def copy_to_tp(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` as it is; its gradient is summed over ``group`` (the input
+    of a column-parallel product, whose every rank's partial gradient
+    adds up to the whole)."""
+    return _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every rank's ``x`` (a row-parallel product's partials);
+    its gradient passes as it is."""
+    return _ReduceFromTP.apply(x, group)
+
+
+def gather_from_tp(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's row shard ``x`` concatenated in rank order; the
+    gradient of the whole goes back as this rank's rows of it, with no
+    exchange (module docstring)."""
+    return _GatherFromTP.apply(x, group)

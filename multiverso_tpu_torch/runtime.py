@@ -1,16 +1,25 @@
 """Process-wide session: one process on one explicit torch device, in a
 group of processes or alone.
 
-Counterpart of ``multiverso_tpu.runtime.Session``. The JAX session
-discovers a device mesh; this port runs one device per process, so the
-session is flag parsing, the device choice, the process group
-(``topology.init_group``: gloo on a TCPStore that rank 0 hosts, from
-``MV_COORDINATOR_ADDRESS``/``MV_NUM_PROCESSES``/``MV_PROCESS_ID`` or
-``net_bind``/``net_connect``), the table and serving registries, the
-process role and the lifecycle. With a group, ``rank``/``size`` are the
-group's, ``num_workers`` is the process count (one worker per process,
-the JAX package's canonical layout), ``worker_id``/``server_id`` are the
-rank, ``barrier()`` drains the async bus and then rendezvouses, and
+Counterpart of ``multiverso_tpu.runtime.Session``. This port runs one
+device per process, so the session is flag parsing, the device choice,
+the process group (``topology.init_group``: gloo on a TCPStore that rank 0
+hosts, from ``MV_COORDINATOR_ADDRESS``/``MV_NUM_PROCESSES``/
+``MV_PROCESS_ID`` or ``net_bind``/``net_connect``), the mesh over the
+group's ranks (``topology.discover``: ``-mesh_shape``, by default one
+worker per process), the table and serving registries, the process role
+and the lifecycle. With a group, ``rank``/``size`` are the group's;
+``num_workers``/``num_servers`` are the mesh's worker and server axes,
+``local_workers`` is ``num_workers // size`` and ``worker_id`` is
+``rank * local_workers`` (JAX ``runtime.py:345-404``: on the default
+mesh, the rank); ``server_id`` is the rank; ``table_mesh`` is the mesh,
+or this rank's (1, 1) mesh when the async bus runs. The worker axis must
+divide by the process count (JAX ``runtime.py:90-96``), or, since a port
+mesh holds one rank per process and so never more workers than
+processes, the process count by the worker axis (each worker lane then
+spans whole processes, its tp group); a mesh where neither holds is a
+:class:`~.log.FatalError`. ``barrier()`` drains the async bus and then
+rendezvouses, and
 ``aggregate`` sums every process's buffer with numpy in rank order, as
 ``np.sum(process_allgather(x), axis=0)`` does in the JAX package
 (``multiverso_tpu/runtime.py:417-431``), so BSP sums carry the same bits.
@@ -54,7 +63,7 @@ from .log import Log
 
 # session-level flags whose features this port does not have yet: turning
 # one on is an error, never a silent no-op
-_UNPORTED_FLAGS = {"lockwatch": False, "mesh_shape": ""}
+_UNPORTED_FLAGS = {"lockwatch": False}
 
 _ROLE_NONE, _ROLE_WORKER, _ROLE_SERVER, _ROLE_ALL = 0, 1, 2, 3
 _ROLES = {"none": _ROLE_NONE, "worker": _ROLE_WORKER,
@@ -90,6 +99,7 @@ class Session:
         self.obs_agent: Optional[Any] = None  # -obs_plane fleet agent
         self.wal: Optional[Any] = None  # -wal write-ahead delta journal
         self.group: Optional[topology.ProcessGroup] = None  # >1 process
+        self.topo: Optional[topology.Topology] = None  # the mesh
         self.async_bus: Optional[Any] = None  # cross-process async PS plane
         self.failure_detector: Optional[Any] = None  # -failure_timeout_s
 
@@ -132,6 +142,15 @@ class Session:
             # the group forms before the session counts as started: a
             # group asked for that cannot form is fatal, never one process
             self.group = topology.init_group()
+            try:
+                self.topo = self._discover()
+            except Exception:
+                # every rank computes the same refusal: end the group
+                # together, so that a later start can form a new one
+                if self.group is not None:
+                    self.group.close()
+                    self.group = None
+                raise
             self.started = True
             metrics_path = config.get_flag("metrics_jsonl")
             if metrics_path and self.metrics_exporter is None:
@@ -180,10 +199,26 @@ class Session:
                     report_ms=int(config.get_flag("obs_report_ms")),
                     sink=sink)
             Log.info("multiverso_tpu_torch initialised on %s: rank %d/%d, "
-                     "mode %s", self.device, self.rank, self.size,
+                     "mesh %s, mode %s", self.device, self.rank, self.size,
+                     self.topo.mesh.shape,
                      "ma" if config.get_flag("ma")
                      else ("sync" if config.get_flag("sync") else "async"))
             return rest
+
+    @staticmethod
+    def _discover() -> topology.Topology:
+        try:
+            topo = topology.discover()
+        except ValueError as exc:
+            Log.fatal(f"-mesh_shape={config.get_flag('mesh_shape')}: {exc}")
+        workers, size = topo.num_workers, topo.size
+        if workers % size != 0 and size % workers != 0:
+            Log.fatal(f"mesh worker axis ({workers}) must be a multiple of "
+                      f"the process count ({size}) so every process owns "
+                      f"the same number of worker lanes, or divide it so "
+                      f"every lane spans the same number of processes; "
+                      f"pass -mesh_shape to fix the layout")
+        return topo
 
     def stop(self, finalize: bool = True) -> None:
         """``MV_ShutDown``, in ``multiverso_tpu/runtime.py:226-299``'s
@@ -200,6 +235,7 @@ class Session:
             obs, self.obs_agent = self.obs_agent, None
             wal, self.wal = self.wal, None
             group, self.group = self.group, None
+            self.topo = None
             bus, self.async_bus = self.async_bus, None
             detector, self.failure_detector = self.failure_detector, None
         # the obs agent ships its final report first, while the engines it
@@ -299,19 +335,48 @@ class Session:
             self.group.barrier()
 
     @property
+    def mesh(self) -> topology.Mesh:
+        self._require_started()
+        return self.topo.mesh
+
+    @property
+    def table_mesh(self) -> topology.Mesh:
+        """The mesh tables live on: the session's, or with the async bus
+        this rank's (1, 1) mesh (each process updates its own replica
+        without collectives; the bus carries the deltas)."""
+        self._require_started()
+        if self.async_bus is not None:
+            return self.topo.local_mesh
+        return self.topo.mesh
+
+    @property
     def num_workers(self) -> int:
-        """The worker-id space: one worker per process."""
-        return self.size
+        """The worker-id space: the mesh's worker axis (one worker per
+        process on the default mesh)."""
+        self._require_started()
+        return self.topo.num_workers
+
+    @property
+    def local_workers(self) -> int:
+        """Worker lanes this process owns (``num_workers // size``: 0 where
+        a lane spans several processes)."""
+        self._require_started()
+        return self.topo.num_workers // self.topo.size
 
     @property
     def num_servers(self) -> int:
-        """Server shards a process holds: each holds its whole replica."""
+        """The mesh's server axis (1 on the default mesh)."""
         self._require_started()
-        return 1
+        return self.topo.num_servers
 
     @property
     def worker_id(self) -> int:
-        return self.rank if self.role & _ROLE_WORKER else -1
+        """This process's first worker lane (the rank on the default
+        mesh)."""
+        self._require_started()
+        if not (self.role & _ROLE_WORKER):
+            return -1
+        return self.topo.rank * self.local_workers
 
     @property
     def server_id(self) -> int:

@@ -150,6 +150,9 @@ class TableBase:
         if not sess.started:
             Log.fatal("create tables after multiverso_tpu_torch.init()")
         self._sess = sess
+        # storage is not split over the mesh: every process holds the
+        # whole table (one logical array's values, as in JAX)
+        self.mesh = sess.table_mesh
         # the session's device unless the caller names one (a CPU copy of
         # a card table, for a comparison)
         self.device = sess.device if device is None else torch.device(device)

@@ -37,20 +37,38 @@ thread of the process (the heartbeat among them) behind it.
 The store lives as long as the process (the JAX coordination service
 outlives the session too); each group formed on it, one per session,
 keeps its keys under its own prefix (``mvg<n>/``), so a new session
-starts from an empty KV. The device mesh (``make_mesh``, ``-mesh_shape``)
-belongs to the mesh slice and is not here.
+starts from an empty KV.
+
+The mesh (JAX :42-125, :241-273, :305): the port runs one device per
+process, so a :class:`Mesh` is a grid of the group's ranks where the JAX
+mesh is a grid of devices; rank ``r`` sits where ``make_mesh`` puts
+``devices[r]``. Along each axis a rank has a :class:`SubGroup`, the ranks
+that share its coordinates on every other axis (on (worker, server): its
+row is its tp group, its column its dp group), a gloo group that every
+function of ``parallel.collectives`` takes as ``group=``. ``discover``
+reads ``-mesh_shape``; its default is (process count, 1), JAX's (workers
+= processes, server = the one local device). ``sharding_for`` gives a
+partition spec (a tuple naming, per dim, the mesh axis the dim is split
+over, or None), ``shard`` this rank's slice of a tensor under one and
+``unshard`` the whole tensor back (an all-gather per split dim).
 """
 
 from __future__ import annotations
 
 import os
 import time
+from dataclasses import dataclass
 from datetime import timedelta
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import config
 from .log import Log
+
+WORKER_AXIS = "worker"
+SERVER_AXIS = "server"
+SEQ_AXIS = "seq"
 
 # how long a process waits for its group to form (the JAX package's
 # jax.distributed.initialize waits 300 s by default)
@@ -185,6 +203,10 @@ class ProcessGroup:
                       f"not a group")
         host, port = _parse_address(coordinator)
         self.rank, self.size = int(rank), int(size)
+        # the collectives' view of a group: its ranks in group order and
+        # the gloo handle (None: the default group)
+        self.ranks = tuple(range(self.size))
+        self.handle = None
         self._dist = dist
         slot = (host, port, self.size, self.rank)
         try:
@@ -228,16 +250,7 @@ class ProcessGroup:
     def allgather(self, arr: np.ndarray) -> np.ndarray:
         """``[size, *arr.shape]``: every rank's ``arr`` (same shape and
         dtype everywhere), in rank order, bytes moved as they are."""
-        import torch
-
-        arr = np.ascontiguousarray(arr)
-        if arr.nbytes == 0:
-            return np.zeros((self.size,) + arr.shape, arr.dtype)
-        flat = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy())
-        out = [torch.empty_like(flat) for _ in range(self.size)]
-        self._dist.all_gather(out, flat)
-        return np.stack([o.numpy().view(arr.dtype).reshape(arr.shape)
-                         for o in out])
+        return _allgather(arr, self.size, None)
 
     def close(self, live: Optional[List[int]] = None) -> None:
         """The exit rendezvous of ``live`` (default: every rank) through
@@ -256,6 +269,23 @@ class ProcessGroup:
             Log.info("exit rendezvous incomplete (%s); ending the group "
                      "anyway", exc)
         self._dist.destroy_process_group()
+
+
+def _allgather(arr: np.ndarray, size: int, handle) -> np.ndarray:
+    """``[size, *arr.shape]``: every member's ``arr`` (same shape and
+    dtype everywhere) over the gloo group ``handle`` (None: the default
+    group), in group order, bytes moved as they are."""
+    import torch
+    import torch.distributed as dist
+
+    arr = np.ascontiguousarray(arr)
+    if arr.nbytes == 0 or size == 1:
+        return np.broadcast_to(arr, (size,) + arr.shape).copy()
+    flat = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy())
+    out = [torch.empty_like(flat) for _ in range(size)]
+    dist.all_gather(out, flat, group=handle)
+    return np.stack([o.numpy().view(arr.dtype).reshape(arr.shape)
+                     for o in out])
 
 
 def init_group() -> Optional[ProcessGroup]:
@@ -282,3 +312,223 @@ def init_group() -> Optional[ProcessGroup]:
         return None
     return ProcessGroup(coord, size,
                         int(os.environ.get("MV_PROCESS_ID", "0")))
+
+
+def _world() -> Tuple[int, int]:
+    """This process's rank in the group and the group's size (0 and 1
+    without a group)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class SubGroup:
+    """The ranks along one mesh axis through this rank, in mesh order: the
+    interface ``parallel.collectives`` reads from a group (``rank``,
+    ``size``, ``ranks``, ``handle``, ``allgather``)."""
+
+    def __init__(self, ranks: Sequence[int], me: int, handle) -> None:
+        self.ranks = tuple(int(r) for r in ranks)
+        self.rank = self.ranks.index(me)
+        self.size = len(self.ranks)
+        self.handle = handle
+
+    def allgather(self, arr: np.ndarray) -> np.ndarray:
+        """``[size, *arr.shape]``: every member's ``arr`` in group order."""
+        return _allgather(arr, self.size, self.handle)
+
+    def __repr__(self) -> str:
+        return f"SubGroup(ranks={self.ranks}, rank={self.rank})"
+
+
+def _axis_groups(grid: np.ndarray, axis_names: Sequence[str], me: int,
+                 world: int) -> Dict[str, SubGroup]:
+    """This rank's sub-group along each axis. Creating a gloo group is
+    collective over the whole group: every rank creates every sub-group
+    of more than one rank, in the same order, the ones it is not in as
+    well. A line of one rank needs no group, and one that is the whole
+    group in order is the default group."""
+    import torch.distributed as dist
+
+    groups: Dict[str, SubGroup] = {}
+    for i, axis in enumerate(axis_names):
+        for line in np.moveaxis(grid, i, -1).reshape(-1, grid.shape[i]):
+            line = tuple(int(r) for r in line)
+            handle = None
+            if 1 < len(line) and line != tuple(range(world)):
+                handle = dist.new_group(
+                    list(line), backend="gloo",
+                    timeout=timedelta(seconds=CONNECT_TIMEOUT_S))
+            if me in line:
+                groups[axis] = SubGroup(line, me, handle)
+    return groups
+
+
+class Mesh:
+    """A grid of the group's ranks with named axes (the port's
+    ``jax.sharding.Mesh``): ``shape`` maps each axis to its size, in
+    ``axis_names`` order, ``ranks`` is the grid, ``coords(rank)`` a rank's
+    index along each axis (None outside the mesh) and ``group(axis)`` this
+    rank's sub-group along ``axis``."""
+
+    def __init__(self, ranks: np.ndarray, axis_names: Sequence[str],
+                 rank: int, groups: Dict[str, SubGroup]) -> None:
+        self.ranks = ranks
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, ranks.shape))
+        self.rank = rank
+        self._groups = groups
+
+    @property
+    def size(self) -> int:
+        return int(self.ranks.size)
+
+    def coords(self, rank: Optional[int] = None
+               ) -> Optional[Dict[str, int]]:
+        """``{axis: index}`` of ``rank`` (default: this rank), None when
+        the rank is not in the mesh."""
+        rank = self.rank if rank is None else int(rank)
+        at = np.argwhere(self.ranks == rank)
+        if at.size == 0:
+            return None
+        return dict(zip(self.axis_names, (int(i) for i in at[0])))
+
+    def group(self, axis: str) -> SubGroup:
+        if axis not in self.shape:
+            raise ValueError(f"mesh {self.shape} has no axis {axis!r}")
+        if axis not in self._groups:
+            raise ValueError(f"rank {self.rank} is not in mesh {self.shape}")
+        return self._groups[axis]
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, ranks={self.ranks.tolist()})"
+
+
+@dataclass
+class Topology:
+    """The group and its mesh (JAX ``topology.Topology``)."""
+
+    mesh: Mesh
+    process_index: int
+    process_count: int
+    _local_mesh: Optional[Mesh] = None
+
+    @property
+    def num_workers(self) -> int:
+        return int(self.mesh.shape[WORKER_AXIS])
+
+    @property
+    def num_servers(self) -> int:
+        return int(self.mesh.shape[SERVER_AXIS])
+
+    @property
+    def local_mesh(self) -> Mesh:
+        """A (1, 1) mesh of this rank alone: async-PS tables live here,
+        each process updating its replica without collectives."""
+        if self._local_mesh is None:
+            self._local_mesh = make_mesh((1, 1), ranks=[self.process_index])
+        return self._local_mesh
+
+    @property
+    def rank(self) -> int:
+        return self.process_index
+
+    @property
+    def size(self) -> int:
+        return self.process_count
+
+
+def _parse_mesh_shape(text: str) -> Optional[Tuple[int, ...]]:
+    text = text.strip()
+    if not text:
+        return None
+    return tuple(int(p) for p in text.split(",") if p.strip())
+
+
+def make_mesh(shape: Optional[Sequence[int]] = None,
+              axis_names: Sequence[str] = (WORKER_AXIS, SERVER_AXIS),
+              ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """A mesh over ``ranks`` (default: every rank of the group; one
+    process alone is rank 0 of 1), the first ``prod(shape)`` of them in
+    C order. ``shape`` defaults to every rank on the last axis. Every
+    rank of the group calls it with the same arguments: the sub-groups
+    are created collectively. ``ranks`` must increase (gloo numbers a
+    group's members in that order)."""
+    me, world = _world()
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    if any(b <= a for a, b in zip(ranks, ranks[1:])):
+        raise ValueError(f"mesh ranks {ranks} must increase")
+    n = len(ranks)
+    if shape is None:
+        shape = (1,) * (len(axis_names) - 1) + (n,)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} does not match axes "
+                         f"{tuple(axis_names)}")
+    needed = int(np.prod(shape))
+    if needed > n:
+        raise ValueError(f"mesh shape {shape} needs {needed} ranks, have "
+                         f"{n}")
+    grid = np.asarray(ranks[:needed], dtype=np.int64).reshape(shape)
+    return Mesh(grid, axis_names, me, _axis_groups(grid, axis_names, me,
+                                                   world))
+
+
+def discover(mesh_shape: Optional[Sequence[int]] = None) -> Topology:
+    """The group's topology; ``mesh_shape`` (default: ``-mesh_shape``)
+    overrides the layout, whose default is one worker per process."""
+    if mesh_shape is None:
+        mesh_shape = _parse_mesh_shape(config.get_flag("mesh_shape"))
+    rank, count = _world()
+    if mesh_shape is None:
+        mesh_shape = (count, 1)
+    topo = Topology(mesh=make_mesh(mesh_shape), process_index=rank,
+                    process_count=count)
+    Log.debug("topology: mesh %s, process %d/%d", topo.mesh.shape, rank,
+              count)
+    return topo
+
+
+def sharding_for(mesh: Mesh, *axes: Optional[str]) -> Tuple:
+    """The partition spec ``axes`` (per dim, the mesh axis it is split
+    over, or None), each axis checked against ``mesh``:
+    ``sharding_for(mesh, SERVER_AXIS)`` splits dim 0 over ``server``."""
+    for axis in axes:
+        if axis is not None and axis not in mesh.shape:
+            raise ValueError(f"mesh {mesh.shape} has no axis {axis!r}")
+    return tuple(axes)
+
+
+def shard(tensor, spec: Sequence[Optional[str]], mesh: Mesh):
+    """This rank's slice of ``tensor`` under ``spec``: each split dim cut
+    into ``mesh.shape[axis]`` equal pieces, this rank's coordinate's
+    piece kept."""
+    coords = mesh.coords()
+    if coords is None:
+        raise ValueError(f"rank {mesh.rank} is not in mesh {mesh.shape}")
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        n = mesh.shape[axis]
+        if tensor.shape[dim] % n != 0:
+            raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
+                             f"divide over {axis}={n}")
+        size = tensor.shape[dim] // n
+        tensor = tensor.narrow(dim, coords[axis] * size, size)
+    return tensor
+
+
+def unshard(piece, spec: Sequence[Optional[str]], mesh: Mesh):
+    """The whole tensor from every rank's ``piece`` under ``spec``: an
+    all-gather over the axis's sub-group per split dim (collective over
+    those sub-groups)."""
+    from .parallel.collectives import all_gather
+
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        piece = all_gather(piece.movedim(dim, 0),
+                           group=mesh.group(axis)).movedim(0, dim)
+    return piece

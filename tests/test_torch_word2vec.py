@@ -455,8 +455,9 @@ def test_unported_paths_raise(port, tmp_path):
 
 
 def test_worker_axis_parallelism_refused():
-    """dp_sync / dp_exchange need a worker axis > 1: the session refuses the
-    mesh that would give one."""
+    """dp_sync / dp_exchange need a worker axis > 1, and one process
+    cannot hold one: a port mesh holds one rank per process, so the
+    session refuses -mesh_shape=2,1 alone."""
     import multiverso_tpu_torch as mv
     from multiverso_tpu_torch.runtime import Session
 
