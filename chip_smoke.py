@@ -264,8 +264,9 @@ Phase 12 runs after phase 6:
    each with a change of nothing as the failing control; for (g) the
    packed batch bitwise equal to the scatter compaction's on the same
    draws (the next slab's packing as the control). For (a) and (d), a
-   witness: 4 more single steps on the card and on the CPU twin with the
-   same draws, each loss within 1e-2 relative. Then one warm and 5 timed
+   witness: 2 more single steps on the card and on the CPU twin with the
+   same draws (cut from 4 to make room for phase 20), each loss within
+   1e-2 relative. Then one warm and 5 timed
    calls of 25 steps (host batches: the stream runs epoch after epoch),
    every loss finite and moving as the configuration's rule asks: HS,
    segsum and split8 fall by at least 1e-3 relative from the held step;
@@ -377,8 +378,9 @@ Phase 17 runs after phase 16:
    bf16 into the [71291, 200] bf16 table) bitwise against its plain
    version, with its times on cold data (copies cycled past the 50 MB
    L2); then ``apps.wordembedding.train`` at the bench's configuration
-   (bench corpus and width, batch 65,536, G 64, 25 steps a call, 3
-   epochs), alone in this process and in 2 async processes: bf16 tables
+   (bench corpus and width, batch 65,536, G 64, 25 steps a call, 2
+   epochs, cut from 3 to make room for phase 20), alone in this process
+   and in 2 async processes: bf16 tables
    at ``-sync_frequency`` 1 and 4 and at ``-ssp_staleness=1``, and f32
    tables at ``-sync_frequency`` 1; each run's loss finite and falling in
    every process, no bytes in flight at its end, K1 and K2 launched in
@@ -437,16 +439,60 @@ Phase 19 runs after phase 18:
    (1, 1) mesh on the same card with the same batches. (a) every rank's
    losses and each worker row's momentum after the first step and
    parameters and momentum after the last held against the one process
-   at the limits ``MESH_TOLS`` (set from mesh_tolerance.py's CPU
-   readings), dp replicas bitwise equal; two controls that must fail
-   them (layer 0's first ``reduce_from_tp`` skipped: the first loss; the
-   gradients left out of the dp average: the momentum after one step). (b) K3-K7 at the per-rank shapes (B 4 x
-   S 1024, B 2 x S 2048, 6 heads) against their plain versions at
-   phases 2 and 7's limits. (c) each rank's launches by kernel (counted
+   at the limits ``MESH_TOLS`` (set from ``phase_tolerance.py --phase
+   mesh``'s CPU readings), dp replicas bitwise equal; two controls that
+   must fail them (layer 0's first ``reduce_from_tp`` skipped: the first
+   loss; the gradients left out of the dp average: the momentum after
+   one step). (b) K3-K7 at the per-rank shapes (B 4 x S 1024, B 2 x S
+   2048, 6 heads) against their plain versions at phases 2 and 7's
+   limits. (c) each rank's launches by kernel (counted
    from 0 just before its run), every kernel of the run's path launched.
    Prints per rank and run ms a step, the aggregate tokens/s and its
    ratio to the one process's, the bytes staged, the exchanges and the
    exchange share.
+
+Phase 20 runs after phase 19:
+
+20. pipeline parallelism and MoE over a process mesh on one card
+   (``phase_pipeline_moe``): first one process on the card (the oracle),
+   then 4 fresh interpreters on ``cuda:0`` as phase 19's (files under
+   build/pipemoe/, removed at the end), rank r stage r of a 4-stage
+   ``stage`` axis and shard r of a 4-process ``expert`` axis. The stages
+   are the flagship's 12 layers (bf16, ``attention="flash_force"``,
+   seed-0 weights through ``params_from_jax`` and
+   ``stage_params_from_jax``), 3 a stage stacked [4, 3, ...], ``stage_fn``
+   ``_block`` over them; ``xs`` embed[tokens] + pos from phase 9's corpus
+   (phase 19's batches), the loss the final norm, the tied logits and
+   next-token cross-entropy (embed and ln_f_g closed over). (a)
+   ``pipeline_value_and_grad`` (1F1B) at seq 1024 x 8 microbatches of [1,
+   1024] (K3 + K5) and 2048 x 4 (K4 + K6 + K7), 1 warm-up and 3 timed
+   steps each, momentum 0.9 and lr 0.003 on each stage's gradient; (b)
+   ``pipeline_apply`` (GPipe) forward and backward at seq 1024, 4 calls
+   on the first-step weights; both against the oracle, which puts the
+   same microbatches through the 12 layers in order and takes autograd's
+   gradients: the first loss and (b)'s outputs bitwise equal, the first
+   step's stage gradients and the later losses within ``PM_TOLS`` (set
+   from ``phase_tolerance.py --phase pipemoe``'s CPU reading), a GPipe
+   rank's gradient only in its stage's row; two controls must fail the
+   gradient limit (stages 0-2 seeded with zeros: the cotangent not passed
+   up the ring; the loss's cotangent counted on all 4 ranks). (c)
+   ``moe_apply`` (8 experts of 768 x 3072, 2 a rank, 8,192 tokens, 2,048 a
+   rank, N(0, 1) from seed 20) in bf16 and f32 at capacity factors 1.0 (C
+   256, tokens dropped), 2.0 (C 512) and 8.0 (none dropped), forward and
+   backward of sum(y^2) + 0.01 aux, against the dense per-token reference
+   of tests/test_pipeline_moe.py:177-186 on each rank's [2,048, 768] slice
+   as its own call, its drops from top1_gating at the same C: y, aux and
+   the router's and experts' gradients within ``PM_TOLS``, no token routed
+   differently; the combine without the gate weights must fail y's limit.
+   (d) K3-K7 at the stages' shapes (B 1 x S 1024 and B 1 x S 2048, 12
+   heads) against their plain versions at phases 2 and 7's limits. Prints
+   by run and rank ms a step, tokens/s against the one process (the
+   oracle's microbatches in turn, and the same batch as one [batch, seq]
+   step, phase 19's one-process form), bytes staged, exchanges, the
+   exchange share, the bubble share (empty slots over all slots),
+   the peak memory of (a) against (b) at seq 1024 and the launches of
+   K3-K7 (counted from 0 just before each run); every rank must have
+   launched K3 and K5 at seq 1024 and K4, K6 and K7 at 2048.
 
 The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
@@ -464,7 +510,9 @@ by process as ``launches_ps``, and K2 at the shape of a keyed record of
 the bench tables as ``ps_record_*``; phase 18's by leg and by process as
 ``launches_seqpar`` on K3-K7, phase 19's by run and by process as
 ``launches_mesh`` and those kernels at its per-rank shapes as
-``mesh_*``); the last line is
+``mesh_*``, phase 20's by run and by process as ``launches_pipeline``
+and those kernels at the stages' shapes as ``pipeline_*``);
+the last line is
 {"ok": true, "device": {...}}. Any failure exits
 nonzero before either line is printed. Without a CUDA device, or without
 the package beside this file, the script fails. To debug one phase, call
@@ -4241,11 +4289,12 @@ W2V_OPT_CONFIGS = (
     # the config's updates go through the scatter kernel (segsum and
     # split8 apply them with index_add_ into an f32 buffer), the loss rule,
     # and the steps after the held step that the card and the CPU twin
-    # take with the same draws (the witness of a loss that does not fall)
-    ("a cbow+ns", dict(cbow=True), True, "flat", 4),
+    # take with the same draws (the witness of a loss that does not fall;
+    # 2 steps, cut from 4 to make room for phase 20)
+    ("a cbow+ns", dict(cbow=True), True, "flat", 2),
     ("b hs", dict(hs=True, negative=0), True, "falls", 0),
     ("c hs+ns", dict(hs=True), True, "falls", 0),
-    ("d adagrad", dict(use_adagrad=True), True, "peak", 4),
+    ("d adagrad", dict(use_adagrad=True), True, "peak", 2),
     ("e segsum", dict(update_impl="segsum"), False, "falls", 0),
     ("f split8", dict(update_impl="split8"), False, "falls", 0),
     ("g cbow gather", dict(cbow=True, compact_impl="gather"), True, "flat",
@@ -4256,8 +4305,9 @@ W2V_HOST_CONFIGS = (("h host skip-gram", dict()),
 # the witness's loss, card against the CPU twin, relative: the two start
 # from tables that differ within phase 5's rule, and AdaGrad's hot rows
 # then move by ~lr a duplicate, which magnifies each rounding difference
-# (its third step read 7.3772 on an H100 against 7.3861 on the CPU, 1.2e-3
-# apart, on a rise from 4.159); 1e-2 still tells a rise of 77% apart
+# (the third step of a 4-step witness read 7.3772 on an H100 against
+# 7.3861 on the CPU, 1.2e-3 apart, on a rise from 4.159); 1e-2 still
+# tells a rise of 77% apart
 W2V_WITNESS_TOL = 1e-2
 _W2V_CORPUS = {}
 
@@ -5937,7 +5987,7 @@ def phase_durability(card: str):
 PS_DIR = os.path.join(HERE, "build", "ps")
 PS_TIMEOUT_S = {"a": 120.0, "b": 300.0, "c": 120.0}
 PS_UNIT = 2.0 ** -8          # (a)'s exact grid: every sum exact in any order
-PS_W2V_EPOCHS = 3
+PS_W2V_EPOCHS = 2           # (b)'s epochs a run (cut from 3)
 # (b)'s runs: tag, table dtype, -sync_frequency, -ssp_staleness
 PS_W2V_RUNS = (("bf16 sf1", "bfloat16", 1, -1),
                ("bf16 sf4", "bfloat16", 4, -1),
@@ -6846,9 +6896,9 @@ MESH_TIMEOUT_S = 300.0
 # "momentum": after the last step, as "momentum1", every leaf. After the
 # first step the two trajectories part (each bf16 rounding that flips
 # moves the next step's loss), so the later limits are loose and the
-# first step's tight. mesh_tolerance.py on the CPU (the flagship's width,
-# 2 layers at seq 1024 x 8 and 2048 x 4, 12 layers at 128 x 8 and 256 x
-# 4, 1 layer at 32 x 8 and 64 x 4) reads at most loss1 4.1e-4,
+# first step's tight. phase_tolerance.py --phase mesh on the CPU (the
+# flagship's width, 2 layers at seq 1024 x 8 and 2048 x 4, 12 layers at 128
+# x 8 and 256 x 4, 1 layer at 32 x 8 and 64 x 4) reads at most loss1 4.1e-4,
 # momentum1 8.9e-3, momentum1_embed 1.3e-1, loss 2.3e-2, params 8.6e-3,
 # momentum 1.5e-1: the limits sit 2.2-12x over them.
 # The controls must fail: layer 0's first reduce_from_tp skipped, loss1
@@ -6861,17 +6911,19 @@ MESH_KERNELS = {1024: ("flash_fwd[key_len<=1024]", "flash_bwd[fused]"),
                        "flash_bwd[dkv]")}
 
 
-def mesh_setup():
-    """Phase 19's device, depth and runs; ``MESH_DEVICE``, ``MESH_LAYERS``
-    and ``MESH_RUNS`` (``"128x8,256x4"``) override them for
-    mesh_tolerance.py's CPU reading."""
-    device = os.environ.get("MESH_DEVICE", "cuda")
-    layers = int(os.environ.get("MESH_LAYERS", FLAGSHIP["n_layers"]))
-    runs = MESH_RUNS
-    if os.environ.get("MESH_RUNS"):
+def phase_setup(prefix: str, runs, tokens: int = 0):
+    """A multi-process phase's device, depth, runs and MoE token count:
+    the card, the flagship's depth, ``runs`` and ``tokens``, unless
+    ``<prefix>_DEVICE``, ``<prefix>_LAYERS``, ``<prefix>_RUNS``
+    (``"128x8,256x4"``) or ``<prefix>_TOKENS`` override them for
+    phase_tolerance.py's CPU reading (phase 19: MESH, phase 20: PM)."""
+    env = os.environ
+    device = env.get(f"{prefix}_DEVICE", "cuda")
+    layers = int(env.get(f"{prefix}_LAYERS", FLAGSHIP["n_layers"]))
+    if env.get(f"{prefix}_RUNS"):
         runs = tuple(tuple(int(x) for x in r.split("x"))
-                     for r in os.environ["MESH_RUNS"].split(","))
-    return device, layers, runs
+                     for r in env[f"{prefix}_RUNS"].split(","))
+    return device, layers, runs, int(env.get(f"{prefix}_TOKENS", tokens))
 
 
 def mesh_cfg(seq: int, layers: int):
@@ -6920,7 +6972,7 @@ def mesh_worker() -> None:
     from multiverso_tpu_torch.models import transformer as tf
     from multiverso_tpu_torch.parallel import collectives
 
-    device, layers, runs = mesh_setup()
+    device, layers, runs, _ = phase_setup("MESH", MESH_RUNS)
     if device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.cuda.set_device(SP_DEV)
@@ -7133,25 +7185,25 @@ def mesh_load(n: int, runs) -> list:
     return parts
 
 
-def mesh_kernels() -> dict:
-    """(b): K3-K7 at the mesh path's per-rank shapes (B 4 x S 1024 and
-    B 2 x S 2048, 6 heads of 64, bf16, causal) against their plain
-    versions at phases 2 and 7's limits."""
+def mesh_kernels(shapes, prefix: str) -> dict:
+    """K3-K7 at a multi-process path's per-rank shapes (``{seq: (batch,
+    heads)}``; heads of 64, bf16, causal) against their plain versions at
+    phases 2 and 7's limits; each kernel's shape and results under
+    ``<prefix>_*`` keys for the kernels line."""
     fa = _fa()
     gen = torch.Generator(device="cpu").manual_seed(19)
-    heads = FLAGSHIP["n_heads"] // MESH_SHAPE[1]
     d = FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
     out = {}
-    for seq, batch in MESH_RUNS:
-        b = batch // MESH_SHAPE[0]
+    for seq, (b, heads) in shapes.items():
         fwd = fa_case_run(fa, fa_case(b, seq, seq, _BF, H=heads, D=d), gen)
         _, bwd, _, _ = bwd_case(b, heads, d, seq, seq, _BF, True, 0, 0)
         shape = f"B {b} x S {seq} x {heads} heads"
         for name in MESH_KERNELS[seq]:
             r = fwd if name.startswith("flash_fwd") else bwd
-            out[name] = {"mesh_shape": shape, **{
-                f"mesh_{k}": r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                            "bound_ms", "library_ms")}}
+            out[name] = {f"{prefix}_shape": shape, **{
+                f"{prefix}_{k}": r[k] for k in ("max_abs_err", "ms",
+                                                "plain_ms", "bound_ms",
+                                                "library_ms")}}
         torch.cuda.empty_cache()
     return out
 
@@ -7170,7 +7222,7 @@ def phase_mesh(card: str) -> tuple:
         if rc != 0 or res is None:
             fail(f"mesh: rank {rank} exited {rc}:\n"
                  f"{log_tail(MESH_DIR, 'mesh', rank)}")
-    _, layers, runs = mesh_setup()
+    _, layers, runs, _ = phase_setup("MESH", MESH_RUNS)
     single = mesh_single(runs, layers, "cuda")
     parts = mesh_load(n, runs)
     errs = mesh_hold(parts, single, runs, DEV,
@@ -7219,9 +7271,726 @@ def phase_mesh(card: str) -> tuple:
                  f"{MESH_TOLS[key]}")
         say(f"mesh control ({name}): {value:.3e} over the limit "
             f"{MESH_TOLS[key]}, fails as it must")
-    kernels = mesh_kernels()
+    # (b): B 4 x S 1024 and B 2 x S 2048, 6 heads
+    kernels = mesh_kernels(
+        {seq: (batch // MESH_SHAPE[0], FLAGSHIP["n_heads"] // MESH_SHAPE[1])
+         for seq, batch in runs}, "mesh")
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     say(f"mesh: phase 19 took {time.perf_counter() - t_phase:.1f} s; card "
+        f"{card}")
+    return launches, kernels
+
+
+PM_DIR = os.path.join(HERE, "build", "pipemoe")
+PM_STAGES = 4              # the stage axis and the expert axis: 4 processes
+PM_RUNS = MESH_RUNS        # (seq, global batch): n_micro of [1, seq]
+PM_TIMEOUT_S = 400.0
+# (c): the flagship's MLP width, 8 experts (2 a rank), 8,192 tokens (2,048
+# a rank) and N(0, 1) inputs from seed 20 (the params drawn first, as in
+# tests/test_pipeline_moe.py)
+PM_MOE = dict(d_model=768, d_hidden=3072, n_experts=8, tokens=8192,
+              seed=20)
+# capacity factors: C = 256, 512 and 2,048 at 2,048 tokens a rank. Seed 20's
+# routing loads each expert with about 256 of a rank's tokens, so 2.0
+# drops none; 1.0 (C = the mean load) is the leg that drops tokens
+PM_MOE_CF = (1.0, 2.0, 8.0)
+PM_MOE_DTYPES = (_BF, _F32)
+PM_MOE_REPS = 3            # timed calls after the held one
+# Each against one process on the same card, the same weights and inputs.
+# (a), (b): "grad1": the first step's stage gradients, each leaf's largest
+# difference over its largest |value| (the pipeline sums the microbatches'
+# gradients in f32, the one process's autograd in bf16); "loss": the
+# later steps' largest |loss difference| (the trajectories part after the
+# first update); the first step's loss and (b)'s outputs must be bitwise
+# equal (the same kernels at the same shapes). (c): "moe_y" each rank's
+# output rows' largest difference over their largest |value|, "moe_aux"
+# the auxiliary loss's relative difference, "moe_grad" each gradient's as
+# "grad1", each by dtype. phase_tolerance.py --phase pipemoe on the CPU
+# (the flagship's width, 1 layer a stage, at seq 1024 x 8 and 2048 x 4
+# with 8,192 MoE tokens, and at 128 x 8 and 256 x 4 with 2,048) reads at
+# most grad1
+# 9.9e-3, loss 3.2e-4, bf16 moe_y 2.2e-3 and moe_grad 8.2e-3, aux 0: the
+# bf16 limits sit 5-15x over them. The f32 limits come from the dtype:
+# a 3,072-term f32 sum taken in another order moves by about sqrt(3072)
+# x 2^-24 ~ 3.3e-6 of its magnitude (the CPU reads 1.9e-7 and 5.0e-7).
+# The controls must fail: grad1 1.0 (stages 0-2 seeded with zeros) and
+# 3.02 (the loss's cotangent counted on 4 ranks); moe_y 1.20 (the combine
+# without the gate weights).
+PM_TOLS = {"grad1": 5e-2, "loss": 5e-3,
+           "moe_y": {_BF: 2e-2, _F32: 1e-5},
+           "moe_aux": {_BF: 1e-2, _F32: 1e-6},
+           "moe_grad": {_BF: 5e-2, _F32: 1e-5}}
+
+
+def pm_path(name: str) -> str:
+    return os.path.join(PM_DIR, name)
+
+
+def pm_weights(seq: int, layers: int, device: str):
+    """The flagship's seed-0 weights at ``max_seq = seq`` (phase 19's
+    mesh_cfg): ``(cfg, whole, stack)``, the whole tree in bf16 on
+    ``device`` through ``params_from_jax`` and the layers stacked
+    ``[PM_STAGES, layers / PM_STAGES, ...]`` through
+    ``stage_params_from_jax``, from the same host draws."""
+    from multiverso_tpu_torch.models import transformer as tf
+    from multiverso_tpu_torch.parallel import pipeline as pp
+
+    cfg = mesh_cfg(seq, layers)
+    host = tf._map(lambda w: w.numpy(), tf.init_params(
+        tf.TransformerConfig(**dict(FLAGSHIP, max_seq=seq, n_layers=layers)),
+        device="cpu"))
+    whole = tf.params_from_jax(host, device=device, dtype=_BF)
+    per = layers // PM_STAGES
+    stack = pp.stage_params_from_jax(
+        [{k: v[s * per:(s + 1) * per] for k, v in host["layers"].items()}
+         for s in range(PM_STAGES)], device=device, dtype=_BF)
+    return cfg, whole, stack
+
+
+def pm_fns(cfg, whole):
+    """``stage_fn`` (phase 19's ``_block`` over a stage's layers) and
+    ``loss_fn`` (the final norm, the tied logits and next-token
+    cross-entropy; the embedding and ``ln_f_g`` closed over)."""
+    from multiverso_tpu_torch.models import transformer as tf
+
+    def stage_fn(p, h):
+        for layer in tf._layers({"layers": p}):
+            h = tf._block(cfg, layer, h)[0]
+        return h
+
+    def loss_fn(h, tgt):
+        logits = tf._logits(tf._rmsnorm(h, whole["ln_f_g"]), whole["embed"])
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, tgt[..., None]).mean()
+
+    return stage_fn, loss_fn
+
+
+def pm_micro(tok, whole, device):
+    """A global [batch, seq + 1] window as ``(xs, targets)``: batch
+    microbatches of [1, seq], ``xs = embed[tokens] + pos`` in bf16."""
+    tok = torch.as_tensor(np.asarray(tok), dtype=torch.int64,
+                          device=device)
+    micro = tok.reshape(tok.shape[0], 1, tok.shape[1])
+    seq = micro.shape[-1] - 1
+    xs = whole["embed"][micro[..., :-1]] + whole["pos"][:seq]
+    return xs, micro[..., 1:]
+
+
+def pm_sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def pm_oracle(runs, layers: int, device: str, timed: bool = True) -> dict:
+    """One process: each step puts the microbatches through the 12 layers
+    in order, the loss their mean (added in microbatch order in f32, as
+    the pipeline's), the gradients by autograd, then momentum 0.9 and lr
+    0.003 as the stages take them. Saves each stage's first-step
+    gradients and, at the first run, the first step's outputs by
+    microbatch; returns the losses and ms a step by run, and
+    (``timed``) the ms a step of the same batches each as one [batch,
+    seq] step (phase 19's one-process form; the CPU reading skips it)."""
+    from multiverso_tpu_torch.models import transformer as tf
+
+    res = {}
+    for seq, batch in runs:
+        cfg, whole, _ = pm_weights(seq, layers, device)
+        stage_fn, loss_fn = pm_fns(cfg, whole)
+        lp = {k: v.requires_grad_() for k, v in whole["layers"].items()}
+        mom = {k: torch.zeros_like(v) for k, v in lp.items()}
+        losses, secs, outs = [], [], []
+        for step, tok in enumerate(mesh_batches(seq, batch)):
+            xs, tgt = pm_micro(tok, whole, device)
+            pm_sync(device)
+            t0 = time.perf_counter()
+            total = None
+            for m in range(xs.shape[0]):
+                h = stage_fn(lp, xs[m])
+                if step == 0 and seq == runs[0][0]:
+                    outs.append(h.detach())
+                loss_m = loss_fn(h, tgt[m])
+                total = loss_m if total is None else total + loss_m
+            loss = total / xs.shape[0]
+            grads = torch.autograd.grad(loss, list(lp.values()))
+            with torch.no_grad():
+                for (k, p), g in zip(lp.items(), grads):
+                    mom[k].mul_(cfg.momentum).add_(g)
+                    p.sub_(cfg.learning_rate * mom[k])
+            pm_sync(device)
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss.detach()))
+            if step == 0:
+                per = layers // PM_STAGES
+                for s in range(PM_STAGES):
+                    torch.save({k: g[s * per:(s + 1) * per].clone()
+                                for k, g in zip(lp, grads)},
+                               pm_path(f"grads{seq}_{s}.pt"))
+            del grads, total, loss
+        if outs:
+            torch.save(torch.stack(outs), pm_path(f"outs{seq}.pt"))
+        res[seq] = {"losses": losses, "step_ms": [x * 1e3 for x in secs[1:]],
+                    "batch_ms": pm_batch_steps(cfg, whole, lp, mom, seq,
+                                               batch, device) if timed
+                    else []}
+        del whole, lp, mom, outs
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def pm_batch_steps(cfg, whole, lp, mom, seq: int, batch: int,
+                   device: str) -> list:
+    """The timed steps (after one warm-up) of the run's batches each put
+    through the layers as one [batch, seq] step, the loss the mean over
+    its tokens, then momentum and lr as pm_oracle's: ms a step."""
+    stage_fn, loss_fn = pm_fns(cfg, whole)
+    secs = []
+    for tok in mesh_batches(seq, batch):
+        xs, tgt = pm_micro(tok, whole, device)
+        pm_sync(device)
+        t0 = time.perf_counter()
+        loss = loss_fn(stage_fn(lp, xs[:, 0]), tgt[:, 0])
+        grads = torch.autograd.grad(loss, list(lp.values()))
+        with torch.no_grad():
+            for (k, p), g in zip(lp.items(), grads):
+                mom[k].mul_(cfg.momentum).add_(g)
+                p.sub_(cfg.learning_rate * mom[k])
+        pm_sync(device)
+        secs.append(time.perf_counter() - t0)
+        del grads, loss
+    return [x * 1e3 for x in secs[1:]]
+
+
+def pm_grad_errs(got, ref) -> dict:
+    """Per leaf: the largest |got - ref| over the largest |ref|."""
+    out = {}
+    for k, r in ref.items():
+        a, b = got[k].float().reshape(r.shape), r.float()
+        top = b.abs().max().clamp(min=torch.finfo(torch.float32).tiny)
+        out[k] = ((a - b).abs().max() / top).item()
+    return out
+
+
+def pm_run_stats(pp, collectives, fa, secs, device: str) -> dict:
+    stats = dict(collectives.STATS)
+    return {"step_ms": [x * 1e3 for x in secs],
+            "launches": sp_counts(fa), "stats": stats,
+            "exchange_share": stats["exchange_s"] / sum(secs),
+            "bubble_share": 1.0 - pp.STATS["filled"] / pp.STATS["slots"],
+            "peak_mb": (torch.cuda.max_memory_allocated() / 1e6
+                        if device == "cuda" else 0.0)}
+
+
+def pm_reset(pp, collectives, fa, device: str) -> None:
+    fa.reset_launches()
+    collectives.reset_stats()
+    pp.reset_stats()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def pm_gpipe(cfg, whole, stack, batches, mesh, device: str) -> dict:
+    """(b): pipeline_apply forward and backward on the first-step weights,
+    the loss the microbatches' mean on every rank; the first call held
+    against the one process, then PM's timed calls."""
+    from multiverso_tpu_torch.parallel import collectives
+    from multiverso_tpu_torch.parallel import pipeline as pp
+
+    fa = _fa()
+    stage = mesh.coords()["stage"]
+    stage_fn, loss_fn = pm_fns(cfg, whole)
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in
+              stack.items()}
+    seq = batches[0].shape[1] - 1
+    ref_out = torch.load(pm_path(f"outs{seq}.pt"), map_location=device)
+    ref_grads = torch.load(pm_path(f"grads{seq}_{stage}.pt"),
+                           map_location=device)
+    pm_sync(device)
+    pm_reset(pp, collectives, fa, device)
+    losses, secs, res = [], [], {}
+    for i, tok in enumerate(batches):
+        xs, tgt = pm_micro(tok, whole, device)
+        pm_sync(device)
+        t0 = time.perf_counter()
+        out = pp.pipeline_apply(stage_fn, leaves, xs, mesh)
+        total = None
+        for m in range(xs.shape[0]):
+            loss_m = loss_fn(out[m], tgt[m])
+            total = loss_m if total is None else total + loss_m
+        loss = total / xs.shape[0]
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        pm_sync(device)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+        if i == 0:
+            res["out_equal"] = bool(torch.equal(out.detach(), ref_out))
+            res["out_max_diff"] = (out.detach().float()
+                                   - ref_out.float()).abs().max().item()
+            mine = {k: g[stage] for k, g in zip(leaves, grads)}
+            res["grad1"] = pm_grad_errs(mine, ref_grads)
+            res["others_zero"] = all(
+                not torch.cat([g[:stage], g[stage + 1:]]).any()
+                for g in grads)
+        del out, grads, total, loss
+    res.update(pm_run_stats(pp, collectives, fa, secs, device))
+    res["losses"] = losses
+    return res
+
+
+def pm_1f1b(cfg, whole, stack, batches, mesh, device: str,
+            steps=None) -> dict:
+    """(a): pipeline_value_and_grad on each batch, then momentum 0.9 and
+    lr 0.003 on this stage's slice of ``stack`` (in place); the first
+    step's stage gradients held against the one process's."""
+    from multiverso_tpu_torch.parallel import collectives
+    from multiverso_tpu_torch.parallel import pipeline as pp
+
+    fa = _fa()
+    stage = mesh.coords()["stage"]
+    stage_fn, loss_fn = pm_fns(cfg, whole)
+    seq = batches[0].shape[1] - 1
+    ref_grads = torch.load(pm_path(f"grads{seq}_{stage}.pt"),
+                           map_location=device)
+    mom = {k: torch.zeros_like(v[stage]) for k, v in stack.items()}
+    pm_sync(device)
+    pm_reset(pp, collectives, fa, device)
+    losses, secs, res = [], [], {}
+    for i, tok in enumerate(batches[:steps]):
+        xs, tgt = pm_micro(tok, whole, device)
+        pm_sync(device)
+        t0 = time.perf_counter()
+        loss, g = pp.pipeline_value_and_grad(stage_fn, loss_fn, stack, xs,
+                                             tgt, mesh)
+        with torch.no_grad():
+            for k, w in stack.items():
+                mom[k].mul_(cfg.momentum).add_(g[k][0].to(mom[k].dtype))
+                w[stage].sub_(cfg.learning_rate * mom[k])
+        pm_sync(device)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if i == 0:
+            res["grad1"] = pm_grad_errs({k: v[0] for k, v in g.items()},
+                                        ref_grads)
+        del g, loss
+    res.update(pm_run_stats(pp, collectives, fa, secs, device))
+    res["losses"] = losses
+    return res
+
+
+def pm_controls(cfg, whole, stack, batches, mesh, device: str) -> dict:
+    """(a)'s two controls, one step each on the first-step weights: the
+    cotangent not passed up the ring (stages 0-2 seeded with zeros), and
+    the loss's cotangent counted on all 4 ranks (the seed x 4)."""
+    from multiverso_tpu_torch.parallel import pipeline as pp
+
+    ring, seed = pp._pass_cotangent, pp._loss_and_seed
+
+    def every_rank(loss_fn, y, aux):
+        loss, s = seed(loss_fn, y, aux)
+        return loss, s * PM_STAGES
+
+    out = {}
+    for name, attr, fake in (
+            ("no_cotangent", "_pass_cotangent",
+             lambda dx, *a: torch.zeros_like(dx)),
+            ("seed_every_rank", "_loss_and_seed", every_rank)):
+        setattr(pp, attr, fake)
+        try:
+            r = pm_1f1b(cfg, whole, {k: v.clone() for k, v in stack.items()},
+                        batches, mesh, device, steps=1)
+        finally:
+            pp._pass_cotangent, pp._loss_and_seed = ring, seed
+        out[name] = max(r["grad1"].values())
+    return out
+
+
+def pm_moe_inputs(dtype, tokens: int, device: str):
+    from multiverso_tpu_torch.ops import moe
+
+    rng = np.random.default_rng(PM_MOE["seed"])
+    router, ep = moe.init_moe_params(rng, PM_MOE["n_experts"],
+                                     PM_MOE["d_model"], PM_MOE["d_hidden"],
+                                     dtype=dtype, device=device)
+    x = torch.from_numpy(rng.standard_normal(
+        (tokens, PM_MOE["d_model"])).astype(np.float32)).to(device, dtype)
+    return router, ep, x
+
+
+def pm_moe_loss(y, aux):
+    """The tests' sum(y^2) + 0.01 aux, summed in f32."""
+    return (y.float() ** 2).sum() + 0.01 * aux.float()
+
+
+def pm_moe_oracle(tokens: int, device: str, timed: bool = True) -> dict:
+    """(c)'s one-process references: tests/test_pipeline_moe.py's dense
+    per-token reference on each rank's [T/4, d] slice as its own call
+    (the router product in the same dtype at the same shape), its drops
+    and slots from top1_gating at the rank's C; gradients of
+    pm_moe_loss by autograd. Saves each rank's rows, its experts'
+    gradients and its routing; returns moe_apply's ms on a one-process
+    axis by run (``timed``; phase_tolerance.py's CPU reading skips
+    it)."""
+    from multiverso_tpu_torch.ops import moe
+    from multiverso_tpu_torch.topology import make_mesh
+
+    S, E = PM_STAGES, PM_MOE["n_experts"]
+    t = tokens // S
+    single = {}
+    for dtype in PM_MOE_DTYPES:
+        for cf in PM_MOE_CF:
+            tag = f"{str(dtype).split('.')[1]} cf {cf}"
+            router, ep, x = pm_moe_inputs(dtype, tokens, device)
+            router.requires_grad_()
+            for w in ep.values():
+                w.requires_grad_()
+            cap = int(np.ceil(cf * t / E))
+            ys, auxes, routes = [], [], []
+            for r in range(S):
+                xr = x[r * t:(r + 1) * t]
+                logits = xr @ router
+                dispatch, _, aux = moe.top1_gating(logits, cap)
+                kept = dispatch.sum((1, 2)) > 0
+                gates = torch.softmax(logits, dim=-1)
+                idx = torch.argmax(gates, dim=-1)
+                gate = gates.gather(-1, idx[:, None])
+                y = torch.zeros_like(xr)
+                for e in range(E):
+                    rows = torch.nonzero((idx == e) & kept)[:, 0]
+                    val = moe.mlp_expert({k: w[e] for k, w in ep.items()},
+                                         xr[rows]) * gate[rows]
+                    y = y.index_add(0, rows, val)
+                ys.append(y)
+                auxes.append(aux)
+                routes.append((idx, kept))
+            aux = torch.stack(auxes).mean()
+            loss = sum((y.float() ** 2).sum() for y in ys) + \
+                0.01 * aux.float()
+            g_router, g1, g2 = torch.autograd.grad(
+                loss, [router, ep["w1"], ep["w2"]])
+            per = E // S
+            for r in range(S):
+                torch.save({"y": ys[r].detach(), "aux": aux.detach(),
+                            "router": g_router,
+                            "w1": g1[r * per:(r + 1) * per].clone(),
+                            "w2": g2[r * per:(r + 1) * per].clone(),
+                            "idx": routes[r][0], "kept": routes[r][1]},
+                           pm_path(f"moe_{tag.replace(' ', '_')}_{r}.pt"))
+            # moe_apply on an axis of one process, the same call timed
+            one = make_mesh((1,), ("expert",))
+            secs = []
+            for _ in range((1 + PM_MOE_REPS) * timed):
+                pm_sync(device)
+                t0 = time.perf_counter()
+                y1, a1 = moe.moe_apply(moe.mlp_expert, ep, router, x, one,
+                                       capacity_factor=cf)
+                torch.autograd.grad(pm_moe_loss(y1, a1),
+                                    [router, ep["w1"], ep["w2"]])
+                pm_sync(device)
+                secs.append(time.perf_counter() - t0)
+            single[tag] = float(np.mean(secs[1:])) * 1e3 if timed else 0.0
+            del ys, g_router, g1, g2, loss
+    return single
+
+
+def pm_moe(mesh, tokens: int, device: str) -> dict:
+    """(c) on this rank: moe_apply over the 4-process ``expert`` axis, each
+    dtype and capacity factor, forward and backward of pm_moe_loss; the
+    first call held against the one process's rows, routing and
+    gradients (the router's shares summed over the axis), then
+    PM_MOE_REPS timed calls; the control: the combine without the gate
+    weights."""
+    from multiverso_tpu_torch.ops import moe
+    from multiverso_tpu_torch.parallel import collectives
+
+    group = mesh.group("expert")
+    r = mesh.coords()["expert"]
+    per = PM_MOE["n_experts"] // PM_STAGES
+    out = {}
+    for dtype in PM_MOE_DTYPES:
+        for cf in PM_MOE_CF:
+            tag = f"{str(dtype).split('.')[1]} cf {cf}"
+            ref = torch.load(pm_path(f"moe_{tag.replace(' ', '_')}_{r}.pt"),
+                             map_location=device)
+            router, ep, x = pm_moe_inputs(dtype, tokens, device)
+            router.requires_grad_()
+            for w in ep.values():
+                w.requires_grad_()
+            route = moe._route
+            seen = []
+            moe._route = lambda lg, c: seen.append(route(lg, c)) or seen[-1]
+            try:
+                secs, res = [], {}
+                for i in range(1 + PM_MOE_REPS):
+                    pm_sync(device)
+                    if i == 1:
+                        collectives.reset_stats()
+                    t0 = time.perf_counter()
+                    y, aux = moe.moe_apply(moe.mlp_expert, ep, router, x,
+                                           mesh, capacity_factor=cf)
+                    grads = torch.autograd.grad(
+                        pm_moe_loss(y, aux), [router, ep["w1"], ep["w2"]])
+                    pm_sync(device)
+                    secs.append(time.perf_counter() - t0)
+                    if i == 0:
+                        expert, _, keep, _, _ = seen[0]
+                        res["misrouted"] = int(
+                            ((keep != ref["kept"])
+                             | (keep & (expert != ref["idx"]))).sum())
+                        res["dropped"] = int((~keep).sum())
+                        top = ref["y"].float().abs().max()
+                        res["y"] = ((y.float() - ref["y"].float()).abs()
+                                    .max() / top).item()
+                        ref_aux = float(ref["aux"])
+                        res["aux"] = abs(float(aux.detach()) - ref_aux) / \
+                            abs(ref_aux)
+                        share = collectives.allreduce(grads[0], group)
+                        mine = slice(r * per, (r + 1) * per)
+                        res["grad"] = max(pm_grad_errs(
+                            {"router": share, "w1": grads[1][mine],
+                             "w2": grads[2][mine]},
+                            {k: ref[k] for k in ("router", "w1", "w2")})
+                            .values())
+                    del y, aux, grads
+            finally:
+                moe._route = route
+            # the timed calls' exchanges, a call
+            stats = {k: v / PM_MOE_REPS for k, v in
+                     collectives.STATS.items()}
+            res.update(ms=[x_ * 1e3 for x_ in secs[1:]], stats=stats,
+                       exchange_share=stats["exchange_s"] * PM_MOE_REPS
+                       / sum(secs[1:]))
+            # the control: every kept token's combine weight 1
+            moe._route = lambda lg, c: (lambda e, p, k, g, a: (
+                e, p, k, torch.ones_like(g), a))(*route(lg, c))
+            try:
+                with torch.no_grad():
+                    y, _ = moe.moe_apply(moe.mlp_expert, ep, router, x,
+                                         mesh, capacity_factor=cf)
+            finally:
+                moe._route = route
+            res["ctl_no_gate_y"] = ((y.float() - ref["y"].float()).abs()
+                                    .max() / ref["y"].float().abs().max()
+                                    ).item()
+            out[tag] = res
+            del ref, router, ep, x, y
+    return out
+
+
+def pm_worker() -> None:
+    """A phase-20 worker: rank ``MV_PROCESS_ID`` of 4, stage and expert
+    shard ``rank``. (b) then (a) at each run (launch counts, exchange and
+    slot counters and the peak memory set to 0 just before each and read
+    just after), (a)'s controls at the first run, then (c)."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.parallel import pipeline as pp
+    from multiverso_tpu_torch.topology import make_mesh
+
+    device, layers, runs, tokens = phase_setup("PM", PM_RUNS,
+                                               PM_MOE["tokens"])
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(SP_DEV)
+    mv.init(["pipemoe", f"-device={device}", "-log_level=error"])
+    rank = mv.rank()
+    mesh = pp.make_pipeline_mesh(PM_STAGES)
+    out = {"stage": mesh.coords()["stage"]}
+    for seq, batch in runs:
+        cfg, whole, stack = pm_weights(seq, layers, device)
+        batches = mesh_batches(seq, batch)
+        if seq == runs[0][0]:
+            mv.barrier()
+            out[f"gpipe {seq}"] = pm_gpipe(cfg, whole, stack, batches, mesh,
+                                           device)
+            mv.barrier()
+            out["controls"] = pm_controls(cfg, whole, stack, batches, mesh,
+                                          device)
+        mv.barrier()
+        out[f"1f1b {seq}"] = pm_1f1b(cfg, whole, stack, batches, mesh,
+                                     device)
+        del cfg, whole, stack
+    mv.barrier()
+    out["moe"] = pm_moe(make_mesh((PM_STAGES,), ("expert",)), tokens, device)
+    mv.shutdown()
+    with open(pm_path(f"pipemoe_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def pm_load(n: int) -> list:
+    parts = []
+    for r in range(n):
+        with open(pm_path(f"pipemoe_{r}.json")) as f:
+            parts.append(json.load(f))
+    return parts
+
+
+def pm_hold(parts, single, runs) -> dict:
+    """Every rank's (a) and (b) against the one process: the errors
+    PM_TOLS names, worst over the ranks, and the controls'."""
+    res = {}
+    for seq, _ in runs:
+        for kind in ("1f1b", "gpipe"):
+            key = f"{kind} {seq}"
+            if key not in parts[0]:
+                continue
+            ref = single[seq]["losses"]
+            rows = [p[key] for p in parts]
+            e = {"grad1": max(max(r["grad1"].values()) for r in rows),
+                 "loss1_equal": all(r["losses"][0] == ref[0] for r in rows),
+                 "loss1_diff": max(abs(r["losses"][0] - ref[0])
+                                   for r in rows)}
+            if kind == "1f1b":
+                e["loss"] = max(abs(a - b) for r in rows
+                                for a, b in zip(r["losses"][1:], ref[1:]))
+            else:
+                e["out_equal"] = all(r["out_equal"] for r in rows)
+                e["out_max_diff"] = max(r["out_max_diff"] for r in rows)
+                e["others_zero"] = all(r["others_zero"] for r in rows)
+            res[key] = e
+    res["controls"] = {k: max(p["controls"][k] for p in parts)
+                       for k in parts[0]["controls"]}
+    return res
+
+
+def pm_passes(key: str, e: dict) -> bool:
+    ok = e["grad1"] <= PM_TOLS["grad1"] and e["loss1_equal"]
+    if key.startswith("1f1b"):
+        return ok and np.isfinite(e["loss"]) and e["loss"] <= PM_TOLS["loss"]
+    return ok and e["out_equal"] and e["others_zero"]
+
+
+def pm_moe_hold(parts) -> dict:
+    """(c): each run's worst errors over the ranks, the misrouted and
+    dropped tokens summed, and the control's error."""
+    res = {}
+    for tag in parts[0]["moe"]:
+        rows = [p["moe"][tag] for p in parts]
+        res[tag] = {k: max(r[k] for r in rows)
+                    for k in ("y", "aux", "grad", "ctl_no_gate_y")}
+        res[tag].update(misrouted=sum(r["misrouted"] for r in rows),
+                        dropped=sum(r["dropped"] for r in rows))
+    return res
+
+
+def phase_pipeline_moe(card: str) -> dict:
+    """20. GPipe and 1F1B over a 4-stage axis and top-1 MoE over a
+    4-process expert axis on one card (module docstring); returns the
+    launches of K3-K7 by run and rank, and the kernels' results at the
+    stages' shapes."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(PM_DIR, ignore_errors=True)
+    os.makedirs(PM_DIR, exist_ok=True)
+    lm_corpus()
+    device, layers, runs, tokens = phase_setup("PM", PM_RUNS,
+                                               PM_MOE["tokens"])
+    single = pm_oracle(runs, layers, device)
+    moe_single = pm_moe_oracle(tokens, device)
+    group = worker_group(PM_DIR, "pipemoe", PM_STAGES, "pm_worker",
+                         PM_TIMEOUT_S)
+    for rank, (rc, _) in enumerate(group):
+        if rc != 0:
+            fail(f"pipemoe: rank {rank} exited {rc}:\n"
+                 f"{log_tail(PM_DIR, 'pipemoe', rank)}")
+    parts = pm_load(PM_STAGES)
+    errs = pm_hold(parts, single, runs)
+    launches = {}
+    for seq, batch in runs:
+        for kind in ("gpipe", "1f1b"):
+            key = f"{kind} {seq}"
+            if key not in errs:
+                continue
+            e = errs[key]
+            by_rank = [p[key] for p in parts]
+            launches[key] = {f"rank{r}": x["launches"]
+                             for r, x in enumerate(by_rank)}
+            if not pm_passes(key, e):
+                fail(f"pipeline {key} vs one process: {json.dumps(e)} "
+                     f"(limits: grad1 {PM_TOLS['grad1']}, later losses "
+                     f"{PM_TOLS['loss']}; the first loss and (b)'s outputs "
+                     f"bitwise equal, a rank's gradient only in its stage's "
+                     f"row)")
+            for r, x in enumerate(by_rank):
+                missing = [k for k in MESH_KERNELS[seq]
+                           if x["launches"][k] <= 0]
+                if missing:
+                    fail(f"pipeline {key}: rank {r} launched no {missing}: "
+                         f"{x['launches']}")
+            step_ms = [float(np.mean(x["step_ms"][1:])) for x in by_rank]
+            one_ms = float(np.mean(single[seq]["step_ms"]))
+            batch_ms = float(np.mean(single[seq]["batch_ms"]))
+            tok_s = batch * seq / (max(step_ms) / 1e3)
+            one_tok_s = batch * seq / (one_ms / 1e3)
+            batch_tok_s = batch * seq / (batch_ms / 1e3)
+            what = ("pipeline_apply forward + backward" if kind == "gpipe"
+                    else "pipeline_value_and_grad + momentum")
+            say(f"pipeline {key} ({what}; "
+                f"{PM_STAGES} stages of {layers // PM_STAGES} layers, "
+                f"{batch} microbatches of [1, {seq}], flagship bf16 "
+                f"flash_force): ms a step by rank "
+                f"{[round(x, 3) for x in step_ms]} (mean of "
+                f"{len(by_rank[0]['step_ms']) - 1} after 1); {tok_s:.1f} "
+                f"tok/s; one process, the microbatches in turn "
+                f"{one_ms:.3f} ms a step, {one_tok_s:.1f} tok/s, ratio "
+                f"{tok_s / one_tok_s:.4f}; one process, the batch as one "
+                f"[{batch}, {seq}] step {batch_ms:.3f} ms, "
+                f"{batch_tok_s:.1f} tok/s, ratio {tok_s / batch_tok_s:.4f}; "
+                f"staged MB by rank "
+                f"{[round(x['stats']['staged_bytes'] / 1e6, 1)
+                    for x in by_rank]}, exchanges by rank "
+                f"{[x['stats']['exchanges'] for x in by_rank]}, exchange "
+                f"share by rank "
+                f"{[round(x['exchange_share'], 4) for x in by_rank]}, "
+                f"bubble share {by_rank[0]['bubble_share']:.4f}, peak MB by "
+                f"rank {[round(x['peak_mb'], 1) for x in by_rank]} (the "
+                f"{len(by_rank[0]['step_ms'])} steps); losses rank 0 "
+                f"{[round(x, 4) for x in by_rank[0]['losses']]}, one process "
+                f"{[round(x, 4) for x in single[seq]['losses']]}; vs one "
+                f"process {json.dumps(e)}; launches "
+                f"{json.dumps(launches[key])}; card {card}")
+    for name, value in errs["controls"].items():
+        if value <= PM_TOLS["grad1"]:
+            fail(f"pipeline control {name}: grad1 {value:.3e} passes the "
+                 f"limit {PM_TOLS['grad1']}")
+        say(f"pipeline control ({name}): grad1 {value:.3e} over the limit "
+            f"{PM_TOLS['grad1']}, fails as it must")
+    moe_errs = pm_moe_hold(parts)
+    for tag, e in moe_errs.items():
+        dtype = _BF if tag.startswith("bfloat16") else _F32
+        lim = {k: PM_TOLS[f"moe_{k}"][dtype] for k in ("y", "aux", "grad")}
+        if e["misrouted"] != 0 or any(e[k] > lim[k] for k in lim):
+            fail(f"moe {tag} vs one process: {json.dumps(e)} (limits "
+                 f"{lim}; no token routed differently)")
+        if e["ctl_no_gate_y"] <= lim["y"]:
+            fail(f"moe control (combine without gates) {tag}: y "
+                 f"{e['ctl_no_gate_y']:.3e} passes the limit {lim['y']}")
+        by_rank = [p["moe"][tag] for p in parts]
+        ms = [float(np.mean(r["ms"])) for r in by_rank]
+        tok_s = tokens / (max(ms) / 1e3)
+        one_tok_s = tokens / (moe_single[tag] / 1e3)
+        say(f"moe {tag} ({PM_MOE['n_experts']} experts of "
+            f"{PM_MOE['d_model']} x {PM_MOE['d_hidden']}, {tokens} tokens "
+            f"over {PM_STAGES} ranks, forward + backward): ms by rank "
+            f"{[round(x, 3) for x in ms]} (mean of {PM_MOE_REPS} after 1); "
+            f"{tok_s:.1f} tok/s, one process {moe_single[tag]:.3f} ms, "
+            f"{one_tok_s:.1f} tok/s, ratio {tok_s / one_tok_s:.4f}; staged "
+            f"MB a call by rank "
+            f"{[round(r['stats']['staged_bytes'] / 1e6, 1) for r in by_rank]}"
+            f", exchanges a call {by_rank[0]['stats']['exchanges']}, "
+            f"exchange share by rank "
+            f"{[round(r['exchange_share'], 4) for r in by_rank]}; dropped "
+            f"{e['dropped']}, routed differently {e['misrouted']}; vs one "
+            f"process y {e['y']:.3e}, aux {e['aux']:.3e}, grads "
+            f"{e['grad']:.3e} (limits {lim}); control (combine without "
+            f"gates) y {e['ctl_no_gate_y']:.3e}, fails as it must; card "
+            f"{card}")
+    mem = {k: [round(p[k]["peak_mb"], 1) for p in parts]
+           for k in (f"1f1b {runs[0][0]}", f"gpipe {runs[0][0]}")}
+    say(f"pipeline peak memory at seq {runs[0][0]} by rank (MB): {mem}")
+    shutil.rmtree(PM_DIR, ignore_errors=True)
+    # (d): a stage's microbatch, B 1 x 12 heads
+    kernels = mesh_kernels({seq: (1, FLAGSHIP["n_heads"]) for seq, _ in runs},
+                           "pipeline")
+    say(f"pipemoe: phase 20 took {time.perf_counter() - t_phase:.1f} s; card "
         f"{card}")
     return launches, kernels
 
@@ -7246,6 +8015,7 @@ def main() -> None:
     ps_launches, ps_record = phase_ps(card)
     sp_launches = phase_seqpar(card)
     mesh_launches, mesh_kernel_results = phase_mesh(card)
+    pipe_launches, pipe_kernel_results = phase_pipeline_moe(card)
     n_g = w2v["launches"]["row_gather"]
     n_s = w2v["launches"]["row_scatter_add"]
     for name, r, line, n in (
@@ -7367,6 +8137,15 @@ def main() -> None:
                       for rank, counts in by_rank.items()}
                 for run, by_rank in mesh_launches.items()}
             entry.update(mesh_kernel_results.get(entry["name"], {}))
+    # phase 20's launches by run and by process (each worker counted from
+    # 0 around its run), and K3-K7 at the stages' shapes
+    for entry in kernels_line:
+        if entry["name"] in SP_KERNELS:
+            entry["launches_pipeline"] = {
+                run: {rank: counts[entry["name"]]
+                      for rank, counts in by_rank.items()}
+                for run, by_rank in pipe_launches.items()}
+            entry.update(pipe_kernel_results.get(entry["name"], {}))
     say(f"chip_smoke: the whole script took "
         f"{time.perf_counter() - T_START:.1f} s, card {card_line()}")
     print(json.dumps({"kernels": kernels_line}), flush=True)

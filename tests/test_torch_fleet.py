@@ -245,7 +245,10 @@ def test_retry_backoff_equals_jax(attempt):
 # -- routing policy -----------------------------------------------------------
 
 def test_dispatch_completes_and_session_affinity():
-    kv, router, replicas, engines = _mk_fleet("aff")
+    # a heartbeat a loaded host keeps: at 50 ms (DEAD after 100 ms of
+    # silence) a stalled host flags the pinned replica and moves the
+    # session; this test measures affinity, not detection latency
+    kv, router, replicas, engines = _mk_fleet("aff", hb_ms=REAL_HB_MS)
     try:
         outs = [router.predict(_prompt(4), 4, session="sess-A")
                 for _ in range(6)]
@@ -427,7 +430,10 @@ def test_dead_replica_flagged_drained_and_survivors_serve():
 
 
 def test_half_open_readmission_probe():
-    hb_ms = 50
+    # REAL_HB_MS, not 50 ms: a loaded host's stall would flag a healthy
+    # replica (or the readmitted one again); detection latency is
+    # test_dead_replica_flagged_drained_and_survivors_serve's to measure
+    hb_ms = REAL_HB_MS
     kv, router, replicas, engines = _mk_fleet("readmit", hb_ms=hb_ms)
     try:
         replicas[0].die()

@@ -400,7 +400,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'parallel.async_ps', 'io', 'io.stream', 'parallel.async_buffer', "
         "'tables.sparse_table', 'tables.kv_table', 'models.logreg', "
         "'apps.logreg', 'apps.lr_reader', 'io.wal', 'io.checkpoint', "
-        "'io.remote', 'topology', 'parallel.ssp', 'parallel.health'):\n"
+        "'io.remote', 'topology', 'parallel.ssp', 'parallel.health', "
+        "'parallel.pipeline', 'ops.moe'):\n"
         "    assert 'multiverso_tpu_torch.' + m in names, m\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
