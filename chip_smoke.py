@@ -206,7 +206,8 @@ Phase 13 runs right after phase 11:
    phase 3's oracle under that rule; replica 1 restarted, readmitted
    through the half-open probe, serving again; the flash kernel launched
    in both regimes. (b) at the JAX defaults, one prefill + one decode
-   replica against two unified ones on phase 10's trace: equal outputs
+   replica against two unified ones on phase 10's trace (every 2nd of
+   phase 3's prompts, FLEET_XFER_EVERY): equal outputs
    (near-tie rule where the decode side's admission computed other
    shapes), bytes moved = shipped blocks x block_nbytes, dedup of the
    shared prefix; again with kv_xfer_drop=2; an int8-KV pair shipping
@@ -256,17 +257,19 @@ Phase 12 runs after phase 6:
    (c) HS + NS, (d) skip-gram AdaGrad, (e) update_impl "segsum", (f)
    "split8", (g) CBOW with compact_impl "gather", (h) the host-stream
    trainer (iter_pair_batches on the loader thread, train_batches),
-   skip-gram and CBOW. Each: one step on the card and on CPU copies of the
-   same tables with the same draws, always at batch 65,536 (the slowest
-   CPU step, HS's, takes ~22 s), the change of every table (and of
+   skip-gram and CBOW. Each: one step on the card and on its plain twin
+   (copies of the same tables on the card, the step taking the kernels'
+   plain versions; a twin on the CPU took 23-54 s a step for HS) with the
+   same draws, always at batch 65,536, the change of every table (and of
    AdaGrad's accumulators) held by phase 5's rule (segsum and split8,
    whose f32 sums round once, within one ulp of the table dtype more),
    each with a change of nothing as the failing control; for (g) the
    packed batch bitwise equal to the scatter compaction's on the same
    draws (the next slab's packing as the control). For (a) and (d), a
-   witness: 2 more single steps on the card and on the CPU twin with the
-   same draws (cut from 4 to make room for phase 20), each loss within
-   1e-2 relative. Then one warm and 5 timed
+   witness: 1 more single step on the card and on the plain twin with the
+   same draws (cut from 4 to 2 for phase 20, to 1 for phase 21), each
+   loss within 1e-2 relative. Then one warm and 2 timed (cut from 5 for
+   phase 21)
    calls of 25 steps (host batches: the stream runs epoch after epoch),
    every loss finite and moving as the configuration's rule asks: HS,
    segsum and split8 fall by at least 1e-3 relative from the held step;
@@ -327,15 +330,17 @@ Phase 16 runs after phase 15:
 16. durability (``phase_durability``), each leg in sessions of its own,
    files under build/durability/ (removed at the end). (a) the
    write-ahead journal at word2vec's width: a [71291, 200] f32 sgd matrix
-   table and 32 keyed adds of 65,536 zipf ids (K2's fused route) on the
-   exact 2^-16 grid (any summation order gives the same bits), with
-   ``-wal`` off, then on, each with an Autosaver every 8 adds keeping 2;
-   the on run crashes after add 29 (its last record torn, no checkpoint
-   at it) and a fresh session (``-wal`` again: recovery truncates the
-   tail) runs restore_latest + replay to version 28: bitwise equal to the
-   port's CPU run of the same script (in a process of its own, beside the
-   card's work, at the lowest priority) and to the fault-free card table
-   after add 28, the fault-free final table as the failing control; then
+   table and 16 keyed adds of 65,536 zipf ids (K2's fused route; cut
+   from 32 for phase 21) on the exact 2^-16 grid (any summation order
+   gives the same bits), with ``-wal`` off, then on, each with an
+   Autosaver every 8 adds keeping 2; the on run crashes after add 13 (its
+   last record torn, no checkpoint at it) and a fresh session (``-wal``
+   again: recovery truncates the tail) runs restore_latest + replay to
+   version 12: bitwise equal to the port's CPU run of the same script (in
+   a process of its own, started before phase 15, beside the card's
+   work, at the lowest priority)
+   and to the fault-free card table after add 12, the fault-free final
+   table as the failing control; then
    a run off the grid (N(0, 1e-4) deltas on the random init, 12 adds,
    every 4, crash after 11) held per row by hit count against the CPU run
    (phase 4's rule (b); the CPU table one add short must fail it). Prints
@@ -378,8 +383,9 @@ Phase 17 runs after phase 16:
    bf16 into the [71291, 200] bf16 table) bitwise against its plain
    version, with its times on cold data (copies cycled past the 50 MB
    L2); then ``apps.wordembedding.train`` at the bench's configuration
-   (bench corpus and width, batch 65,536, G 64, 25 steps a call, 2
-   epochs, cut from 3 to make room for phase 20), alone in this process
+   (bench corpus and width, batch 65,536, G 64, 25 steps a call, 1
+   epoch, cut from 3 to 2 for phase 20 and to 1 for phase 21), alone in
+   this process
    and in 2 async processes: bf16 tables
    at ``-sync_frequency`` 1 and 4 and at ``-ssp_staleness=1``, and f32
    tables at ``-sync_frequency`` 1; each run's loss finite and falling in
@@ -494,6 +500,36 @@ Phase 20 runs after phase 19:
    K3-K7 (counted from 0 just before each run); every rank must have
    launched K3 and K5 at seq 1024 and K4, K6 and K7 at 2048.
 
+Phase 21 runs after phase 20:
+
+21. the serving engine over a tp group of 2 processes on one card
+   (``phase_decode_tp``): first every leg on a one-process engine in this
+   process, then 2 fresh interpreters on ``cuda:0`` as phase 19's (files
+   under build/decode_tp/, removed at the end), each with the flagship at
+   full width and depth (bf16, ``attention="flash_force"``, seed 0) and
+   the same legs on ``decode_tp=2`` engines (6 heads a rank; rank 0 takes
+   the requests and broadcasts each program call, rank 1 follows): (a)
+   phase 10's defaults on phase 3's 16 prompts, (b) the paged monolithic
+   admission (``prefill_token_budget=0``: K3/K4 on 6 heads a rank) on
+   the same, (c) the shortest of phase 3's prompts of 1,024-1,536 tokens,
+   16 new tokens, single-lane and through ring and Ulysses
+   ``prefill_sp`` (chunks of 64), (d) int8 KV, int8 pins and ``spec_k``
+   4 on every 8th prompt (two processes time-slice the card: (c) and (d)
+   serve part of phase 3's traffic to hold the phase's time). A request
+   agrees with the one process when its tokens are equal up to the
+   first position where the one process's top-2 logit gap is under phase
+   10's bf16 bound; every request of (a) and (b) must agree, and in (b) both ranks must launch
+   K3 and K4 (counted from 0 just before the leg's served run). (c)'s
+   ring and Ulysses are held to the single-lane tp=2 engine: tokens and
+   the largest first-token logit difference, printed. Then K3 and K4 at a
+   rank's admission shapes (B 1 x S 1024 and 1536, 6 heads) against
+   their plain versions at phase 2's limits. Prints for each leg tokens/s,
+   TTFT and ITL p50 beside the one process's, the leader's and the
+   follower's ms a step, a follower step's exchanges and MB staged, each
+   rank's exchanges, MB staged and exchange share, each rank's resident
+   parameter bytes and ``kv_bytes_per_device``, (c)'s prefill iterations
+   a long prompt, and each request's first mismatch and first near tie.
+
 The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
 library time, and the training run's bf16 launches beside the serving
@@ -511,7 +547,9 @@ the bench tables as ``ps_record_*``; phase 18's by leg and by process as
 ``launches_seqpar`` on K3-K7, phase 19's by run and by process as
 ``launches_mesh`` and those kernels at its per-rank shapes as
 ``mesh_*``, phase 20's by run and by process as ``launches_pipeline``
-and those kernels at the stages' shapes as ``pipeline_*``);
+and those kernels at the stages' shapes as ``pipeline_*``, phase 21's
+by leg and by process as ``launches_decode_tp`` on K3/K4 and those
+kernels at a rank's admission shapes as ``decode_tp_*``);
 the last line is
 {"ok": true, "device": {...}}. Any failure exits
 nonzero before either line is printed. Without a CUDA device, or without
@@ -522,6 +560,7 @@ c.phase_device(); c.phase_w2v_kernels()"``.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import importlib
@@ -637,6 +676,13 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(phases: str) -> None:
+    """The script's seconds so far, after ``phases`` (a phase's time is
+    the difference of two marks)."""
+    say(f"chip_smoke: phases {phases} done at "
+        f"{time.perf_counter() - T_START:.1f} s")
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1044,6 +1090,18 @@ def phase_crossover():
                 f"from {at} (seqs {list(CROSS_SEQS)})")
 
 
+def slice_prompts(vocab: int, rng) -> list:
+    """Phase 3's 16 prompts from ``rng`` (``default_rng(1)``): 3 in each
+    of the buckets up to 1,024 tokens and 4 in the 1,536 one, shuffled."""
+    lengths = []
+    lo = 1
+    for b, n in zip(BUCKETS, (3, 3, 3, 3, 4)):
+        lengths += [int(x) for x in rng.integers(lo, b + 1, n)]
+        lo = b + 1
+    rng.shuffle(lengths)
+    return [rng.integers(0, vocab, n) for n in lengths]
+
+
 def phase_slice(card: str):
     import multiverso_tpu_torch as mv
     from multiverso_tpu_torch.models import transformer as tf
@@ -1057,13 +1115,7 @@ def phase_slice(card: str):
     lm = tf.TransformerLM(cfg)
     dev = lm.device
     rng = np.random.default_rng(1)
-    lengths = []
-    lo = 1
-    for b, n in zip(BUCKETS, (3, 3, 3, 3, 4)):
-        lengths += [int(x) for x in rng.integers(lo, b + 1, n)]
-        lo = b + 1
-    rng.shuffle(lengths)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+    prompts = slice_prompts(cfg.vocab_size, rng)
 
     # a short input against the plain reference attention: the flash path
     # and the reference path must give close logits
@@ -2134,6 +2186,11 @@ FLEET_HB_MS = 250
 # replica: at 100 ms a healthy replica's beats went quiet past 200 ms and
 # the router flagged it DEAD in a fault-free leg
 FLEET_HB_MS_XFER = 1000
+# (b)'s share of phase 3's prompts (every 2nd, beside the six that share
+# a prefix): all 16 took 81 s of the script's 1,001 s on an H100 host,
+# and 2-2.3x that on a slower one, where the whole script passed the
+# 1,200 s limit
+FLEET_XFER_EVERY = 2
 # the fleet's contiguous engines: phase 3's layout with the ledger on
 FLEET_MONO = dict(slots=SLOTS, max_prompt=MAX_PROMPT, max_new=FLEET_NEW,
                   prompt_buckets=BUCKETS, prefill_token_budget=0,
@@ -2374,10 +2431,10 @@ def phase_fleet(card: str, base_prompts, oracle):
        flash kernel must have been launched by the fleet in both regimes.
     b. disaggregated prefill/decode against unified at the JAX defaults
        (chunks of 32, blocks of 16): one prefill + one decode replica
-       against two unified ones on phase 10's trace (phase 3's prompts
-       and six sharing a 512-token prefix). Outputs equal the unified
-       leg's, except a request whose decode-side admission was a full
-       hit (its last position recomputed by the step) or prefilled its
+       against two unified ones on phase 10's trace (every 2nd of phase
+       3's prompts and six sharing a 512-token prefix). Outputs equal the
+       unified leg's, except a request whose decode-side admission was a
+       full hit (its last position recomputed by the step) or prefilled its
        tail from a spliced prefix off the 32-token chunk grid (other
        chunk shapes than the unified engine's): those may differ only
        from a near-tie. The router's kv_bytes_moved equals the shipped
@@ -2561,7 +2618,7 @@ def fleet_unified(kv, mono, base_prompts, oracle, ref_cfg, params, fa):
 
 def fleet_disagg(kv, uni, dis, q8, base_prompts, ref_cfg, params, kt):
     """Phase 13 (b) and (c)."""
-    prompts, _, n_base = default_traffic(base_prompts,
+    prompts, _, n_base = default_traffic(base_prompts[::FLEET_XFER_EVERY],
                                          FLAGSHIP["vocab_size"])
     shape = (FLAGSHIP["n_layers"], 16, FLAGSHIP["d_model"])
     per16 = kt.block_nbytes(shape, "bfloat16")
@@ -4274,7 +4331,7 @@ def phase_w2v_slice(card: str):
 
 # phase 12: word2vec completion, every single-process option of the JAX
 # config on the bench corpus and width (bench.py:148-154)
-W2V_OPT_ITERS = 5
+W2V_OPT_ITERS = 2          # cut from 5 to make room for phase 21
 # how each configuration's loss must move over the held step, the warm
 # call and the timed calls: "falls", the last call at least W2V_FALL
 # (relative) under the held step; "peak", at least W2V_FALL under the
@@ -4288,13 +4345,13 @@ W2V_OPT_CONFIGS = (
     # tag, the Word2VecConfig fields that differ from the bench's, whether
     # the config's updates go through the scatter kernel (segsum and
     # split8 apply them with index_add_ into an f32 buffer), the loss rule,
-    # and the steps after the held step that the card and the CPU twin
+    # and the steps after the held step that the card and the plain twin
     # take with the same draws (the witness of a loss that does not fall;
-    # 2 steps, cut from 4 to make room for phase 20)
-    ("a cbow+ns", dict(cbow=True), True, "flat", 2),
+    # 1 step, cut from 4 to 2 for phase 20 and to 1 for phase 21)
+    ("a cbow+ns", dict(cbow=True), True, "flat", 1),
     ("b hs", dict(hs=True, negative=0), True, "falls", 0),
     ("c hs+ns", dict(hs=True), True, "falls", 0),
-    ("d adagrad", dict(use_adagrad=True), True, "peak", 2),
+    ("d adagrad", dict(use_adagrad=True), True, "peak", 1),
     ("e segsum", dict(update_impl="segsum"), False, "falls", 0),
     ("f split8", dict(update_impl="split8"), False, "falls", 0),
     ("g cbow gather", dict(cbow=True, compact_impl="gather"), True, "flat",
@@ -4302,7 +4359,7 @@ W2V_OPT_CONFIGS = (
 )
 W2V_HOST_CONFIGS = (("h host skip-gram", dict()),
                     ("h host cbow", dict(cbow=True)))
-# the witness's loss, card against the CPU twin, relative: the two start
+# the witness's loss, card against the plain twin, relative: the two start
 # from tables that differ within phase 5's rule, and AdaGrad's hot rows
 # then move by ~lr a duplicate, which magnifies each rounding difference
 # (the third step of a 4-step witness read 7.3772 on an H100 against
@@ -4362,32 +4419,52 @@ def w2v_option_model(overrides, device_corpus: bool = True):
     return model
 
 
-def w2v_cpu_twin(model):
-    """A Word2Vec on CPU copies of ``model``'s tables, accumulators, corpus
-    buffers, scales and lr progress, for the held step."""
+def w2v_twin(model):
+    """A Word2Vec on copies of ``model``'s tables, accumulators, corpus
+    buffers, scales and lr progress, on the same device, for the held
+    step; it takes the plain route (:func:`w2v_plain_route`)."""
     import dataclasses
 
     from multiverso_tpu_torch.models.word2vec import Word2Vec, tables_from_jax
 
     cfg = dataclasses.replace(model.config)
     c_in, c_out = tables_from_jax(model.input_table.get(),
-                                  model.output_table.get(), device="cpu",
+                                  model.output_table.get(), device=DEV,
                                   dtype=model.input_table._data.dtype)
-    cpu = Word2Vec(cfg, c_in, c_out, counts=model._host_counts,
-                   huffman=w2v_corpus()["huffman"] if cfg.hs else None)
-    cpu.total_words = model.total_words
-    cpu._words_trained = model._words_trained
+    twin = Word2Vec(cfg, c_in, c_out, counts=model._host_counts,
+                    huffman=w2v_corpus()["huffman"] if cfg.hs else None)
+    twin.total_words = model.total_words
+    twin._words_trained = model._words_trained
     if hasattr(model, "_ext_bufs"):
-        cpu._ext_bufs = tuple(b.cpu() for b in model._ext_bufs)
-        cpu._corpus_len = model._corpus_len
-        cpu._stream_pos = model._stream_pos
+        twin._ext_bufs = tuple(b.clone() for b in model._ext_bufs)
+        twin._corpus_len = model._corpus_len
+        twin._stream_pos = model._stream_pos
     if model._static_scale_in is not None:
-        cpu._static_scale_in = model._static_scale_in.cpu()
-        cpu._static_scale_out = model._static_scale_out.cpu()
+        twin._static_scale_in = model._static_scale_in.clone()
+        twin._static_scale_out = model._static_scale_out.clone()
     if cfg.use_adagrad:
-        cpu._g_in = model._g_in.cpu().clone()
-        cpu._g_out = model._g_out.cpu().clone()
-    return cpu
+        twin._g_in = model._g_in.clone()
+        twin._g_out = model._g_out.clone()
+    return twin
+
+
+@contextlib.contextmanager
+def w2v_plain_route(scatter=None):
+    """Inside the block, the word2vec step gathers and scatters through
+    the kernels' plain versions (``scatter``, when given, in place of the
+    plain scatter-add), whatever the tables' device: the twin of the held
+    step and the witness takes the plain route on the card itself, the
+    same draws, the same tables."""
+    from multiverso_tpu_torch.models import word2vec as w2v
+
+    emb = _emb()
+    saved = w2v.embedding_lookup, w2v.scatter_add_rows
+    w2v.embedding_lookup = emb._gather_plain
+    w2v.scatter_add_rows = scatter or emb._scatter_add_plain
+    try:
+        yield
+    finally:
+        w2v.embedding_lookup, w2v.scatter_add_rows = saved
 
 
 def w2v_state(model):
@@ -4398,20 +4475,21 @@ def w2v_state(model):
     return out
 
 
-def w2v_recorded_step(cpu, step):
-    """Run ``step()`` on the CPU twin, recording for each state tensor its
-    update statistics (:func:`scatter_stats`: hits, sum |delta| as landed,
-    the sum of each update's largest |delta|): from the plain scatter-add
-    or, for segsum / split8, from the f32 updates summed into the dense
-    buffer. Returns the step's result, the stats and the CPU seconds."""
+def w2v_recorded_step(twin, step):
+    """Run ``step()`` on the twin through the plain route, recording for
+    each state tensor its update statistics (:func:`scatter_stats`: hits,
+    sum |delta| as landed, the sum of each update's largest |delta|):
+    from the plain scatter-add or, for segsum / split8, from the f32
+    updates summed into the dense buffer. Returns the step's result, the
+    stats (on the host) and the seconds to the twin's last update."""
     from multiverso_tpu_torch.models.word2vec import _at
 
     emb = _emb()
-    state = w2v_state(cpu)
+    state = w2v_state(twin)
     names = {t.data_ptr(): n for n, t in state.items()}
     stats = {}
     plain = emb._scatter_add_plain
-    dense = cpu._apply_dense
+    dense = twin._apply_dense
 
     def add(table, as_table, ids, landed):
         name = names[table.data_ptr()]
@@ -4421,9 +4499,12 @@ def w2v_recorded_step(cpu, step):
             a + b for a, b in zip(seen, got))
 
     def recording(table, ids, deltas, alpha=None, row_scale=None):
-        add(table, table, ids, emb._landing_deltas(table, ids, deltas,
-                                                   alpha, row_scale)[2])
-        return plain(table, ids, deltas, alpha, row_scale)
+        # the deltas as they land, once: scattered as they are (their
+        # rounding to the table dtype is then exact)
+        landed = emb._landing_deltas(table, ids, deltas, alpha,
+                                     row_scale)[2]
+        add(table, table, ids, landed)
+        return plain(table, ids, landed)
 
     def recording_dense(w, rows, grads, lr, scale):
         # the f32 updates as summed: stats over an f32 view of the table
@@ -4431,21 +4512,22 @@ def w2v_recorded_step(cpu, step):
         add(w, w.float(), rows, coef * grads.float())
         return dense(w, rows, grads, lr, scale)
 
-    emb._scatter_add_plain = recording
-    cpu._apply_dense = recording_dense
+    twin._apply_dense = recording_dense
     try:
-        t0 = time.perf_counter()
-        result = step()
-        secs = time.perf_counter() - t0
+        with w2v_plain_route(recording):
+            t0 = time.perf_counter()
+            result = step()
+            dev_sync()
+            secs = time.perf_counter() - t0
     finally:
-        emb._scatter_add_plain = plain
-        del cpu._apply_dense
+        del twin._apply_dense
+    stats = {n: tuple(t.cpu() for t in v) for n, v in stats.items()}
     return result, stats, secs
 
 
-def w2v_hold_change(tag, model, cpu, before, stats, dense: bool):
+def w2v_hold_change(tag, model, twin, before, stats, dense: bool):
     """Phase 5's rule on every state tensor: the card's change (after -
-    before) against the CPU's, each element within h x ulp(A') + 1e-4 x
+    before) against the plain twin's, each element within h x ulp(A') + 1e-4 x
     the row's sum of largest |delta| (+ 2^-7 x sum |delta| in bf16, a
     delta rounding to the other neighbour) for the scatter; for the dense
     impls, whose f32 sums round once to the table, 1 ulp(A') of the table
@@ -4453,7 +4535,7 @@ def w2v_hold_change(tag, model, cpu, before, stats, dense: bool):
     |delta|. A change of nothing must fail it. Returns the share of the
     tolerance reached by name."""
     worst = {}
-    card_state, cpu_state = w2v_state(model), w2v_state(cpu)
+    card_state, plain_state = w2v_state(model), w2v_state(twin)
     for name, b in before.items():
         dtype = b.dtype
         hits, absum, rowscale = stats[name]
@@ -4469,10 +4551,10 @@ def w2v_hold_change(tag, model, cpu, before, stats, dense: bool):
             tol = (sum_ulp(bf, hits, absum, dtype) + flip * absum
                    + 1e-4 * rowscale[:, None])
         d_card = card_state[name].float().cpu() - bf
-        d_cpu = cpu_state[name].float() - bf
-        diff = (d_card - d_cpu).abs()
+        d_plain = plain_state[name].float().cpu() - bf
+        diff = (d_card - d_plain).abs()
         worst[name] = excess(diff, tol)
-        control = excess(d_cpu.abs(), tol)
+        control = excess(d_plain.abs(), tol)
         if not (worst[name] <= 1.0 and torch.isfinite(d_card).all()):
             i = int(torch.argmax(torch.where(
                 tol > 0, diff / tol.clamp(min=1e-38), diff * float("inf"))))
@@ -4480,7 +4562,8 @@ def w2v_hold_change(tag, model, cpu, before, stats, dense: bool):
             fail(f"w2v {tag} held step {name}: change {worst[name]} x the "
                  f"tolerance; worst at row {v} col {e}: before "
                  f"{bf[v, e].item():.6e} change card "
-                 f"{d_card[v, e].item():.6e} cpu {d_cpu[v, e].item():.6e} "
+                 f"{d_card[v, e].item():.6e} plain "
+                 f"{d_plain[v, e].item():.6e} "
                  f"hits {hits[v].item():.0f} tol {tol[v, e].item():.6e}")
         if not control > 1.0:
             fail(f"w2v {tag} held step {name}: negative control: no change "
@@ -4537,13 +4620,14 @@ def w2v_examples(mask: np.ndarray, cbow: bool) -> float:
 
 
 def w2v_held_step(tag, model, stream):
-    """One step of ``model`` on the card and on its CPU twin with the same
-    draws (for the host stream: the stream's next batch and the same
+    """One step of ``model`` on the card and on its twin (the same tables
+    on the same device, through the plain route) with the same draws
+    (for the host stream: the stream's next batch and the same
     negatives), every state tensor's change held by
     :func:`w2v_hold_change`; for the gather compaction, the packing too.
     The output table is first set like the random init (+-0.5/D), as in
     phase 5, so the step moves the input table too. Returns the card's
-    loss and the CPU twin."""
+    loss and the twin."""
     from multiverso_tpu_torch.models.word2vec import sample_negatives
 
     cfg = model.config
@@ -4553,7 +4637,7 @@ def w2v_held_step(tag, model, stream):
          / W2V_DIM).astype(np.float32)))
     before = {n: t.detach().cpu().clone()
               for n, t in w2v_state(model).items()}
-    cpu = w2v_cpu_twin(model)
+    twin = w2v_twin(model)
     packed = ""
     if stream is None:
         draws = model.draw(1)
@@ -4563,65 +4647,68 @@ def w2v_held_step(tag, model, stream):
                       f"packing ({n_ex} examples)")
         t0 = time.perf_counter()
         loss, count = model.train_device_steps(1, draws=draws)
-        torch.cuda.synchronize()
+        dev_sync()
         card_s = time.perf_counter() - t0
-        (closs, ccount), stats, cpu_s = w2v_recorded_step(
-            cpu, lambda: cpu.train_device_steps(
-                1, draws={k: v.cpu() for k, v in draws.items()}))
+        (ploss, pcount), stats, plain_s = w2v_recorded_step(
+            twin, lambda: twin.train_device_steps(
+                1, draws={k: v.clone() for k, v in draws.items()}))
     else:
         cen, ctx, msk = next(stream)
         G = max(cfg.shared_negatives, 1)
         negs = sample_negatives(model._gen, model._packed_alias,
                                 (cfg.batch_size // G, cfg.negative))
         lr = float(np.float32(model.current_lr()))
-        tens = [torch.from_numpy(np.asarray(a)) for a in (cen, ctx, msk)]
+        tens = [torch.from_numpy(np.asarray(a)).to(DEV)
+                for a in (cen, ctx, msk)]
 
         def host_step(m, ts, ng):
             return m._raw_step(m.input_table._data, m.output_table._data,
                                *ts, lr, ng)
 
         t0 = time.perf_counter()
-        loss = host_step(model, [t.to(DEV) for t in tens], negs)
-        torch.cuda.synchronize()
+        loss = host_step(model, tens, negs)
+        dev_sync()
         card_s = time.perf_counter() - t0
-        closs, stats, cpu_s = w2v_recorded_step(
-            cpu, lambda: host_step(cpu, tens, negs.cpu()))
-        count = ccount = w2v_examples(msk, cfg.cbow)
-    worst = w2v_hold_change(tag, model, cpu, before, stats, dense)
-    lerr = abs(float(loss) - float(closs))
-    if float(count) != float(ccount) or not lerr <= 1e-4:
+        ploss, stats, plain_s = w2v_recorded_step(
+            twin, lambda: host_step(twin, [t.clone() for t in tens],
+                                     negs.clone()))
+        count = pcount = w2v_examples(msk, cfg.cbow)
+    worst = w2v_hold_change(tag, model, twin, before, stats, dense)
+    lerr = abs(float(loss) - float(ploss))
+    if float(count) != float(pcount) or not lerr <= 1e-4:
         fail(f"w2v {tag} held step: count {float(count)} vs "
-             f"{float(ccount)}, loss {float(loss)} vs {float(closs)}")
+             f"{float(pcount)}, loss {float(loss)} vs {float(ploss)}")
     shares = " ".join(f"{n} {worst[n]:.3e} (no change "
                       f"{worst[n + '_control']:.3g})" for n in before)
     rm = ("static" if cfg.row_mean_static else
           "realized" if cfg.row_mean_updates else "off")
     say(f"w2v {tag} held step (batch {cfg.batch_size}, row-mean {rm}): "
-        f"examples {float(count):.0f}, loss {float(loss):.6f} vs cpu "
-        f"{float(closs):.6f}; change, share of the tolerance: {shares}"
+        f"examples {float(count):.0f}, loss {float(loss):.6f} vs plain "
+        f"{float(ploss):.6f}; change, share of the tolerance: {shares}"
         f"{packed}; host clock card {card_s:.3f} s (first step, cold), "
-        f"cpu {cpu_s:.3f} s")
-    return loss, cpu
+        f"plain route {plain_s:.3f} s")
+    return loss, twin
 
 
-def w2v_witness(tag, model, cpu, steps: int):
-    """``steps`` single steps on the card and on the CPU twin (the plain
+def w2v_witness(tag, model, twin, steps: int):
+    """``steps`` single steps on the card and on the twin (the plain
     route), each from where the held step left it, with the same draws:
     each step's loss on the card within W2V_WITNESS_TOL (relative) of the
-    CPU's. Shows that a loss which does not fall, or rises, does so on
-    the plain route too. Returns the two series."""
+    plain route's. Shows that a loss which does not fall, or rises, does
+    so on the plain route too. Returns the two series."""
     card, plain = [], []
     for _ in range(steps):
         draws = model.draw(1)
         card.append(float(model.train_device_steps(1, draws=draws)[0]))
-        plain.append(float(cpu.train_device_steps(
-            1, draws={k: v.cpu() for k, v in draws.items()})[0]))
+        with w2v_plain_route():
+            plain.append(float(twin.train_device_steps(
+                1, draws={k: v.clone() for k, v in draws.items()})[0]))
     worst = max(abs(a - b) / abs(b) for a, b in zip(card, plain))
     if not worst <= W2V_WITNESS_TOL:
         fail(f"w2v {tag} witness: the loss of {steps} steps on the card "
-             f"{card} vs the CPU twin {plain}")
+             f"{card} vs the plain twin {plain}")
     say(f"w2v {tag} witness: {steps} more steps from the held step's "
-        f"tables, the same draws: loss card {card} cpu {plain} (worst "
+        f"tables, the same draws: loss card {card} plain {plain} (worst "
         f"{worst:.3e} relative, tolerance {W2V_WITNESS_TOL:g})")
     return card, plain
 
@@ -4656,12 +4743,12 @@ def phase_w2v_options(card: str):
         stream = (None if device_corpus
                   else w2v_host_stream(model, cfg.cbow))
         marks.append(time.perf_counter())
-        # 1. one held step, card against the CPU twin, the same draws,
+        # 1. one held step, card against the plain twin, the same draws,
         # and for a loss that does not fall, the witness steps
-        loss, cpu = w2v_held_step(tag, model, stream)
+        loss, twin = w2v_held_step(tag, model, stream)
         marks.append(time.perf_counter())
-        witness = w2v_witness(tag, model, cpu, n_wit)[0] if n_wit else []
-        del cpu
+        witness = w2v_witness(tag, model, twin, n_wit)[0] if n_wit else []
+        del twin
         marks.append(time.perf_counter())
         # 2. the timed run, the kernels' launches counted around it
         torch.cuda.synchronize()
@@ -5414,8 +5501,9 @@ def phase_logreg(card: str):
 DUR_DIR = os.path.join(HERE, "build", "durability")
 # (a) the journal at word2vec's width: [V, D] f32, sgd, 65,536 zipf ids an
 # add on the exact grid; an Autosaver every 8 adds keeping 2; the crash
-# after add 29 (torn tail), so recovery restores step 24 and replays 25-28
-DUR_ADDS, DUR_EVERY, DUR_KEEP, DUR_CRASH = 32, 8, 2, 29
+# after add 13 (torn tail), so recovery restores step 8 and replays 9-12
+# (cut from 32 adds and a crash after 29 to make room for phase 21)
+DUR_ADDS, DUR_EVERY, DUR_KEEP, DUR_CRASH = 16, 8, 2, 13
 DUR_VAL_BLOCKS = 4         # distinct exact-grid value blocks, add i % 4
 # the second run, off the grid: 12 adds, every 4, crash after 11
 DUR_OFF_ADDS, DUR_OFF_EVERY, DUR_OFF_CRASH = 12, 4, 11
@@ -5594,7 +5682,7 @@ def dur_adders(inp):
 
 def dur_cpu_twins(out_dir: str) -> None:
     """(a)'s two scripts run by the port on the CPU, in a process of their
-    own (``phase_durability`` starts it beside the card's work, at the
+    own (:func:`dur_cpu_start` starts it beside the card's work, at the
     lowest priority); each
     run's final table, version and restored step land in
     ``out_dir/cpu_<run>.npz``."""
@@ -5618,27 +5706,33 @@ def dur_cpu_twins(out_dir: str) -> None:
 
 
 def dur_cpu_start():
-    """Start :func:`dur_cpu_twins` in a child process at this process's
-    widths; its log goes to ``DUR_DIR/cpu_twins.log``."""
-    log = open(os.path.join(DUR_DIR, "cpu_twins.log"), "w")
-    child = subprocess.Popen(
-        [sys.executable, "-c",
-         f"import chip_smoke as c; c.W2V_VOCAB, c.W2V_DIM, c.W2V_BATCH = "
-         f"{W2V_VOCAB}, {W2V_DIM}, {W2V_BATCH}; "
-         f"c.dur_cpu_twins({DUR_DIR!r})"],
-        cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
-    return child, log
+    """Empty ``DUR_DIR`` and start :func:`dur_cpu_twins` in a worker
+    process (a fork of the fork server) at this process's widths; its log
+    goes to ``DUR_DIR/cpu_twins.log``. Returns the process."""
+    shutil.rmtree(DUR_DIR, ignore_errors=True)
+    os.makedirs(DUR_DIR, exist_ok=True)
+    env = dict(os.environ,
+               DUR_WIDTHS=f"{W2V_VOCAB},{W2V_DIM},{W2V_BATCH}")
+    return forked("dur_cpu_worker", env,
+                  os.path.join(DUR_DIR, "cpu_twins.log"))
 
 
-def dur_cpu_wait(child, log, timeout_s: float = 600.0):
+def dur_cpu_worker() -> None:
+    """:func:`dur_cpu_twins` at the widths of ``DUR_WIDTHS``."""
+    global W2V_VOCAB, W2V_DIM, W2V_BATCH
+    W2V_VOCAB, W2V_DIM, W2V_BATCH = (
+        int(x) for x in os.environ["DUR_WIDTHS"].split(","))
+    dur_cpu_twins(DUR_DIR)
+
+
+def dur_cpu_wait(child, timeout_s: float = 600.0):
     """Wait for the CPU twins; their results by run."""
-    try:
-        rc = child.wait(timeout=timeout_s)
-    except subprocess.TimeoutExpired:
+    child.join(timeout=timeout_s)
+    rc = child.exitcode
+    if rc is None:
         child.kill()
-        child.wait()
+        child.join()
         rc = "killed at the time limit"
-    log.close()
     if rc != 0:
         with open(os.path.join(DUR_DIR, "cpu_twins.log")) as f:
             tail = f.read()[-4000:]
@@ -5939,15 +6033,15 @@ def dur_lm(card: str, launches: dict):
     return results
 
 
-def phase_durability(card: str):
-    """16. durability (module docstring)."""
+def phase_durability(card: str, child=None):
+    """16. durability (module docstring). ``child``: the CPU runs of (a)'s
+    script, when :func:`dur_cpu_start` started them before the phase."""
     t_phase = time.perf_counter()
-    shutil.rmtree(DUR_DIR, ignore_errors=True)
-    os.makedirs(DUR_DIR, exist_ok=True)
     launches = {}
     # the CPU runs of (a)'s script go beside the card's work, in a process
     # of their own (a session is one per process)
-    child, log = dur_cpu_start()
+    if child is None:
+        child = dur_cpu_start()
     try:
         marks = [time.perf_counter()]
         inp = dur_inputs()
@@ -5958,13 +6052,13 @@ def phase_durability(card: str):
         dur_lm(card, launches)
         marks.append(time.perf_counter())
         tol = dur_off_grid_tolerance(inp, runs["off_grid"]["version"])
-        journal = dur_journal_hold(runs, dur_cpu_wait(child, log), inp, tol,
+        journal = dur_journal_hold(runs, dur_cpu_wait(child), inp, tol,
                                    launches)
         marks.append(time.perf_counter())
     finally:
-        if child.poll() is None:
+        if child.exitcode is None:
             child.kill()
-            child.wait()
+            child.join()
     import multiverso_tpu_torch as mv
 
     mv.shutdown()
@@ -5987,7 +6081,8 @@ def phase_durability(card: str):
 PS_DIR = os.path.join(HERE, "build", "ps")
 PS_TIMEOUT_S = {"a": 120.0, "b": 300.0, "c": 120.0}
 PS_UNIT = 2.0 ** -8          # (a)'s exact grid: every sum exact in any order
-PS_W2V_EPOCHS = 2           # (b)'s epochs a run (cut from 3)
+PS_W2V_EPOCHS = 1           # (b)'s epochs a run (cut from 3 to 2 for
+                            # phase 20 and to 1 for phase 21)
 # (b)'s runs: tag, table dtype, -sync_frequency, -ssp_staleness
 PS_W2V_RUNS = (("bf16 sf1", "bfloat16", 1, -1),
                ("bf16 sf4", "bfloat16", 4, -1),
@@ -6278,11 +6373,71 @@ def ps_worker() -> None:
         json.dump(out, f)
 
 
+def _forkserver():
+    """The multiprocessing context whose server process has imported this
+    module (and with it torch and the package) once; each worker is a
+    fork of it, and so skips the imports. The server never touches CUDA,
+    so each worker makes its own context on the card."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["chip_smoke"])
+    return ctx
+
+
+def forkserver_start() -> None:
+    """Start the fork server now, so that its imports run beside the
+    phases before the first worker group."""
+    from multiprocessing import forkserver
+
+    _forkserver()
+    forkserver.ensure_running()
+    # stopped on the way out of a failed phase as well
+    atexit.register(forkserver_stop)
+
+
+def forkserver_stop() -> None:
+    """Stop the fork server and the resource tracker it started."""
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+
+
+def _forked_entry(entry: str, env: dict, log_path: str) -> None:
+    """A worker's body in the fork: this process's environment made the
+    worker's, its output sent to ``log_path``, then ``chip_smoke.<entry>``."""
+    os.chdir(HERE)
+    os.environ.clear()
+    os.environ.update(env)
+    fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    try:
+        getattr(importlib.import_module("chip_smoke"), entry)()
+    finally:
+        # a fork leaves by os._exit: the exit handlers a worker's
+        # interpreter would have run at its end, run here
+        atexit._run_exitfuncs()
+
+
+def forked(entry: str, env: dict, log_path: str):
+    """Start ``chip_smoke.<entry>()`` in a fork of the fork server with the
+    environment ``env``, its output in ``log_path``; returns the
+    ``multiprocessing.Process``."""
+    me = importlib.import_module("chip_smoke")
+    proc = _forkserver().Process(target=me._forked_entry,
+                                 args=(entry, env, log_path), daemon=False)
+    proc.start()
+    return proc
+
+
 def worker_group(work_dir: str, leg: str, n: int, entry: str,
                  timeout_s: float, env_extra=None) -> list:
-    """Run ``chip_smoke.<entry>()`` in ``n`` fresh interpreters joined as
-    one group on a free local port, each logging to
-    ``work_dir/<leg>_<rank>.log``; returns each rank's return code and
+    """Run ``chip_smoke.<entry>()`` in ``n`` worker processes (forks of the
+    fork server) joined as one group on a free local port, each logging
+    to ``work_dir/<leg>_<rank>.log``; returns each rank's return code and
     results (``work_dir/<leg>_<rank>.json``, None without one). Every
     process is stopped before it returns."""
     import socket
@@ -6290,34 +6445,27 @@ def worker_group(work_dir: str, leg: str, n: int, entry: str,
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    procs, logs = [], []
+    procs = []
     try:
         for rank in range(n):
             env = dict(os.environ, MV_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                        MV_NUM_PROCESSES=str(n), MV_PROCESS_ID=str(rank),
                        GLOO_SOCKET_IFNAME="lo", MV_P2P_HOST="127.0.0.1",
                        **(env_extra or {}))
-            logs.append(open(os.path.join(work_dir, f"{leg}_{rank}.log"),
-                             "w"))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", f"import chip_smoke as c; "
-                 f"c.{entry}()"], cwd=HERE, env=env, stdout=logs[-1],
-                stderr=subprocess.STDOUT))
+            procs.append(forked(entry, env, os.path.join(
+                work_dir, f"{leg}_{rank}.log")))
         deadline = time.monotonic() + timeout_s
         for rank, proc in enumerate(procs):
-            try:
-                proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
-            except subprocess.TimeoutExpired:
+            proc.join(timeout=max(deadline - time.monotonic(), 1.0))
+            if proc.exitcode is None:
                 fail(f"{entry} {leg}: rank {rank} did not finish in "
                      f"{timeout_s:.0f} s:\n"
                      f"{log_tail(work_dir, leg, rank)}")
     finally:
         for proc in procs:
-            if proc.poll() is None:
+            if proc.exitcode is None:
                 proc.kill()
-                proc.wait()
-        for log in logs:
-            log.close()
+                proc.join()
     out = []
     for rank, proc in enumerate(procs):
         path = os.path.join(work_dir, f"{leg}_{rank}.json")
@@ -6325,7 +6473,7 @@ def worker_group(work_dir: str, leg: str, n: int, entry: str,
         if os.path.exists(path):
             with open(path) as f:
                 res = json.load(f)
-        out.append((proc.returncode, res))
+        out.append((proc.exitcode, res))
     return out
 
 
@@ -7995,12 +8143,334 @@ def phase_pipeline_moe(card: str) -> dict:
     return launches, kernels
 
 
+# phase 21: the serving engine over a tp group of 2 processes sharing the
+# card (decode_tp 2: each holds 6 of the flagship's 12 heads of every
+# weight and of the paged pools; the leader broadcasts each program call)
+DTP_DIR = os.path.join(HERE, "build", "decode_tp")
+DTP_TP = 2
+DTP_TIMEOUT_S = 600.0
+# two processes time-slice the card, so a tp=2 iteration costs ~4-6x one
+# process's on an H100. (a) and (b) serve all 16 of phase 3's prompts;
+# (c) and (d) serve part of them to hold the phase's time: (c) the
+# shortest prompt of 1,024-1,536 tokens with 16 new tokens (the prefill
+# is what it compares), (d) every 8th prompt
+DTP_EVERY = {"a": 1, "b": 1, "d": 8}
+DTP_SP_MIN, DTP_SP_N, DTP_SP_NEW = 1024, 1, 16
+# the legs, each against a one-process engine with the same knobs: (a)
+# phase 10's defaults; (b) the paged monolithic admission (flash_force:
+# K3/K4 on a rank's 6 heads); (c) the single-lane chunks, ring and Ulysses
+# sequence-parallel prefill on the long prompts; (d) int8 KV, int8 pins
+# and speculation
+DTP_LEGS = {
+    "a": dict(),
+    "b": dict(prompt_buckets=BUCKETS, prefill_token_budget=0),
+    "c_lane": dict(),
+    "c_ring": dict(prefill_sp=True, prefill_sp_backend="ring"),
+    "c_ulysses": dict(prefill_sp=True, prefill_sp_backend="ulysses"),
+    "d": dict(kv_quant="int8", decode_param_quant="int8", spec_k=4),
+}
+# the legs whose every request must agree with the one process
+DTP_HELD = ("a", "b")
+# K3/K4 at a rank's monolithic admission: B 1, the largest bucket of each
+# regime, 6 heads
+DTP_KERNELS = {1024: "flash_fwd[key_len<=1024]",
+               1536: "flash_fwd[key_len>1024]"}
+
+
+def dtp_cfg(layers: int, attention: str = "flash_force"):
+    from multiverso_tpu_torch.models import transformer as tf
+
+    return tf.TransformerConfig(**dict(FLAGSHIP, n_layers=layers),
+                                dtype=torch.bfloat16, attention=attention)
+
+
+def dtp_prompts(leg: str, prompts) -> list:
+    """A leg's prompts of phase 3's: (c) the shortest long ones, the
+    others every ``DTP_EVERY[leg]``-th."""
+    if leg.startswith("c"):
+        return sorted((p for p in prompts if len(p) >= DTP_SP_MIN),
+                      key=len)[:DTP_SP_N]
+    return list(prompts[::DTP_EVERY[leg]])
+
+
+def dtp_serve(srv, lm, leg: str, prompts, tp: int, device: str,
+              leader: bool = True) -> dict:
+    """One leg on one engine: warm up, counts to 0, serve (the leader),
+    stop; the outputs, the host clock, the engine's stats and by rank the
+    launches, exchanges and bytes staged over the served run."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.parallel import collectives
+
+    fa = _fa()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    max_new = DTP_SP_NEW if leg.startswith("c") else MAX_NEW
+    eng = srv.register_decoder(
+        f"dtp_{leg}_{tp}", lm, slots=SLOTS, max_prompt=MAX_PROMPT,
+        max_new=max_new, decode_tp=tp, **DTP_LEGS[leg])
+    eng.warmup()
+    if not leader:
+        # the warmup runs on the follower's loop: wait until it is done
+        while "warmup" not in eng.follower_calls:
+            time.sleep(0.01)
+    sync()
+    fa.reset_launches()
+    collectives.reset_stats()
+    eng.reset_stats()
+    eng.follower_calls.clear()
+    finals = {}
+    if leader and leg.startswith("c"):
+        # each prompt's first-token logits (its final chunk's)
+        run = eng._run
+
+        def logged(cmd, host, tables=None):
+            out = run(cmd, host, tables)
+            req = eng._pf
+            if cmd.startswith("chunk") and req is not None \
+                    and int(host[-2] + host[-1]) >= len(req.prompt):
+                finals[len(req.prompt)] = out.float().cpu()
+            return out
+        eng._run = logged
+    if tp > 1:
+        mv.barrier()
+    t0 = time.perf_counter()
+    outs = []
+    if leader:
+        futs = [srv.submit(f"dtp_{leg}_{tp}", {"prompt": p,
+                                               "max_new": max_new})
+                for p in prompts]
+        outs = [np.asarray(f.result(timeout=600)["result"]).tolist()
+                for f in futs]
+    eng.stop()
+    sync()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    recs = eng.recorder.records() if eng.recorder is not None else []
+    step_ms = [r["step_ms"] for r in recs if r["step_ms"] > 0]
+    pinned = [w for _, w in mesh_named(eng._pinned)]
+    return dict(
+        outs=outs, wall=wall, launches=sp_counts(fa),
+        stats=dict(collectives.STATS), calls=st.get("follower_calls", {}),
+        tokens=st["tokens"], ttft_p50=st["ttft_p50_ms"],
+        itl_p50=st["itl_p50_ms"], iters=st["iters_total"],
+        step_ms=float(np.median(step_ms)) if step_ms else 0.0,
+        prefill_iters=sum(1 for r in recs if r["prefill_toks"] > 0),
+        seqpar_chunks=st.get("seqpar_chunks", 0),
+        kv_bytes=st["kv_bytes_per_device"],
+        param_bytes=sum(w.numel() * w.element_size() for w in pinned),
+        finals=finals)
+
+
+def dtp_worker() -> None:
+    """A phase-21 worker: rank ``MV_PROCESS_ID`` of 2 on the card. The
+    flagship (seed 0; the follower's copy is never read: its pin comes
+    from the leader), every leg of ``DTP_LEGS`` on a decode_tp=2 engine,
+    the leader serving the leg's prompts; each leg's results (and, for
+    (c), the first-token logits) saved for the parent."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models import transformer as tf
+    from multiverso_tpu_torch.serving import InferenceServer
+
+    device, layers, _, _ = phase_setup("DTP", ())
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(SP_DEV)
+    mv.init(["dtp", f"-device={device}", "-log_level=error"])
+    rank = mv.rank()
+    with open(os.path.join(DTP_DIR, "prompts.json")) as f:
+        prompts = [np.asarray(p, np.int64) for p in json.load(f)]
+    lm = tf.TransformerLM(dtp_cfg(layers))
+    out = {}
+    for leg in DTP_LEGS:
+        res = dtp_serve(InferenceServer("dtp"), lm, leg,
+                        dtp_prompts(leg, prompts), DTP_TP, device,
+                        leader=rank == 0)
+        finals = res.pop("finals")
+        if finals:
+            torch.save(finals, os.path.join(DTP_DIR, f"finals_{leg}.pt"))
+        out[leg] = res
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    mv.shutdown()
+    with open(os.path.join(DTP_DIR, f"dtp_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dtp_single(prompts, layers: int, device: str) -> dict:
+    """Every leg on a one-process engine in this process (same weights,
+    prompts and knobs), and for each request of (a)-(d) the top-2 logit
+    gap and phase 10's bf16 bound at each generated position of the
+    one-process output."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models import transformer as tf
+    from multiverso_tpu_torch.serving import InferenceServer
+
+    mv.init(["dtp_single", f"-device={device}", "-log_level=error"])
+    res = {}
+    try:
+        lm = tf.TransformerLM(dtp_cfg(layers))
+        params, _ = lm.snapshot_params()
+        ref_cfg = dtp_cfg(layers, "reference")
+        for leg in DTP_LEGS:
+            legp = dtp_prompts(leg, prompts)
+            r = dtp_serve(InferenceServer("dtp_single"), lm, leg, legp, 1,
+                          device)
+            gaps = [top2_gaps(ref_cfg, params, p, np.asarray(o))
+                    for p, o in zip(legp, r["outs"])]
+            r["gaps"] = [(g.tolist(), b.tolist()) for g, b in gaps]
+            res[leg] = r
+    finally:
+        mv.shutdown()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def dtp_agree(got, want, gap, bound):
+    """``(agrees, first mismatch, first near tie)``: ``got`` must equal
+    the one process's ``want`` up to the first position where its top-2
+    gap is under the bf16 bound."""
+    j = first_mismatch(got, want)
+    ties = [i for i, (g, b) in enumerate(zip(gap, bound)) if g < b]
+    tie = ties[0] if ties else None
+    return (j is None or (tie is not None and j >= tie)), j, tie
+
+
+def dtp_fmt_calls(calls: dict, cmds) -> tuple:
+    """A follower's ms a call, exchanges a call and MB staged a call over
+    ``cmds`` (0 when none ran)."""
+    n = sum(calls.get(c, [0])[0] for c in cmds)
+    if not n:
+        return 0.0, 0.0, 0.0
+    tot = [sum(calls[c][i] for c in cmds if c in calls) for i in (1, 2, 3)]
+    return tot[0] / n * 1e3, tot[1] / n, tot[2] / n / 1e6
+
+
+def phase_decode_tp(card: str, prompts) -> tuple:
+    """21. the serving engine over a tp group of 2 processes on the card
+    (phase 21's constants above): each leg of ``DTP_LEGS`` on a
+    decode_tp=2 engine against a one-process engine with the same
+    weights, prompts and knobs. A request agrees when its tokens equal
+    the one process's up to the first position where the one process's
+    top-2 logit gap is under phase 10's bf16 bound; every request of (a)
+    and (b) must. (c)'s ring and Ulysses are held to the single-lane tp=2
+    engine (tokens and the first token's logits). Then K3/K4 at a rank's
+    admission shapes (B 1 x 6 heads). Returns the launches by leg and
+    rank, and the kernels' results at those shapes."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(DTP_DIR, ignore_errors=True)
+    os.makedirs(DTP_DIR, exist_ok=True)
+    device, layers, _, _ = phase_setup("DTP", ())
+    with open(os.path.join(DTP_DIR, "prompts.json"), "w") as f:
+        json.dump([np.asarray(p).tolist() for p in prompts], f)
+    single = dtp_single(prompts, layers, device)
+    t_single = time.perf_counter() - t_phase
+    group = worker_group(DTP_DIR, "dtp", DTP_TP, "dtp_worker",
+                         DTP_TIMEOUT_S)
+    for rank, (rc, res) in enumerate(group):
+        if rc != 0 or res is None:
+            fail(f"decode_tp: rank {rank} exited {rc}:\n"
+                 f"{log_tail(DTP_DIR, 'dtp', rank)}")
+    lead, follow = group[0][1], group[1][1]
+    launches = {}
+    for leg in DTP_LEGS:
+        a, f, one = lead[leg], follow[leg], single[leg]
+        legp = dtp_prompts(leg, prompts)
+        verdicts = [dtp_agree(got, want, *gb) for got, want, gb in
+                    zip(a["outs"], one["outs"], one["gaps"])]
+        agree = sum(v[0] for v in verdicts)
+        if leg in DTP_HELD and agree != len(legp):
+            bad = [(i, v[1], v[2]) for i, v in enumerate(verdicts)
+                   if not v[0]]
+            fail(f"decode_tp leg {leg}: requests (index, first mismatch, "
+                 f"first near tie) {bad} differ from one process before "
+                 f"any near tie")
+        cmds = ("step", "verify")
+        f_ms, f_ex, f_mb = dtp_fmt_calls(f["calls"], cmds)
+        launches[leg] = {f"rank{r}": x["launches"]
+                         for r, x in enumerate((a, f))}
+        tok_s = a["tokens"] / a["wall"]
+        one_s = one["tokens"] / one["wall"]
+        iters = max(a["iters"], 1)
+        extra = ""
+        if leg.startswith("c"):
+            n = len(legp)
+            extra = (f"; prefill iterations a long prompt "
+                     f"{a['prefill_iters'] / n:.2f} (one process "
+                     f"{one['prefill_iters'] / n:.2f}), seqpar chunks "
+                     f"{a['seqpar_chunks']}")
+        say(f"decode_tp leg {leg} ({json.dumps(DTP_LEGS[leg])}; "
+            f"{len(legp)} requests, flagship bf16, {layers} layers, 2 "
+            f"processes on one card): {a['tokens']} tokens in "
+            f"{a['wall']:.3f} s = {tok_s:.1f} tok/s (one process "
+            f"{one_s:.1f}, ratio {tok_s / one_s:.4f}), TTFT p50 "
+            f"{a['ttft_p50']:.2f} ms (one process {one['ttft_p50']:.2f}), "
+            f"ITL p50 {a['itl_p50']:.2f} ms (one process "
+            f"{one['itl_p50']:.2f}); ms a step: leader {a['step_ms']:.3f} "
+            f"(median), follower {f_ms:.3f} (mean of its step/verify "
+            f"programs), one process {one['step_ms']:.3f}; a follower's "
+            f"step: {f_ex:.1f} exchanges, {f_mb:.3f} MB staged; the leg by "
+            f"rank: exchanges {[x['stats']['exchanges'] for x in (a, f)]} "
+            f"({a['stats']['exchanges'] / iters:.1f} an iteration on the "
+            f"leader), MB staged "
+            f"{[round(x['stats']['staged_bytes'] / 1e6, 1) for x in (a, f)]}"
+            f", exchange share "
+            f"{[round(x['stats']['exchange_s'] / x['wall'], 4) for x in (a, f)]}"
+            f"; resident parameter MB by rank "
+            f"{[round(x['param_bytes'] / 1e6, 1) for x in (a, f)]} (one "
+            f"process {one['param_bytes'] / 1e6:.1f}), kv_bytes_per_device "
+            f"MB {[round(x['kv_bytes'] / 1e6, 1) for x in (a, f)]} (one "
+            f"process {one['kv_bytes'] / 1e6:.1f}){extra}; agreement with "
+            f"one process: {agree}/{len(legp)} (first mismatch, first near "
+            f"tie by request: {[(v[1], v[2]) for v in verdicts]}); launches "
+            f"{json.dumps(launches[leg])}; card {card}")
+        if leg == "b" and device == "cuda":
+            for r, x in enumerate((a, f)):
+                missing = [k for k in DTP_KERNELS.values()
+                           if x["launches"][k] <= 0]
+                if missing:
+                    fail(f"decode_tp leg b: rank {r} launched no {missing}: "
+                         f"{x['launches']}")
+    lane = torch.load(os.path.join(DTP_DIR, "finals_c_lane.pt"))
+    for backend in ("ring", "ulysses"):
+        got = torch.load(os.path.join(DTP_DIR, f"finals_c_{backend}.pt"))
+        diff = max(float((got[n] - lane[n]).abs().max()) for n in lane)
+        same = sum(x == y for x, y in zip(lead[f"c_{backend}"]["outs"],
+                                          lead["c_lane"]["outs"]))
+        say(f"decode_tp (c) {backend} vs the single-lane tp=2 engine: "
+            f"largest first-token logit difference {diff:.4e} over "
+            f"{len(lane)} prompts, {same}/{len(lane)} requests "
+            f"token-identical; card {card}")
+    shutil.rmtree(DTP_DIR, ignore_errors=True)
+    kernels = {}
+    if device == "cuda":
+        fa = _fa()
+        gen = torch.Generator(device="cpu").manual_seed(21)
+        heads = FLAGSHIP["n_heads"] // DTP_TP
+        d = FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+        for seq, name in DTP_KERNELS.items():
+            r = fa_case_run(fa, fa_case(1, seq, seq, _BF, H=heads, D=d), gen)
+            kernels[name] = {"decode_tp_shape": f"B 1 x S {seq} x {heads} "
+                                                f"heads", **{
+                f"decode_tp_{k}": r[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "library_ms")}}
+        torch.cuda.empty_cache()
+    say(f"decode_tp: phase 21 took {time.perf_counter() - t_phase:.1f} s "
+        f"(the one-process legs {t_single:.1f} s); card {card}")
+    return launches, kernels
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_device()
+    # the worker processes of phases 16-21 fork from a server that has
+    # made its imports beside the phases before them
+    forkserver_start()
+    mark("1")
     fwd_results, serve_counts = lm_phases(card)
     bwd, train_counts = lm_train_phases(card)
+    mark("7-9")
     kernels_line = fwd_entries(fwd_results, serve_counts, train_counts) + bwd
     wk = phase_w2v_kernels()
     import multiverso_tpu_torch as mv
@@ -8008,14 +8478,24 @@ def main() -> None:
     mv.init(["chip_smoke", "-device=cuda"])
     phase_w2v_step()
     w2v = phase_w2v_slice(card)
+    mark("4-6")
     options = phase_w2v_options(card)
     mv.shutdown()
+    mark("12")
+    # phase 16's CPU runs go beside phase 15 as well
+    dur_child = dur_cpu_start()
     lr_launches, lr_kernels = phase_logreg(card)
-    dur_launches_by_leg, _ = phase_durability(card)
+    dur_launches_by_leg, _ = phase_durability(card, dur_child)
+    mark("15-16")
     ps_launches, ps_record = phase_ps(card)
+    mark("17")
     sp_launches = phase_seqpar(card)
     mesh_launches, mesh_kernel_results = phase_mesh(card)
     pipe_launches, pipe_kernel_results = phase_pipeline_moe(card)
+    mark("18-20")
+    dtp_launches, dtp_kernel_results = phase_decode_tp(
+        card, serve_counts["prompts"])
+    mark("21")
     n_g = w2v["launches"]["row_gather"]
     n_s = w2v["launches"]["row_scatter_add"]
     for name, r, line, n in (
@@ -8146,6 +8626,16 @@ def main() -> None:
                       for rank, counts in by_rank.items()}
                 for run, by_rank in pipe_launches.items()}
             entry.update(pipe_kernel_results.get(entry["name"], {}))
+    # phase 21's launches by leg and by process (each counted from 0 around
+    # the leg's served run), and K3/K4 at a rank's admission shapes
+    for entry in kernels_line:
+        if entry["name"] in DTP_KERNELS.values():
+            entry["launches_decode_tp"] = {
+                leg: {rank: counts[entry["name"]]
+                      for rank, counts in by_rank.items()}
+                for leg, by_rank in dtp_launches.items()}
+            entry.update(dtp_kernel_results.get(entry["name"], {}))
+    forkserver_stop()
     say(f"chip_smoke: the whole script took "
         f"{time.perf_counter() - T_START:.1f} s, card {card_line()}")
     print(json.dumps({"kernels": kernels_line}), flush=True)
@@ -8162,10 +8652,14 @@ def lm_phases(card: str):
     results = phase_kernels()
     phase_crossover()
     served = phase_slice(card)
+    mark("2-3")
     phase_defaults(card, served["prompts"], served["oracle"])
+    mark("10")
     served["surface"] = phase_serving_surface(card, served["prompts"])
+    mark("11")
     served["fleet"] = phase_fleet(card, served["prompts"], served["oracle"])
     served["planes"] = phase_planes(card, served["prompts"])
+    mark("13-14")
     return results, served
 
 

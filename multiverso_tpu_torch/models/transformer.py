@@ -324,20 +324,36 @@ def _verify_attention(q, k_cache, v_cache, n_heads: int,
 
 def _serve_layers(cfg: TransformerConfig, params: Dict[str, Any],
                   h: torch.Tensor, pos: torch.Tensor,
-                  kv: Callable) -> torch.Tensor:
+                  kv: Callable, tp=None,
+                  attend: Optional[Callable] = None) -> torch.Tensor:
     """The layer loop of every serving program over windows ``h`` [S, K1,
     D]: row ``j`` of lane ``s`` sits at cache position ``pos[s] + j``.
     ``kv(i, k, v)`` writes layer ``i``'s new K/V [S, K1, D] into the
     program's cache (contiguous, paged or int8) and returns the lanes'
     ``[S, T, D]`` views of it, which each row attends up to its own
-    position."""
+    position (``attend(q, kc, vc)``, default :func:`_verify_attention`).
+    With a tp group ``params`` holds this rank's decode shards
+    (:func:`decode_param_shardings`): q/k/v, the caches and the attention
+    are this rank's ``n_heads / tp`` heads, and the row-parallel
+    ``w_o``/``w_ff2`` products are summed over the group
+    (``collectives.reduce_from_tp``), two exchanges a layer."""
+    heads = cfg.n_heads if tp is None else cfg.n_heads // tp.size
+    if attend is None:
+        def attend(q, kc, vc):
+            return _verify_attention(q, kc, vc, heads, pos)
+    if tp is None:
+        def out(x):
+            return x
+    else:
+        def out(x):
+            return collectives.reduce_from_tp(x, tp)
     for i, layer in enumerate(_layers(params)):
         x = _rmsnorm(h, layer["ln1_g"])
         q, k, v = x @ layer["w_q"], x @ layer["w_k"], x @ layer["w_v"]
         kc, vc = kv(i, k, v)
-        h = h + _verify_attention(q, kc, vc, cfg.n_heads, pos) @ layer["w_o"]
+        h = h + out(attend(q, kc, vc) @ layer["w_o"])
         x = _rmsnorm(h, layer["ln2_g"])
-        h = h + _gelu(x @ layer["w_ff1"]) @ layer["w_ff2"]
+        h = h + out(_gelu(x @ layer["w_ff1"]) @ layer["w_ff2"])
     return h
 
 
@@ -360,16 +376,20 @@ def _step_out(params: Dict[str, Any], h: torch.Tensor, tok: torch.Tensor,
 
 @torch.no_grad()
 def prefill(cfg: TransformerConfig, params: Dict[str, Any],
-            tokens: torch.Tensor
+            tokens: torch.Tensor, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal forward over right-padded prompts ``tokens`` [B, P],
     recording per-layer K/V. Returns ``(logits [B, P, V] f32,
     k [L, B, P, D], v [L, B, P, D])``; positions past a prompt's length
-    hold garbage that decode overwrites before any mask reaches it."""
+    hold garbage that decode overwrites before any mask reaches it. With
+    a tp group, ``params`` holds this rank's decode shards: the attention
+    (K3/K4 under ``flash_force``) runs on its heads, ``k``/``v`` are its
+    ``D / tp`` slice, and the logits come from the whole embedding on
+    every rank."""
     h = params["embed"][tokens] + params["pos"][:tokens.shape[1]]
     ks, vs = [], []
     for layer in _layers(params):
-        h, k, v = _block(cfg, layer, h)
+        h, k, v = _block(cfg, layer, h, tp)
         ks.append(k)
         vs.append(v)
     h = _rmsnorm(h, params["ln_f_g"])
@@ -542,7 +562,7 @@ def decode_step_paged(cfg: TransformerConfig, params: Dict[str, Any],
                       k_pool: torch.Tensor, v_pool: torch.Tensor,
                       block_tables: torch.Tensor, tok: torch.Tensor,
                       pos: torch.Tensor, active: torch.Tensor,
-                      t_logical: Optional[int] = None
+                      t_logical: Optional[int] = None, tp=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  torch.Tensor]:
     """:func:`decode_step` against the paged pools ``[L, N, Bs, D]``
@@ -558,7 +578,7 @@ def decode_step_paged(cfg: TransformerConfig, params: Dict[str, Any],
     kv = _paged_kv(k_pool, v_pool, write_blk[:, None], write_off[:, None],
                    _flat_rows(block_tables, Bs, T))
     h = params["embed"][tok] + params["pos"][pos]
-    h = _serve_layers(cfg, params, h[:, None], pos, kv)
+    h = _serve_layers(cfg, params, h[:, None], pos, kv, tp)
     return (k_pool, v_pool) + _step_out(params, h, tok, pos, active)
 
 
@@ -579,12 +599,23 @@ def prefill_chunk_paged(cfg: TransformerConfig, params: Dict[str, Any],
                         block_tables: torch.Tensor, slot: torch.Tensor,
                         tokens: torch.Tensor, offset: torch.Tensor,
                         length: torch.Tensor,
-                        t_logical: Optional[int] = None
+                        t_logical: Optional[int] = None, tp=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`prefill_chunk` against the paged pools: K/V writes go to
     ``(block_tables[slot, p // Bs], p % Bs)`` and the chunk attends the
     slot's gathered ``[T, D]`` view. Pad lanes (``i >= length``) write
     into the scratch block. Returns ``(k_pool, v_pool, logits [V])``."""
+    kv, pos_ix = _chunk_kv(k_pool, v_pool, block_tables, slot, tokens,
+                           offset, length, t_logical)
+    h = _serve_layers(cfg, params, _chunk_embed(params, tokens, pos_ix)[None],
+                      offset.reshape(1), kv, tp)
+    return k_pool, v_pool, _last_logits(params, h[0], length)
+
+
+def _chunk_kv(k_pool, v_pool, block_tables, slot, tokens, offset, length,
+              t_logical):
+    """A paged chunk's ``kv`` (its lanes' writes, its slot's gathered
+    view) and its lanes' positions."""
     C = tokens.shape[0]
     Bs = k_pool.shape[2]
     M = block_tables.shape[1]
@@ -596,11 +627,8 @@ def prefill_chunk_paged(cfg: TransformerConfig, params: Dict[str, Any],
     blk = torch.where(valid, bt_row[0, (pos_ix // Bs).clamp(0, M - 1)],
                       torch.zeros_like(pos_ix))
     off = torch.where(valid, pos_ix % Bs, torch.zeros_like(pos_ix))
-    kv = _paged_kv(k_pool, v_pool, blk[None], off[None],
-                   _flat_rows(bt_row, Bs, T))
-    h = _serve_layers(cfg, params, _chunk_embed(params, tokens, pos_ix)[None],
-                      offset.reshape(1), kv)
-    return k_pool, v_pool, _last_logits(params, h[0], length)
+    return _paged_kv(k_pool, v_pool, blk[None], off[None],
+                     _flat_rows(bt_row, Bs, T)), pos_ix
 
 
 def cache_insert_paged(k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -627,13 +655,13 @@ def cache_insert_paged(k_pool: torch.Tensor, v_pool: torch.Tensor,
 def admit_insert_paged(cfg: TransformerConfig, params: Dict[str, Any],
                        k_pool: torch.Tensor, v_pool: torch.Tensor,
                        block_tables: torch.Tensor, tokens: torch.Tensor,
-                       lengths: torch.Tensor
+                       lengths: torch.Tensor, tp=None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Monolithic admission against the paged pools: whole-prompt
     :func:`prefill`, the first token at each last real position, and
     :func:`cache_insert_paged`. Returns ``(first [b], k_pool,
     v_pool)``."""
-    logits, ks, vs = prefill(cfg, params, tokens)
+    logits, ks, vs = prefill(cfg, params, tokens, tp)
     first = first_tokens(logits, lengths, tokens.dtype)
     cache_insert_paged(k_pool, v_pool, block_tables, ks, vs)
     return first, k_pool, v_pool
@@ -684,7 +712,7 @@ def verify_step_paged(cfg: TransformerConfig, params: Dict[str, Any],
                       block_tables: torch.Tensor, toks: torch.Tensor,
                       pos: torch.Tensor, active: torch.Tensor,
                       n_valid: torch.Tensor,
-                      t_logical: Optional[int] = None
+                      t_logical: Optional[int] = None, tp=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused multi-position step over the paged pools, in place.
 
@@ -706,7 +734,7 @@ def verify_step_paged(cfg: TransformerConfig, params: Dict[str, Any],
                                             n_valid, Bs, K1)
     kv = _paged_kv(k_pool, v_pool, blk, off, _flat_rows(block_tables, Bs, T))
     h = _serve_layers(cfg, params, _chunk_embed(params, toks, pos_ix), pos,
-                      kv)
+                      kv, tp)
     return k_pool, v_pool, _window_out(params, h, valid, toks.dtype)
 
 
@@ -729,6 +757,13 @@ def verify_step_paged(cfg: TransformerConfig, params: Dict[str, Any],
 # even (``torch.round``, as ``jnp.round``). Reads dequantize the gathered
 # blocks before attention, so the attention operand has the fp programs'
 # shape.
+#
+# Under a tp group a rank's pools hold its ``D / tp`` slice of each block,
+# while a block's scale is the amax over the block's whole ``D`` (JAX
+# replicates the scales and GSPMD reduces the amax). So each write's row
+# maxima are reduced with a max over the group (one exchange a layer for
+# K and V together, exact in any order) before any requantization, and
+# the scales stay equal on every rank.
 
 _KV_QMAX = 127.0
 
@@ -762,15 +797,26 @@ def _amax_into(n: int, index: torch.Tensor, values: torch.Tensor,
     return out.narrow(dim, 0, n)
 
 
+def _row_amax(k: torch.Tensor, v: torch.Tensor, tp=None):
+    """The f32 row maxima ``|k|``, ``|v|`` over the last dim: over the
+    whole ``D`` that a tp group splits (module comment above)."""
+    amax = [k.float().abs().amax(-1), v.float().abs().amax(-1)]
+    if tp is not None:
+        amax = collectives.allreduce_max_many(amax, tp)
+    return amax
+
+
 def _row_write_q(pool: torch.Tensor, scales: torch.Tensor,
                  tables: torch.Tensor, flat_ix: torch.Tensor,
                  blk_local: torch.Tensor, fresh: torch.Tensor,
-                 valid: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+                 valid: torch.Tensor, rows: torch.Tensor,
+                 amax: torch.Tensor) -> torch.Tensor:
     """The whole-row quantized write of one layer, in place: each row of
     ``tables`` [R, M] round-trips through fp32, ``rows`` [R, C, D] land at
     flat positions ``flat_ix`` [R, C] (``M * Bs`` = dropped), the scales
-    reset where ``fresh`` and grow by each written block's row max.
-    Returns the dequantized rows ``[R, M * Bs, D]`` as written."""
+    reset where ``fresh`` and grow by each written block's row max
+    (``amax`` [R, C], :func:`_row_amax`). Returns the dequantized rows
+    ``[R, M * Bs, D]`` as written."""
     R, M = tables.shape
     Bs, D = pool.shape[1], pool.shape[2]
     row_s = scales[tables]                                   # [R, M]
@@ -781,7 +827,7 @@ def _row_write_q(pool: torch.Tensor, scales: torch.Tensor,
     flat = flat[:, : M * Bs]
     reset = _amax_into(M, blk_local, fresh) > 0
     contrib = _amax_into(M, blk_local, torch.where(
-        valid, rows32.abs().amax(-1), torch.zeros_like(fresh)))
+        valid, amax, torch.zeros_like(fresh)))
     new_s = torch.maximum(torch.where(reset, torch.zeros_like(row_s), row_s),
                           contrib / _KV_QMAX)
     new_q = _kv_q_requant(flat.reshape(R, M, Bs, D), new_s)
@@ -803,15 +849,16 @@ def _row_kv_q(k_pool: torch.Tensor, v_pool: torch.Tensor,
               k_scales: torch.Tensor, v_scales: torch.Tensor,
               tables: torch.Tensor, flat_ix: torch.Tensor,
               blk_local: torch.Tensor, fresh: torch.Tensor,
-              valid: torch.Tensor, T: int) -> Callable:
+              valid: torch.Tensor, T: int, tp=None) -> Callable:
     """The int8 pools' whole-row ``kv`` for :func:`_serve_layers`: each
     layer's new rows [R, K1, D] go through :func:`_row_write_q`, and the
     views are the rows as written, cut to ``T``."""
     def kv(i, k, v):
+        ka, va = _row_amax(k, v, tp)
         kc = _row_write_q(k_pool[i], k_scales[i], tables, flat_ix,
-                          blk_local, fresh, valid, k)
+                          blk_local, fresh, valid, k, ka)
         vc = _row_write_q(v_pool[i], v_scales[i], tables, flat_ix,
-                          blk_local, fresh, valid, v)
+                          blk_local, fresh, valid, v, va)
         return kc[:, :T].to(k.dtype), vc[:, :T].to(v.dtype)
 
     return kv
@@ -835,7 +882,7 @@ def decode_step_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
                         k_scales: torch.Tensor, v_scales: torch.Tensor,
                         block_tables: torch.Tensor, tok: torch.Tensor,
                         pos: torch.Tensor, active: torch.Tensor,
-                        t_logical: Optional[int] = None):
+                        t_logical: Optional[int] = None, tp=None):
     """:func:`decode_step_paged` over int8 pools ``[L, N, Bs, D]`` and
     fp32 ``k_scales``/``v_scales`` [L, N], in place. Each live slot writes
     one block it owns alone (the engine copies a shared block before any
@@ -849,25 +896,25 @@ def decode_step_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
     write_blk, write_off = _step_slots(block_tables, pos, active, Bs)
     lanes = torch.arange(S, device=tok.device)
 
-    def write(pool, scales, rows):
+    def write(pool, scales, rows, amax):
         cur_s = scales[write_blk]                            # [S]
         cur = _kv_q_dequant(pool[write_blk], cur_s)          # [S, Bs, D]
-        rows32 = rows.float()
-        cur[lanes, write_off] = rows32
+        cur[lanes, write_off] = rows.float()
         # entering a block at offset 0 drops the prior occupant's scale
         base = torch.where(write_off == 0, torch.zeros_like(cur_s), cur_s)
-        new_s = torch.maximum(base, rows32.abs().amax(-1) / _KV_QMAX)
+        new_s = torch.maximum(base, amax / _KV_QMAX)
         pool[write_blk] = _kv_q_requant(cur, new_s)
         scales[write_blk] = new_s
 
     def kv(i, k, v):
-        write(k_pool[i], k_scales[i], k[:, 0])
-        write(v_pool[i], v_scales[i], v[:, 0])
+        ka, va = _row_amax(k[:, 0], v[:, 0], tp)
+        write(k_pool[i], k_scales[i], k[:, 0], ka)
+        write(v_pool[i], v_scales[i], v[:, 0], va)
         return (_gather_q(k_pool[i], k_scales[i], block_tables, T, k.dtype),
                 _gather_q(v_pool[i], v_scales[i], block_tables, T, v.dtype))
 
     h = params["embed"][tok] + params["pos"][pos]
-    h = _serve_layers(cfg, params, h[:, None], pos, kv)
+    h = _serve_layers(cfg, params, h[:, None], pos, kv, tp)
     return (k_pool, v_pool, k_scales, v_scales) \
         + _step_out(params, h, tok, pos, active)
 
@@ -879,7 +926,7 @@ def prefill_chunk_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
                           block_tables: torch.Tensor, slot: torch.Tensor,
                           tokens: torch.Tensor, offset: torch.Tensor,
                           length: torch.Tensor,
-                          t_logical: Optional[int] = None):
+                          t_logical: Optional[int] = None, tp=None):
     """:func:`prefill_chunk_paged` over the int8 pools: the chunk's writes
     span several blocks of one slot, so the slot's whole table row
     round-trips through fp32 (pad lanes dropped); untouched blocks get
@@ -894,9 +941,9 @@ def prefill_chunk_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
     pos_ix = (offset + lane)[None]
     valid = (lane < length)[None]
     kv = _row_kv_q(k_pool, v_pool, k_scales, v_scales, bt_row,
-                   *_window_write_ix(pos_ix, valid, Bs, M), valid, T)
+                   *_window_write_ix(pos_ix, valid, Bs, M), valid, T, tp)
     h = _serve_layers(cfg, params, _chunk_embed(params, tokens, pos_ix[0])
-                      [None], offset.reshape(1), kv)
+                      [None], offset.reshape(1), kv, tp)
     return (k_pool, v_pool, k_scales, v_scales,
             _last_logits(params, h[0], length))
 
@@ -908,7 +955,7 @@ def verify_step_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
                         block_tables: torch.Tensor, toks: torch.Tensor,
                         pos: torch.Tensor, active: torch.Tensor,
                         n_valid: torch.Tensor,
-                        t_logical: Optional[int] = None):
+                        t_logical: Optional[int] = None, tp=None):
     """:func:`verify_step_paged` over the int8 pools: a window can write
     several positions of one block, so every slot's whole table row
     round-trips through fp32. Blocks a slot does not write (shared
@@ -922,9 +969,9 @@ def verify_step_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
     pos_ix, valid, _, _ = _window_slots(block_tables, pos, active, n_valid,
                                         Bs, K1)
     kv = _row_kv_q(k_pool, v_pool, k_scales, v_scales, block_tables,
-                   *_window_write_ix(pos_ix, valid, Bs, M), valid, T)
+                   *_window_write_ix(pos_ix, valid, Bs, M), valid, T, tp)
     h = _serve_layers(cfg, params, _chunk_embed(params, toks, pos_ix), pos,
-                      kv)
+                      kv, tp)
     return (k_pool, v_pool, k_scales, v_scales,
             _window_out(params, h, valid, toks.dtype))
 
@@ -932,11 +979,12 @@ def verify_step_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
 def cache_insert_paged_q(k_pool: torch.Tensor, v_pool: torch.Tensor,
                          k_scales: torch.Tensor, v_scales: torch.Tensor,
                          block_tables: torch.Tensor, ks: torch.Tensor,
-                         vs: torch.Tensor):
+                         vs: torch.Tensor, tp=None):
     """:func:`cache_insert_paged` into the int8 pools: b whole prompts'
     K/V ``[L, b, P, D]`` quantize through per-row tables ``[b, M]``.
     Positions write from 0, so every written block resets its scale from
-    the fresh data. Returns ``(k_pool, v_pool, k_scales, v_scales)``."""
+    the fresh data (every layer's row maxima reduced over a tp group in
+    one exchange). Returns ``(k_pool, v_pool, k_scales, v_scales)``."""
     L, b, P, _ = ks.shape
     Bs = k_pool.shape[2]
     M = block_tables.shape[1]
@@ -946,11 +994,12 @@ def cache_insert_paged_q(k_pool: torch.Tensor, v_pool: torch.Tensor,
     fresh = (p % Bs == 0).float().expand(b, P)
     valid = torch.ones((b, P), dtype=torch.bool, device=p.device)
     loc_b = loc.expand(b, P)
+    ka, va = _row_amax(ks, vs, tp)
     for i in range(L):
         _row_write_q(k_pool[i], k_scales[i], block_tables, flat_ix, loc_b,
-                     fresh, valid, ks[i])
+                     fresh, valid, ks[i], ka[i])
         _row_write_q(v_pool[i], v_scales[i], block_tables, flat_ix, loc_b,
-                     fresh, valid, vs[i])
+                     fresh, valid, vs[i], va[i])
     return k_pool, v_pool, k_scales, v_scales
 
 
@@ -959,15 +1008,15 @@ def admit_insert_paged_q(cfg: TransformerConfig, params: Dict[str, Any],
                          k_pool: torch.Tensor, v_pool: torch.Tensor,
                          k_scales: torch.Tensor, v_scales: torch.Tensor,
                          block_tables: torch.Tensor, tokens: torch.Tensor,
-                         lengths: torch.Tensor):
+                         lengths: torch.Tensor, tp=None):
     """:func:`admit_insert_paged` into the int8 pools: the fp prefill and
     the first token are unchanged (computed before quantization); only
     the insert quantizes. Returns ``(first [b], k_pool, v_pool, k_scales,
     v_scales)``."""
-    logits, ks, vs = prefill(cfg, params, tokens)
+    logits, ks, vs = prefill(cfg, params, tokens, tp)
     first = first_tokens(logits, lengths, tokens.dtype)
     cache_insert_paged_q(k_pool, v_pool, k_scales, v_scales, block_tables,
-                         ks, vs)
+                         ks, vs, tp)
     return first, k_pool, v_pool, k_scales, v_scales
 
 
@@ -991,18 +1040,216 @@ def _is_quant_leaf(x: Any) -> bool:
 
 
 def dequantize_decode_params(qparams: Dict[str, Any],
-                             dtype=torch.float32) -> Dict[str, Any]:
+                             dtype=torch.float32, rank: int = 0
+                             ) -> Dict[str, Any]:
     """Inverse of :func:`serving.snapshot.quantize_decode_params`: each
     ``{"q": int8, "s": fp32}`` leaf multiplies out to ``dtype``. XLA folds
     this into the compiled program; here it runs eagerly at the top of
     every serving program, so the int8 pin stays resident and each call
-    materializes a ``dtype`` copy."""
+    materializes a ``dtype`` copy. On rank ``rank`` of a tp group ``q`` is
+    the rank's shard and ``s`` whole (:func:`decode_param_quant_shardings`):
+    a column-parallel weight's per-column scale spans the full ``D`` or
+    ``d_ff`` that ``q`` splits, so the rank takes its slice of it."""
     def deq(leaf):
-        return (leaf["q"].float() * leaf["s"]).to(dtype)
+        q, s = leaf["q"], leaf["s"]
+        for d in range(s.dim()):
+            if s.shape[d] not in (1, q.shape[d]):
+                s = s.narrow(d, rank * q.shape[d], q.shape[d])
+        return (q.float() * s).to(dtype)
 
     return {k: (deq(v) if _is_quant_leaf(v)
                 else {n: deq(w) for n, w in v.items()})
             for k, v in qparams.items()}
+
+
+# -- serving: the decode engine over a tp group of processes ------------------
+#
+# JAX's decode mesh (``make_sharded_decode_programs``, :825-:1390 there) is
+# one process over ``jax.devices()[:tp]``, GSPMD inserting the all-reduces.
+# Here a mesh holds one rank a process, so the decode mesh is a tp group
+# of processes (``topology.make_mesh((tp,), (DECODE_TP_AXIS,))``) running
+# the same program in step, each on its own shard (Megatron tensor
+# parallelism over the heads and the MLP's hidden dim, as Pope et al.
+# apply it to decode): ``w_q``/``w_k``/``w_v``/``w_ff1`` split by columns
+# (a rank holds ``n_heads / tp`` whole heads, since ``D / tp = (n_heads /
+# tp) * dh``), ``w_o``/``w_ff2`` by rows with their partial products summed
+# over the group (two exchanges a layer), ``embed``, ``pos`` and the norms
+# whole (each rank computes the logits from the whole embedding), and the
+# paged pools ``[L, N + 1, Bs, D]`` split over the head slice of ``D``, so
+# block-table gathers and scatters stay on the rank. The serving engine
+# broadcasts what JAX traces as replicated data (block tables, tokens,
+# positions, masks, slot, offset, lengths) before each call.
+
+DECODE_TP_AXIS = "tp"
+
+
+def validate_decode_tp(cfg: TransformerConfig, tp: int,
+                       name: str = "decode") -> None:
+    """Fail fast on a tp width the head-sharding math cannot honour."""
+    if tp < 1:
+        Log.fatal(f"{name}: decode_tp must be >= 1, got {tp}")
+    if cfg.n_heads % tp != 0:
+        Log.fatal(f"{name}: decode_tp {tp} does not divide n_heads "
+                  f"{cfg.n_heads}: head sharding needs whole heads per "
+                  f"rank")
+    if cfg.d_ff % tp != 0:
+        Log.fatal(f"{name}: decode_tp {tp} does not divide d_ff "
+                  f"{cfg.d_ff}: the MLP hidden dim splits over tp")
+
+
+def decode_param_shardings(mesh: Mesh, tp_axis: str = DECODE_TP_AXIS
+                           ) -> Dict[str, Any]:
+    """The serving parameters' layout over the decode mesh, a partition
+    spec per parameter: column-parallel ``w_q``/``w_k``/``w_v``/``w_ff1``
+    (output dim split), row-parallel ``w_o``/``w_ff2`` (input dim split),
+    ``embed`` whole unlike the trainer's row split (the logits contract
+    over ``d`` into a tiny ``[S, V]``, which a vocab split would gather
+    every token), ``pos`` and the norms whole."""
+    ns = lambda *spec: sharding_for(mesh, *spec)  # noqa: E731
+    return {
+        "embed": ns(),
+        "pos": ns(),
+        "layers": {
+            "ln1_g": ns(),
+            "ln2_g": ns(),
+            "w_q": ns(None, None, tp_axis),
+            "w_k": ns(None, None, tp_axis),
+            "w_v": ns(None, None, tp_axis),
+            "w_o": ns(None, tp_axis, None),
+            "w_ff1": ns(None, None, tp_axis),
+            "w_ff2": ns(None, tp_axis, None),
+        },
+        "ln_f_g": ns(),
+    }
+
+
+def kv_pool_sharding(mesh: Mesh, tp_axis: str = DECODE_TP_AXIS) -> Tuple:
+    """The paged pools ``[L, N + 1, Bs, D]`` split over the head slice of
+    ``D``: each rank holds its heads' cache for every block."""
+    return sharding_for(mesh, None, None, None, tp_axis)
+
+
+def decode_param_quant_shardings(mesh: Mesh, tp_axis: str = DECODE_TP_AXIS
+                                 ) -> Dict[str, Any]:
+    """The int8 pin's layout: each leaf's ``q`` takes the weight's
+    :func:`decode_param_shardings` spec and its ``s`` is whole (a
+    per-column scale has a size-1 dim where the row-parallel specs split,
+    and :func:`dequantize_decode_params` slices a column-parallel one)."""
+    return _map(lambda spec: {"q": spec, "s": sharding_for(mesh)},
+                decode_param_shardings(mesh, tp_axis))
+
+
+@torch.no_grad()
+def prefill_chunk_paged_sp(cfg: TransformerConfig, params: Dict[str, Any],
+                           k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           block_tables: torch.Tensor, slot: torch.Tensor,
+                           tokens: torch.Tensor, offset: torch.Tensor,
+                           length: torch.Tensor, mesh: Mesh, backend: str,
+                           t_logical: Optional[int] = None,
+                           tp_axis: str = DECODE_TP_AXIS
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sequence-parallel :func:`prefill_chunk_paged` over the decode mesh
+    (JAX :579-645): the same contract and, row for row, the same math,
+    but the chunk's attention runs through ``ops.ring_prefill_attention``
+    (``backend="ring"``) or ``ops.ulysses_prefill_attention``
+    (``"ulysses"``), which take the ``C`` chunk rows split over the tp
+    group. A ``C = budget * tp`` chunk then costs each rank one budget's
+    worth of attention rows, so a long prompt prefills in ``tp`` times
+    fewer iterations.
+
+    ``params`` holds this rank's decode shards, so the projections come
+    out split by heads (``[C, D / tp]``, every row) where JAX's entry
+    points take ``q`` split by rows (``[C / tp, D]``, GSPMD's layout): one
+    ``all_to_all`` gets there and one comes back around the call. The
+    ring also takes K/V split by sequence (``[T / tp, D]``, one more
+    ``all_to_all`` of K and V together, then ``tp - 1`` rotations inside);
+    Ulysses takes them split by heads, the pool's own layout, and its two
+    ``all_to_all`` inside undo the pair around it. Per layer at tp 2, with
+    the two row-parallel sums: ring 1 + 1 + 1 + 1 + 2 = 6 exchanges,
+    Ulysses 1 + 2 + 1 + 2 = 6, against the single-lane chunk's 2. Needs
+    ``C % tp == 0``, and ``T % tp == 0`` for the ring. On a group of one
+    every exchange is a copy."""
+    if backend not in ("ring", "ulysses"):
+        raise ValueError(f"unknown seqpar backend {backend!r}")
+    from ..ops.ring_attention import ring_prefill_attention
+    from ..ops.ulysses import ulysses_prefill_attention
+
+    tp = mesh.group(tp_axis)
+    kv, pos_ix = _chunk_kv(k_pool, v_pool, block_tables, slot, tokens,
+                           offset, length, t_logical)
+    a2a = collectives.all_to_all
+
+    def attend(q, kc, vc):
+        # q [1, C, D / tp], kc/vc [1, T, D / tp]: this rank's heads
+        q_rows = a2a(q[0], 0, 1, tp)                       # [C / tp, D]
+        if backend == "ring":
+            kv_seq = a2a(torch.stack([kc[0], vc[0]]), 1, 2, tp)
+            out = ring_prefill_attention(q_rows, kv_seq[0], kv_seq[1],
+                                         cfg.n_heads, offset, tp)
+        else:
+            out = ulysses_prefill_attention(q_rows, kc[0], vc[0],
+                                            cfg.n_heads, offset, tp)
+        return a2a(out, 1, 0, tp)[None]                    # [1, C, D / tp]
+
+    h = _serve_layers(cfg, params, _chunk_embed(params, tokens, pos_ix)[None],
+                      offset.reshape(1), kv, tp, attend)
+    return k_pool, v_pool, _last_logits(params, h[0], length)
+
+
+def make_sharded_decode_programs(cfg: TransformerConfig, mesh: Mesh,
+                                 t_logical: int,
+                                 tp_axis: str = DECODE_TP_AXIS,
+                                 kv_quant: str = "none",
+                                 param_quant: str = "none",
+                                 prefill_sp: str = "none"
+                                 ) -> Dict[str, Any]:
+    """The paged serving programs on this rank of the decode mesh (JAX
+    :1285): ``{"step", "chunk", "admit", "cow", "verify",
+    "param_shardings", "pool_sharding"}``, plus ``"chunk_sp"``
+    (:func:`prefill_chunk_paged_sp`) when ``prefill_sp`` names a backend.
+    Each takes the arguments of the one-process program (the pinned
+    parameters first, then the pools, their scales on an int8 engine, and
+    the replicated data), this rank's parameter shards
+    (``serving.snapshot.shard_for_decode`` under ``param_shardings``) and
+    its pools (``pool_sharding``), and runs in step with every other rank
+    of the group. ``kv_quant="int8"`` gives the ``_q`` programs, their
+    scales whole on every rank; ``param_quant="int8"`` dequantizes the
+    int8 pin's shards at each program's top. ``prefill_sp`` is
+    incompatible with ``kv_quant="int8"``."""
+    if prefill_sp != "none" and kv_quant == "int8":
+        raise ValueError("prefill_sp is incompatible with kv_quant=int8")
+    tp = mesh.group(tp_axis)
+    if param_quant == "int8":
+        ps = decode_param_quant_shardings(mesh, tp_axis)
+
+        def pf(p):
+            return dequantize_decode_params(p, cfg.dtype, rank=tp.rank)
+    else:
+        ps = decode_param_shardings(mesh, tp_axis)
+
+        def pf(p):
+            return p
+    T = int(t_logical)
+    q = kv_quant == "int8"
+    step = decode_step_paged_q if q else decode_step_paged
+    chunk = prefill_chunk_paged_q if q else prefill_chunk_paged
+    admit = admit_insert_paged_q if q else admit_insert_paged
+    verify = verify_step_paged_q if q else verify_step_paged
+    progs = {
+        "step": lambda p, *a: step(cfg, pf(p), *a, t_logical=T, tp=tp),
+        "chunk": lambda p, *a: chunk(cfg, pf(p), *a, t_logical=T, tp=tp),
+        "admit": lambda p, *a: admit(cfg, pf(p), *a, tp=tp),
+        # a rank copies its own slice of both blocks (and, int8, the
+        # scale columns it holds whole like every rank)
+        "cow": cow_block_copy_q if q else cow_block_copy,
+        "verify": lambda p, *a: verify(cfg, pf(p), *a, t_logical=T, tp=tp),
+        "param_shardings": ps,
+        "pool_sharding": kv_pool_sharding(mesh, tp_axis),
+    }
+    if prefill_sp != "none":
+        progs["chunk_sp"] = lambda p, *a: prefill_chunk_paged_sp(
+            cfg, pf(p), *a, mesh, prefill_sp, t_logical=T, tp_axis=tp_axis)
+    return progs
 
 
 @torch.no_grad()

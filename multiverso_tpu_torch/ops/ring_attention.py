@@ -32,8 +32,13 @@ JAX, every (q block, k block) pair runs the kernels, a causal block that
 lies wholly after the rank's rows included: the kernels give it m at
 -1e30, l = 0 and zero partials, which the merge and the sums ignore.
 
-The serving faces (``ring_prefill_attention``, ``_prefix_chunk_attn``)
-come with sequence-parallel prefill.
+The serving faces (JAX :200-285): :func:`_prefix_chunk_attn`, the decode
+engine's own chunk-attention math on heads split out, and
+:func:`ring_prefill_attention`, which runs it over a chunk's rows split
+over the group. They do not reuse the running-max accumulation above:
+its reduction order differs from the engine's one-softmax
+``_chunk_attention``, and sequence-parallel prefill must give the
+single-lane chunk's rows.
 """
 
 from __future__ import annotations
@@ -217,3 +222,56 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         out = _RingFlash.apply(q, k, v, group, causal, scale)
     return out if batched else out[0]
+
+
+def _prefix_chunk_attn(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                       rows: torch.Tensor, dh: int) -> torch.Tensor:
+    """The engine's chunk attention on split heads: ``qh`` [C, H, dh]
+    against ``kh``/``vh`` [T, H, dh], row ``c`` attending positions ``<=
+    rows[c]``. ``models.transformer._verify_attention`` expression for
+    expression (one window: f32 scores, one softmax a row over the whole
+    ``T``, one P @ V), so a slice of rows or heads computes that slice of
+    the single-lane chunk. Returns [C, H, dh] in v's dtype."""
+    T = kh.shape[0]
+    scores = torch.einsum("skhd,sthd->shkt", qh[None].float(),
+                          kh[None].float()) / math.sqrt(dh)
+    mask = (torch.arange(T, device=qh.device)[None, None, :]
+            <= rows[None, :, None])[:, None, :, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("shkt,sthd->skhd", probs.to(vh.dtype), vh[None])[0]
+
+
+def ring_prefill_attention(q: torch.Tensor, kc: torch.Tensor,
+                           vc: torch.Tensor, n_heads: int, offset,
+                           group=None) -> torch.Tensor:
+    """Serving chunk attention with the chunk's rows split over ``group``
+    (default: the session's): JAX's contract, seen from one rank.
+
+    ``q`` [C / n, D]: this rank's consecutive chunk rows (rank r holds
+    rows ``[r C / n, (r + 1) C / n)``); ``kc``/``vc`` [T / n, D]: this
+    rank's sequence shard of the slot's gathered view; ``offset`` the
+    chunk's first cache position (a 0-d tensor or an int). ``n - 1``
+    rotations (``collectives._permute``, K and V in one exchange) give
+    every rank every shard, reassembled in global order, then the rank
+    runs :func:`_prefix_chunk_attn` on its rows over the whole ``T``.
+    Returns [C / n, D] in q's dtype. Every rank calls it together."""
+    rank, n = group_rank_size(group)
+    c, D = q.shape
+    dh = D // n_heads
+    k_parts, v_parts = [kc], [vc]
+    k_cur, v_cur = kc, vc
+    for _ in range(n - 1):
+        k_cur, v_cur = _permute([k_cur, v_cur], *_next_prev(group), group)
+        k_parts.append(k_cur)
+        v_parts.append(v_cur)
+    # after j rotations a rank holds the shard of rank (rank - j) mod n
+    order = [(rank - s) % n for s in range(n)]
+    k_full = torch.cat([k_parts[j] for j in order])
+    v_full = torch.cat([v_parts[j] for j in order])
+    T = k_full.shape[0]
+    rows = offset + rank * c + torch.arange(c, device=q.device)
+    out = _prefix_chunk_attn(q.reshape(c, n_heads, dh),
+                             k_full.reshape(T, n_heads, dh),
+                             v_full.reshape(T, n_heads, dh), rows, dh)
+    return out.reshape(c, D).to(q.dtype)

@@ -16,7 +16,10 @@ Two exchanges a call instead of the ring's ``n - 1`` rotations, at the
 price of ``H % n == 0``. Differentiable: the backward of each all-to-all
 is the reverse all-to-all, and the local attention is autograd's
 (``impl="xla"``) or the flash backward kernels' (``impl="flash"``).
-``ulysses_prefill_attention`` comes with sequence-parallel prefill.
+
+:func:`ulysses_prefill_attention` is the serving face (JAX :105): the
+decode engine's chunk attention with the chunk's rows split over the
+group and K/V split by heads, the paged pool's own layout.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 
 from ..parallel.collectives import (all_to_all, check_equal_shards,
                                     group_rank_size)
-from .ring_attention import reference_attention
+from .ring_attention import _prefix_chunk_attn, reference_attention
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,3 +75,35 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale=scale, **attn_kwargs)
     # [(b,) seq, H/n, d] -> [(b,) seq/n, H, d]
     return all_to_all(out, -3, -2, group).to(q.dtype)
+
+
+def ulysses_prefill_attention(q: torch.Tensor, kc: torch.Tensor,
+                              vc: torch.Tensor, n_heads: int, offset,
+                              group=None) -> torch.Tensor:
+    """Serving chunk attention with the chunk's rows split over ``group``
+    (default: the session's), resharded by heads: JAX's contract, seen
+    from one rank.
+
+    ``q`` [C / n, D]: this rank's consecutive chunk rows; ``kc``/``vc``
+    [T, D / n]: the slot's gathered view, this rank's ``H / n`` whole
+    heads (the pool's head slice, so the prefix never moves); ``offset``
+    the chunk's first cache position. One ``all_to_all`` turns the row
+    shard of q into a head shard (every row, this rank's heads), the rank
+    runs the engine's chunk math (``ring_attention._prefix_chunk_attn``)
+    on its heads over the whole ``T``, and the reverse ``all_to_all``
+    gives back its rows. Returns [C / n, D] in q's dtype. Needs ``n_heads
+    % n == 0``; every rank calls it together."""
+    _, n = group_rank_size(group)
+    if n_heads % n != 0:
+        raise ValueError(
+            f"ulysses needs heads ({n_heads}) divisible by the group size "
+            f"{n}; use ring_prefill_attention for fewer heads")
+    D = q.shape[1]
+    T = kc.shape[0]
+    hl, dh = n_heads // n, D // n_heads
+    qf = all_to_all(q, 1, 0, group)                  # [C, D / n]
+    C = qf.shape[0]
+    rows = offset + torch.arange(C, device=q.device)
+    out = _prefix_chunk_attn(qf.reshape(C, hl, dh), kc.reshape(T, hl, dh),
+                             vc.reshape(T, hl, dh), rows, dh)
+    return all_to_all(out.reshape(C, D // n), 0, 1, group).to(q.dtype)

@@ -57,6 +57,15 @@ Their sums, and :func:`allreduce_many`'s, add in rank order on the
 device and, for 16-bit floats, in f32 with one rounding at the end (a
 row-parallel product's partials summed in bf16 would round once per
 rank).
+
+For the serving engine over a tp group (``serving/decode_engine.py``):
+
+* :func:`allreduce_max_many` — the elementwise max over the group of
+  each of several tensors, in one exchange (exact in any order: an int8
+  KV block's scale is the amax over the whole ``D`` that the group
+  splits);
+* :func:`broadcast` — a host tensor from one rank to every rank of the
+  group, in place (the engine's commands).
 """
 
 from __future__ import annotations
@@ -338,6 +347,27 @@ def allreduce_many(tensors: Sequence[torch.Tensor], group=None,
     _, _, size = _group(group)
     out = [_sum_wide(parts) for parts in _gather_packed(tensors, group)]
     return [t / size for t in out] if mean else out
+
+
+def allreduce_max_many(tensors: Sequence[torch.Tensor], group=None
+                       ) -> List[torch.Tensor]:
+    """The elementwise max over every process of each of ``tensors``
+    (same shapes and dtypes on every rank), all moved in one exchange."""
+    return [torch.stack(parts).amax(dim=0)
+            for parts in _gather_packed(tensors, group)]
+
+
+def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """``x`` (a host tensor of the same shape and dtype on every rank)
+    overwritten in place with rank ``src``'s, and returned."""
+    g, _, size = _group(group)
+    if size == 1:
+        return x
+    t0 = time.perf_counter()
+    dist.broadcast(x, src=g.ranks[src], group=g.handle)
+    STATS["exchanges"] += 1
+    STATS["exchange_s"] += time.perf_counter() - t0
+    return x
 
 
 def _sum_over(x: torch.Tensor, group) -> torch.Tensor:

@@ -75,6 +75,36 @@ iteration-level scheduling over a persistent KV cache, with
   a :class:`.accounting.ResourceUsage` filled at the engine's own
   instrumentation sites and folded into its tenant's
   :class:`.accounting.CostLedger` row when it resolves.
+* **a tp group of processes** (``decode_tp`` > 1; paged only): the first
+  ``decode_tp`` ranks of the session's process group serve one engine in
+  step, each holding its heads' slice of every weight and of the KV pools
+  (``models.transformer.make_sharded_decode_programs``). JAX runs one
+  process over ``decode_tp`` devices; here the group's rank 0, the
+  leader, runs the loop, the scheduler, the queue, deadlines, the
+  watchdog and the drafts as a one-process engine does, and before each
+  program call broadcasts what JAX traces as replicated data (the
+  program, block tables, tokens, positions, masks, slot, offset and
+  lengths) as one command; every rank then runs that program on its own
+  shard and pools. The other ranks run a follower loop
+  (:meth:`DecodeEngine.join`): they take commands, never requests, and
+  never read their own model's parameters: the leader pins a snapshot
+  version and sends each rank its slices once per version
+  (``snapshot.shard_for_decode``). Everything the leader does to the
+  pools goes through a command (block tables ride the program calls that
+  read them; int8 scale writes happen inside programs). A leader's
+  ``stop()`` ends the followers; an idle leader pings them every quarter
+  of ``_TP_TIMEOUT_S`` (60 s), and a follower that hears nothing for that
+  long raises :class:`~..log.FatalError`. KV export and splice
+  (:meth:`DecodeEngine.submit_prefill`, :meth:`DecodeEngine.splice`) raise
+  on such an engine. Creating the engine is collective over the whole
+  process group (its gloo sub-group is made there).
+* **sequence-parallel prefill** (``prefill_sp``; paged and chunked, not
+  with int8 KV): prompts of at least ``prefill_sp_threshold`` tokens
+  prefill in chunks of ``budget * decode_tp`` tokens through
+  :func:`models.transformer.prefill_chunk_paged_sp` (``ring`` or
+  ``ulysses``), the chunk's rows split over the tp group (at ``decode_tp``
+  1 a group of one), so a long prompt admits in ``decode_tp`` times fewer
+  iterations; shorter prompts keep the single-lane chunk.
 
 The JAX engine's one-compiled-trace-per-program invariant has no compiler
 here; its counterpart is :class:`_Program`, which records the distinct
@@ -90,9 +120,6 @@ prompt's final chunk, its first token.
 Snapshot pinning as in the JAX engine: an admission pins the current
 params snapshot; the pin only moves while nothing is in flight and no
 preempted request waits to resume.
-
-Not ported yet, each raising :class:`~..log.FatalError` by name:
-``decode_tp`` and ``prefill_sp`` (the distributed paths).
 """
 
 from __future__ import annotations
@@ -111,13 +138,14 @@ import torch
 from .. import trace
 from ..dashboard import Dashboard
 from . import accounting, kv_transfer
-from ..log import Log
+from ..log import FatalError, Log
 from .batcher import (DeadlineExceededError, OverloadedError, bucket_for,
                       shape_buckets)
 from .block_pool import SCRATCH_BLOCK, BlockPool, chain_hashes, \
     kv_bytes_per_block
 from .flight_recorder import FlightRecorder
-from .snapshot import SnapshotManager, quantize_decode_params
+from .snapshot import (SnapshotManager, quantize_decode_params,
+                       replicate_for_decode, shard_for_decode)
 from .watchdog import EngineWatchdog, WatchdogConfig
 
 
@@ -153,10 +181,13 @@ class DecodeEngineConfig:
     slo_ttft_ms: Optional[float] = None          # <= 0 = no SLO
     slo_itl_ms: Optional[float] = None
     cost_ledger: Optional[bool] = None           # per-tenant accounting
-    # the JAX engine's features this port does not have yet; only the
-    # values that turn each off are served
+    # a tp group of processes serving one engine (paged only)
     decode_tp: Optional[int] = None
+    # sequence-parallel prefill of prompts at or above the threshold
+    # (paged + chunked; "ring" or "ulysses")
     prefill_sp: Optional[bool] = None
+    prefill_sp_backend: Optional[str] = None
+    prefill_sp_threshold: Optional[int] = None
 
     def _resolved(self, field: str):
         value = getattr(self, field)
@@ -183,20 +214,6 @@ class DecodeEngineConfig:
             stall_s=float(self._resolved("watchdog_stall_s")),
             queue_age_s=float(self._resolved("watchdog_queue_age_s")),
             dump_dir=str(self._resolved("debug_dump_dir")))
-
-    def unported(self) -> List[str]:
-        """``flag=value`` for every resolved setting that turns on a
-        feature this port does not have."""
-        on = []
-        checks = (
-            ("decode_tp", lambda v: int(v) != 1),
-            ("prefill_sp", bool),
-        )
-        for field, is_on in checks:
-            value = self._resolved(field)
-            if is_on(value):
-                on.append(f"{field}={value!r}")
-        return on
 
 
 class _Program:
@@ -238,6 +255,16 @@ _SPEC_NGRAM = 2
 
 # chain hashes a heartbeat advertises at most (the JAX engine's cap)
 _CHAIN_ADVERT_CAP = 256
+
+# a tp group's commands, by their index in the broadcast header
+_CMDS = ("stop", "ping", "pin", "warmup", "chunk", "chunk_sp", "admit",
+         "step", "verify", "cow")
+# the header: command, tables-follow flag, the host array's ndim and dims
+_CMD_HEAD = 5
+# seconds a tp group's collectives wait before raising: a follower that
+# hears nothing from its leader for this long raises FatalError, and an
+# idle leader tells its followers it lives every quarter of it
+_TP_TIMEOUT_S = 60.0
 
 
 class _PromptLookup:
@@ -445,7 +472,8 @@ class _Request:
                  "blocks", "rid", "hashes", "hash_seed", "n_hit",
                  "full_hit", "saved", "pf_reg", "ttft_pending", "priority",
                  "deadline", "preempts", "resumed", "skips", "prompt0",
-                 "drafter", "pf_only", "known", "xfer", "tenant", "usage")
+                 "drafter", "pf_only", "known", "xfer", "tenant", "usage",
+                 "sp")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
                  ctx: Optional[trace.SpanContext] = None,
@@ -502,6 +530,8 @@ class _Request:
         # resource vector (None on ledger-off engines)
         self.tenant = tenant
         self.usage: Optional[accounting.ResourceUsage] = None
+        # sequence-parallel prefill: decided once per admission
+        self.sp = False
 
 
 class DecodeEngine:
@@ -524,10 +554,6 @@ class DecodeEngine:
         ec = self.config
         cfg = lm.config
         self._model_cfg = cfg
-        unported = ec.unported()
-        if unported:
-            Log.fatal(f"DecodeEngine {name!r}: not ported to "
-                      f"multiverso_tpu_torch yet: {', '.join(unported)}")
         if ec.max_prompt + ec.max_new > cfg.max_seq:
             Log.fatal(f"DecodeEngine {name!r}: max_prompt {ec.max_prompt} + "
                       f"max_new {ec.max_new} exceeds max_seq {cfg.max_seq}")
@@ -549,6 +575,7 @@ class DecodeEngine:
         self._paged = self._block_size > 0
         self._pool: Optional[BlockPool] = None
         self._blocks_per_seq = 0
+        self._bt_dirty = False
         if self._paged:
             self._blocks_per_seq = -(-T // self._block_size)
             self._pool = BlockPool(
@@ -612,6 +639,99 @@ class DecodeEngine:
                       f"window parks rejected and pad writes in the "
                       f"scratch block")
 
+        # -- the decode mesh: a tp group of processes --------------------------
+        # checked before the mesh exists, alike on every rank, so a refusal
+        # leaves no rank waiting in the collective that makes it
+        self._tp = int(ec._resolved("decode_tp"))
+        if self._tp < 1:
+            Log.fatal(f"DecodeEngine {name!r}: decode_tp must be >= 1, "
+                      f"got {self._tp}")
+        from ..parallel.collectives import group_rank_size
+
+        me, world = group_rank_size()
+        if self._tp > 1:
+            if not self._paged:
+                Log.fatal(f"DecodeEngine {name!r}: decode_tp={self._tp} "
+                          f"needs the paged KV cache (kv_block_size > 0): "
+                          f"the ranks hold the block pools' head slices")
+            tf.validate_decode_tp(cfg, self._tp,
+                                  name=f"DecodeEngine {name!r}")
+            if self._tp > world:
+                Log.fatal(f"DecodeEngine {name!r}: decode_tp {self._tp} "
+                          f"exceeds the process group's {world} "
+                          f"process(es)" + ("" if world > 1 else
+                                            " (no group: one process)"))
+        # -- sequence-parallel prefill ---------------------------------------
+        self._sp = bool(ec._resolved("prefill_sp"))
+        self._sp_backend = str(ec._resolved("prefill_sp_backend"))
+        self._sp_threshold = int(ec._resolved("prefill_sp_threshold"))
+        if self._sp:
+            if not (self._paged and chunked):
+                Log.fatal(f"DecodeEngine {name!r}: prefill_sp needs the "
+                          f"paged KV cache (kv_block_size > 0) and chunked "
+                          f"prefill (prefill_token_budget > 0): the "
+                          f"sequence-parallel chunk writes through block "
+                          f"tables at an offset")
+            if self._kv_quant:
+                Log.fatal(f"DecodeEngine {name!r}: prefill_sp is "
+                          f"incompatible with kv_quant=int8: the "
+                          f"sequence-parallel entry points reproduce the "
+                          f"fp chunk and have no int8 form")
+            if self._sp_backend not in ("ring", "ulysses"):
+                Log.fatal(f"DecodeEngine {name!r}: prefill_sp_backend must "
+                          f"be 'ring' or 'ulysses', got "
+                          f"{self._sp_backend!r}")
+            if self._sp_threshold < 0:
+                Log.fatal(f"DecodeEngine {name!r}: negative "
+                          f"prefill_sp_threshold {self._sp_threshold}")
+            if self._sp_backend == "ring" and T % self._tp != 0:
+                Log.fatal(f"DecodeEngine {name!r}: ring prefill_sp needs "
+                          f"the logical cache length {T} divisible by "
+                          f"decode_tp {self._tp}: use the ulysses backend "
+                          f"or change max_prompt/max_new")
+        # one budget of rows a rank
+        self._sp_chunk = self._budget * self._tp if self._sp else 0
+        self._decode_mesh = None
+        self._tp_group = None
+        self._tp_rank = 0
+        # a leader's command and the program it starts are one unit: the
+        # loop thread, warmup() on a caller's thread and the pings take
+        # this lock around them
+        self._tp_lock = threading.RLock()
+        self._ping_s: Optional[float] = None
+        if self._tp > 1:
+            from datetime import timedelta
+
+            import torch.distributed as dist
+
+            from ..topology import Mesh, SubGroup
+
+            # collective over the whole process group: every rank builds
+            # its engine here, in the same order. A gloo group of its own,
+            # so that its collectives give up after _TP_TIMEOUT_S
+            line = list(range(self._tp))
+            handle = dist.new_group(
+                line, backend="gloo",
+                timeout=timedelta(seconds=_TP_TIMEOUT_S))
+            self._decode_mesh = Mesh(
+                np.asarray(line), (tf.DECODE_TP_AXIS,), me,
+                {tf.DECODE_TP_AXIS: SubGroup(line, me, handle)}
+                if me < self._tp else {})
+            coords = self._decode_mesh.coords()
+            if coords is None:
+                Log.fatal(f"DecodeEngine {name!r}: rank {me} is outside "
+                          f"the decode tp group (ranks 0-{self._tp - 1})")
+            self._tp_group = self._decode_mesh.group(tf.DECODE_TP_AXIS)
+            self._tp_rank = coords[tf.DECODE_TP_AXIS]
+            self._ping_s = _TP_TIMEOUT_S / 4
+        self._follower = self._tp_rank > 0
+        self._followers_ended = False
+        # a follower's failure (re-raised by join), and by command its
+        # calls, host seconds, and the exchanges, bytes staged and
+        # exchange seconds of its programs (collectives.STATS)
+        self._follow_error: Optional[BaseException] = None
+        self.follower_calls: Dict[str, List[float]] = {}
+
         # -- programs --------------------------------------------------------
         # an int8 pin dequantizes at the top of every program
         if self._param_quant == "int8":
@@ -621,7 +741,24 @@ class DecodeEngine:
             def pf(p):
                 return p
         self._verify_fn: Optional[_Program] = None
-        if self._paged:
+        self._chunk_sp_fn: Optional[_Program] = None
+        self._param_shardings = None
+        if self._tp > 1:
+            # this rank's shard of every program (each call broadcast by
+            # the leader first); the seqpar chunk comes from the same call
+            progs = tf.make_sharded_decode_programs(
+                cfg, self._decode_mesh, T, kv_quant=self._kv_quant_mode,
+                param_quant=self._param_quant,
+                prefill_sp=self._sp_backend if self._sp else "none")
+            self._param_shardings = progs["param_shardings"]
+            self._step_fn = _Program(progs["step"])
+            self._chunk_fn = _Program(progs["chunk"])
+            self._admit_fn = _Program(progs["admit"])
+            if self._spec:
+                self._verify_fn = _Program(progs["verify"])
+            if self._sp:
+                self._chunk_sp_fn = _Program(progs["chunk_sp"])
+        elif self._paged:
             # the tensor arguments after the parameters: the pools (and,
             # int8, their scales, see _pools), the block tables, then the
             # program's own
@@ -639,6 +776,16 @@ class DecodeEngine:
             if self._spec:
                 self._verify_fn = _Program(
                     lambda p, *a: verify(cfg, pf(p), *a, t_logical=T))
+            if self._sp:
+                # decode_tp 1: the sequence-parallel chunk on a group of
+                # one (every exchange a copy, the chunk one budget)
+                from ..topology import make_mesh
+
+                sp_mesh = make_mesh((1,), (tf.DECODE_TP_AXIS,), ranks=[me])
+                backend = self._sp_backend
+                self._chunk_sp_fn = _Program(
+                    lambda p, *a: tf.prefill_chunk_paged_sp(
+                        cfg, pf(p), *a, sp_mesh, backend, t_logical=T))
         else:
             self._step_fn = _Program(
                 lambda p, kc, vc, tok, pos, active:
@@ -663,7 +810,9 @@ class DecodeEngine:
 
         # -- device state (owned by the loop thread) --------------------------
         if self._paged:
-            shape = (L, self._pool.capacity + 1, self._block_size, D)
+            # a tp rank holds the head slice of D
+            shape = (L, self._pool.capacity + 1, self._block_size,
+                     D // self._tp)
         else:
             shape = (L, S, T, D)
         self._k_cache = torch.zeros(
@@ -765,12 +914,16 @@ class DecodeEngine:
                     cfg.n_layers, cfg.d_model, self._block_size, cfg.dtype,
                     quant=self._kv_quant_mode) if self._paged else 0))
         self.recorder: Optional[FlightRecorder] = None
-        if bool(ec._resolved("flight_recorder")):
+        # a follower runs no loop: nothing to record or to watch
+        if bool(ec._resolved("flight_recorder")) and not self._follower:
             self.recorder = FlightRecorder(
                 int(ec._resolved("flight_recorder_capacity")), name=name)
-            self.recorder.meta.update(decode_tp=1, mesh_devices=1)
+            self.recorder.meta.update(decode_tp=self._tp,
+                                      mesh_devices=self._tp)
             if self._spec:
                 self.recorder.meta["spec_k"] = self._spec
+            if self._sp:
+                self.recorder.meta["prefill_sp"] = self._sp_backend
         # per-iteration scratch the recorder drains
         self._it_admitted: List[int] = []
         self._it_completed: List[int] = []
@@ -778,6 +931,7 @@ class DecodeEngine:
         self._it_decode = 0
         self._it_spec_proposed = 0
         self._it_spec_accepted = 0
+        self._it_sp_chunks = 0
         self.completed = 0
         self.shed = 0
         self.tokens = 0
@@ -801,6 +955,8 @@ class DecodeEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_steps = 0
+        # chunks prefilled through the sequence-parallel program
+        self.seqpar_chunks = 0
         # int8 quality: the argmax-match rate against an fp engine, which
         # only a caller holding both outputs can measure (-1 = not yet)
         self._argmax_match = -1.0
@@ -812,13 +968,25 @@ class DecodeEngine:
         self.t_first: Optional[float] = None
         self._occ_sum = 0.0
         self._occ_n = 0
+        if self._tp > 1:
+            # the commands: header, the block tables, the largest host
+            # array any program takes (alike on every rank)
+            longest = max(
+                self._sp_chunk + 3, self._budget + 3,
+                0 if chunked else
+                self._prompt_buckets[-1] + 2 + self._blocks_per_seq,
+                S * (self._spec + 4), 3 * S, 2)
+            self._cmd_buf = torch.zeros(
+                _CMD_HEAD + S * self._blocks_per_seq + longest,
+                dtype=torch.int64)
         self._thread = threading.Thread(
-            target=self._loop, name=f"serve-decode-{name}", daemon=True)
+            target=self._follow if self._follower else self._loop,
+            name=f"serve-decode-{name}", daemon=True)
         self._thread.start()
         # the watchdog reads the public health surface, so it starts
         # after the loop thread exists
         self.watchdog: Optional[EngineWatchdog] = None
-        if bool(ec._resolved("watchdog")):
+        if bool(ec._resolved("watchdog")) and not self._follower:
             self.watchdog = EngineWatchdog(
                 self, ec.resolved_watchdog_config())
 
@@ -883,6 +1051,10 @@ class DecodeEngine:
         """Queue ``req`` under the engine lock, shedding (and billing the
         shed) when ``positions`` can never fit the pool or the queue is
         full."""
+        if self._follower:
+            Log.fatal(f"DecodeEngine {self.name!r}: rank {self._tp_rank} of "
+                      f"the decode tp group is a follower: submit to its "
+                      f"leader, rank 0")
         if self.ledger is not None:
             req.usage = self.ledger.usage(req.tenant)
         with self._cv:
@@ -913,8 +1085,17 @@ class DecodeEngine:
     def supports_transfer(self) -> bool:
         """Whether this engine can be a disaggregation endpoint: the
         transfer plane moves chain-addressed full blocks, so it rides the
-        prefix cache's gate (paged + chunked + prefix_cache)."""
-        return self._prefix
+        prefix cache's gate (paged + chunked + prefix_cache), on one
+        process (``decode_tp`` 1)."""
+        return self._prefix and self._tp == 1
+
+    def _refuse_transfer(self, what: str) -> None:
+        """KV export and splice read and write whole blocks of the pools,
+        which a tp rank holds one D slice of."""
+        if self._tp > 1:
+            Log.fatal(f"DecodeEngine {self.name!r}: {what} is not ported "
+                      f"for decode_tp={self._tp}: each rank holds one head "
+                      f"slice of every block")
 
     def submit_prefill(self, prompt, known_hashes: Sequence[str] = (),
                        ctx: Optional[trace.SpanContext] = None,
@@ -928,7 +1109,9 @@ class DecodeEngine:
         full-hits here). ``known_hashes`` (hex) are the receiver's
         advertised chains: those blocks ride as metadata only. Sheds like
         :meth:`submit`; raises on an engine without
-        :attr:`supports_transfer`."""
+        :attr:`supports_transfer` (:class:`~..log.FatalError` at
+        ``decode_tp`` > 1)."""
+        self._refuse_transfer("KV export (submit_prefill)")
         if not self.supports_transfer:
             raise RuntimeError(
                 f"decode engine {self.name!r} cannot serve prefill-only "
@@ -952,7 +1135,9 @@ class DecodeEngine:
         ``_splice_q`` until the loop applies it between iterations, and a
         follow-up :meth:`submit` of the same prompt sees the warm prefix.
         Degrades, never raises: an unsupported engine, a stopped loop or
-        a timeout returns zero accounting and the prompt re-prefills."""
+        a timeout returns zero accounting and the prompt re-prefills. A
+        ``decode_tp`` > 1 engine raises :class:`~..log.FatalError`."""
+        self._refuse_transfer("KV splice")
         zero = {"xfer_blocks": 0, "xfer_bytes": 0, "dedup_blocks": 0}
         if not self.supports_transfer:
             return dict(zero, skipped="unsupported")
@@ -1104,6 +1289,16 @@ class DecodeEngine:
 
     # -- engine thread --------------------------------------------------------
     def _loop(self) -> None:
+        try:
+            self._serve()
+        except Exception as exc:          # pragma: no cover - defensive
+            # outside an iteration's work: a lost follower while pinging
+            self._fail_all(exc)
+        finally:
+            if self._tp > 1:
+                self._end_followers()
+
+    def _serve(self) -> None:
         chunked = self._budget > 0
         while True:
             splices: List[tuple] = []
@@ -1112,7 +1307,14 @@ class DecodeEngine:
                        and not self._active.any()
                        and not self._splice_q
                        and not self._stop.is_set()):
-                    self._cv.wait()
+                    # an idle tp leader tells its followers it lives
+                    # (_ping_s is None on one process: wait for work)
+                    if not self._cv.wait(self._ping_s):
+                        self._cv.release()
+                        try:
+                            self._ping()
+                        finally:
+                            self._cv.acquire()
                 if (self._stop.is_set() and not self._q
                         and self._pf is None and not self._active.any()):
                     # release splice waiters: the loop applies no more
@@ -1156,6 +1358,7 @@ class DecodeEngine:
             self._it_completed.clear()
             self._it_prefill = self._it_decode = 0
             self._it_spec_proposed = self._it_spec_accepted = 0
+            self._it_sp_chunks = 0
             step_ms = 0.0
             worked = False
             try:
@@ -1269,8 +1472,8 @@ class DecodeEngine:
             # KV block-seconds and the live tenant count
             round(it_block_s, 6) if self.ledger is not None else -1.0,
             self.ledger.tenant_count() if self.ledger is not None else -1,
-            # sequence-parallel chunks: prefill_sp is not ported
-            -1))
+            # sequence-parallel chunks (-1 on an engine without prefill_sp)
+            self._it_sp_chunks if self._sp else -1))
 
     def _seed_for(self, version: int) -> bytes:
         """The hash chain's seed for a pinned snapshot version, tagged by
@@ -1300,10 +1503,21 @@ class DecodeEngine:
                     # the snapshot is already a private copy on the
                     # model's device: pinning it copies nothing more,
                     # unless the pin is int8 (quantized on the host once
-                    # per version, the int8 copy kept on the device)
-                    self._pinned = (quantize_decode_params(snap.value)
-                                    if self._param_quant == "int8"
-                                    else snap.value)
+                    # per version, the int8 copy kept on the device) or
+                    # split over a tp group (each rank's slices sent once
+                    # per version)
+                    value = (quantize_decode_params(snap.value)
+                             if self._param_quant == "int8"
+                             else snap.value)
+                    if self._tp > 1:
+                        with self._tp_lock:
+                            self._send_cmd("pin", np.array(
+                                [snap.version], np.int64))
+                            self._pinned = shard_for_decode(
+                                value, self._decode_mesh,
+                                self._param_shardings)
+                    else:
+                        self._pinned = replicate_for_decode(value)
                 self._pinned_version = snap.version
                 self.pin_copies += 1
             self._snap = snap
@@ -1313,19 +1527,177 @@ class DecodeEngine:
                     self._hash_seed = seed
                     self._pool.flush_cache()
 
-    # -- device inputs --------------------------------------------------------
+    # -- device inputs and program calls --------------------------------------
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         """One host-to-device copy of a packed int64 array."""
         return torch.from_numpy(host).to(self.device)
 
-    def _tables(self) -> torch.Tensor:
-        """The block tables' device copy, uploaded if the host mirror
-        changed since the last upload."""
-        if self._bt_dirty:
-            self._bt_dev.copy_(torch.from_numpy(self._block_tables))
+    def _call(self, cmd: str, host: np.ndarray):
+        """Run program ``cmd`` on ``host``, the int64 array that carries
+        its data (:meth:`_run`), with the block tables when the host
+        mirror changed since the last upload and the program reads them.
+        A tp leader broadcasts the command to its followers first. Returns
+        the one output the host reads (None for ``cow``)."""
+        tables = None
+        if self._bt_dirty and cmd in ("chunk", "chunk_sp", "step", "verify"):
+            tables = self._block_tables
             self._bt_dirty = False
+        with self._tp_lock:
+            if self._tp > 1:
+                self._send_cmd(cmd, host, tables)
+            return self._run(cmd, host, tables)
+
+    def _run(self, cmd: str, host: np.ndarray,
+             tables: Optional[np.ndarray] = None):
+        """Program ``cmd`` on this rank: ``tables`` (when given) into the
+        block tables' device copy, ``host`` to the device in one copy and
+        split into the program's arguments. ``chunk``/``chunk_sp``: ``[C
+        + 3]`` tokens, slot, offset, length -> the final row's logits;
+        ``admit``: ``[bucket + 2 + M]`` tokens, length, slot, table row ->
+        the first token; ``step``: ``[3, S]`` tokens, positions, active ->
+        the next tokens; ``verify``: ``[S, K + 4]`` positions, active,
+        valid counts, the window -> the window's tokens; ``cow``: source
+        and destination block."""
+        if tables is not None:
+            self._bt_dev.copy_(torch.from_numpy(tables))
             self.table_uploads += 1
-        return self._bt_dev
+        a = self._upload(host)
+        p = self._pinned
+        if cmd == "cow":
+            self._cow_fn(*self._pools(), a[0], a[1])
+            return None
+        if cmd in ("chunk", "chunk_sp"):
+            C = a.shape[0] - 3
+            toks, slot, off, n = a[:C], a[C], a[C + 1], a[C + 2]
+            if not self._paged:
+                return self._chunk_fn(p, self._k_cache, self._v_cache, slot,
+                                      toks, off, n)[-1]
+            fn = self._chunk_sp_fn if cmd == "chunk_sp" else self._chunk_fn
+            return fn(p, *self._pools(), self._bt_dev, slot, toks, off,
+                      n)[-1]
+        if cmd == "admit":
+            M = self._blocks_per_seq
+            pb = a.shape[0] - 2 - M
+            toks, lens = a[:pb].view(1, pb), a[pb: pb + 1]
+            if self._paged:
+                return self._admit_fn(p, *self._pools(),
+                                      a[pb + 2:].view(1, M), toks, lens)[0]
+            return self._admit_fn(p, self._k_cache, self._v_cache,
+                                  a[pb + 1: pb + 2], toks, lens)[0]
+        if cmd == "verify":
+            return self._verify_fn(p, *self._pools(), self._bt_dev, a[:, 3:],
+                                   a[:, 0], a[:, 1] != 0, a[:, 2])[-1]
+        tok, pos, active = a[0], a[1], a[2] != 0
+        if self._paged:
+            return self._step_fn(p, *self._pools(), self._bt_dev, tok, pos,
+                                 active)[-2]
+        return self._step_fn(p, self._k_cache, self._v_cache, tok, pos,
+                             active)[-2]
+
+    # -- the tp group's commands -----------------------------------------------
+    def _send_cmd(self, cmd: str, host: np.ndarray,
+                  tables: Optional[np.ndarray] = None) -> None:
+        """Leader: one broadcast of the command, the block tables when
+        they follow and ``host`` (callers hold ``_tp_lock``)."""
+        from ..parallel import collectives
+
+        buf = self._cmd_buf
+        n_tab = self._block_tables.size
+        buf[0] = _CMDS.index(cmd)
+        buf[1] = tables is not None
+        buf[2] = host.ndim
+        buf[3: 3 + host.ndim] = torch.tensor(host.shape)
+        if tables is not None:
+            buf[_CMD_HEAD: _CMD_HEAD + n_tab] = torch.from_numpy(
+                tables.reshape(-1))
+        at = _CMD_HEAD + n_tab
+        buf[at: at + host.size] = torch.from_numpy(host.reshape(-1))
+        collectives.broadcast(buf, 0, self._tp_group)
+
+    def _recv_cmd(self) -> Tuple[str, np.ndarray, Optional[np.ndarray]]:
+        """Follower: the next command, its host array and its tables."""
+        from ..parallel import collectives
+
+        a = collectives.broadcast(self._cmd_buf, 0, self._tp_group).numpy()
+        n_tab = self._block_tables.size
+        shape = tuple(int(x) for x in a[3: 3 + int(a[2])])
+        at = _CMD_HEAD + n_tab
+        host = a[at: at + int(np.prod(shape))].reshape(shape).copy()
+        tables = (a[_CMD_HEAD: at].reshape(self._block_tables.shape).copy()
+                  if a[1] else None)
+        return _CMDS[int(a[0])], host, tables
+
+    def _ping(self) -> None:
+        with self._tp_lock:
+            self._send_cmd("ping", np.zeros(1, np.int64))
+
+    def _end_followers(self) -> None:
+        """Leader: the followers' last command (once; best effort, a lost
+        follower is logged)."""
+        with self._tp_lock:
+            if self._followers_ended:
+                return
+            self._followers_ended = True
+            try:
+                self._send_cmd("stop", np.zeros(1, np.int64))
+            except Exception as exc:
+                Log.error("DecodeEngine %r: could not stop the followers: "
+                          "%s", self.name, exc)
+
+    def _follow(self) -> None:
+        """A follower rank's loop: every command the leader broadcasts,
+        in order, until ``stop``: the pin's slices, warmup, and each
+        program on this rank's shard. A follower that hears nothing
+        within the group's timeout, or loses its leader, ends with
+        :class:`~..log.FatalError` (:meth:`join` raises it)."""
+        from ..parallel.collectives import STATS
+
+        cmd = "none"
+        keys = ("exchanges", "staged_bytes", "exchange_s")
+        try:
+            while True:
+                cmd, host, tables = self._recv_cmd()
+                if cmd == "stop":
+                    return
+                if cmd == "ping":
+                    continue
+                t0 = time.perf_counter()
+                before = [STATS[k] for k in keys]
+                if cmd == "pin":
+                    self._pinned = shard_for_decode(
+                        None, self._decode_mesh, self._param_shardings,
+                        device=self.device)
+                    self._pinned_version = int(host[0])
+                    self.pin_copies += 1
+                elif cmd == "warmup":
+                    self._warm_programs()
+                else:
+                    self._run(cmd, host, tables)
+                    self._sync()
+                calls = self.follower_calls.setdefault(cmd, [0, 0.0, 0, 0,
+                                                             0.0])
+                calls[0] += 1
+                calls[1] += time.perf_counter() - t0
+                for i, (k, b) in enumerate(zip(keys, before)):
+                    calls[2 + i] += STATS[k] - b
+        except Exception as exc:
+            try:
+                Log.fatal(f"DecodeEngine {self.name!r}: follower rank "
+                          f"{self._tp_rank} lost its leader (after "
+                          f"{cmd!r}): {type(exc).__name__}: {exc}")
+            except FatalError as fatal:
+                self._follow_error = fatal
+        finally:
+            self._stop.set()
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        """A follower: wait until its leader's ``stop()`` ends the
+        follower loop, and raise :class:`~..log.FatalError` if it ended
+        otherwise (no command within the group's timeout, a lost leader).
+        A leader or a one-process engine: wait for the loop to end."""
+        self._thread.join(timeout)
+        if self._follow_error is not None:
+            raise self._follow_error
 
     def _set_row(self, slot: int, blocks: List[int]) -> None:
         row = self._block_tables[slot]
@@ -1370,8 +1742,7 @@ class DecodeEngine:
             if req.full_hit and not req.pf_only:
                 shared_last = matched[-1]
                 dup = self._pool.alloc(1)[0]
-                ids = self._upload(np.array([shared_last, dup], np.int64))
-                self._cow_fn(*self._pools(), ids[0], ids[1])
+                self._call("cow", np.array([shared_last, dup], np.int64))
                 self._pool.decref([shared_last])
                 matched[-1] = dup
                 full_hit_cow = True
@@ -1471,6 +1842,9 @@ class DecodeEngine:
             return
         req.pf_off = req.n_hit * self._block_size if self._prefix else 0
         req.pf_reg = req.n_hit
+        # decided once per admission: prompts at or above the threshold
+        # take the budget * tp sequence-parallel chunks
+        req.sp = self._sp and len(req.prompt) >= self._sp_threshold
         self._pf = req
 
     def _prefill_one_chunk(self) -> None:
@@ -1478,26 +1852,23 @@ class DecodeEngine:
         chunk the first token falls out and the slot goes live (or
         resolves at once on eos-at-first-token)."""
         req = self._pf
-        C = self._budget
+        C = self._sp_chunk if req.sp else self._budget
         off = req.pf_off
         n = min(C, len(req.prompt) - off)
         host = np.zeros(C + 3, np.int64)
         host[: n] = req.prompt[off: off + n]
         host[C:] = (req.slot, off, n)
-        args = self._upload(host)
-        toks, slot, off_t, n_t = args[:C], args[C], args[C + 1], args[C + 2]
         tracing = trace.enabled()
         t0 = time.monotonic() if tracing else 0.0
-        if self._paged:
-            logits = self._chunk_fn(
-                self._pinned, *self._pools(), self._tables(), slot, toks,
-                off_t, n_t)[-1]
-        else:
-            _, _, logits = self._chunk_fn(
-                self._pinned, self._k_cache, self._v_cache, slot, toks,
-                off_t, n_t)
+        logits = self._call("chunk_sp" if req.sp else "chunk", host)
         req.pf_off = off + n
         req.pf_chunks += 1
+        if req.sp:
+            self.seqpar_chunks += 1
+            self._it_sp_chunks += 1
+        # a seqpar engine's chunk spans say which program served them
+        sp_attrs = ({"sp": int(req.sp), "sp_backend": self._sp_backend}
+                    if self._sp else {})
         self.prefill_tokens += n
         self.prefill_tok_counter.inc(n)
         self._it_prefill += n
@@ -1525,7 +1896,7 @@ class DecodeEngine:
                 trace.record_span(
                     "decode.prefill_chunk", req.ctx, t0, time.monotonic(),
                     slot=req.slot, offset=off, chunk=req.pf_chunks - 1,
-                    tokens=n, budget=C)
+                    tokens=n, budget=C, **sp_attrs)
             if final:
                 # prefill-only: the finished blocks are the result, and
                 # the decode side recomputes P - 1 through its full hit
@@ -1538,7 +1909,8 @@ class DecodeEngine:
         if tracing and req.ctx is not None:
             trace.record_span(
                 "decode.prefill_chunk", req.ctx, t0, now, slot=req.slot,
-                offset=off, chunk=req.pf_chunks - 1, tokens=n, budget=C)
+                offset=off, chunk=req.pf_chunks - 1, tokens=n, budget=C,
+                **sp_attrs)
         if req.resumed:
             # a preemption's recompute: TTFT happened in the first life,
             # and this gap carries the whole preemption stall
@@ -1788,17 +2160,7 @@ class DecodeEngine:
             host[pb: pb + 2] = (len(req.prompt), slot)
             if self._paged:
                 host[pb + 2:] = self._block_tables[slot]
-            args = self._upload(host)
-            toks, lens = args[:pb].view(1, pb), args[pb: pb + 1]
-            if self._paged:
-                first = self._admit_fn(
-                    self._pinned, *self._pools(),
-                    args[pb + 2:].view(1, M), toks, lens)[0]
-            else:
-                first, _, _ = self._admit_fn(
-                    self._pinned, self._k_cache, self._v_cache,
-                    args[pb + 1: pb + 2], toks, lens)
-            firsts.append(first)
+            firsts.append(self._call("admit", host))
             buckets.append(pb)
             self.prefill_tokens += len(req.prompt)
             self.prefill_tok_counter.inc(len(req.prompt))
@@ -2033,24 +2395,12 @@ class DecodeEngine:
             host[:, 0], host[:, 1], host[:, 2] = \
                 self._pos, self._active, n_valid
             host[:, 3:] = spec_toks
-            ctl = self._upload(host)
             self.spec_steps += 1
-            nxt = self._verify_fn(
-                self._pinned, *self._pools(), self._tables(), ctl[:, 3:],
-                ctl[:, 0], ctl[:, 1] != 0, ctl[:, 2])[-1]
+            nxt = self._call("verify", host)
         else:
             host = np.empty((3, S), np.int64)
             host[0], host[1], host[2] = self._tok, self._pos, self._active
-            ctl = self._upload(host)
-            tok, pos, active = ctl[0], ctl[1], ctl[2] != 0
-            if self._paged:
-                nxt = self._step_fn(
-                    self._pinned, *self._pools(), self._tables(), tok, pos,
-                    active)[-2]
-            else:
-                _, _, nxt, _ = self._step_fn(
-                    self._pinned, self._k_cache, self._v_cache, tok, pos,
-                    active)
+            nxt = self._call("step", host)
         nxt = nxt.cpu().numpy()       # the host sync point: [S] or [S, K1]
         now = time.monotonic()
         self.steps_counter.inc()
@@ -2236,6 +2586,14 @@ class DecodeEngine:
             return _signatures(self._chunk_fn)
         return _signatures(self._admit_fn)
 
+    def seqpar_cache_size(self) -> int:
+        """Distinct signatures of the sequence-parallel chunk program: 1
+        once warmed on a ``prefill_sp`` engine (its ``budget * tp`` tokens
+        are the whole signature), 0 without it."""
+        if self._chunk_sp_fn is None:
+            return 0
+        return _signatures(self._chunk_sp_fn)
+
     def verify_cache_size(self) -> int:
         """Distinct signatures of the verify step: 1 on a spec engine once
         it ran (the ``[S, spec_k + 1]`` window is its only shape), 0 when
@@ -2249,8 +2607,19 @@ class DecodeEngine:
         """Run every serving program once at its serving signature against
         scratch caches, pinning the snapshot through the serving path, so
         no request pays a program's first call (allocator growth, library
-        handles). Call it before taking traffic."""
-        self._maybe_refresh()
+        handles). Call it before taking traffic. On a tp group the
+        leader's warmup runs every rank's; a follower's returns at once."""
+        if self._follower:
+            return
+        with self._tp_lock:
+            self._maybe_refresh()
+            if self._tp > 1:
+                self._send_cmd("warmup", np.zeros(1, np.int64))
+            self._warm_programs()
+
+    @torch.no_grad()
+    def _warm_programs(self) -> None:
+        """:meth:`warmup`'s program calls, alike on every rank."""
         params = self._pinned
         S, dev = self.config.slots, self.device
         i64 = dict(dtype=torch.int64, device=dev)
@@ -2268,6 +2637,10 @@ class DecodeEngine:
                 self._chunk_fn(params, *scratch(), bt, zero, toks, zero, one)
             else:
                 self._chunk_fn(params, *scratch(), zero, toks, zero, one)
+            if self._chunk_sp_fn is not None:
+                self._chunk_sp_fn(params, *scratch(), bt, zero,
+                                  torch.ones(self._sp_chunk, **i64), zero,
+                                  one)
         else:
             lens = torch.ones(1, **i64)
             for pb in self._prompt_buckets:
@@ -2303,10 +2676,11 @@ class DecodeEngine:
             pool = {
                 "kv_block_size": self._block_size,
                 "kv_pool_blocks": self._pool.capacity,
+                # a tp rank holds 1/tp of the pools (scratch included)
                 "kv_bytes_per_device": (self._pool.capacity + 1)
                 * kv_bytes_per_block(cfg.n_layers, cfg.d_model,
                                      self._block_size, cfg.dtype,
-                                     quant=self._kv_quant_mode),
+                                     quant=self._kv_quant_mode) // self._tp,
                 "kv_blocks_free": self._pool.n_free,
                 "kv_blocks_live": self._pool.n_live,
                 "kv_blocks_cached": self._pool.n_cached,
@@ -2358,6 +2732,19 @@ class DecodeEngine:
                 "xfer_dedup_hit_rate": (self.xfer_dedup / moved
                                         if moved else 0.0),
             })
+        if self._sp:
+            pool.update({
+                "prefill_sp": self._sp_backend,
+                "prefill_sp_threshold": self._sp_threshold,
+                "prefill_sp_chunk": self._sp_chunk,
+                "seqpar_chunks": self.seqpar_chunks,
+                "seqpar_traces": self.seqpar_cache_size(),
+            })
+        if self._follower:
+            # a follower's programs by command: calls, host seconds,
+            # exchanges, bytes staged, exchange seconds
+            pool["follower_calls"] = {k: list(v) for k, v in
+                                      self.follower_calls.items()}
         if self._spec:
             pool.update({
                 "spec_k": self._spec,
@@ -2374,6 +2761,8 @@ class DecodeEngine:
         health = self.health()
         return {
             **pool,
+            "decode_tp": self._tp,
+            "mesh_devices": self._tp,
             "decode_step_retraces": max(0, self.step_cache_size() - 1),
             "pin_copies": self.pin_copies,
             "iters_total": health["iters_total"],
@@ -2428,6 +2817,7 @@ class DecodeEngine:
         self.prefix_hits = self.prefix_misses = 0
         self.prefill_tokens_saved = self.cow_copies = 0
         self.spec_proposed = self.spec_accepted = self.spec_steps = 0
+        self.seqpar_chunks = 0
         self.preemptions = self.preempted = self.deadline_drops = 0
         self.xfer_blocks = self.xfer_bytes = self.xfer_dedup = 0
         self.prefill_s = self.decode_s = 0.0
@@ -2443,7 +2833,11 @@ class DecodeEngine:
     # -- lifecycle ------------------------------------------------------------
     def stop(self) -> None:
         """Drain queued + in-flight generations, then retire the loop and
-        its watchdog."""
+        its watchdog; a tp leader's loop then ends its followers. On a
+        follower: :meth:`join`."""
+        if self._follower:
+            self.join()
+            return
         with self._cv:
             self._stop.set()
             self._cv.notify_all()

@@ -36,8 +36,8 @@ column:
 ``kv_block_s``          this pass's KV block-seconds charge (-1 when the
                         engine's cost ledger is off)
 ``tenants_live``        the cost ledger's tenant count (-1 when it is off)
-``sp_chunks``           sequence-parallel chunks: always -1 (``prefill_sp``
-                        is not ported)
+``sp_chunks``           chunks prefilled through the sequence-parallel
+                        program this pass (-1 without ``prefill_sp``)
 ======================  =====================================================
 
 A record without the tail columns reads everywhere, as the JAX

@@ -119,6 +119,8 @@ class InferenceServer:
                          decode_tp: Optional[int] = None,
                          prefix_cache: Optional[bool] = None,
                          prefill_sp: Optional[bool] = None,
+                         prefill_sp_backend: Optional[str] = None,
+                         prefill_sp_threshold: Optional[int] = None,
                          spec_k: Optional[int] = None,
                          kv_quant: Optional[str] = None,
                          decode_param_quant: Optional[str] = None,
@@ -143,9 +145,14 @@ class InferenceServer:
         > 0 register the latency SLOs; ``cost_ledger`` (None = the
         ``-cost_ledger`` flag) attaches a per-tenant
         :class:`~.accounting.CostLedger` billing each request to its
-        ``tenant`` payload key. The features this port does not have yet
-        (``decode_tp``, ``prefill_sp``) raise :class:`~..log.FatalError`
-        when their resolved value turns them on."""
+        ``tenant`` payload key. ``decode_tp`` > 1 serves the engine over
+        the first ``decode_tp`` processes of the session's group: every
+        one of them calls ``register_decoder`` with the same arguments (it
+        is collective), rank 0 takes the requests and the others follow
+        (:meth:`DecodeEngine.join`). ``prefill_sp`` (with
+        ``prefill_sp_backend`` "ring" or "ulysses" and
+        ``prefill_sp_threshold``) prefills long prompts sequence-parallel
+        over that group."""
         cfg = DecodeEngineConfig(
             slots=slots, max_prompt=max_prompt, max_new=max_new,
             eos_id=eos_id, max_queue=max_queue,
@@ -153,9 +160,11 @@ class InferenceServer:
             prefill_token_budget=prefill_token_budget,
             kv_block_size=kv_block_size, kv_pool_blocks=kv_pool_blocks,
             decode_tp=decode_tp, prefix_cache=prefix_cache,
-            prefill_sp=prefill_sp, spec_k=spec_k, kv_quant=kv_quant,
-            decode_param_quant=decode_param_quant, preempt=preempt,
-            preempt_budget=preempt_budget, sched_lookahead=sched_lookahead,
+            prefill_sp=prefill_sp, prefill_sp_backend=prefill_sp_backend,
+            prefill_sp_threshold=prefill_sp_threshold, spec_k=spec_k,
+            kv_quant=kv_quant, decode_param_quant=decode_param_quant,
+            preempt=preempt, preempt_budget=preempt_budget,
+            sched_lookahead=sched_lookahead,
             flight_recorder=flight_recorder, watchdog=watchdog,
             debug_dump_dir=debug_dump_dir, slo_ttft_ms=slo_ttft_ms,
             slo_itl_ms=slo_itl_ms, cost_ledger=cost_ledger)

@@ -1,10 +1,11 @@
 """The distances that chip_smoke.py's phase 19 and phase 20 limits were
-set from.
+set from, and a CPU rehearsal of phase 21.
 
     python3 phase_tolerance.py --phase mesh [--layers 2]
                                [--runs 128x8,256x4]
     python3 phase_tolerance.py --phase pipemoe [--layers 4]
                                [--runs 128x8,256x4] [--tokens 2048]
+    python3 phase_tolerance.py --phase decode_tp [--layers 1]
 
 Runs the phase itself on the CPU, its workers in 4 processes (two
 threads each, as this process): the flagship's width in bf16 with
@@ -24,6 +25,13 @@ step; whether dp replicas are bitwise equal), and the two controls'
 distances (layer 0's first reduce_from_tp skipped: the first step's
 loss; the gradients left out of the dp average: the momentum after one
 step).
+
+``decode_tp`` (phase 21: ``chip_smoke.phase_decode_tp`` as the card runs
+it, on the CPU: every leg on a one-process engine in this process, then
+``dtp_worker`` in 2 processes on decode_tp=2 engines, at the flagship's
+width and phase 3's prompts, ``layers`` deep) prints each leg's line and
+fails as the phase fails; the launch checks and the kernels at a rank's
+shapes run on the card only.
 
 ``pipemoe`` (phase 20: ``chip_smoke.pm_oracle`` and ``pm_moe_oracle`` in
 this process, then ``pm_worker`` on a 4-stage axis and a 4-process
@@ -87,9 +95,20 @@ def pipemoe(c) -> None:
         print(f"moe {tag}: {json.dumps(e)}")
 
 
+def decode_tp(c) -> None:
+    import numpy as np
+    import torch
+
+    c.DEV = torch.device("cpu")
+    prompts = c.slice_prompts(c.FLAGSHIP["vocab_size"],
+                              np.random.default_rng(1))
+    c.phase_decode_tp("CPU rehearsal", prompts)
+
+
 # phase: (its variables' prefix, and chip_smoke's <prefix>_DIR; default
 # depth; the reading)
-PHASES = {"mesh": ("MESH", 2, mesh), "pipemoe": ("PM", 4, pipemoe)}
+PHASES = {"mesh": ("MESH", 2, mesh), "pipemoe": ("PM", 4, pipemoe),
+          "decode_tp": ("DTP", 1, decode_tp)}
 
 
 def main() -> None:

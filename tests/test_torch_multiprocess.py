@@ -254,6 +254,9 @@ def test_two_process_async_delta_propagation(tmp_path):
         assert kv.get([7]) == [2.0] and kv.get([0, 1]) == [0.5, 0.5]
         gd = d.get()
         assert gd.dtype == np.float64 and np.all(gd == precise * 3), gd[0]
+        # every rank has read the first phase before any second-phase add
+        # can reach it (a peer's add is applied on arrival)
+        mv.barrier()
         t.add(np.full(32, 1.0, np.float32))
         mv.barrier()
         assert np.all(t.get() == 7 * 3.0 + 2.0), t.get()[:4]

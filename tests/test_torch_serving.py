@@ -7,8 +7,8 @@ package's ``greedy_decode`` on the same weights. Also: per-request
 ``max_new`` and ``eos_id``, queue-cap shedding, each ported engine
 feature and the JAX flag defaults building and serving (speculation,
 int8 KV and int8 parameter pins on the paged layout they need, which
-refuses the contiguous one), the loud refusal of every engine feature
-not ported yet, the session's refusal to fall back to the CPU, and
+refuses the contiguous one), the loud refusal of the distributed
+features in one process, the session's refusal to fall back to the CPU, and
 import hygiene (no port module pulls in jax or the JAX package).
 ``tests/test_torch_decode_defaults.py``, ``test_torch_spec_decode.py``
 and ``test_torch_quant_serving.py`` hold the ported features to the JAX
@@ -184,9 +184,13 @@ def test_concurrent_submitters(port):
     assert stats["tokens"] == 4 * len(prompts)
 
 
+# the distributed features' refusals in one process: decode_tp 2 needs a
+# group of 2 processes (asked of a paged engine, so that the group is
+# what is refused), prefill_sp a paged, chunked engine
 UNPORTED = [
     ("decode_tp", 2), ("prefill_sp", True),
 ]
+REFUSED_WITH = {"decode_tp": dict(kv_block_size=16), "prefill_sp": {}}
 # each ported feature, turned on alone over OFF
 PORTED = [
     ("prefill_token_budget", 32), ("kv_block_size", 16),
@@ -197,12 +201,16 @@ PORTED = [
 
 @pytest.mark.parametrize("flag,value", UNPORTED)
 def test_unported_feature_raises(port, flag, value):
+    """decode_tp 2 in a one-process session (no group of 2 to serve
+    over) and prefill_sp on an engine that is not paged raise FatalError
+    naming the flag (tests/test_torch_decode_tp.py serves both over a
+    group of processes)."""
     _, lm = _model()
     srv = InferenceServer("t")
     with pytest.raises(FatalError, match=flag):
         srv.register_decoder("lm", lm, slots=2, max_prompt=16, max_new=4,
                              prompt_buckets=BUCKETS,
-                             **{**OFF, flag: value})
+                             **{**OFF, **REFUSED_WITH[flag], flag: value})
 
 
 @pytest.mark.parametrize("flag,value", PORTED)
