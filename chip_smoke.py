@@ -515,10 +515,17 @@ Phase 21 runs after phase 20:
    16 new tokens, single-lane and through ring and Ulysses
    ``prefill_sp`` (chunks of 64), (d) int8 KV, int8 pins and ``spec_k``
    4 on every 8th prompt (two processes time-slice the card: (c) and (d)
-   serve part of phase 3's traffic to hold the phase's time). A request
+   serve part of phase 3's traffic to hold the phase's time), (e)
+   disaggregated serving at (a)'s knobs: every 4th prompt exported by a
+   tp=1 engine in rank 0, spliced into a decode_tp=2 engine and decoded
+   there, then exported by a decode_tp=2 engine, spliced into a tp=1
+   engine in rank 0 and decoded there. A request
    agrees with the one process when its tokens are equal up to the
    first position where the one process's top-2 logit gap is under phase
-   10's bf16 bound; every request of (a) and (b) must agree, and in (b) both ranks must launch
+   10's bf16 bound; every request of (a), (b) and (e) must agree ((e)
+   against (a)'s one-process run), (e)'s control (one other prompt's
+   tp=1 payload with its D halves swapped, spliced into the decode_tp=2
+   engine) must not, and in (b) both ranks must launch
    K3 and K4 (counted from 0 just before the leg's served run). (c)'s
    ring and Ulysses are held to the single-lane tp=2 engine: tokens and
    the largest first-token logit difference, printed. Then K3 and K4 at a
@@ -528,7 +535,11 @@ Phase 21 runs after phase 20:
    follower's ms a step, a follower step's exchanges and MB staged, each
    rank's exchanges, MB staged and exchange share, each rank's resident
    parameter bytes and ``kv_bytes_per_device``, (c)'s prefill iterations
-   a long prompt, and each request's first mismatch and first near tie.
+   a long prompt, and each request's first mismatch and first near tie;
+   for (e) by direction ``xfer_blocks``, ``xfer_bytes``,
+   ``prefill_tokens_saved``, the exports' and splices' ms with their
+   exchanges, MB staged and exchange share, and the follower's
+   ``export``/``splice`` calls.
 
 The line before the last is a JSON object with one entry per kernel
 regime (the forward's also with the training shape's time, bound and
@@ -8177,6 +8188,17 @@ DTP_KERNELS = {1024: "flash_fwd[key_len<=1024]",
                1536: "flash_fwd[key_len>1024]"}
 
 
+# leg (e): disaggregated serving into and out of the group at (a)'s
+# knobs. Every DTP_XFER_EVERY-th prompt is exported by a tp=1 engine on
+# the leader, spliced into a decode_tp=2 engine and decoded there; then
+# exported by a decode_tp=2 engine, spliced into a tp=1 engine on the
+# leader and decoded there. The control: one other prompt's tp=1 payload
+# spliced into the decode_tp=2 engine with its D halves swapped (each
+# rank's heads read the other rank's K/V) must disagree.
+DTP_XFER_EVERY = 4
+DTP_XFER_COLS = ("calls", "s", "exchanges", "staged_bytes", "exchange_s")
+
+
 def dtp_cfg(layers: int, attention: str = "flash_force"):
     from multiverso_tpu_torch.models import transformer as tf
 
@@ -8222,8 +8244,8 @@ def dtp_serve(srv, lm, leg: str, prompts, tp: int, device: str,
         # each prompt's first-token logits (its final chunk's)
         run = eng._run
 
-        def logged(cmd, host, tables=None):
-            out = run(cmd, host, tables)
+        def logged(cmd, host, tables=None, vals=None):
+            out = run(cmd, host, tables, vals)
             req = eng._pf
             if cmd.startswith("chunk") and req is not None \
                     and int(host[-2] + host[-1]) >= len(req.prompt):
@@ -8260,12 +8282,127 @@ def dtp_serve(srv, lm, leg: str, prompts, tp: int, device: str,
         finals=finals)
 
 
+def dtp_swap_halves(payload: dict) -> dict:
+    """``payload`` with the two halves of D swapped in every shipped
+    block's K and V (leg (e)'s control)."""
+    from multiverso_tpu_torch.serving import kv_transfer
+
+    out = dict(payload, blocks={})
+    d = int(payload["shape"][-1]) // 2
+    for h, rec in payload["blocks"].items():
+        k, v = kv_transfer.unpack_block(rec, payload["shape"],
+                                        payload["dtype"])
+        out["blocks"][h] = kv_transfer.pack_block(
+            *(torch.cat([x[..., d:], x[..., :d]], dim=-1) for x in (k, v)))
+    return out
+
+
+def dtp_timed(eng, name: str, log: list, sync) -> None:
+    """Wrap ``eng.<name>`` (an export or a splice, on the engine's loop
+    thread) so that each call appends its host seconds, the device work it
+    queued included, and the exchanges, bytes staged and exchange seconds
+    it made, to ``log`` (one ``DTP_XFER_COLS`` row a call)."""
+    from multiverso_tpu_torch.parallel import collectives
+
+    fn = getattr(eng, name)
+
+    def timed(*a, **kw):
+        before = dict(collectives.STATS)
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        log.append([1, time.perf_counter() - t0] + [
+            collectives.STATS[k] - before[k] for k in DTP_XFER_COLS[2:]])
+        return out
+    setattr(eng, name, timed)
+
+
+def dtp_xfer(srv, lm, prompts, device: str, leader: bool) -> dict:
+    """Leg (e) on this rank (the constants above): the decode_tp=2
+    engines (collective), and on the leader the tp=1 engines and both
+    directions' traffic; counts from 0 before the traffic. Returns the
+    tokens, the splices' accounting, the exports' and splices' rows
+    (``dtp_timed``) by direction, the decode engines' stats and by rank
+    the launches and the follower's calls."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.parallel import collectives
+    from multiverso_tpu_torch.serving import kv_transfer
+
+    fa = _fa()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    knobs = dict(slots=SLOTS, max_prompt=MAX_PROMPT, max_new=MAX_NEW,
+                 **DTP_LEGS["a"])
+    two = {k: srv.register_decoder(f"dtp_e_{k}2", lm, decode_tp=DTP_TP,
+                                   **knobs) for k in ("dec", "pf")}
+    one = {}
+    if leader:
+        one = {k: srv.register_decoder(f"dtp_e_{k}1", lm, decode_tp=1,
+                                       **knobs) for k in ("dec", "pf")}
+    for eng in (*two.values(), *one.values()):
+        eng.warmup()
+    if not leader:
+        for eng in two.values():
+            while "warmup" not in eng.follower_calls:
+                time.sleep(0.01)
+    sync()
+    fa.reset_launches()
+    collectives.reset_stats()
+    for eng in two.values():
+        eng.follower_calls.clear()
+    mv.barrier()
+    t0 = time.perf_counter()
+    res = {}
+    if leader:
+        with open(os.path.join(DTP_DIR, "xfer.json")) as f:
+            ctrl = json.load(f)["control"]
+        legp = list(prompts[::DTP_XFER_EVERY])
+        logs = {k: [] for k in ("export_12", "splice_12", "export_21",
+                                "splice_21")}
+        dtp_timed(one["pf"], "_finish_prefill_only", logs["export_12"], sync)
+        dtp_timed(two["dec"], "_apply_splice", logs["splice_12"], sync)
+        dtp_timed(two["pf"], "_finish_prefill_only", logs["export_21"], sync)
+        dtp_timed(one["dec"], "_apply_splice", logs["splice_21"], sync)
+        for way, src, dst in (("12", one["pf"], two["dec"]),
+                              ("21", two["pf"], one["dec"])):
+            # the control rides last in 1 -> 2, after the timed prompts
+            reqs = legp + ([prompts[ctrl]] if way == "12" else [])
+            pays = [f.result(timeout=600)["xfer"] for f in
+                    [src.submit_prefill(p) for p in reqs]]
+            if way == "12":
+                pays[-1] = dtp_swap_halves(pays[-1])
+            infos = [dst.splice(pay, timeout_s=600) for pay in pays]
+            futs = [dst.submit(p, MAX_NEW, xfer_info=info)
+                    for p, info in zip(reqs, infos)]
+            outs = [np.asarray(f.result(timeout=600)["result"]).tolist()
+                    for f in futs]
+            n = len(legp)
+            res[way] = dict(
+                outs=outs[:n], infos=infos[:n],
+                payload_bytes=[kv_transfer.payload_bytes(x)
+                               for x in pays[:n]],
+                export=logs[f"export_{way}"][:n],
+                splice=logs[f"splice_{way}"][:n],
+                saved=dst.stats()["prefill_tokens_saved"])
+            if way == "12":
+                res["control"] = dict(index=ctrl, out=outs[-1],
+                                      info=infos[-1])
+    for eng in (*two.values(), *one.values()):
+        eng.stop()
+    sync()
+    res.update(wall=time.perf_counter() - t0, launches=sp_counts(fa),
+               stats=dict(collectives.STATS),
+               calls={k: eng.stats().get("follower_calls", {})
+                      for k, eng in two.items()})
+    return res
+
+
 def dtp_worker() -> None:
     """A phase-21 worker: rank ``MV_PROCESS_ID`` of 2 on the card. The
     flagship (seed 0; the follower's copy is never read: its pin comes
     from the leader), every leg of ``DTP_LEGS`` on a decode_tp=2 engine,
-    the leader serving the leg's prompts; each leg's results (and, for
-    (c), the first-token logits) saved for the parent."""
+    the leader serving the leg's prompts, then leg (e) (``dtp_xfer``);
+    each leg's results (and, for (c), the first-token logits) saved for
+    the parent."""
     import multiverso_tpu_torch as mv
     from multiverso_tpu_torch.models import transformer as tf
     from multiverso_tpu_torch.serving import InferenceServer
@@ -8290,6 +8427,8 @@ def dtp_worker() -> None:
         out[leg] = res
         if device == "cuda":
             torch.cuda.empty_cache()
+    out["e"] = dtp_xfer(InferenceServer("dtp"), lm, prompts, device,
+                        rank == 0)
     mv.shutdown()
     with open(os.path.join(DTP_DIR, f"dtp_{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -8345,6 +8484,83 @@ def dtp_fmt_calls(calls: dict, cmds) -> tuple:
     return tot[0] / n * 1e3, tot[1] / n, tot[2] / n / 1e6
 
 
+def dtp_control(prompts, gaps) -> int:
+    """Leg (e)'s control prompt: of the prompts (e) does not serve with a
+    full block, the one whose first near tie in the one process comes
+    latest (none is latest of all)."""
+    def first_tie(i):
+        gap, bound = gaps[i]
+        ties = [j for j, (g, b) in enumerate(zip(gap, bound)) if g < b]
+        return ties[0] if ties else len(gap)
+    cands = [i for i, p in enumerate(prompts)
+             if i % DTP_XFER_EVERY and len(p) >= 16]
+    return max(cands, key=first_tie)
+
+
+def dtp_xfer_sums(rows) -> tuple:
+    """``DTP_XFER_COLS`` summed over ``rows``."""
+    return tuple(sum(r[i] for r in rows) for i in range(len(DTP_XFER_COLS)))
+
+
+def dtp_hold_xfer(lead: dict, follow: dict, one: dict, prompts,
+                  layers: int, card: str) -> dict:
+    """Leg (e)'s verdicts and prints: every request of both directions
+    must agree with the one process (``dtp_agree``, leg (a)'s
+    one-process run) and splice without a skip; the control must not
+    agree. Returns the launches by rank."""
+    idx = list(range(0, len(prompts), DTP_XFER_EVERY))
+    for way, what in (("12", "tp=1 export -> decode_tp=2 splice"),
+                      ("21", "decode_tp=2 export -> tp=1 splice")):
+        r = lead[way]
+        verdicts = [dtp_agree(got, one["outs"][i], *one["gaps"][i])
+                    for got, i in zip(r["outs"], idx)]
+        skipped = [i for i, info in zip(idx, r["infos"]) if "skipped" in info]
+        if skipped or not all(v[0] for v in verdicts):
+            fail(f"decode_tp leg e ({what}): prompts {skipped} skipped, "
+                 f"(index, first mismatch, first near tie) "
+                 f"{[(i, v[1], v[2]) for i, v in zip(idx, verdicts)]}")
+        blocks = sum(info["xfer_blocks"] for info in r["infos"])
+        nbytes = sum(info["xfer_bytes"] for info in r["infos"])
+        ex = dtp_xfer_sums(r["export"])
+        sp = dtp_xfer_sums(r["splice"])
+        say(f"decode_tp leg e ({what}; {len(idx)} of phase 3's prompts, "
+            f"every {DTP_XFER_EVERY}th, lengths "
+            f"{[len(prompts[i]) for i in idx]}; flagship bf16, {layers} "
+            f"layers, 2 processes on one card): "
+            f"agreement with one process {len(idx)}/{len(idx)} (first "
+            f"mismatch, first near tie by request: "
+            f"{[(v[1], v[2]) for v in verdicts]}); xfer_blocks {blocks}, "
+            f"xfer_bytes {nbytes} (payload bytes by prompt "
+            f"{r['payload_bytes']}), prefill_tokens_saved {r['saved']}"
+            f"{' (the control included)' if way == '12' else ''}; export "
+            f"{ex[1] * 1e3:.3f} ms in all ({ex[1] / len(idx) * 1e3:.3f} a "
+            f"prompt), {ex[2]} exchanges, {ex[3] / 1e6:.3f} MB staged, "
+            f"exchange share {ex[4] / ex[1] if ex[1] else 0.0:.4f}; splice "
+            f"{sp[1] * 1e3:.3f} ms in all ({sp[1] / len(idx) * 1e3:.3f} a "
+            f"prompt), {sp[2]} exchanges, {sp[3] / 1e6:.3f} MB staged, "
+            f"exchange share {sp[4] / sp[1] if sp[1] else 0.0:.4f}; card "
+            f"{card}")
+    c = lead["control"]
+    ok, j, tie = dtp_agree(c["out"], one["outs"][c["index"]],
+                           *one["gaps"][c["index"]])
+    if ok or not c["info"].get("xfer_blocks"):
+        fail(f"decode_tp leg e: the control (prompt {c['index']}'s payload "
+             f"with its D halves swapped, {c['info']}) agreed with one "
+             f"process (first mismatch {j}, first near tie {tie})")
+    say(f"decode_tp leg e control: prompt {c['index']}'s tp=1 payload with "
+        f"its D halves swapped, {c['info']['xfer_blocks']} blocks spliced "
+        f"into the decode_tp=2 engine: first mismatch {j}, first near tie "
+        f"{tie}: disagrees, as it must")
+    for k in ("dec", "pf"):
+        calls = {cmd: row for cmd, row in follow["calls"][k].items()
+                 if cmd in ("export", "splice")}
+        say(f"decode_tp leg e follower calls of the decode_tp=2 {k} engine "
+            f"(calls, s, exchanges, bytes staged, exchange s): "
+            f"{json.dumps(calls)}; the leg {lead['wall']:.3f} s on the "
+            f"leader; card {card}")
+    return {f"rank{r}": x["launches"] for r, x in enumerate((lead, follow))}
+
+
 def phase_decode_tp(card: str, prompts) -> tuple:
     """21. the serving engine over a tp group of 2 processes on the card
     (phase 21's constants above): each leg of ``DTP_LEGS`` on a
@@ -8353,9 +8569,11 @@ def phase_decode_tp(card: str, prompts) -> tuple:
     the one process's up to the first position where the one process's
     top-2 logit gap is under phase 10's bf16 bound; every request of (a)
     and (b) must. (c)'s ring and Ulysses are held to the single-lane tp=2
-    engine (tokens and the first token's logits). Then K3/K4 at a rank's
-    admission shapes (B 1 x 6 heads). Returns the launches by leg and
-    rank, and the kernels' results at those shapes."""
+    engine (tokens and the first token's logits). (e), disaggregated
+    serving into and out of the group, is held by ``dtp_hold_xfer``.
+    Then K3/K4 at a rank's admission shapes (B 1 x 6 heads). Returns the
+    launches by leg and rank, and the kernels' results at those
+    shapes."""
     t_phase = time.perf_counter()
     shutil.rmtree(DTP_DIR, ignore_errors=True)
     os.makedirs(DTP_DIR, exist_ok=True)
@@ -8364,6 +8582,8 @@ def phase_decode_tp(card: str, prompts) -> tuple:
         json.dump([np.asarray(p).tolist() for p in prompts], f)
     single = dtp_single(prompts, layers, device)
     t_single = time.perf_counter() - t_phase
+    with open(os.path.join(DTP_DIR, "xfer.json"), "w") as f:
+        json.dump({"control": dtp_control(prompts, single["a"]["gaps"])}, f)
     group = worker_group(DTP_DIR, "dtp", DTP_TP, "dtp_worker",
                          DTP_TIMEOUT_S)
     for rank, (rc, res) in enumerate(group):
@@ -8430,6 +8650,8 @@ def phase_decode_tp(card: str, prompts) -> tuple:
                 if missing:
                     fail(f"decode_tp leg b: rank {r} launched no {missing}: "
                          f"{x['launches']}")
+    launches["e"] = dtp_hold_xfer(lead["e"], follow["e"], single["a"],
+                                  prompts, layers, card)
     lane = torch.load(os.path.join(DTP_DIR, "finals_c_lane.pt"))
     for backend in ("ring", "ulysses"):
         got = torch.load(os.path.join(DTP_DIR, f"finals_c_{backend}.pt"))

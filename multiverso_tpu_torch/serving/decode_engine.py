@@ -94,10 +94,16 @@ iteration-level scheduling over a persistent KV cache, with
   read them; int8 scale writes happen inside programs). A leader's
   ``stop()`` ends the followers; an idle leader pings them every quarter
   of ``_TP_TIMEOUT_S`` (60 s), and a follower that hears nothing for that
-  long raises :class:`~..log.FatalError`. KV export and splice
-  (:meth:`DecodeEngine.submit_prefill`, :meth:`DecodeEngine.splice`) raise
-  on such an engine. Creating the engine is collective over the whole
-  process group (its gloo sub-group is made there).
+  long raises :class:`~..log.FatalError`. The group is a transfer
+  endpoint like one process: an export (``export``) has every rank read
+  its D slice of the shipped blocks, and the leader gathers the slices
+  into the logical ``[L, n, Bs, D]`` blocks, so a payload does not
+  depend on ``decode_tp``; a splice is decided whole on the leader (the
+  checks, the allocation, the books), then one ``splice`` command
+  carries the new block ids and a broadcast the values, and each rank
+  writes its D slice (int8 scales whole). Creating the engine is
+  collective over the whole process group (its gloo sub-group is made
+  there).
 * **sequence-parallel prefill** (``prefill_sp``; paged and chunked, not
   with int8 KV): prompts of at least ``prefill_sp_threshold`` tokens
   prefill in chunks of ``budget * decode_tp`` tokens through
@@ -258,7 +264,7 @@ _CHAIN_ADVERT_CAP = 256
 
 # a tp group's commands, by their index in the broadcast header
 _CMDS = ("stop", "ping", "pin", "warmup", "chunk", "chunk_sp", "admit",
-         "step", "verify", "cow")
+         "step", "verify", "cow", "export", "splice")
 # the header: command, tables-follow flag, the host array's ndim and dims
 _CMD_HEAD = 5
 # seconds a tp group's collectives wait before raising: a follower that
@@ -975,7 +981,7 @@ class DecodeEngine:
                 self._sp_chunk + 3, self._budget + 3,
                 0 if chunked else
                 self._prompt_buckets[-1] + 2 + self._blocks_per_seq,
-                S * (self._spec + 4), 3 * S, 2)
+                S * (self._spec + 4), 3 * S, self._blocks_per_seq, 2)
             self._cmd_buf = torch.zeros(
                 _CMD_HEAD + S * self._blocks_per_seq + longest,
                 dtype=torch.int64)
@@ -1085,17 +1091,9 @@ class DecodeEngine:
     def supports_transfer(self) -> bool:
         """Whether this engine can be a disaggregation endpoint: the
         transfer plane moves chain-addressed full blocks, so it rides the
-        prefix cache's gate (paged + chunked + prefix_cache), on one
-        process (``decode_tp`` 1)."""
-        return self._prefix and self._tp == 1
-
-    def _refuse_transfer(self, what: str) -> None:
-        """KV export and splice read and write whole blocks of the pools,
-        which a tp rank holds one D slice of."""
-        if self._tp > 1:
-            Log.fatal(f"DecodeEngine {self.name!r}: {what} is not ported "
-                      f"for decode_tp={self._tp}: each rank holds one head "
-                      f"slice of every block")
+        prefix cache's gate (paged + chunked + prefix_cache), at any
+        ``decode_tp``."""
+        return self._prefix
 
     def submit_prefill(self, prompt, known_hashes: Sequence[str] = (),
                        ctx: Optional[trace.SpanContext] = None,
@@ -1109,9 +1107,7 @@ class DecodeEngine:
         full-hits here). ``known_hashes`` (hex) are the receiver's
         advertised chains: those blocks ride as metadata only. Sheds like
         :meth:`submit`; raises on an engine without
-        :attr:`supports_transfer` (:class:`~..log.FatalError` at
-        ``decode_tp`` > 1)."""
-        self._refuse_transfer("KV export (submit_prefill)")
+        :attr:`supports_transfer`."""
         if not self.supports_transfer:
             raise RuntimeError(
                 f"decode engine {self.name!r} cannot serve prefill-only "
@@ -1135,9 +1131,9 @@ class DecodeEngine:
         ``_splice_q`` until the loop applies it between iterations, and a
         follow-up :meth:`submit` of the same prompt sees the warm prefix.
         Degrades, never raises: an unsupported engine, a stopped loop or
-        a timeout returns zero accounting and the prompt re-prefills. A
-        ``decode_tp`` > 1 engine raises :class:`~..log.FatalError`."""
-        self._refuse_transfer("KV splice")
+        a timeout returns zero accounting and the prompt re-prefills. On
+        a tp group a rank that fails once the leader sent the splice
+        fails the engine with :class:`~..log.FatalError`."""
         zero = {"xfer_blocks": 0, "xfer_bytes": 0, "dedup_blocks": 0}
         if not self.supports_transfer:
             return dict(zero, skipped="unsupported")
@@ -1370,6 +1366,10 @@ class DecodeEngine:
                         info.update(self._apply_splice(payload))
                     except Exception as exc:    # pragma: no cover
                         info["skipped"] = f"splice failed: {exc}"
+                        if isinstance(exc, FatalError):
+                            # a tp group's splice failed after its
+                            # command: the engine fails (below)
+                            raise
                     finally:
                         done.set()
                     worked = True
@@ -1532,12 +1532,12 @@ class DecodeEngine:
         """One host-to-device copy of a packed int64 array."""
         return torch.from_numpy(host).to(self.device)
 
-    def _call(self, cmd: str, host: np.ndarray):
+    def _call(self, cmd: str, host: np.ndarray, vals=None):
         """Run program ``cmd`` on ``host``, the int64 array that carries
         its data (:meth:`_run`), with the block tables when the host
         mirror changed since the last upload and the program reads them.
         A tp leader broadcasts the command to its followers first. Returns
-        the one output the host reads (None for ``cow``)."""
+        the one output the host reads (None for ``cow`` and ``splice``)."""
         tables = None
         if self._bt_dirty and cmd in ("chunk", "chunk_sp", "step", "verify"):
             tables = self._block_tables
@@ -1545,10 +1545,10 @@ class DecodeEngine:
         with self._tp_lock:
             if self._tp > 1:
                 self._send_cmd(cmd, host, tables)
-            return self._run(cmd, host, tables)
+            return self._run(cmd, host, tables, vals)
 
     def _run(self, cmd: str, host: np.ndarray,
-             tables: Optional[np.ndarray] = None):
+             tables: Optional[np.ndarray] = None, vals=None):
         """Program ``cmd`` on this rank: ``tables`` (when given) into the
         block tables' device copy, ``host`` to the device in one copy and
         split into the program's arguments. ``chunk``/``chunk_sp``: ``[C
@@ -1557,7 +1557,14 @@ class DecodeEngine:
         the first token; ``step``: ``[3, S]`` tokens, positions, active ->
         the next tokens; ``verify``: ``[S, K + 4]`` positions, active,
         valid counts, the window -> the window's tokens; ``cow``: source
-        and destination block."""
+        and destination block; ``export``: block ids -> their logical
+        blocks on the host (:meth:`_export_blocks`); ``splice``: block ids,
+        ``vals`` the leader's values (:meth:`_splice_blocks`)."""
+        if cmd == "export":
+            return self._export_blocks(host)
+        if cmd == "splice":
+            self._splice_blocks(host, vals)
+            return None
         if tables is not None:
             self._bt_dev.copy_(torch.from_numpy(tables))
             self.table_uploads += 1
@@ -1593,6 +1600,66 @@ class DecodeEngine:
                                  active)[-2]
         return self._step_fn(p, self._k_cache, self._v_cache, tok, pos,
                              active)[-2]
+
+    # -- whole blocks in and out of the pools (the transfer plane) -----------
+    def _export_blocks(self, host: np.ndarray) -> List[torch.Tensor]:
+        """``export`` on this rank: blocks ``host`` of the K and V pools
+        read to the host; on a tp group every rank's D slice gathered in
+        one exchange and joined in rank order, so each rank holds the
+        logical ``[L, n, Bs, D]`` blocks. An int8 engine adds the ``[L,
+        n]`` scales (whole on every rank)."""
+        from ..parallel import collectives
+
+        ids = self._upload(host)
+        out = [t.index_select(1, ids).cpu()
+               for t in (self._k_cache, self._v_cache)]
+        if self._tp > 1:
+            out = [torch.cat(parts, dim=-1) for parts in
+                   collectives._gather_packed(out, self._tp_group)]
+        if self._kv_quant:
+            out += [t.index_select(1, ids).cpu()
+                    for t in (self._k_scales, self._v_scales)]
+        return out
+
+    def _splice_blocks(self, host: np.ndarray,
+                       vals: Optional[List[torch.Tensor]]) -> None:
+        """``splice`` on this rank: the logical ``[L, n, Bs, D]`` K and V
+        values (and ``[L, n]`` scales on an int8 engine) written into
+        blocks ``host``, this rank's D slice of them. The leader passes
+        ``vals``; on a tp group one broadcast of their bytes gives the
+        followers theirs."""
+        from ..parallel import collectives
+
+        n = host.shape[0]
+        cfg = self._model_cfg
+        metas = [((cfg.n_layers, n, self._block_size, cfg.d_model),
+                  self._k_cache.dtype)] * 2
+        if self._kv_quant:
+            metas += [((cfg.n_layers, n), torch.float32)] * 2
+        if self._tp > 1:
+            if vals is not None:
+                buf = torch.cat([v.to(dt).contiguous().reshape(-1)
+                                 .view(torch.uint8)
+                                 for v, (_, dt) in zip(vals, metas)])
+            else:
+                buf = torch.empty(sum(torch.Size(shape).numel()
+                                      * dt.itemsize for shape, dt in metas),
+                                  dtype=torch.uint8)
+            collectives.broadcast(buf, 0, self._tp_group)
+            vals, at = [], 0
+            for shape, dt in metas:
+                size = torch.Size(shape).numel() * dt.itemsize
+                vals.append(buf[at: at + size].view(dt).reshape(shape))
+                at += size
+        ids = self._upload(host)
+        # this rank's columns of D (its heads)
+        d = cfg.d_model // self._tp
+        cols = slice(self._tp_rank * d, (self._tp_rank + 1) * d)
+        for pool, v in zip((self._k_cache, self._v_cache), vals):
+            pool.index_copy_(1, ids, v[..., cols].to(pool.device, pool.dtype))
+        if self._kv_quant:
+            for pool, v in zip((self._k_scales, self._v_scales), vals[2:]):
+                pool.index_copy_(1, ids, v.to(pool.device, pool.dtype))
 
     # -- the tp group's commands -----------------------------------------------
     def _send_cmd(self, cmd: str, host: np.ndarray,
@@ -1996,13 +2063,10 @@ class DecodeEngine:
         ship = [i for i, h in enumerate(hashes) if h.hex() not in req.known]
         host = None
         if ship:
-            ids = self._upload(np.asarray([req.blocks[i] for i in ship],
-                                          np.int64))
-            pools = (self._k_cache, self._v_cache)
-            if self._kv_quant:
-                pools += (self._k_scales, self._v_scales)
-            # [L, n, Bs, D] blocks and [L, n] scales: one host read
-            host = [t.index_select(1, ids).cpu() for t in pools]
+            # [L, n, Bs, D] blocks and [L, n] scales on the host (a tp
+            # group's command; nothing to ship issues none)
+            host = self._call("export", np.asarray(
+                [req.blocks[i] for i in ship], np.int64))
         col = {i: j for j, i in enumerate(ship)}
         for i, h in enumerate(hashes):
             j = col.get(i)
@@ -2107,14 +2171,24 @@ class DecodeEngine:
                 tuple(torch.from_numpy(np.array(x)) for x in scales)
                 if scales is not None else ())))
         if new:
-            # one upload, one indexed write per pool
-            ids = self._upload(np.asarray([b for b, _, _ in new], np.int64))
-            pools = [self._k_cache, self._v_cache]
-            if self._kv_quant:
-                pools += [self._k_scales, self._v_scales]
-            for i, pool in enumerate(pools):
-                vals = torch.stack([t[i] for _, _, t in new], dim=1)
-                pool.index_copy_(1, ids, vals.to(pool.device, pool.dtype))
+            # every check passed and the blocks are held: one indexed
+            # write per pool, in commands of at most a sequence's blocks
+            # on a tp group (what its command buffer holds)
+            M = self._blocks_per_seq
+            for at in range(0, len(new), M):
+                part = new[at: at + M]
+                vals = [torch.stack([t[i] for _, _, t in part], dim=1)
+                        for i in range(len(part[0][2]))]
+                try:
+                    self._call("splice", np.asarray(
+                        [b for b, _, _ in part], np.int64), vals)
+                except Exception as exc:
+                    if self._tp > 1:
+                        # the followers may have written: the group fails
+                        Log.fatal(f"DecodeEngine {self.name!r}: splice "
+                                  f"failed on the tp group: "
+                                  f"{type(exc).__name__}: {exc}")
+                    raise
             for blk, h, _ in new:
                 self._pool.register(blk, h)
                 self._pool.decref([blk])
@@ -2741,8 +2815,9 @@ class DecodeEngine:
                 "seqpar_traces": self.seqpar_cache_size(),
             })
         if self._follower:
-            # a follower's programs by command: calls, host seconds,
-            # exchanges, bytes staged, exchange seconds
+            # a follower's commands (the programs, export and splice):
+            # calls, host seconds, exchanges, bytes staged, exchange
+            # seconds
             pool["follower_calls"] = {k: list(v) for k, v in
                                       self.follower_calls.items()}
         if self._spec:

@@ -16,7 +16,11 @@ from a seed.
 Held as the JAX tests hold their own: the port's tp=2 tokens equal the
 JAX engine's tp=2 and tp=1 tokens exactly on the shared traces
 (``tests/test_sharded_decode.py``), and a seqpar engine's tokens equal
-the single-lane engine's (``tests/test_seqpar_prefill.py``). The follower
+the single-lane engine's (``tests/test_seqpar_prefill.py``); KV export and
+splice into and out of the group decode the JAX engines' tokens in each
+direction (``tests/test_kv_transfer.py:290``'s traffic, and int8), a
+tp=2 export is the tp=1 payload, and after skipped or shortened splices
+the ranks' pools joined along D are a tp=1 engine's. The follower
 is given zeroed weights: it serves the leader's pin or the tokens would
 differ. Tolerances: the serving faces of ring and Ulysses attention and
 the sharded programs' float outputs and pools within ``TOL`` of JAX's
@@ -71,6 +75,21 @@ TRACES = {
                       decode_param_quant="int8")),
 }
 SEQPAR = [(backend, tp) for backend in ("ring", "ulysses") for tp in (1, 2)]
+# tests/test_kv_transfer.py::test_disagg_decode_tp2_subprocess: its model,
+# its knobs and its prompt
+XDIMS = dict(vocab_size=32, d_model=16, n_heads=2, n_layers=1, d_ff=32,
+             max_seq=16)
+XKNOBS = dict(slots=2, max_prompt=8, max_new=6, kv_block_size=2,
+              prefill_token_budget=2, prefix_cache=True, watchdog=False)
+X_PROMPT = [3, 5, 7, 2, 9, 4]
+# the transfer flows: name -> (weights, dims, knobs); f32 on the model
+# above, int8 on the int8 trace's model and knobs
+XFER = {"f32": ("x", XDIMS, XKNOBS),
+        "int8": ("p", {}, dict(TRACES["int8"][1], prefix_cache=True))}
+# the skips: a 14-token prompt's 7 blocks from a source that holds it,
+# into engines of 6 blocks whose command takes 5 (M = (8 + 2) / 2)
+SKIP_SOURCE = dict(XKNOBS, max_prompt=14, max_new=2)
+SKIP_KNOBS = dict(XKNOBS, max_prompt=8, max_new=2, kv_pool_blocks=6)
 # the refusals: (knobs, the word the FatalError names)
 REFUSALS = {
     "heads3": (dict(max_prompt=16, max_new=8, kv_block_size=4,
@@ -150,6 +169,41 @@ def _trace(name):
             reqs.append((prompt.astype(np.int32), int(rng.integers(4, 9))))
         return reqs
     return _requests(rng, 10, vocab, 14, 8)
+
+
+def _xfer_reqs(name):
+    """A transfer flow's requests: the JAX test's prompt, 5 new tokens;
+    for int8 the int8 trace's first three prompts of two blocks or more."""
+    if name == "f32":
+        return [(np.array(X_PROMPT, np.int32), 5)]
+    return [(p, n) for p, n in _trace("int8") if len(p) >= 8][:3]
+
+
+def _skip_prompt():
+    return np.random.default_rng(22).integers(
+        1, XDIMS["vocab_size"], 14).astype(np.int32)
+
+
+def _blocks(payload):
+    """A payload's shipped blocks in chain order: K and V ``[n, L, Bs,
+    D]`` and, for int8, their scales ``[n, L]``."""
+    from multiverso_tpu_torch.serving import kv_transfer as tkt
+
+    if isinstance(payload, (str, np.ndarray)):
+        payload = json.loads(str(payload))
+    out = {"k": [], "v": [], "ks": [], "vs": []}
+    for h in payload["hashes"]:
+        rec = payload["blocks"].get(h)
+        if rec is None:
+            continue
+        k, v = tkt.unpack_block(rec, payload["shape"], payload["dtype"])
+        out["k"].append(k.numpy())
+        out["v"].append(v.numpy())
+        scales = tkt.unpack_scales(rec, payload["shape"][0])
+        if scales is not None:
+            out["ks"].append(scales[0])
+            out["vs"].append(scales[1])
+    return {k: np.stack(v) for k, v in out.items() if v}
 
 
 def _seqpar_trace():
@@ -235,17 +289,21 @@ _CHILD = r"""
 
     mv.init(["dtp", "-device=cpu", "-log_level=error"])
     assert mv.size() == 2
-    whole = {k[2:]: v for k, v in inp.items() if k.startswith("p/")}
-    params = {"embed": whole["embed"], "pos": whole["pos"],
-              "ln_f_g": whole["ln_f_g"],
-              "layers": {k.split(".")[1]: v for k, v in whole.items()
-                         if k.startswith("layers.")}}
+    weights = {}
+    for key in ("p", "x"):
+        whole = {k[2:]: v for k, v in inp.items() if k.startswith(key + "/")}
+        weights[key] = {"embed": whole["embed"], "pos": whole["pos"],
+                        "ln_f_g": whole["ln_f_g"],
+                        "layers": {k.split(".")[1]: v
+                                   for k, v in whole.items()
+                                   if k.startswith("layers.")}}
+    params = weights["p"]
 
-    def model(attention="reference", **over):
+    def model(attention="reference", params_key="p", **over):
         cfg = tf.TransformerConfig(**dict(cases["dims"], **over),
                                    attention=attention)
         lm = tf.TransformerLM(cfg)
-        p = tf.params_from_jax(params, device="cpu")
+        p = tf.params_from_jax(weights[params_key], device="cpu")
         if rank:
             # a follower never reads its own model: zero weights show it
             p = tf._map(torch.zeros_like, p)
@@ -320,22 +378,93 @@ _CHILD = r"""
             return {"refused": ""}
         case(f"refuse_{name}", refusal)
 
-    def transfer():
+    # disaggregated serving into and out of the group: each flow's tp=2
+    # engines (collective) beside the leader's tp=1 engines, one lm each
+    def result(fut):
+        return fut.result(timeout=60)
+
+    def xfer(name, params_key, reqs, knobs):
+        lm = model(params_key=params_key, **cases["xfer_dims"][name])
         srv = InferenceServer("dtp")
-        eng = srv.register_decoder("lm_x", model(), slots=2, max_prompt=8,
-                                   max_new=4, kv_block_size=4,
-                                   decode_tp=2)
-        out = {"supports": int(eng.supports_transfer)}
-        for what, fn in (("export", lambda: eng.submit_prefill([1, 2, 3])),
-                         ("splice", lambda: eng.splice({}))):
-            try:
-                fn()
-                out[what] = ""
-            except FatalError as exc:
-                out[what] = str(exc)
+        two = {k: srv.register_decoder(f"{name}_{k}2", lm, decode_tp=2,
+                                       **knobs)
+               for k in ("pf", "dec", "uni")}
+        for eng in two.values():
+            eng.warmup()
+        out = {}
+        if rank == 0:
+            one = {k: srv.register_decoder(f"{name}_{k}1", lm, decode_tp=1,
+                                           **knobs) for k in ("pf", "dec")}
+            for eng in one.values():
+                eng.warmup()
+            for i, (p, n) in enumerate(reqs):
+                pay1 = result(one["pf"].submit_prefill(p))["xfer"]
+                pay2 = result(two["pf"].submit_prefill(p))["xfer"]
+                info12 = two["dec"].splice(pay1)
+                info21 = one["dec"].splice(pay2)
+                out[f"pay1_{i}"] = json.dumps(pay1)
+                out[f"pay2_{i}"] = json.dumps(pay2)
+                out[f"info12_{i}"] = json.dumps(info12)
+                out[f"info21_{i}"] = json.dumps(info21)
+                for key, eng, info in (("out12", two["dec"], info12),
+                                       ("out21", one["dec"], info21),
+                                       ("uni2", two["uni"], None)):
+                    out[f"{key}_{i}"] = result(eng.submit(
+                        p, n, xfer_info=info))["result"]
+            # source-side dedup: the first hash advertised, then all
+            p = reqs[0][0]
+            hashes = json.loads(out["pay1_0"])["hashes"]
+            for key, eng, known in (("known1", one["pf"], hashes[:1]),
+                                    ("known2", two["pf"], hashes[:1]),
+                                    ("all2", two["pf"], hashes)):
+                out[key] = json.dumps(result(eng.submit_prefill(
+                    p, known_hashes=known))["xfer"])
         srv.stop()
+        for k, eng in two.items():
+            st = eng.stats()
+            out[f"calls_{k}"] = json.dumps(st.get("follower_calls", {}))
+            for key in ("prefill_tokens_saved", "decode_step_retraces",
+                        "xfer_blocks", "kv_bytes_moved"):
+                out[f"{key}_{k}"] = st[key]
         return out
-    case("transfer", transfer)
+
+    for name in cases["xfer"]:
+        reqs = reqs_of(f"xfer_{name}")
+        case(f"xfer_{name}", lambda name=name, reqs=reqs: xfer(
+            name, cases["xfer_params"][name], reqs,
+            cases["xfer_knobs"][name]))
+
+    # payloads that skip whole or shorten, spliced into a tp=2 and a tp=1
+    # engine alike; then each rank's pools
+    def skips():
+        lm = model(params_key="x", **cases["xfer_dims"]["f32"])
+        srv = InferenceServer("dtp")
+        knobs = cases["skip_knobs"]
+        two = srv.register_decoder("skip2", lm, decode_tp=2, **knobs)
+        two.warmup()
+        out = {}
+        if rank == 0:
+            from multiverso_tpu_torch.serving import kv_transfer
+
+            src = srv.register_decoder("skip_pf", lm, decode_tp=1,
+                                       **cases["skip_source"])
+            one = srv.register_decoder("skip1", lm, decode_tp=1, **knobs)
+            src.warmup()
+            one.warmup()
+            pay = result(src.submit_prefill(inp["skip/0"]))["xfer"]
+            payloads = [dict(pay, snapshot_version=pay["snapshot_version"]
+                             + 1),
+                        dict(pay, block_size=2 * pay["block_size"]),
+                        kv_transfer.drop_blocks(pay), pay]
+            for i, payload in enumerate(payloads):
+                for tag, eng in (("2", two), ("1", one)):
+                    out[f"info{tag}_{i}"] = json.dumps(eng.splice(payload))
+            out["k1"], out["v1"] = one._k_cache.numpy(), one._v_cache.numpy()
+        srv.stop()
+        out["k"], out["v"] = two._k_cache.numpy(), two._v_cache.numpy()
+        out["calls"] = json.dumps(two.stats().get("follower_calls", {}))
+        return out
+    case("skips", skips)
 
     # the sharded programs on this rank's shards
     mesh = T.make_mesh((2,), ("tp",))
@@ -570,15 +699,43 @@ def _jax_programs(params, x):
     return out
 
 
+def _jax_xfer(lm, knobs, reqs):
+    """JAX's disaggregated flows on ``reqs``: payloads of tp=1 and tp=2
+    prefill engines, and the tokens of a tp=1 payload spliced into tp=1
+    and tp=2 engines and of a tp=2 payload spliced into a tp=1 engine."""
+    srv = JaxServer("t")
+    eng = {}
+    for name, tp in (("pf1", 1), ("pf2", 2), ("dec11", 1), ("dec12", 2),
+                     ("dec21", 1)):
+        eng[name] = srv.register_decoder(f"x_{name}", lm, decode_tp=tp,
+                                         **knobs)
+        eng[name].warmup()
+    out = {}
+    for i, (p, n) in enumerate(reqs):
+        pay = {tp: eng[f"pf{tp}"].submit_prefill(p).result(timeout=120)[
+            "xfer"] for tp in (1, 2)}
+        out[f"pay2_{i}"] = pay[2]
+        for src, dst in ((1, 1), (1, 2), (2, 1)):
+            dec = eng[f"dec{src}{dst}"]
+            info = dec.splice(pay[src])
+            out[f"out{src}{dst}_{i}"] = dec.submit(
+                p, n, xfer_info=info).result(timeout=120)["result"].tolist()
+    srv.stop()
+    return out
+
+
 def _jax_side(params, x, ops):
-    """Every JAX reference: the traces at tp 1 and 2, the programs and the
-    serving faces."""
+    """Every JAX reference: the traces at tp 1 and 2, the transfer flows,
+    the programs and the serving faces."""
     jmv.shutdown()
     jmv.init()
+    ref = {}
     try:
+        for name, (_, dims, knobs) in XFER.items():
+            ref_lm = jtf.TransformerLM(_tp_cfg(**dims))
+            ref[f"xfer_{name}"] = _jax_xfer(ref_lm, knobs, _xfer_reqs(name))
         # the same init as the params the group was given
         lm = jtf.TransformerLM(_tp_cfg())
-        ref = {}
         for name in TRACES:
             knobs = TRACES[name][1]
             reqs = _trace(name)
@@ -612,14 +769,20 @@ def group(tmp_path_factory):
     try:
         params = jax.tree.map(np.asarray,
                               jtf.TransformerLM(_tp_cfg()).params)
+        xparams = jax.tree.map(np.asarray,
+                               jtf.TransformerLM(_tp_cfg(**XDIMS)).params)
     finally:
         jmv.shutdown()
     x, ops = _program_inputs(), _op_inputs()
     inputs = {f"p/{k}": v for k, v in _flat(params)}
+    inputs.update({f"x/{k}": v for k, v in _flat(xparams)})
     inputs.update(x)
     inputs.update({f"op_{k}": v for k, v in ops.items()})
-    for name in list(TRACES) + ["seqpar"]:
-        reqs = _seqpar_trace() if name == "seqpar" else _trace(name)
+    traces = {name: _trace(name) for name in TRACES}
+    traces["seqpar"] = _seqpar_trace()
+    traces.update({f"xfer_{name}": _xfer_reqs(name) for name in XFER})
+    traces["skip"] = [(_skip_prompt(), 1)]
+    for name, reqs in traces.items():
         for i, (p, _) in enumerate(reqs):
             inputs[f"{name}/{i}"] = p.astype(np.int64)
         inputs[f"{name}/max_new"] = np.array([n for _, n in reqs])
@@ -628,7 +791,11 @@ def group(tmp_path_factory):
         dims=DIMS, sp_dims={"max_seq": SP_DIMS["max_seq"]},
         traces=list(TRACES), knobs={k: v[1] for k, v in TRACES.items()},
         seqpar=SEQPAR, refusals=REFUSALS, programs=PROGRAMS, T=PT, C=PC,
-        leader_timeout=LEADER_TIMEOUT_S)))
+        leader_timeout=LEADER_TIMEOUT_S, xfer=list(XFER),
+        xfer_params={k: v[0] for k, v in XFER.items()},
+        xfer_dims={k: v[1] for k, v in XFER.items()},
+        xfer_knobs={k: v[2] for k, v in XFER.items()},
+        skip_source=SKIP_SOURCE, skip_knobs=SKIP_KNOBS)))
     deadline = time.monotonic() + TIMEOUT_S
     procs = _start_group(out_dir)
     try:
@@ -722,13 +889,118 @@ def test_validation_refuses(group, name):
         assert word in str(r["refused"]), str(r["refused"])
 
 
-def test_kv_transfer_refused(group):
-    """KV export and splice raise FatalError naming decode_tp, and the
-    engine is no transfer endpoint."""
-    lead, _ = group.get("transfer")
-    assert int(lead["supports"]) == 0
-    for what in ("export", "splice"):
-        assert "decode_tp=2" in str(lead[what]), str(lead[what])
+# -- disaggregated serving into and out of the group ---------------------------
+
+def _close_payloads(got, want, quant):
+    """Two payloads of one prompt: the same header and chain, the same
+    shipped hashes; f32 blocks within TOL, int8 bytes within Q8_TOL and
+    their scales within TOL."""
+    got, want = (json.loads(str(x)) if isinstance(x, (str, np.ndarray))
+                 else x for x in (got, want))
+    for key in ("prompt_len", "block_size", "snapshot_version", "shape",
+                "dtype", "hashes", "dedup_blocks"):
+        assert got[key] == want[key], key
+    assert set(got["blocks"]) == set(want["blocks"])
+    a, b = _blocks(got), _blocks(want)
+    assert set(a) == set(b)
+    for key in a:
+        if quant and key in ("k", "v"):
+            diff = np.abs(a[key].astype(np.int32) - b[key].astype(np.int32))
+            assert diff.max() <= Q8_TOL, (key, diff.max())
+        else:
+            np.testing.assert_allclose(a[key], b[key], err_msg=key, **TOL)
+
+
+def test_disagg_tp1_into_tp2_matches_jax(group):
+    """tests/test_kv_transfer.py:290's traffic: a tp=1 engine's payload
+    spliced into the decode_tp=2 engine ships 3 blocks, saves the
+    prompt's 6 tokens, retraces no step, and its 5 tokens equal the tp=2
+    unified engine's and the JAX engines' at tp 2 and 1."""
+    lead, _ = group.get("xfer_f32")
+    ref = group.ref["xfer_f32"]
+    info = json.loads(str(lead["info12_0"]))
+    assert info["xfer_blocks"] == 3 and "skipped" not in info, info
+    out = lead["out12_0"].tolist()
+    assert len(out) == 5
+    assert out == lead["uni2_0"].tolist() == ref["out12_0"] \
+        == ref["out11_0"]
+    assert int(lead["prefill_tokens_saved_dec"]) >= 6
+    assert int(lead["decode_step_retraces_dec"]) == 0
+
+
+@pytest.mark.parametrize("name", sorted(XFER))
+def test_tp2_export_is_the_tp1_payload(group, name):
+    """The decode_tp=2 engine's export of each prompt is the tp=1
+    engine's payload (the ranks' D slices gathered into logical blocks;
+    f32 within TOL, int8 bytes within Q8_TOL and scales within TOL), and
+    JAX's tp=2 export of it; spliced into a tp=1 engine it decodes JAX's
+    tokens for that direction."""
+    lead, follow = group.get(f"xfer_{name}")
+    ref = group.ref[f"xfer_{name}"]
+    quant = name == "int8"
+    for i in range(len(_xfer_reqs(name))):
+        _close_payloads(lead[f"pay2_{i}"], lead[f"pay1_{i}"], quant)
+        _close_payloads(lead[f"pay2_{i}"], ref[f"pay2_{i}"], quant)
+        info = json.loads(str(lead[f"info21_{i}"]))
+        assert info["xfer_blocks"] > 0 and "skipped" not in info, info
+        assert lead[f"out21_{i}"].tolist() == ref[f"out21_{i}"]
+    # one export command a prompt, plus the partly advertised one
+    calls = json.loads(str(follow["calls_pf"]))
+    assert calls["export"][0] == len(_xfer_reqs(name)) + 1, calls
+
+
+def test_int8_tp1_into_tp2_matches_jax(group):
+    """int8 KV and pins: tp=1 payloads (blocks with their scales) spliced
+    into the decode_tp=2 engine decode JAX's tp1-into-tp2 tokens, and the
+    spliced scales reach both ranks (the follower runs one splice command
+    a prompt)."""
+    lead, follow = group.get("xfer_int8")
+    ref = group.ref["xfer_int8"]
+    n = len(_xfer_reqs("int8"))
+    for i in range(n):
+        info = json.loads(str(lead[f"info12_{i}"]))
+        assert info["xfer_blocks"] > 0 and "skipped" not in info, info
+        assert lead[f"out12_{i}"].tolist() == ref[f"out12_{i}"]
+    calls = json.loads(str(follow["calls_dec"]))
+    assert calls["splice"][0] == n, calls
+
+
+def test_source_dedup_on_the_group(group):
+    """known_hashes on the decode_tp=2 engine: an advertised block rides
+    as its hash alone (the rest equal to the tp=1 engine's payload with
+    the same advertisement), and a fully advertised prompt ships nothing
+    and issues no export command."""
+    lead, follow = group.get("xfer_f32")
+    _close_payloads(lead["known2"], lead["known1"], False)
+    known = json.loads(str(lead["known2"]))
+    assert known["dedup_blocks"] == 1 and len(known["blocks"]) == 2
+    every = json.loads(str(lead["all2"]))
+    assert every["dedup_blocks"] == 3 and every["blocks"] == {}
+    assert len(every["hashes"]) == 3
+    calls = json.loads(str(follow["calls_pf"]))
+    assert calls["export"][0] == 2, calls
+
+
+def test_splice_skips_leave_the_ranks_alike(group):
+    """Another snapshot version and another block size skip whole, a
+    dropped payload splices nothing, and a 7-block payload into a pool
+    of 6 splices 6 (in two commands: a command holds 5): the same answers
+    as a tp=1 engine's, and afterwards the ranks' pools, joined along D,
+    equal the tp=1 engine's pools."""
+    lead, follow = group.get("skips")
+    for i in range(4):
+        two = json.loads(str(lead[f"info2_{i}"]))
+        assert two == json.loads(str(lead[f"info1_{i}"]))
+    assert "snapshot version" in json.loads(str(lead["info2_0"]))["skipped"]
+    assert "block size" in json.loads(str(lead["info2_1"]))["skipped"]
+    assert json.loads(str(lead["info2_2"]))["xfer_blocks"] == 0
+    assert json.loads(str(lead["info2_3"]))["xfer_blocks"] == 6
+    calls = json.loads(str(follow["calls"]))
+    assert calls["splice"][0] == 2 and "export" not in calls, calls
+    for pool in ("k", "v"):
+        joined = np.concatenate([lead[pool], follow[pool]], axis=-1)
+        np.testing.assert_array_equal(joined, lead[f"{pool}1"])
+        assert np.count_nonzero(np.abs(joined).sum(axis=(0, 2, 3))) == 6
 
 
 def test_follower_raises_when_its_leader_goes_silent(group):

@@ -8,15 +8,21 @@ the group's contracts: the group's size and ranks, BSP aggregation
 (dense, keyed, ``KVTable.sync``) and ``-ma``; the async delta bus (dense,
 keyed, KV and a bit-exact f64 table); the bus's chunking and
 backpressure over KV payloads; SSP bounded staleness; the failure
-detector and survivor mode with a SIGKILLed rank; and multi-process
-word2vec learning the planted clusters. Each group gets at most 120 s.
+detector and survivor mode with a SIGKILLed rank; a SIGSTOPped rank that
+is a transient stall, not a death (``tests/test_p2p_robustness.py``);
+survivors that checkpoint and a smaller group that restores with
+``restore_latest`` and trains on (``tests/test_elastic_restart.py``);
+and multi-process word2vec learning the planted clusters. Each process
+gets at most 120 s.
 """
 
 import os
+import signal
 import socket
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -39,10 +45,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_group(tmp_path, body: str, n: int = 2, extra_env=None,
-              timeout: float = 120, env_group: bool = True):
-    """Run ``body`` (after a common header) in ``n`` fresh interpreters
-    joined as one group; returns ``(procs, outputs)``."""
+def start_group(tmp_path, body: str, n: int = 2, extra_env=None,
+                env_group: bool = True):
+    """Start ``body`` (after a common header) in ``n`` fresh interpreters
+    joined as one group; returns their ``Popen``s."""
     script = tmp_path / f"worker_{abs(hash(body)) % 10 ** 8}.py"
     script.write_text(_HEAD + textwrap.dedent(body))
     port = _free_port()
@@ -63,6 +69,11 @@ def run_group(tmp_path, body: str, n: int = 2, extra_env=None,
         procs.append(subprocess.Popen(
             [sys.executable, str(script)], env=env, cwd=str(tmp_path),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def wait_group(procs, timeout: float = 120):
+    """Each process's output, each given at most ``timeout`` s."""
     outs = []
     for rank, proc in enumerate(procs):
         try:
@@ -72,7 +83,15 @@ def run_group(tmp_path, body: str, n: int = 2, extra_env=None,
                 p.kill()
             pytest.fail(f"rank {rank} timed out")
         outs.append(out)
-    return procs, outs
+    return outs
+
+
+def run_group(tmp_path, body: str, n: int = 2, extra_env=None,
+              timeout: float = 120, env_group: bool = True):
+    """Run ``body`` (after a common header) in ``n`` fresh interpreters
+    joined as one group; returns ``(procs, outputs)``."""
+    procs = start_group(tmp_path, body, n, extra_env, env_group)
+    return procs, wait_group(procs, timeout)
 
 
 def assert_ok(procs, outs, tag, ranks=None):
@@ -427,6 +446,116 @@ def test_three_process_sigkill_survivors_converge(tmp_path):
     """, n=3)
     assert procs[2].returncode == -9, outs[2][-2000:]
     assert_ok(procs, outs, "SURVIVOR", ranks=[0, 1])
+
+
+def test_three_process_sigstop_transient_stall(tmp_path):
+    """tests/test_p2p_robustness.py:286: rank 2 of 3 async processes is
+    SIGSTOPped for 3 s, under the 10 s failure timeout, then SIGCONTed:
+    a transient stall, so no rank is declared dead, no record is lost,
+    and every rank's block is exact everywhere after the barrier."""
+    procs = start_group(tmp_path, """
+        mv.init(["w", "-sync=false", "-failure_timeout_s=10", "-device=cpu",
+                 "-log_level=error"])
+        N, iters = 8, 20
+        t = mv.create_table("matrix", 3 * N, 4)
+        if rank == 0:
+            print("READY_FOR_STOP", flush=True)
+        for i in range(iters):
+            delta = np.zeros((3 * N, 4), np.float32)
+            delta[rank * N:(rank + 1) * N] = 1.0
+            t.add(delta)
+            time.sleep(0.2)
+        mv.barrier()
+        got = t.get()
+        for r in range(3):
+            assert np.all(got[r * N:(r + 1) * N] == iters), (r, got)
+        assert mv.session().async_bus._dead == set(), \\
+            mv.session().async_bus._dead
+        print(f"RANK{rank}_STALL_OK", flush=True)
+        mv.shutdown()
+    """, n=3)
+    deadline = time.monotonic() + 120
+    line = ""
+    while "READY_FOR_STOP" not in line:
+        if time.monotonic() > deadline or procs[0].poll() is not None:
+            for p in procs:
+                p.kill()
+            pytest.fail("the workers never started: "
+                        + procs[0].communicate()[0][-3000:])
+        line = procs[0].stdout.readline()
+    time.sleep(1.0)
+    os.kill(procs[2].pid, signal.SIGSTOP)
+    time.sleep(3.0)
+    os.kill(procs[2].pid, signal.SIGCONT)
+    outs = wait_group(procs)
+    assert_ok(procs, outs, "STALL")
+
+
+def test_elastic_restart_survivors_checkpoint_then_smaller_group(tmp_path):
+    """tests/test_elastic_restart.py:154: 3 async processes autosave
+    while training, rank 2 is SIGKILLed, the survivors finish and write a
+    final checkpoint of the live set; then a group of 2 restores it with
+    restore_latest (the state equal to the survivors'), trains on, and
+    every continued add lands exactly."""
+    root = str(tmp_path / "ckpt")
+    env = {"MV_CKPT_ROOT": root}
+    procs, outs = run_group(tmp_path, """
+        import signal
+        from multiverso_tpu_torch.io.checkpoint import Autosaver
+        root = os.environ["MV_CKPT_ROOT"]
+        N, iters, kill_at = 8, 12, 4
+        mv.init(["w", "-sync=false", "-failure_timeout_s=3", "-device=cpu",
+                 "-log_level=error"])
+        t = mv.create_table("matrix", 3 * N, 4)
+        saver = Autosaver(root, every_steps=4, keep=2)
+        for i in range(iters):
+            delta = np.zeros((3 * N, 4), np.float32)
+            delta[rank * N:(rank + 1) * N] = 1.0
+            t.add(delta)
+            if rank == 2 and i == kill_at:
+                os.kill(os.getpid(), signal.SIGKILL)
+            time.sleep(0.25)
+            # autosaves are collective: after the death the live set's
+            # barriers carry them
+            saver.step(i + 1)
+        mv.barrier()
+        saver.save_now(iters)
+        got = t.get()
+        for r in (0, 1):
+            assert np.all(got[r * N:(r + 1) * N] == iters), (r, got)
+        if rank == 0:
+            np.save(os.path.join(root, "expected.npy"), got)
+        print(f"RANK{rank}_PHASEA_OK", flush=True)
+        mv.shutdown()
+    """, n=3, extra_env=env)
+    assert procs[2].returncode == -signal.SIGKILL, outs[2][-2000:]
+    assert_ok(procs, outs, "PHASEA", ranks=[0, 1])
+    assert os.path.isdir(os.path.join(root, "step_12"))
+    procs, outs = run_group(tmp_path, """
+        from multiverso_tpu_torch.io.checkpoint import restore_latest
+        root = os.environ["MV_CKPT_ROOT"]
+        N, iters_a, iters_b = 8, 12, 6
+        mv.init(["w", "-sync=false", "-device=cpu", "-log_level=error"])
+        # the same tables on a smaller group
+        t = mv.create_table("matrix", 3 * N, 4)
+        step = restore_latest(root)
+        assert step == iters_a, step
+        expected = np.load(os.path.join(root, "expected.npy"))
+        assert np.array_equal(t.get(), expected)
+        mv.barrier()
+        for i in range(iters_b):
+            delta = np.zeros((3 * N, 4), np.float32)
+            delta[rank * N:(rank + 1) * N] = 1.0
+            t.add(delta)
+            time.sleep(0.1)
+        mv.barrier()
+        want = expected.copy()
+        want[0:2 * N] += float(iters_b)
+        assert np.array_equal(t.get(), want), t.get()
+        print(f"RANK{rank}_PHASEB_OK", flush=True)
+        mv.shutdown()
+    """, n=2, extra_env=env)
+    assert_ok(procs, outs, "PHASEB")
 
 
 def test_explicit_net_bind_connect(tmp_path):

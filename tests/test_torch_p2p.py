@@ -6,7 +6,10 @@ frames), resume after a broken subscription, release of the retained
 window, a duplicate subscription replacing the old sender, the
 reconnect schedule equal to the JAX package's, and a JAX transport and a
 port transport exchanging records both ways over one KV, sequence
-numbers and bytes equal.
+numbers and bytes equal. Mirrors of ``tests/test_p2p_robustness.py``: a
+silent hello that must not wedge the accept loop, an out-of-contract
+resume reported through ``on_dead``, and a flapping endpoint whose
+retries sleep the growing schedule before the stream resumes.
 """
 
 import random
@@ -211,6 +214,113 @@ def test_jax_and_port_transports_interoperate(publisher):
         # a later record still rides the same stream, in order
         a.send(len(ab), b"tail")
         assert _drain(b, 0, len(ab), 1) == [b"tail"]
+    finally:
+        a.stop()
+        b.stop()
+
+
+def test_silent_hello_does_not_wedge_accept_loop(monkeypatch):
+    """tests/test_p2p_robustness.py:223: a connection that never sends
+    its hello is dropped after the hello timeout, and a real subscriber
+    queued behind it still gets its stream."""
+    monkeypatch.setattr(tp2p, "_HELLO_TIMEOUT_S", 0.3)
+    kv = _KV()
+    a = tp2p.P2PTransport(0, 2, kv, label="s")
+    b = silent = None
+    try:
+        host, _, port = str(kv.blocking_key_value_get("s/ep/0", 1000)
+                            ).rpartition(":")
+        silent = socket.create_connection((host, int(port)), timeout=5)
+        time.sleep(0.05)
+        b = tp2p.P2PTransport(1, 2, kv, label="s")
+        a.send(0, b"r0")
+        assert _drain(b, 0, 0, 1, timeout=15) == [b"r0"]
+    finally:
+        if silent is not None:
+            silent.close()
+        if b is not None:
+            b.stop()
+        a.stop()
+
+
+def test_out_of_contract_resume_surfaces_death_to_bus():
+    """tests/test_p2p_robustness.py:255: a peer resuming below the
+    released window is dead to the transport, and ``on_dead`` reports it
+    so the bus's ack quorum shrinks too."""
+    kv = _KV()
+    reported = []
+    # a publisher alone (no subscription of its own to wait out at stop)
+    a = tp2p.P2PTransport(0, 2, kv, label="d", subscribe_to=[],
+                          on_dead=lambda ranks: reported.extend(ranks))
+    conn = None
+    try:
+        a.send(0, b"x")
+        a.send(1, b"y")
+        a.release(0)
+        a.release(1)
+        host, _, port = str(kv.blocking_key_value_get("d/ep/0", 1000)
+                            ).rpartition(":")
+        # rank 1 resuming from the released seq 0
+        conn = socket.create_connection((host, int(port)), timeout=5)
+        conn.sendall(tp2p._HELLO.pack(1, 0))
+        deadline = time.monotonic() + 10
+        while reported != [1]:
+            assert time.monotonic() < deadline, "on_dead never fired"
+            time.sleep(0.01)
+        assert 1 in a._dead
+    finally:
+        if conn is not None:
+            conn.close()
+        a.stop()
+
+
+def test_flapping_endpoint_backs_off_then_resumes(monkeypatch):
+    """tests/test_p2p_robustness.py:359: a subscriber whose publisher's
+    endpoint lookup fails 4 times sleeps the growing schedule (the last
+    retry past 0.2 s, the first at most 0.05 s), then resumes from its
+    retained window with nothing lost."""
+    kv = _KV()
+    a = tp2p.P2PTransport(0, 2, kv, label="flap")
+    b = tp2p.P2PTransport(1, 2, kv, label="flap")
+    try:
+        payloads = [bytes([i]) * 256 for i in range(12)]
+        for i in range(6):
+            a.send(i, payloads[i])
+        assert _drain(b, 0, 0, 6) == payloads[:6]
+        sleeps = []
+        real_sleep = time.sleep
+        monkeypatch.setattr(
+            tp2p.time, "sleep",
+            lambda s: (sleeps.append(s), real_sleep(min(s, 0.02)))[1])
+        fails = {"left": 4}
+        endpoint = b._endpoint
+
+        def flaky(publisher, timeout_ms):
+            if publisher == 0 and fails["left"] > 0:
+                fails["left"] -= 1
+                raise OSError("endpoint lookup down (staged flap)")
+            return endpoint(publisher, timeout_ms)
+
+        monkeypatch.setattr(b, "_endpoint", flaky)
+        with b._lock:
+            conns = list(b._conns)
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            c.close()
+        deadline = time.monotonic() + 20
+        while fails["left"] > 0:
+            assert time.monotonic() < deadline, (fails, sleeps)
+            real_sleep(0.01)
+        for i in range(6, 12):
+            a.send(i, payloads[i])
+        assert _drain(b, 0, 6, 6, timeout=30) == payloads[6:]
+        retry_sleeps = [s for s in sleeps if s >= 0.025]
+        assert len(retry_sleeps) >= 4, sleeps
+        assert min(retry_sleeps) <= 0.05
+        assert max(retry_sleeps) > 0.2, retry_sleeps
     finally:
         a.stop()
         b.stop()
